@@ -1,0 +1,11 @@
+"""qwen2-0.5b [dense]: 24L, d_model=896, 14H (GQA kv=2), d_ff=4864,
+vocab=151936, QKV bias, tied embeddings. [arXiv:2407.10671]"""
+from ..models.config import BlockSpec, ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-0.5b", family="dense",
+    d_model=896, num_heads=14, num_kv_heads=2, d_ff=4864,
+    vocab_size=151936,
+    pattern=(BlockSpec(mixer="attn", ffn="mlp"),), repeats=24,
+    qkv_bias=True, tie_embeddings=True, rope_theta=1_000_000.0,
+)

@@ -1,0 +1,46 @@
+"""Uniform model API; counterpart of `repro/models/registry.py` for the
+decoder-only family (encoder-decoder configs raise until `encdec` is
+ported)."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List
+
+import torch
+
+from ..device import DeviceLike, resolve_device
+from . import transformer
+from .config import ModelConfig
+
+
+@dataclass(frozen=True)
+class ModelAPI:
+    cfg: ModelConfig
+    device: torch.device
+    init_params: Callable[[torch.Generator], transformer.Transformer]
+    forward: Callable[..., Any]
+    decode_step: Callable[..., Any]
+    init_cache: Callable[[int, int], List[Dict[str, torch.Tensor]]]
+
+
+def get_model(cfg: ModelConfig, device: DeviceLike = "cuda") -> ModelAPI:
+    """The model's functions on `device` (raises if CUDA is asked for and
+    absent). `init_params` takes a `torch.Generator` on that device."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError("encoder-decoder models not ported yet")
+    dev = resolve_device(device)
+
+    def forward(params: transformer.Transformer, batch: Dict[str, Any]):
+        return params(batch["tokens"])
+
+    def decode_step(params: transformer.Transformer, cache, tokens, pos):
+        return params.decode_step(cache, tokens, pos)
+
+    return ModelAPI(
+        cfg=cfg, device=dev,
+        init_params=lambda gen: transformer.Transformer(cfg, dev, gen),
+        forward=forward,
+        decode_step=decode_step,
+        init_cache=lambda batch, max_len:
+            transformer.init_cache(cfg, batch, max_len, dev),
+    )
