@@ -1,11 +1,14 @@
 """Shared DAG core of the scheduling subsystem: copy of `DagNode`,
-`build_arrays` and `bottom_levels` from `repro/core/sched/dag.py`, which
-the serving engine uses to admit the longest request chain first.
+`build_arrays`, `bottom_levels` and `list_schedule` from
+`repro/core/sched/dag.py`. The serving engine admits the longest request
+chain first by bottom level; `sched.static.ddast_schedule` orders the
+train step's microbatches with the list schedule.
 
 Functions operate on plain lists indexed by task id.
 """
 from __future__ import annotations
 
+import heapq
 from dataclasses import dataclass
 from typing import Dict, Hashable, List, Optional, Sequence, Tuple
 
@@ -72,3 +75,39 @@ def bottom_levels(succs: Sequence[Sequence[int]],
     if seen != n:
         raise ValueError("bottom_levels: successor arrays contain a cycle")
     return bl
+
+
+def list_schedule(costs: Sequence[float], succs: Sequence[Sequence[int]],
+                  npreds: Sequence[int], num_units: int) -> List[int]:
+    """Deterministic list schedule with the DDAST manager's release
+    discipline, over int task ids: ready tasks are popped LIFO
+    (chain/depth-first locality — the MAX_OPS_THREAD same-queue
+    affinity) onto the earliest-free unit, and successor release happens
+    at producer *finish* events, i.e. tasks are discovered incrementally
+    like the manager draining Done messages, never all at once. Returns
+    the start order (a valid topological order of the reachable DAG)."""
+    n = len(costs)
+    ready: List[int] = [i for i in range(n) if npreds[i] == 0]
+    unit_free = [0.0] * num_units
+    pending = list(npreds)
+    order: List[int] = []
+    events: List[Tuple[float, int, int]] = []
+    seqc = 0
+    tcur = 0.0
+    while ready or events:
+        while ready:
+            u = min(range(num_units), key=lambda i: unit_free[i])
+            nm = ready.pop()                     # LIFO: chain locality
+            start = max(unit_free[u], tcur)
+            end = start + max(costs[nm], 1e-3)
+            unit_free[u] = end
+            heapq.heappush(events, (end, seqc, nm))
+            seqc += 1
+            order.append(nm)
+        if events:
+            tcur, _, nm = heapq.heappop(events)
+            for s in succs[nm]:
+                pending[s] -= 1
+                if pending[s] == 0:
+                    ready.append(s)
+    return order

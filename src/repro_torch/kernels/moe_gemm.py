@@ -5,7 +5,9 @@ tensors `moe_gemm` launches the hand-written Hopper kernel in
 `csrc/moe_gemm.cu` (its note gives the bound and the design); for CPU
 tensors it computes the plain version, `ref.moe_gemm_ref`. Nothing sends a
 CUDA tensor to the plain version. `moe_gemm.launches` counts kernel
-launches.
+launches. The kernel has no backward yet: a CUDA call that autograd would
+have to differentiate raises rather than return an output that no
+gradient reaches.
 """
 from __future__ import annotations
 
@@ -62,6 +64,11 @@ def moe_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return moe_gemm_ref(x, w)
     if x.device.type != "cuda":
         raise ValueError(f"moe_gemm runs on cuda or cpu, not {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise NotImplementedError(
+            "moe_gemm's backward is not ported yet: call it under "
+            "torch.no_grad() or torch.inference_mode(), or on operands "
+            "that do not require grad")
     e, c, d = x.shape
     f = w.shape[2]
     out = torch.empty((e, c, f), dtype=x.dtype, device=x.device)

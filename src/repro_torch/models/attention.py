@@ -64,7 +64,10 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Full-sequence causal self-attention (attention_train). On CUDA
-        it needs the flash attention kernel, which is still to be ported."""
+        the attention goes through the flash-attention kernels, forward
+        and backward; q, k, v come out of the RoPE concat contiguous, as
+        the kernels read them through strides with a contiguous head
+        dim."""
         b, s, _ = x.shape
         q = self._project_q(x)
         k, v = self._project_kv(x)

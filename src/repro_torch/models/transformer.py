@@ -96,7 +96,12 @@ class Transformer(nn.Module):
 
     def forward(self, tokens: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-        """tokens [B,S] -> (logits [B,S,V], MoE aux loss)."""
+        """tokens [B,S] -> (logits [B,S,V], MoE aux loss), differentiable
+        on CUDA and on the CPU. The JAX forward rematerialises each period
+        in the backward (`@jax.checkpoint`, transformer.py:110), which
+        does not change the result; this one keeps every activation for
+        autograd: about 11 GB for full-width qwen2-0.5b at B=4, S=2048
+        (arithmetic), besides the logits and the loss's f32 copies."""
         x = self.embed.embed(tokens)
         aux = x.new_zeros((), dtype=torch.float32)
         for block in self.layers:

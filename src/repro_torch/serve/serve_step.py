@@ -1,29 +1,21 @@
-"""Batched serving steps; counterpart of `repro/serve/serve_step.py`, plus
-`make_serve_step` (in the JAX package at `train/train_step.py`, here until
-the training step is ported).
+"""Batched serving steps; counterpart of `repro/serve/serve_step.py`.
+`make_serve_step` lives in `train/train_step.py`, as in the JAX package,
+and is imported from there.
 
 Prefill teacher-forces the prompt through the decode path, as in the JAX
 package. Everything runs under `torch.inference_mode()`.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Tuple, Union
+from typing import Any, Tuple
 
 import torch
 
 from ..models.layers import padded_vocab
 from ..models.registry import ModelAPI
+from ..train.train_step import make_serve_step
 
-
-def make_serve_step(model: ModelAPI) -> Callable:
-    """(params, cache, tokens [B], pos) -> (greedy tokens [B] int32,
-    logits [B,V], cache)."""
-    @torch.inference_mode()
-    def serve_step(params: Any, cache: Any, tokens: torch.Tensor,
-                   pos: Union[int, torch.Tensor]):
-        logits, cache = model.decode_step(params, cache, tokens, pos)
-        return logits.argmax(dim=-1).to(torch.int32), logits, cache
-    return serve_step
+__all__ = ["make_serve_step", "prefill_into_cache", "greedy_decode"]
 
 
 @torch.inference_mode()
