@@ -11,14 +11,18 @@ its own failure):
   2. build the `moe_gemm` and `flash_attention` kernels from
      `src/repro_torch/kernels/csrc/` with nvcc for sm_90a, one nvcc per
      source, started together; print the build times and ptxas's report;
-  3. `moe_gemm` against its plain PyTorch version on the card: the serving
-     path's two shapes in bf16 and f32, a ragged shape, expert isolation;
-     times (CUDA events, median after warm-up) of the kernel, the plain
-     version and `torch.bmm`, beside the least time the card could take;
+  3. `moe_gemm` against its plain PyTorch version on the card: the
+     qwen2-moe serving path's two shapes, the Jamba prefill's (C=640) and
+     Jamba decode's, up and down, in bf16 and f32, a ragged shape, expert
+     isolation; times (CUDA events, median after warm-up) of the kernel,
+     the plain version and `torch.bmm` for one MoE layer at the qwen2-moe
+     serving shapes and at the Jamba prefill's, beside the least time the
+     card could take;
   4. the flash-attention forward and backward kernels against their plain
      versions (and the backward against autograd through `attention_ref`)
-     at the training path's shape, a ragged S, MQA at head dim 128 and
-     causal + window + softcap, in bf16 and f32; times of the kernels,
+     at the training path's shape, the forward at the Jamba prefill's
+     (S=4096, 32:8 heads, hd 128), a ragged S, MQA at head dim 128 and causal + window +
+     softcap, in bf16 and f32; times of the kernels,
      the plain versions and `scaled_dot_product_attention` at the path's
      shape, beside their bounds;
   5. slice 1's main path: `serve()` on full-width qwen2-moe-a2.7b with
@@ -38,7 +42,29 @@ its own failure):
  10. tiny qwen2-0.5b training in f32 on the card: the loss falls over 24
      steps, and a resume from the step-24 checkpoint to step 30 equals a
      straight run to step 30;
- 11. a JSON line with the kernels' numbers, then, last, the result line
+ 11. the selective-scan and linear-scan kernels against their plain
+     versions, in bf16 and f32: the Jamba prefill path's shape (B=1,
+     S=4096, D=8192, N=16), a ragged S and D, a state dim that is not a
+     power of two, h0 given (h_last held too), and the state carried
+     across two calls equal to one call; the linear scan's carried pair
+     goes through `ops.ssm_scan` with its launch count set to 0 just
+     before and read just after; times of kernels and plain versions
+     beside their bounds (no single PyTorch call computes either scan);
+ 12. slice 3's main path: `make_prefill_step` on full-width Jamba cut to
+     2 of its 4 periods (16 layers), random bf16 weights from a seeded
+     generator, B=1 x S=4096, with the selective-scan, flash-forward and
+     moe_gemm launch counts set to 0 just before and read just after
+     (14, 2 and 24 a call); ms per prefill, tokens/s, peak memory; then
+     a torch.profiler window over one prefill;
+ 13. the serving engine on the same weights and the traffic of phase 5:
+     moe_gemm launches 24 a step and no selective scan (decode takes the
+     recurrence in plain ops);
+ 14. tiny Jamba with the full 8-position pattern, in f32 on the card:
+     decode step by step equals the forward (which runs the scan and
+     flash kernels) within 1e-4, and the engine equals greedy decode;
+     `selective_scan` and `ssm_scan` on a CUDA operand that requires
+     grad raise;
+ 15. a JSON line with the kernels' numbers, then, last, the result line
      {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
@@ -72,11 +98,15 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_bwd, flash_attention_fwd)
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.moe_gemm import moe_gemm  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
-    attention_ref, flash_attention_bwd_ref, flash_attention_ref, moe_gemm_ref)
-from repro_torch.launch.serve import serve  # noqa: E402
+    attention_ref, flash_attention_bwd_ref, flash_attention_ref, moe_gemm_ref,
+    selective_scan_ref, ssm_scan_ref)
+from repro_torch.kernels.ssm_scan import selective_scan, ssm_scan  # noqa: E402
+from repro_torch.launch.serve import serve, serve_requests  # noqa: E402
 from repro_torch.launch.train import idle_workers, train  # noqa: E402
+from repro_torch.models.layers import padded_vocab  # noqa: E402
 from repro_torch.models.moe import capacity, padded_experts  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
@@ -84,7 +114,7 @@ from repro_torch.serve.serve_step import greedy_decode  # noqa: E402
 from repro_torch.train.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.train.optimizer import OptConfig, init_opt_state  # noqa: E402
 from repro_torch.train.train_step import (  # noqa: E402
-    TrainConfig, make_train_step)
+    TrainConfig, make_prefill_step, make_train_step)
 
 ARCH = "qwen2-moe-a2.7b"
 SLOTS, CLIENTS, REQUESTS, MAX_NEW = 4, 4, 16, 8
@@ -93,9 +123,23 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 4, 2048
 BWD_KERNELS = 2                         # dq, then dk/dv, per backward call
 # (B, S, nq, nkv, hd, window, softcap), all causal with S == T
 ATTN_CASES = {"path": (4, 2048, 14, 2, 64, None, None),
+              "jamba": (1, 4096, 32, 8, 128, None, None),
               "ragged S=200": (2, 200, 14, 2, 64, None, None),
               "MQA 4:1 hd128": (2, 256, 4, 1, 128, None, None),
               "window+softcap": (1, 256, 4, 2, 64, 64, 50.0)}
+ATTN_FWD_ONLY = ("jamba",)               # the prefill runs no backward
+JAMBA = "jamba-v0.1-52b"
+JAMBA_REPEATS, PREFILL_SEQ = 2, 4096     # 2 of 4 periods; S cut from 32,768
+# (B, S, D, N) of the scans; "path" is the Jamba prefill's (D = 2 x 4096)
+SCAN_CASES = {"path": (1, PREFILL_SEQ, 8192, 16),
+              "ragged S=1000 D=200": (2, 1000, 200, 16),
+              "N=5": (1, 300, 72, 5)}
+SCAN_SPLIT = 1000                        # carried state: steps of call 1
+SFU_PER_CLOCK = 16                       # exp2 results a clock on an SM
+# f32 flops an exp2 costs on the FMA pipes instead of the SFU: range
+# reduction and a degree-3 polynomial, ~5 instructions of 2 flops' issue
+# time each (the software exp2 of FlashAttention-3/4)
+EXP2_FMA_FLOPS = 10
 
 # NVIDIA data sheets, dense rates: memory bytes/s, bf16 tensor-core flop/s,
 # f32 (CUDA core) flop/s. The SXM part is the default.
@@ -151,16 +195,41 @@ def attn_bound(b, s, nq, hd, itemsize, products, nbytes, flops_peak,
                                         else "operations")
 
 
+def scan_bound(nbytes, exps, flops, mem_bps, sfu_rate, f32_fps) -> dict:
+    """Least ms for a scan: `nbytes` at the memory rate, or its operations:
+    `flops` f32 flops at the CUDA-core rate and `exps` exponentials, a
+    share p of them on the FMA pipes at EXP2_FMA_FLOPS each and the rest
+    on the SFU, p chosen so that the two pipes finish together; whichever
+    is longer. Also the bytes' time alone and the operations' time with
+    every exponential on the SFU (an upper estimate of the floor)."""
+    t_bytes = nbytes / mem_bps
+    t_sfu_only = max(exps / sfu_rate, flops / f32_fps)
+    if exps:
+        p = (exps * f32_fps - flops * sfu_rate) / (
+            exps * f32_fps + exps * EXP2_FMA_FLOPS * sfu_rate)
+        p = min(1.0, max(0.0, p))
+        t_ops = max((1 - p) * exps / sfu_rate,
+                    (flops + p * exps * EXP2_FMA_FLOPS) / f32_fps)
+    else:
+        t_ops = flops / f32_fps
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_bound_ms": t_bytes * 1e3,
+            "sfu_only_bound_ms": max(t_bytes, t_sfu_only) * 1e3}
+
+
 def ptxas_report(lib: Path) -> None:
     """ptxas's registers, spills and static smem for each kernel entry."""
     name = "?"
     for line in lib.with_suffix(".log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"(\w+_kernel)I(13__nv_bfloat16|f)(?:Li(\d+)E)?",
-                          m.group(1))
+            k = re.search(r"([a-z_]+_kernel)I(13__nv_bfloat16|f)"
+                          r"(?:Li(\d+)E)?", m.group(1))
+            param = "NL " if k and k.group(1) == "sel_scan_kernel" \
+                else "hd "
             name = (f"{k.group(1)}<{'bf16' if k.group(2) != 'f' else 'f32'}"
-                    f"{', hd ' + k.group(3) if k.group(3) else ''}>"
+                    f"{', ' + param + k.group(3) if k.group(3) else ''}>"
                     if k else m.group(1))
         elif "registers" in line or "spill" in line or "smem" in line:
             print(f"[build]   {name}: {line.strip()}")
@@ -177,7 +246,8 @@ def attn_inputs(case, dtype, gen):
 
 def check_flash(gen) -> dict:
     """Forward and backward kernels against their plain versions, and the
-    backward against autograd through `attention_ref`. Returns the max
+    backward against autograd through `attention_ref` (the forward alone
+    for ATTN_FWD_ONLY's cases). Returns the max
     |kernel - plain| at the path's shape in bf16 for o and for the grads."""
     # o: the kernel rounds once, to the input dtype (tests/test_kernels.py
     # tolerances). lse: f32 arithmetic on both sides from the same inputs,
@@ -203,6 +273,17 @@ def check_flash(gen) -> dict:
                                        rtol=tol_o[dtype], atol=tol_o[dtype])
             torch.testing.assert_close(lse, rlse, rtol=tol_lse,
                                        atol=tol_lse)
+            e_o = (o.float() - ro.float()).abs().max().item()
+            e_lse = (lse - rlse).abs().max().item()
+            if label in ATTN_FWD_ONLY:
+                print(f"[check] flash_attention {label} {case[:5]} causal "
+                      f"{dtype}, forward only (the prefill's): max |kernel "
+                      f"- plain| o {e_o:.3e} (tol {tol_o[dtype]}), lse "
+                      f"{e_lse:.3e} (tol {tol_lse}); tolerances hold |diff| "
+                      f"<= tol * (1 + |plain|)")
+                del q, k, v, do, o, lse, ro, rlse
+                torch.cuda.empty_cache()
+                continue
             grads = flash_attention_bwd(q, k, v, o, lse, do, **kw)
             torch.cuda.synchronize()
             rgrads = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
@@ -220,8 +301,6 @@ def check_flash(gen) -> dict:
                                            atol=tol_ag[dtype])
                 e_g = max(e_g, (g.float() - rg.float()).abs().max().item())
                 e_ag = max(e_ag, (g.float() - ag.float()).abs().max().item())
-            e_o = (o.float() - ro.float()).abs().max().item()
-            e_lse = (lse - rlse).abs().max().item()
             errs[(label, dtype)] = (e_o, e_g)
             print(f"[check] flash_attention {label} {case[:5]} window "
                   f"{case[5]} softcap {case[6]} {dtype}: max |kernel - "
@@ -296,7 +375,9 @@ def time_flash(gen, bf16_fps, mem_bps) -> dict:
 
 # kernel-name substrings -> the group a train step's device time is
 # summed under (first match wins)
-KERNEL_GROUPS = (("flash attention", ("flash_",)),
+KERNEL_GROUPS = (("moe_gemm", ("moe_gemm",)),
+                 ("selective scan", ("sel_scan",)),
+                 ("flash attention", ("flash_",)),
                  ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
                  ("softmax (loss)", ("SoftMax",)),
                  ("reductions", ("reduce_kernel",)),
@@ -352,17 +433,22 @@ def profile_train(cfg, n_steps: int = 2) -> None:
     if not rows:
         print("[profile] device time not measured: the profiler saw no "
               "CUDA kernels")
+    print_groups(rows, "ms/step (launches/step)")
+    for ms, count, key in rows[:12]:
+        print(f"[profile]   {ms:8.4f} ms/step {count:6.1f}x  {key[:90]}")
+
+
+def print_groups(rows, unit: str) -> None:
+    """Device time and launches of `kernel_rows` summed by KERNEL_GROUPS."""
     groups = {}
     for ms, count, key in rows:
         g = next((g for g, subs in KERNEL_GROUPS
                   if any(x in key for x in subs)), "other")
         ms0, n0 = groups.get(g, (0.0, 0.0))
         groups[g] = (ms0 + ms, n0 + count)
-    print("[profile] by group, ms/step (launches/step): " + "; ".join(
+    print(f"[profile] by group, {unit}: " + "; ".join(
         f"{g} {ms:.3f} ({n:.0f})" for g, (ms, n) in
         sorted(groups.items(), key=lambda kv: -kv[1][0])))
-    for ms, count, key in rows[:12]:
-        print(f"[profile]   {ms:8.4f} ms/step {count:6.1f}x  {key[:90]}")
 
 
 def kernel_rows(prof, n_steps: int):
@@ -421,6 +507,321 @@ def profile_steps(cfg, per_step: int, n_steps: int = 8) -> None:
         print(f"[profile]   {ms:8.4f} ms/step {count:6.1f}x  {key[:90]}")
 
 
+def sel_inputs(case, dtype, gen, with_h0=True):
+    """Selective-scan operands on the card, at the Mamba path's scales: x,
+    dt, b, c in `dtype` (b and c as column slices of one x_proj-like
+    output, with its row stride); a_log, d and h0 in f32."""
+    b, s, d, n = case
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    x = rnd(b, s, d).to(dtype)
+    dt = (torch.nn.functional.softplus(rnd(b, s, d)) * 0.1).to(dtype)
+    dbc = (rnd(b, s, 32 + 2 * n) * 0.5).to(dtype)
+    a_log = torch.log(torch.arange(1, n + 1, device="cuda",
+                                   dtype=torch.float32)).expand(d, n) \
+        + rnd(d, n) * 0.1
+    return (x, dt, a_log.contiguous(), dbc[..., 32:32 + n], dbc[..., 32 + n:],
+            torch.ones(d, device="cuda"),
+            rnd(b, d, n) if with_h0 else None)
+
+
+def lin_inputs(case, dtype, gen):
+    b, s, d, _ = case
+    a = torch.sigmoid(torch.randn((b, s, d), generator=gen, device="cuda"))
+    bx = torch.randn((b, s, d), generator=gen, device="cuda")
+    h0 = torch.randn((b, d), generator=gen, device="cuda")
+    return a.to(dtype), bx.to(dtype), h0
+
+
+def check_scans(gen, mem_bps, sfu_rate, f32_fps) -> dict:
+    """Both scan kernels against their plain versions (y at the dtype's
+    tolerance, h_last at 1e-3: tests/test_kernels.py's), and the state
+    carried across two kernel calls against one; then their times at the
+    path's shape in bf16. Returns, for each kernel, its max |kernel -
+    plain| at the path's shape in bf16, its times and bound, and the
+    linear scan's launches through `ops.ssm_scan`."""
+    tol = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
+    tol_h = 1e-3
+    out = {"selective_scan": {}, "ssm_scan": {}}
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, case in SCAN_CASES.items():
+            args = sel_inputs(case, dtype, gen)
+            y, h = selective_scan(*args)
+            torch.cuda.synchronize()
+            yr, hr = selective_scan_ref(*args)
+            torch.testing.assert_close(y.float(), yr.float(), rtol=tol[dtype],
+                                       atol=tol[dtype])
+            torch.testing.assert_close(h, hr, rtol=tol_h, atol=tol_h)
+            e_y = (y.float() - yr.float()).abs().max().item()
+            e_h = (h - hr).abs().max().item()
+            # the state carried across two calls equals one call
+            x, dt, a_log, bm, cm, dv, h0 = args
+            k = min(SCAN_SPLIT, case[1] // 2)
+            y1, h1 = selective_scan(x[:, :k], dt[:, :k], a_log, bm[:, :k],
+                                    cm[:, :k], dv, h0)
+            y2, h2 = selective_scan(x[:, k:], dt[:, k:], a_log, bm[:, k:],
+                                    cm[:, k:], dv, h1)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(torch.cat([y1, y2], 1).float(),
+                                       y.float(), rtol=tol[dtype],
+                                       atol=tol[dtype])
+            torch.testing.assert_close(h2, h, rtol=tol_h, atol=tol_h)
+            e_c = max((torch.cat([y1, y2], 1).float() - y.float()).abs()
+                      .max().item(), (h2 - h).abs().max().item())
+            if label == "path" and dtype == torch.bfloat16:
+                out["selective_scan"]["max_abs_err"] = e_y
+            print(f"[check] selective_scan {label} {case} {dtype}, h0 "
+                  f"given: max |kernel - plain| y {e_y:.3e} (tol "
+                  f"{tol[dtype]}), h_last {e_h:.3e} (tol {tol_h}); state "
+                  f"carried over 2 calls ({k} + {case[1] - k} steps) vs 1: "
+                  f"{e_c:.3e}; tolerances hold |diff| <= tol * (1 + |plain|)")
+            a, bx, h0 = lin_inputs(case, dtype, gen)
+            got, want = ssm_scan(a, bx, h0), ssm_scan_ref(a, bx, h0)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=tol[dtype], atol=tol[dtype])
+            e_l = (got.float() - want.float()).abs().max().item()
+            if label == "path" and dtype == torch.bfloat16:
+                out["ssm_scan"]["max_abs_err"] = e_l
+            print(f"[check] ssm_scan {label} {case[:3]} {dtype}, h0 given: "
+                  f"max |kernel - plain| {e_l:.3e} (tol {tol[dtype]})")
+            del args, y, h, yr, hr, x, dt, bm, cm, y1, h1, y2, h2, a, bx, \
+                got, want
+            torch.cuda.empty_cache()
+
+    # ssm_scan's path: ops.ssm_scan, the state carried across two calls
+    b, s, d, _ = SCAN_CASES["path"]
+    a, bx, _ = lin_inputs(SCAN_CASES["path"], torch.float32, gen)
+    whole = ops.ssm_scan(a, bx)
+    ssm_scan.launches = 0
+    first = ops.ssm_scan(a[:, :SCAN_SPLIT], bx[:, :SCAN_SPLIT])
+    rest = ops.ssm_scan(a[:, SCAN_SPLIT:], bx[:, SCAN_SPLIT:],
+                        first[:, -1])
+    out["ssm_scan"]["launches"] = ssm_scan.launches
+    torch.cuda.synchronize()
+    assert out["ssm_scan"]["launches"] == 2, out
+    torch.testing.assert_close(torch.cat([first, rest], 1), whole,
+                               rtol=1e-4, atol=1e-4)
+    print(f"[check] ops.ssm_scan at the path's shape, f32, state carried "
+          f"over 2 calls ({SCAN_SPLIT} + {s - SCAN_SPLIT} steps) == 1 "
+          f"call: max diff "
+          f"{(torch.cat([first, rest], 1) - whole).abs().max().item():.3e};"
+          f" ssm_scan launches {out['ssm_scan']['launches']}")
+    del a, bx, whole, first, rest
+
+    # times at the path's shape in bf16 (plain versions: one Python step
+    # per time step, so few repeats)
+    n = SCAN_CASES["path"][3]
+    args = sel_inputs(SCAN_CASES["path"], torch.bfloat16, gen, False)
+    t = {"ms": time_ms(lambda: selective_scan(*args)),
+         "plain_ms": time_ms(lambda: selective_scan_ref(*args), 3, 1),
+         "library_ms": None}
+    nbytes = 2 * (3 * b * s * d + 2 * b * s * n) + 4 * (d * n + d
+                                                        + b * d * n)
+    t.update(scan_bound(nbytes, b * s * d * n, 6 * b * s * d * n, mem_bps,
+                        sfu_rate, f32_fps))
+    out["selective_scan"].update(t)
+    a, bx, _ = lin_inputs(SCAN_CASES["path"], torch.bfloat16, gen)
+    t = {"ms": time_ms(lambda: ssm_scan(a, bx)),
+         "plain_ms": time_ms(lambda: ssm_scan_ref(a, bx), 3, 1),
+         "library_ms": None}
+    t.update(scan_bound(2 * 3 * b * s * d, 0, 2 * b * s * d, mem_bps,
+                        sfu_rate, f32_fps))
+    out["ssm_scan"].update(t)
+    for kname, t in out.items():
+        shape = SCAN_CASES["path"][:3 if kname == "ssm_scan" else 4]
+        print(f"[time] {kname} {shape} bf16: kernel {t['ms']:.4f} ms, "
+              f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}; bytes alone {t['bytes_bound_ms']:.4f} ms, "
+              f"every exp2 on the SFU {t['sfu_only_bound_ms']:.4f} ms); "
+              f"kernel at {100 * t['bound_ms'] / t['ms']:.2f}% of the bound, "
+              f"{100 * t['bytes_bound_ms'] / t['ms']:.2f}% of the bytes' "
+              f"time; no single PyTorch call computes it")
+    del args, a, bx
+    torch.cuda.empty_cache()
+    return out
+
+
+def jamba_tiny_f32():
+    """Tiny Jamba with the published 8-position period (tiny_config keeps
+    only pattern[:4], which has no attention layer), one repeat, f32, and
+    a capacity factor at which the MoE drops no token."""
+    return tiny_config(JAMBA).scaled(pattern=get_config(JAMBA).pattern,
+                                     repeats=1, dtype="float32",
+                                     capacity_factor=16.0)
+
+
+def jamba_counts(cfg) -> dict:
+    """Kernel launches of one full-sequence forward of `cfg`."""
+    per = lambda f: sum(map(f, cfg.pattern)) * cfg.repeats  # noqa: E731
+    return {"selective_scan": per(lambda b: b.mixer == "mamba"),
+            "flash_attention": per(lambda b: b.mixer.startswith("attn")),
+            "moe_gemm": 3 * per(lambda b: b.ffn == "moe")}
+
+
+def read_counts() -> dict:
+    return {"selective_scan": selective_scan.launches,
+            "flash_attention": fa.flash_attention.launches,
+            "moe_gemm": moe_gemm.launches}
+
+
+def zero_counts() -> None:
+    selective_scan.launches = 0
+    fa.flash_attention.launches = 0
+    moe_gemm.launches = 0
+
+
+def jamba_prefill_and_serve(n_calls: int = 3) -> dict:
+    """Slice 3's main path, full-width Jamba cut to JAMBA_REPEATS periods:
+    prefill (a warm-up, then `n_calls` timed calls, launch counts read
+    around all of them), a profiled prefill, then the serving engine on
+    the same weights."""
+    cfg = get_config(JAMBA).scaled(repeats=JAMBA_REPEATS)
+    per_call = jamba_counts(cfg)
+    assert per_call == {"selective_scan": 14, "flash_attention": 2,
+                        "moe_gemm": 24}, per_call
+    torch.cuda.reset_peak_memory_stats()
+    model = get_model(cfg, "cuda")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        params = model.init_params(torch.Generator("cuda").manual_seed(0))
+    params.requires_grad_(False)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    print(f"[prefill] {JAMBA} full width, {JAMBA_REPEATS} of "
+          f"{get_config(JAMBA).repeats} periods ({cfg.num_layers} layers), "
+          f"{n_params / 1e9:.3f} B parameters, {n_bytes / 2**30:.2f} GiB "
+          f"of weights, made in {time.perf_counter() - t0:.2f} s")
+    prefill = make_prefill_step(model)
+    tokens = torch.randint(0, cfg.vocab_size, (1, PREFILL_SEQ),
+                           generator=torch.Generator("cuda").manual_seed(2),
+                           device="cuda")
+    batch = {"tokens": tokens}
+    zero_counts()
+    walls = []
+    for i in range(1 + n_calls):
+        t0 = time.perf_counter()
+        logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        assert logits.shape == (1, PREFILL_SEQ, padded_vocab(cfg)), \
+            logits.shape
+        assert bool(torch.isfinite(logits).all()), "non-finite logits"
+        if i == 0:
+            counts = read_counts()
+            assert counts == per_call, (counts, per_call)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    assert counts == {k: v * (1 + n_calls) for k, v in per_call.items()}, \
+        counts
+    ms = 1e3 * statistics.median(walls[1:])
+    print(f"[prefill] B=1 S={PREFILL_SEQ} bf16: wall "
+          f"{[round(1e3 * w, 1) for w in walls]} ms (first is the warm-up); "
+          f"median of {n_calls} {ms:.1f} ms, "
+          f"{PREFILL_SEQ / ms * 1e3:.0f} tokens/s; peak memory "
+          f"{peak / 2**30:.2f} GiB; launches over {1 + n_calls} calls "
+          f"{counts} ({per_call} a call); logits finite, last row max "
+          f"|logit| {logits[0, -1].float().abs().max().item():.4f}")
+    del logits
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prefill(params, batch)
+        torch.cuda.synchronize()
+    rows = kernel_rows(prof, 1)
+    busy = sum(r[0] for r in rows)
+    print(f"[profile] full-width {JAMBA} prefill (S={PREFILL_SEQ}): wall "
+          f"{ms:.3f} ms (no profiler); device busy {busy:.3f} ms in "
+          f"{sum(r[1] for r in rows):.0f} kernels; idle share "
+          f"{1 - busy / ms:.3f}")
+    if not rows:
+        print("[profile] device time not measured: the profiler saw no "
+              "CUDA kernels")
+    print_groups(rows, "ms (launches)")
+    for t_ms, count, key in rows[:10]:
+        print(f"[profile]   {t_ms:9.4f} ms {count:6.1f}x  {key[:90]}")
+
+    # ---- 13. serving on the same weights --------------------------------
+    zero_counts()
+    out = serve_requests(model, params, REQUESTS, CLIENTS, SLOTS, MAX_NEW)
+    serve_counts = read_counts()
+    steps = out["engine_steps"]
+    print(f"[serve] {JAMBA} full width, {cfg.num_layers} layers, bf16: "
+          f"{out['requests']} requests, {out['tokens']} tokens, {steps} "
+          f"engine steps, wall {out['wall_s']:.3f} s, "
+          f"{out['tok_per_s']:.2f} tok/s, "
+          f"{1e3 * out['wall_s'] / steps:.2f} ms/step, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{serve_counts}; stats {out['stats']}")
+    assert out["requests"] == REQUESTS and \
+        out["tokens"] == REQUESTS * MAX_NEW, out
+    assert serve_counts == {"selective_scan": 0, "flash_attention": 0,
+                            "moe_gemm": per_call["moe_gemm"] * steps} \
+        and steps > 0, (serve_counts, steps)
+    assert out["stats"]["nonfinite_steps"] == 0, out["stats"]
+    del model, params, prefill, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"prefill_counts": counts}
+
+
+def jamba_tiny_checks() -> None:
+    """Tiny f32 Jamba (full pattern) on the card: decode == forward, the
+    engine == greedy decode; then the scans under autograd raise."""
+    cfg = jamba_tiny_f32()
+    model = get_model(cfg, "cuda")
+    params = model.init_params(torch.Generator("cuda").manual_seed(0))
+    params.requires_grad_(False)
+    toks = torch.randint(0, 500, (2, 8), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(3))
+    zero_counts()
+    with torch.inference_mode():
+        ref, _ = model.forward(params, {"tokens": toks})
+        counts = read_counts()
+        cache = model.init_cache(2, 8)
+        outs = []
+        for t in range(8):
+            lg, cache = model.decode_step(params, cache, toks[:, t], t)
+            outs.append(lg)
+    err = (torch.stack(outs, 1) - ref).abs().max().item()
+    assert counts == jamba_counts(cfg), counts
+    assert err < 1e-4, err
+    print(f"[check] tiny {JAMBA} (full 8-position pattern, f32, cuda): "
+          f"decode step by step vs forward max |diff| {err:.3e} (tol "
+          f"1e-4); the forward launched {counts}")
+    prompts = [[5, 9, 2], [7, 1], [3, 3, 3, 3], [11, 4, 8, 1, 6]]
+    eng = ServeEngine(model, params, batch_slots=2, max_len=32, num_clients=1)
+    reqs = [eng.submit(Request(prompt=p, max_new_tokens=5)) for p in prompts]
+    eng.run_until_drained()
+    for p, r in zip(prompts, reqs):
+        want = greedy_decode(model, params,
+                             torch.tensor([p], device="cuda"), 5, 32)
+        assert r.output == want[0].tolist(), (p, r.output, want)
+    print(f"[check] tiny {JAMBA} engine == greedy decode for "
+          f"{len(prompts)} requests (f32, cuda)")
+    del model, params, eng
+
+    args = sel_inputs((1, 64, 32, 16), torch.float32,
+                      torch.Generator("cuda").manual_seed(4))
+    x = args[0].clone().requires_grad_()
+    a = torch.rand((1, 64, 32), device="cuda", requires_grad=True)
+    for kname, call in (("selective_scan",
+                         lambda: selective_scan(x, *args[1:])),
+                        ("ssm_scan", lambda: ssm_scan(a, args[0]))):
+        try:
+            call()
+        except NotImplementedError as e:
+            print(f"[check] {kname} on an operand that requires grad "
+                  f"raises: {e}")
+        else:
+            raise AssertionError(f"{kname} under grad did not raise")
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -435,17 +836,26 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
     peak_key, (mem_bps, bf16_fps, f32_fps) = peaks_for(name)
+    max_sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], check=True, capture_output=True,
+        text=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sfu_rate = sms * SFU_PER_CLOCK * max_sm_mhz * 1e6
     print(f"[card] {name}, capability {torch.cuda.get_device_capability(0)},"
           f" peaks of {peak_key}: {mem_bps / 1e12} TB/s, "
-          f"{bf16_fps / 1e12} bf16 TFLOP/s, {f32_fps / 1e12} f32 TFLOP/s")
+          f"{bf16_fps / 1e12} bf16 TFLOP/s, {f32_fps / 1e12} f32 TFLOP/s; "
+          f"{sms} SMs at up to {max_sm_mhz:.0f} MHz: "
+          f"{sfu_rate / 1e12:.3f} T exp2/s ({SFU_PER_CLOCK} a clock an SM)")
 
     # ---- 2. build, one nvcc per source, all started together ----------
     def timed_build(name):
         t0 = time.time()
         return name, _build.build(name), time.time() - t0
 
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        built = list(pool.map(timed_build, ["moe_gemm", "flash_attention"]))
+    sources = ["moe_gemm", "flash_attention", "ssm_scan"]
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        built = list(pool.map(timed_build, sources))
     for kname, lib, secs in built:
         print(f"[build] {kname}: {secs:.2f} s -> {lib.name}")
         ptxas_report(lib)
@@ -463,6 +873,16 @@ def main() -> int:
     c = SLOTS * capacity(cfg, 1)                  # decode: S=1 per slot
     d, f = cfg.d_model, cfg.moe_d_ff
     up_shape, down_shape = (e_pad, c, d, f), (e_pad, c, f, d)
+    jcfg = get_config(JAMBA)
+    je, jd, jf = padded_experts(jcfg), jcfg.d_model, jcfg.moe_d_ff
+    jc_prefill = capacity(jcfg, PREFILL_SEQ)      # B=1, S=4096: C=640
+    jc_decode = SLOTS * capacity(jcfg, 1)
+    gemm_cases = [("gate/up", up_shape), ("down", down_shape)]
+    for label, jc in (("jamba prefill", jc_prefill),
+                      ("jamba decode", jc_decode)):
+        gemm_cases += [(f"{label} gate/up", (je, jc, jd, jf)),
+                       (f"{label} down", (je, jc, jf, jd))]
+    gemm_cases.append(("ragged", (3, 100, 96, 72)))
     gen = torch.Generator("cuda").manual_seed(0)
 
     def operands(shape, dtype, scale=0.3):
@@ -474,9 +894,13 @@ def main() -> int:
     tols = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for label, shape in (("gate/up", up_shape), ("down", down_shape),
-                             ("ragged", (3, 100, 96, 72))):
-            x, w = operands(shape, dtype)
+        for label, shape in gemm_cases:
+            # Jamba's shapes: operands at d**-0.25, so outputs have unit
+            # variance as in the model. At 0.3 they reach |out| ~ 65, and
+            # f32 sums over d=4096 in the kernel's and cuBLAS's orders
+            # part by up to 1.5e-4 (H100 80GB HBM3, 700 W).
+            x, w = operands(shape, dtype, shape[2] ** -0.25
+                            if label.startswith("jamba") else 0.3)
             got, want = moe_gemm(x, w), moe_gemm_ref(x, w)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
@@ -499,14 +923,21 @@ def main() -> int:
     xu, wg = operands(up_shape, torch.bfloat16)
     _, wu = operands(up_shape, torch.bfloat16)
     xd, wd = operands(down_shape, torch.bfloat16)
+    xju, wjg = operands((je, jc_prefill, jd, jf), torch.bfloat16)
+    _, wju = operands((je, jc_prefill, jd, jf), torch.bfloat16)
+    xjd, wjd = operands((je, jc_prefill, jf, jd), torch.bfloat16)
     calls = {"gate/up": [(xu, wg)], "down": [(xd, wd)],
-             "layer": [(xu, wg), (xu, wu), (xd, wd)]}
+             "layer": [(xu, wg), (xu, wu), (xd, wd)],
+             "jamba prefill layer": [(xju, wjg), (xju, wju), (xjd, wjd)]}
     times = {}
     for label, args in calls.items():
         shapes = [(*x_.shape, w_.shape[2]) for x_, w_ in args]
-        t = {"ms": time_ms(lambda: [moe_gemm(*a) for a in args]),
-             "plain_ms": time_ms(lambda: [moe_gemm_ref(*a) for a in args]),
-             "library_ms": time_ms(lambda: [torch.bmm(*a) for a in args])}
+        reps = (5, 1) if label.startswith("jamba") else (20, 3)  # ~0.2 s
+        t = {"ms": time_ms(lambda: [moe_gemm(*a) for a in args], *reps),
+             "plain_ms": time_ms(lambda: [moe_gemm_ref(*a) for a in args],
+                                 *reps),
+             "library_ms": time_ms(lambda: [torch.bmm(*a) for a in args],
+                                   *reps)}
         t["bound_ms"], t["bound_by"] = bound(shapes, 2, bf16_fps, mem_bps)
         times[label] = t
         print(f"[time] moe_gemm {label} {shapes} bf16: kernel {t['ms']:.4f} "
@@ -514,7 +945,8 @@ def main() -> int:
               f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']}); kernel at "
               f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound")
-    del xu, wg, wu, xd, wd, x, w, base, pert, got, want
+    del xu, wg, wu, xd, wd, xju, wjg, wju, xjd, wjd, x, w, base, pert, got, \
+        want, args, calls
     torch.cuda.empty_cache()
 
     # ---- 4. flash attention vs plain, and its times ---------------------
@@ -643,7 +1075,18 @@ def main() -> int:
           f"{resumed['losses'][-1]:.6f}, straight "
           f"{straight['losses'][-1]:.6f}")
 
-    # ---- 11. results -----------------------------------------------------
+    # ---- 11. the scan kernels vs plain, and their times ----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    scans = check_scans(gen, mem_bps, sfu_rate, f32_fps)
+
+    # ---- 12, 13. slice 3's main path: full-width Jamba prefill, serve ---
+    jamba = jamba_prefill_and_serve()
+
+    # ---- 14. tiny f32 Jamba on the card; the scans under grad raise -----
+    jamba_tiny_checks()
+
+    # ---- 15. results -----------------------------------------------------
     layer = times["layer"]
     kernels = [{
         "name": "moe_gemm", "route": "cuda",
@@ -674,6 +1117,29 @@ def main() -> int:
                     "(B=4, S=T=2048, 14:2 heads, hd 64, causal)"
                     + ("; two launches (dq, dk/dv), library = SDPA's "
                        "backward alone" if kname.endswith("bwd") else ""),
+        })
+    for kname, replaces, count in (
+            ("selective_scan", "src/repro/kernels/ssm_scan.py:27",
+             jamba["prefill_counts"]["selective_scan"]),
+            ("ssm_scan", "src/repro/kernels/ssm_scan.py:105",
+             scans["ssm_scan"]["launches"])):
+        t = scans[kname]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+            "replaces": replaces, "launches": count,
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "bytes_bound_ms": t["bytes_bound_ms"],
+            "sfu_only_bound_ms": t["sfu_only_bound_ms"],
+            "unit": ("one Mamba layer's call at the Jamba prefill path's "
+                     "bf16 shape (B=1, S=4096, D=8192, N=16); launches "
+                     "over 4 prefills (14 each)"
+                     if kname == "selective_scan" else
+                     "one call at B=1, S=4096, D=8192 in bf16; launches: "
+                     "the carried pair through ops.ssm_scan (no model "
+                     "calls it)"),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

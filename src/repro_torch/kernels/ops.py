@@ -8,8 +8,9 @@ the flash-attention kernels, forward and backward
 (`flash_attention.flash_attention`); the kernel's start-aligned causal
 mask is right only because only S == T calls reach it. On the CPU every
 call is the plain op, `ref.attention_ref`, differentiated by autograd.
-`moe_gemm` launches its kernel for CUDA tensors and runs the plain version
-for CPU tensors.
+`moe_gemm`, `selective_scan` and `ssm_scan` launch their kernels for CUDA
+tensors and run the plain versions for CPU tensors. The JAX package's
+`REPRO_FORCE_*` switches have no counterpart: the device decides.
 """
 from __future__ import annotations
 
@@ -20,8 +21,9 @@ import torch
 from . import ref as _ref
 from .flash_attention import flash_attention
 from .moe_gemm import moe_gemm
+from .ssm_scan import selective_scan, ssm_scan
 
-__all__ = ["attention", "moe_gemm"]
+__all__ = ["attention", "moe_gemm", "selective_scan", "ssm_scan"]
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

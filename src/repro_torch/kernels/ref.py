@@ -9,7 +9,9 @@ is f32 as with JAX's ``preferred_element_type=jnp.float32``.
 of the flash-attention kernels: the forward's arithmetic as
 `repro/kernels/flash_attention.py` does it (f32 softmax weights, a
 start-aligned causal mask), and the backward the kernel computes.
-The SSM scan oracles are ported with their kernels (ROADMAP, Queue 2).
+`selective_scan_ref` and `ssm_scan_ref` walk time in a Python loop in f32;
+the JAX oracle's chunked `jax.checkpoint` (a memory device for its
+backward) does not change the result and is left out.
 """
 from __future__ import annotations
 
@@ -135,6 +137,47 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     dv = torch.einsum("bkgst,bskgh->btkh", p, dog)
     return (dq.reshape(b, s, nq, hd).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def ssm_scan_ref(a: torch.Tensor, bx: torch.Tensor,
+                 h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Linear recurrence oracle: h_t = a_t * h_{t-1} + bx_t over axis 1 in
+    f32, every h_t returned in bx's dtype. a/bx [B, S, ...]
+    (elementwise), h0 [B, ...]."""
+    h = (torch.zeros_like(bx[:, 0], dtype=torch.float32) if h0 is None
+         else h0.float())
+    af, bf = a.float(), bx.float()
+    hs = []
+    for t in range(bx.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1).to(bx.dtype)
+
+
+def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor,
+                       a_log: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                       d: torch.Tensor, h0: Optional[torch.Tensor] = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused Mamba selective scan oracle (never materializes [B,S,D,N]).
+
+    x/dt [B,S,D]; a_log [D,N] (A = -exp(a_log)); b/c [B,S,N]; d [D].
+    h_t = exp(dt_t A) h_{t-1} + dt_t b_t x_t ;  y_t = h_t c_t + d x_t.
+    Returns (y [B,S,D] in x's dtype, h_last [B,D,N] f32).
+    """
+    bsz, s, dd = x.shape
+    n = a_log.shape[1]
+    h = (torch.zeros((bsz, dd, n), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    a = -torch.exp(a_log.float())
+    xf, dtf, bf, cf = x.float(), dt.float(), b.float(), c.float()
+    ys = []
+    for t in range(s):
+        dtt = dtf[:, t]                                  # [B,D]
+        da = torch.exp(dtt[..., None] * a[None])         # [B,D,N]
+        h = da * h + (dtt * xf[:, t])[..., None] * bf[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t]))
+    y = torch.stack(ys, dim=1) + xf * d.float()[None, None]
+    return y.to(x.dtype), h
 
 
 def moe_gemm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

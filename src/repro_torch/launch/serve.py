@@ -11,13 +11,14 @@ from __future__ import annotations
 import argparse
 import threading
 import time
+from typing import Any
 
 import numpy as np
 import torch
 
 from ..configs import ARCHS, get_config, tiny_config
 from ..device import DeviceLike, resolve_device
-from ..models.registry import get_model
+from ..models.registry import ModelAPI, get_model
 from ..serve.engine import Request, ServeEngine
 
 
@@ -32,6 +33,17 @@ def serve(arch: str, num_requests: int, clients: int, slots: int = 4,
     with torch.no_grad():
         params = model.init_params(torch.Generator(dev).manual_seed(0))
     params.requires_grad_(False)
+    return serve_requests(model, params, num_requests, clients, slots,
+                          max_new)
+
+
+def serve_requests(model: ModelAPI, params: Any, num_requests: int,
+                   clients: int, slots: int = 4, max_new: int = 8) -> dict:
+    """Run the synthetic workload on a model whose params exist already:
+    `num_requests` prompts of 2-9 tokens drawn from a fixed seed, sent
+    round-robin from `clients` threads into an engine of `slots` batch
+    slots, each asking for `max_new` tokens."""
+    dev = model.device
     eng = ServeEngine(model, params, batch_slots=slots, max_len=64,
                       num_clients=clients)
     rng = np.random.RandomState(0)

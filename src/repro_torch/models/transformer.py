@@ -1,6 +1,6 @@
 """Pattern-based decoder-only LM; counterpart of
-`repro/models/transformer.py` for blocks with attention mixers and MLP or
-MoE FFNs (the dense and MoE families).
+`repro/models/transformer.py` for blocks with attention, local-attention
+or Mamba mixers and MLP or MoE FFNs (the dense, MoE and hybrid families).
 
 Layers are `cfg.pattern` repeated `cfg.repeats` times, as in the JAX
 package, but each layer is its own `Block` in an `nn.ModuleList`:
@@ -8,7 +8,9 @@ layer i is pattern position `i % len(pattern)` of repeat
 `i // len(pattern)`. The JAX package stacks each position's leaves over
 repeats for `lax.scan`; here that would mean one 8.9 GB expert tensor
 per projection for qwen2-moe-a2.7b, so nothing is stacked.
-Mamba and xLSTM mixers are still to be ported and raise.
+The cache is one entry per layer: a KV cache for an attention layer, a
+Mamba state for a Mamba layer. xLSTM's mixers are not ported yet and
+raise.
 """
 from __future__ import annotations
 
@@ -21,10 +23,13 @@ from .attention import Attention, Cache, init_kv_cache
 from .config import BlockSpec, ModelConfig
 from .layers import MLP, Embed, Norm
 from .moe import MoE
+from .ssm import Mamba, init_mamba_state
+
+_MIXERS = ("attn", "attn_local", "mamba")
 
 
 def _check_mixer(bspec: BlockSpec) -> None:
-    if bspec.mixer not in ("attn", "attn_local"):
+    if bspec.mixer not in _MIXERS:
         raise NotImplementedError(f"{bspec.mixer} mixer not ported yet")
 
 
@@ -36,8 +41,11 @@ class Block(nn.Module):
         self.cfg = cfg
         self.ffn_kind = bspec.ffn
         self.norm_mixer = Norm(cfg, device)
-        self.mixer = Attention(cfg, device, gen,
-                               local=bspec.mixer == "attn_local")
+        if bspec.mixer == "mamba":
+            self.mixer = Mamba(cfg, device, gen)
+        else:
+            self.mixer = Attention(cfg, device, gen,
+                                   local=bspec.mixer == "attn_local")
         if cfg.post_norm:
             self.post_norm_mixer = Norm(cfg, device)
         if bspec.ffn == "mlp":
@@ -96,11 +104,15 @@ class Transformer(nn.Module):
 
     def forward(self, tokens: torch.Tensor
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-        """tokens [B,S] -> (logits [B,S,V], MoE aux loss), differentiable
-        on CUDA and on the CPU. The JAX forward rematerialises each period
-        in the backward (`@jax.checkpoint`, transformer.py:110), which
-        does not change the result; this one keeps every activation for
-        autograd: about 11 GB for full-width qwen2-0.5b at B=4, S=2048
+        """tokens [B,S] -> (logits [B,S,V], MoE aux loss). Differentiable
+        on the CPU; on CUDA only for attention and MLP stacks, since the
+        CUDA `moe_gemm` and scans have no backward yet and raise under
+        autograd (ROADMAP 4b). The prefill (`train_step.make_prefill_step`)
+        is this forward under inference mode, as in the JAX package, where
+        the prefill_32k cell lowers the same forward. The JAX forward
+        rematerialises each period in the backward (`@jax.checkpoint`,
+        transformer.py:110), which does not change the result; this one
+        keeps every activation for autograd: about 11 GB for full-width qwen2-0.5b at B=4, S=2048
         (arithmetic), besides the logits and the loss's f32 copies."""
         x = self.embed.embed(tokens)
         aux = x.new_zeros((), dtype=torch.float32)
@@ -122,8 +134,11 @@ class Transformer(nn.Module):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: torch.device) -> List[Cache]:
-    """One KV cache per layer, [B, max_len, nkv, hd] each."""
+    """One entry per layer, by its pattern position: a KV cache
+    [B, max_len, nkv, hd] for attention, a Mamba state for Mamba."""
     for bspec in cfg.pattern:
         _check_mixer(bspec)
-    return [init_kv_cache(cfg, batch, max_len, device)
-            for _ in range(cfg.num_layers)]
+    return [init_mamba_state(cfg, batch, device)
+            if cfg.pattern[i % len(cfg.pattern)].mixer == "mamba"
+            else init_kv_cache(cfg, batch, max_len, device)
+            for i in range(cfg.num_layers)]

@@ -60,7 +60,8 @@ def test_engine_matches_greedy_reference():
     assert eng.metrics_snapshot()["gauges"]["admitted"] == len(PROMPTS)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen2-moe-a2.7b"])
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen2-moe-a2.7b",
+                                  "jamba-v0.1-52b"])
 def test_serve_continuous_batching(arch):
     out = serve(arch, num_requests=10, clients=3, slots=3, max_new=4,
                 device="cpu")
@@ -87,6 +88,8 @@ def test_runtime_backed_engine_not_ported():
 def test_unported_families_raise():
     with pytest.raises(NotImplementedError):
         get_model(tiny_config("whisper-base"), "cpu")
-    m = get_model(tiny_config("jamba-v0.1-52b"), "cpu")
-    with pytest.raises(NotImplementedError, match="mamba"):
+    m = get_model(tiny_config("xlstm-125m"), "cpu")
+    with pytest.raises(NotImplementedError, match="lstm"):
         m.init_params(torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="lstm"):
+        m.init_cache(1, 8)
