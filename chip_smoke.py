@@ -8,23 +8,29 @@ Phases, in order; any failure raises and exits non-zero (no phase catches
 its own failure):
 
   1. the card's name and power limit (nvidia-smi); TF32 off for f32;
-  2. build the `moe_gemm` and `flash_attention` kernels from
+  2. build the `moe_gemm`, `flash_attention` and `ssm_scan` kernels from
      `src/repro_torch/kernels/csrc/` with nvcc for sm_90a, one nvcc per
-     source, started together; print the build times and ptxas's report;
-  3. `moe_gemm` against its plain PyTorch version on the card: the
+     source, started together; print the build times and ptxas's report
+     (registers, spills, static smem) for every kernel, the bf16
+     tensor-core ones included, and the flash kernels' dynamic smem;
+  3. `moe_gemm` against its plain PyTorch version on the card, in bf16
+     (the wgmma/TMA kernel) and f32 (the CUDA-core kernel): the
      qwen2-moe serving path's two shapes, the Jamba prefill's (C=640) and
-     Jamba decode's, up and down, in bf16 and f32, a ragged shape, expert
-     isolation; times (CUDA events, median after warm-up) of the kernel,
-     the plain version and `torch.bmm` for one MoE layer at the qwen2-moe
-     serving shapes and at the Jamba prefill's, beside the least time the
-     card could take;
-  4. the flash-attention forward and backward kernels against their plain
-     versions (and the backward against autograd through `attention_ref`)
-     at the training path's shape, the forward at the Jamba prefill's
-     (S=4096, 32:8 heads, hd 128), a ragged S, MQA at head dim 128 and causal + window +
-     softcap, in bf16 and f32; times of the kernels,
-     the plain versions and `scaled_dot_product_attention` at the path's
-     shape, beside their bounds;
+     Jamba decode's, up and down, a ragged shape, one with d and f not
+     multiples of 8 (bf16 goes through the padding), expert isolation;
+     times (CUDA events, median after warm-up) of the kernel, the plain
+     version and `torch.bmm` for one MoE layer at the qwen2-moe serving
+     shapes (bf16 and f32), at the Jamba prefill's and at Jamba decode's,
+     beside the least time the card could take;
+  4. the flash-attention forward (bf16 on tensor cores, f32 on CUDA
+     cores) and backward kernels against their plain versions (and the
+     backward against autograd through `attention_ref`) at the training
+     path's shape, the forward at the Jamba prefill's (S=4096, 32:8
+     heads, hd 128), a ragged S, MQA at head dim 128 and causal + window
+     + softcap, in bf16 and f32; times of the kernels, the plain versions
+     and `scaled_dot_product_attention` at the path's shape (the forward
+     in both dtypes) and of the bf16 forward at the Jamba shape, beside
+     their bounds;
   5. slice 1's main path: `serve()` on full-width qwen2-moe-a2.7b with
      random bf16 weights from a seeded generator, with the `moe_gemm`
      launch count set to 0 just before and read just after;
@@ -64,8 +70,9 @@ its own failure):
      flash kernels) within 1e-4, and the engine equals greedy decode;
      `selective_scan` and `ssm_scan` on a CUDA operand that requires
      grad raise;
- 15. a JSON line with the kernels' numbers, then, last, the result line
-     {"ok": true, "device": {...}}.
+ 15. a JSON line with the kernels' numbers (the bf16 and f32 routes of
+     `moe_gemm` and of the flash forward as entries of their own), then,
+     last, the result line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
 """
@@ -226,11 +233,19 @@ def ptxas_report(lib: Path) -> None:
         if m:
             k = re.search(r"([a-z_]+_kernel)I(13__nv_bfloat16|f)"
                           r"(?:Li(\d+)E)?", m.group(1))
+            t = re.search(r"([a-z_]+_kernel)ILi(\d+)EE", m.group(1))
             param = "NL " if k and k.group(1) == "sel_scan_kernel" \
                 else "hd "
-            name = (f"{k.group(1)}<{'bf16' if k.group(2) != 'f' else 'f32'}"
-                    f"{', ' + param + k.group(3) if k.group(3) else ''}>"
-                    if k else m.group(1))
+            if k:
+                name = (f"{k.group(1)}<"
+                        f"{'bf16' if k.group(2) != 'f' else 'f32'}"
+                        f"{', ' + param + k.group(3) if k.group(3) else ''}>")
+            elif t:                  # the bf16 tensor-core kernels
+                name = (f"{t.group(1)}<bf16, "
+                        f"{'warpgroups' if 'moe' in t.group(1) else 'hd'} "
+                        f"{t.group(2)}>")
+            else:
+                name = m.group(1)
         elif "registers" in line or "spill" in line or "smem" in line:
             print(f"[build]   {name}: {line.strip()}")
 
@@ -313,13 +328,49 @@ def check_flash(gen) -> dict:
                 ka, va
             torch.cuda.empty_cache()
     return {"o": errs[("path", torch.bfloat16)][0],
+            "o_f32": errs[("path", torch.float32)][0],
             "grads": errs[("path", torch.bfloat16)][1]}
 
 
-def time_flash(gen, bf16_fps, mem_bps) -> dict:
+def time_fwd(label, dtype, gen, flops_peak, mem_bps, plain_reps) -> dict:
+    """The forward at ATTN_CASES[label], causal: the kernel, the plain
+    version and SDPA (no grad), beside the bound."""
+    case = ATTN_CASES[label]
+    b, s, nq, _, hd, _, _ = case
+    q, k, v, _ = attn_inputs(case, dtype, gen)
+    qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def sdpa():
+        with torch.no_grad():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True, enable_gqa=True)
+
+    t = {"ms": time_ms(lambda: flash_attention_fwd(q, k, v, causal=True)),
+         "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v,
+                                                         causal=True),
+                             *plain_reps),
+         "library_ms": time_ms(sdpa)}
+    size = q.element_size()
+    t["bound_ms"], t["bound_by"] = attn_bound(
+        b, s, nq, hd, size, 2, size * (2 * q.numel() + k.numel() + v.numel())
+        + 4 * b * nq * s, flops_peak, mem_bps)
+    route = ("bf16 (mma.sync)" if dtype == torch.bfloat16
+             else "f32 (CUDA cores)")
+    print(f"[time] flash_attention forward {label} {case[:5]} causal "
+          f"{route}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+          f"SDPA {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}); kernel at "
+          f"{100 * t['bound_ms'] / t['ms']:.2f}% of the bound")
+    del q, k, v, qs, ks, vs
+    torch.cuda.empty_cache()
+    return t
+
+
+def time_flash(gen, bf16_fps, f32_fps, mem_bps) -> dict:
     """Forward and backward at the path's shape in bf16: the kernels, the
     plain versions and SDPA (forward; backward alone through
-    autograd.grad on a retained graph), beside their bounds."""
+    autograd.grad on a retained graph), beside their bounds; then the bf16
+    forward at the Jamba shape and the f32 forward at the path's shape."""
     case = ATTN_CASES["path"]
     b, s, nq, nkv, hd, _, _ = case
     q, k, v, do = attn_inputs(case, torch.bfloat16, gen)
@@ -332,10 +383,6 @@ def time_flash(gen, bf16_fps, mem_bps) -> dict:
         return torch.nn.functional.scaled_dot_product_attention(
             qs, ks, vs, is_causal=True, enable_gqa=True)
 
-    def sdpa_no_grad():
-        with torch.no_grad():
-            return sdpa()
-
     so = sdpa()
     sdpa_bwd = lambda: torch.autograd.grad(so, (qs, ks, vs), dos,  # noqa: E731
                                            retain_graph=True)
@@ -343,13 +390,9 @@ def time_flash(gen, bf16_fps, mem_bps) -> dict:
         sdpa(), (qs, ks, vs), dos)
     qkv = 2 * (q.numel() + k.numel() + v.numel())
     lse_b = 4 * lse.numel()
-    out = {}
-    fwd = {"ms": time_ms(lambda: flash_attention_fwd(q, k, v, causal=True)),
-           "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v,
-                                                           causal=True)),
-           "library_ms": time_ms(sdpa_no_grad)}
-    fwd["bound_ms"], fwd["bound_by"] = attn_bound(
-        b, s, nq, hd, 2, 2, qkv + 2 * o.numel() + lse_b, bf16_fps, mem_bps)
+    out = {"forward": time_fwd("path", torch.bfloat16, gen, bf16_fps,
+                               mem_bps, (20, 3))}
+    fwd = out["forward"]
     bwd = {"ms": time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
                                                      causal=True)),
            "plain_ms": time_ms(lambda: flash_attention_bwd_ref(
@@ -359,17 +402,20 @@ def time_flash(gen, bf16_fps, mem_bps) -> dict:
         b, s, nq, hd, 2, 5, 2 * qkv + 4 * o.numel() + lse_b, bf16_fps,
         mem_bps)
     fwd_bwd_lib = time_ms(sdpa_fwd_bwd)
-    for label, t in (("forward", fwd), ("backward", bwd)):
-        print(f"[time] flash_attention {label} {case[:5]} causal bf16: "
-              f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-              f"SDPA {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} "
-              f"ms ({t['bound_by']}); kernel at "
-              f"{100 * t['bound_ms'] / t['ms']:.2f}% of the bound")
-        out[label] = t
+    print(f"[time] flash_attention backward {case[:5]} causal bf16: kernels "
+          f"{bwd['ms']:.4f} ms, plain {bwd['plain_ms']:.4f} ms, SDPA "
+          f"{bwd['library_ms']:.4f} ms, bound {bwd['bound_ms']:.4f} ms "
+          f"({bwd['bound_by']}); kernels at "
+          f"{100 * bwd['bound_ms'] / bwd['ms']:.2f}% of the bound")
+    out["backward"] = bwd
     print(f"[time] flash_attention forward+backward: kernels "
           f"{fwd['ms'] + bwd['ms']:.4f} ms, SDPA {fwd_bwd_lib:.4f} ms")
     del q, k, v, do, o, lse, qs, ks, vs, dos, so
     torch.cuda.empty_cache()
+    out["jamba"] = time_fwd("jamba", torch.bfloat16, gen, bf16_fps, mem_bps,
+                            (3, 1))
+    out["forward_f32"] = time_fwd("path", torch.float32, gen, f32_fps,
+                                  mem_bps, (5, 1))
     return out
 
 
@@ -767,9 +813,10 @@ def jamba_prefill_and_serve(n_calls: int = 3) -> dict:
     return {"prefill_counts": counts}
 
 
-def jamba_tiny_checks() -> None:
+def jamba_tiny_checks() -> dict:
     """Tiny f32 Jamba (full pattern) on the card: decode == forward, the
-    engine == greedy decode; then the scans under autograd raise."""
+    engine == greedy decode; then the scans under autograd raise. Returns
+    the kernel launches of the f32 forward."""
     cfg = jamba_tiny_f32()
     model = get_model(cfg, "cuda")
     params = model.init_params(torch.Generator("cuda").manual_seed(0))
@@ -820,6 +867,7 @@ def jamba_tiny_checks() -> None:
         with torch.no_grad():
             call()
     torch.cuda.synchronize()
+    return counts
 
 
 def main() -> int:
@@ -860,11 +908,13 @@ def main() -> int:
         print(f"[build] {kname}: {secs:.2f} s -> {lib.name}")
         ptxas_report(lib)
     flib = fa._lib()
-    flib.flash_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    for which, kname in enumerate(("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                                   "flash_bwd_dkdv_kernel")):
+    flib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
+    for which, bf16, kname in ((0, 1, "flash_fwd_mma_kernel<bf16>"),
+                               (0, 0, "flash_fwd_kernel<f32>"),
+                               (1, 0, "flash_bwd_dq_kernel"),
+                               (2, 0, "flash_bwd_dkdv_kernel")):
         print(f"[build]   {kname}: dynamic smem " + ", ".join(
-            f"hd {hd} {flib.flash_attention_smem_bytes(which, hd)} B"
+            f"hd {hd} {flib.flash_attention_smem_bytes(which, hd, bf16)} B"
             for hd in fa.HEAD_DIMS))
 
     # ---- 3. kernel vs plain ---------------------------------------------
@@ -883,6 +933,8 @@ def main() -> int:
         gemm_cases += [(f"{label} gate/up", (je, jc, jd, jf)),
                        (f"{label} down", (je, jc, jf, jd))]
     gemm_cases.append(("ragged", (3, 100, 96, 72)))
+    # d and f not multiples of 8: bf16 goes through the wrapper's padding
+    gemm_cases.append(("unaligned d, f", (3, 100, 93, 71)))
     gen = torch.Generator("cuda").manual_seed(0)
 
     def operands(shape, dtype, scale=0.3):
@@ -919,39 +971,51 @@ def main() -> int:
     print("[check] moe_gemm expert isolation: ok")
 
     # times at the path's shapes, bf16: each shape, then one MoE layer's
-    # three calls (gate, up, down) as the kernel's line in the JSON
+    # three calls (gate, up, down) as the kernel's line in the JSON, at the
+    # serving shapes, at the Jamba prefill's and at Jamba decode's (C=16,
+    # on the prefill's weights); then the f32 kernel's layer at the
+    # serving shapes
     xu, wg = operands(up_shape, torch.bfloat16)
     _, wu = operands(up_shape, torch.bfloat16)
     xd, wd = operands(down_shape, torch.bfloat16)
     xju, wjg = operands((je, jc_prefill, jd, jf), torch.bfloat16)
     _, wju = operands((je, jc_prefill, jd, jf), torch.bfloat16)
     xjd, wjd = operands((je, jc_prefill, jf, jd), torch.bfloat16)
+    xju1, xjd1 = (t[:, :jc_decode].contiguous() for t in (xju, xjd))
+    xu32, wg32 = operands(up_shape, torch.float32)
+    _, wu32 = operands(up_shape, torch.float32)
+    xd32, wd32 = operands(down_shape, torch.float32)
     calls = {"gate/up": [(xu, wg)], "down": [(xd, wd)],
              "layer": [(xu, wg), (xu, wu), (xd, wd)],
-             "jamba prefill layer": [(xju, wjg), (xju, wju), (xjd, wjd)]}
+             "jamba prefill layer": [(xju, wjg), (xju, wju), (xjd, wjd)],
+             "jamba decode layer": [(xju1, wjg), (xju1, wju), (xjd1, wjd)],
+             "f32 layer": [(xu32, wg32), (xu32, wu32), (xd32, wd32)]}
     times = {}
     for label, args in calls.items():
         shapes = [(*x_.shape, w_.shape[2]) for x_, w_ in args]
-        reps = (5, 1) if label.startswith("jamba") else (20, 3)  # ~0.2 s
+        f32 = args[0][0].dtype == torch.float32
+        reps = (5, 1) if label == "jamba prefill layer" else (20, 3)
         t = {"ms": time_ms(lambda: [moe_gemm(*a) for a in args], *reps),
              "plain_ms": time_ms(lambda: [moe_gemm_ref(*a) for a in args],
                                  *reps),
              "library_ms": time_ms(lambda: [torch.bmm(*a) for a in args],
                                    *reps)}
-        t["bound_ms"], t["bound_by"] = bound(shapes, 2, bf16_fps, mem_bps)
+        t["bound_ms"], t["bound_by"] = bound(
+            shapes, 4 if f32 else 2, f32_fps if f32 else bf16_fps, mem_bps)
         times[label] = t
-        print(f"[time] moe_gemm {label} {shapes} bf16: kernel {t['ms']:.4f} "
-              f"ms, plain {t['plain_ms']:.4f} ms, torch.bmm "
+        print(f"[time] moe_gemm {label} {shapes} "
+              f"{'f32 (CUDA cores)' if f32 else 'bf16 (wgmma)'}: kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, torch.bmm "
               f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']}); kernel at "
               f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound")
-    del xu, wg, wu, xd, wd, xju, wjg, wju, xjd, wjd, x, w, base, pert, got, \
-        want, args, calls
+    del xu, wg, wu, xd, wd, xju, wjg, wju, xjd, wjd, xju1, xjd1, xu32, \
+        wg32, wu32, xd32, wd32, x, w, base, pert, got, want, args, calls
     torch.cuda.empty_cache()
 
     # ---- 4. flash attention vs plain, and its times ---------------------
     flash_errs = check_flash(gen)
-    flash_times = time_flash(gen, bf16_fps, mem_bps)
+    flash_times = time_flash(gen, bf16_fps, f32_fps, mem_bps)
 
     # ---- 5. slice 1's main path: full-width serve -----------------------
     moe_layers = sum(b.ffn == "moe" for b in cfg.pattern) * cfg.repeats
@@ -1084,39 +1148,65 @@ def main() -> int:
     jamba = jamba_prefill_and_serve()
 
     # ---- 14. tiny f32 Jamba on the card; the scans under grad raise -----
-    jamba_tiny_checks()
+    f32_counts = jamba_tiny_checks()
 
     # ---- 15. results -----------------------------------------------------
-    layer = times["layer"]
-    kernels = [{
-        "name": "moe_gemm", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/moe_gemm.cu",
-        "replaces": "src/repro/kernels/moe_gemm.py:21",
-        "launches": launches,
-        "max_abs_err": max(errs[(lb, torch.bfloat16)]
-                           for lb in ("gate/up", "down")),
-        "ms": layer["ms"], "plain_ms": layer["plain_ms"],
-        "bound_ms": layer["bound_ms"], "bound_by": layer["bound_by"],
-        "library_ms": layer["library_ms"],
-        "unit": "one MoE layer's three calls (gate, up, down) at the "
-                "serving path's bf16 shapes",
-    }]
-    for kname, replaces, count, err, t in (
-            ("flash_attention", "src/repro/kernels/flash_attention.py:30",
-             fwd_launches, flash_errs["o"], flash_times["forward"]),
-            ("flash_attention_bwd", None, bwd_launches, flash_errs["grads"],
-             flash_times["backward"])):
+    # Both dtypes of moe_gemm and of the flash forward count in one
+    # `launches`; each route's own count is that of a run in its dtype:
+    # bf16 the main paths (phases 5 and 9), f32 the tiny f32 Jamba
+    # forward (phase 14).
+    def times_of(t):
+        return {k_: t[k_] for k_ in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}
+
+    kernels = []
+    for dtype, t, count, unit in (
+            (torch.bfloat16, times["layer"], launches,
+             "one MoE layer's three calls (gate, up, down) at the serving "
+             "path's bf16 shapes; launches over the serve run"),
+            (torch.float32, times["f32 layer"], f32_counts["moe_gemm"],
+             "one MoE layer's three calls at the serving path's shapes in "
+             "f32; launches: the tiny f32 Jamba forward")):
+        bf16 = dtype == torch.bfloat16
+        kernels.append({
+            "name": f"moe_gemm ({'bf16' if bf16 else 'f32'})",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/moe_gemm.cu",
+            "kernel": "moe_gemm_wgmma_kernel" if bf16 else "moe_gemm_kernel",
+            "replaces": "src/repro/kernels/moe_gemm.py:21",
+            "launches": count,
+            "max_abs_err": max(errs[(lb, dtype)]
+                               for lb in ("gate/up", "down")),
+            **times_of(t), "unit": unit,
+            **({"jamba_prefill_layer": times_of(times["jamba prefill layer"]),
+                "jamba_decode_layer": times_of(times["jamba decode layer"])}
+               if bf16 else {}),
+        })
+    for kname, kern, replaces, count, err, t, unit in (
+            ("flash_attention (bf16)", "flash_fwd_mma_kernel",
+             "src/repro/kernels/flash_attention.py:30", fwd_launches,
+             flash_errs["o"], flash_times["forward"],
+             "one layer's forward at the training path's bf16 shape (B=4, "
+             "S=T=2048, 14:2 heads, hd 64, causal); launches over the "
+             "train run"),
+            ("flash_attention (f32)", "flash_fwd_kernel",
+             "src/repro/kernels/flash_attention.py:30",
+             f32_counts["flash_attention"], flash_errs["o_f32"],
+             flash_times["forward_f32"],
+             "one layer's forward at the training path's shape in f32; "
+             "launches: the tiny f32 Jamba forward"),
+            ("flash_attention_bwd", "flash_bwd_dq_kernel, "
+             "flash_bwd_dkdv_kernel", None, bwd_launches,
+             flash_errs["grads"], flash_times["backward"],
+             "one layer's call at the training path's bf16 shape; two "
+             "launches (dq, dk/dv), library = SDPA's backward alone")):
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": replaces, "launches": count, "max_abs_err": err,
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
-            "unit": "one layer's call at the training path's bf16 shape "
-                    "(B=4, S=T=2048, 14:2 heads, hd 64, causal)"
-                    + ("; two launches (dq, dk/dv), library = SDPA's "
-                       "backward alone" if kname.endswith("bwd") else ""),
+            "kernel": kern, "replaces": replaces, "launches": count,
+            "max_abs_err": err, **times_of(t), "unit": unit,
+            **({"jamba": times_of(flash_times["jamba"])}
+               if kname.endswith("(bf16)") else {}),
         })
     for kname, replaces, count in (
             ("selective_scan", "src/repro/kernels/ssm_scan.py:27",

@@ -22,10 +22,44 @@
 // five products 75.2 GFLOP: both are bound by operations, 0.030 ms and
 // 0.076 ms at the H100 SXM's 989 bf16 tensor-core TFLOP/s (arithmetic).
 //
-// Design: simple and right first. No tensor cores, no wgmma, no TMA, no
-// cp.async: tiles are staged in shared memory as f32 by plain loads and
-// every product runs on the CUDA cores in f32 (67 TFLOP/s on the H100
-// SXM, so the kernels sit far above the bound).
+// Forward, bf16: flash_fwd_mma_kernel, FlashAttention-2's organisation on
+// the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulators):
+//   * One block per (64-row q tile, q head, batch), 4 warps; each warp
+//     owns 16 query rows and keeps their Q fragments in registers.
+//   * K and V tiles of 64 keys arrive by cp.async (16 B a copy, rows past
+//     T zero-filled) in two shared-memory stages: the next live tile loads
+//     while this one is used. Rows are padded by 16 B, so ldmatrix's 8
+//     rows fall in 8 different bank groups. K is read with ldmatrix as
+//     the B operand of Q K^T, V with ldmatrix.trans as the B operand of
+//     P V.
+//   * S, the running max and the denominator stay in f32 registers (the
+//     softmax in base 2, lse returned in base e). P is packed from S's
+//     accumulator fragment straight into P V's A fragment, rounded to
+//     bf16: the one rounding the design adds. The denominator is summed
+//     from the f32 P, so lse means what it meant.
+//   * Each tile's softmax is one of three instantiations, chosen once per
+//     tile: no mask and no softcap (every tile below the causal diagonal;
+//     one FFMA and one ex2 an element), masked, or softcapped. One loop
+//     with a per-element test compiled to a branch around every ex2.
+//   * Masks, the dead-tile test (tile_live), the -1e30 sentinel with p
+//     masked explicitly, the 1e-30 clamp and the single rounding of the
+//     output are the f32 kernel's.
+//   * Measured on an H100 SXM at 700 W (PERF.md): 0.19 ms at the training
+//     shape against SDPA's 0.09, with a lean inner loop (~370
+//     instructions a warp a tile). A third K/V stage, a larger shared-
+//     memory carveout, 2 blocks an SM by launch bounds, 32 rows a warp, 8
+//     warps a block, tree reductions and issuing the next tile's Q K^T
+//     before this tile's softmax each left it within 3% or made it
+//     slower. wgmma (FlashAttention-3) is the next design.
+//   * The inputs' base addresses and batch, sequence and head strides
+//     must be 16-byte aligned (cp.async); the wrapper copies any that are
+//     not.
+//
+// Forward in f32, and the backward in both dtypes: simple and right
+// first. No tensor cores: tiles are staged in shared memory as f32 by
+// plain loads and every product runs on the CUDA cores in f32 (67
+// TFLOP/s on the H100 SXM, so these kernels sit far above the bound;
+// tensor cores would take f32 only as TF32).
 //   * 64x64 tiles, 128 threads. Thread (tx, ty) = (tid % 16, tid / 16)
 //     owns tile rows ty*8 .. ty*8+7 and columns tx + 16*j, so the 16
 //     threads that share a row are one half-warp and row maxima and sums
@@ -51,10 +85,14 @@
 //             group's nq/nkv query heads and the live q tiles:
 //             dV += P^T dO, dK += scale * dS^T Q.
 //   * Shared memory per block (dynamic), hd = 64 / 128: forward 68 / 118
-//     KB, dq 86 / 154 KB, dk/dv 103 / 171 KB.
+//     KB in f32 and 45 / 85 KB in bf16, dq 86 / 154 KB, dk/dv 103 / 171
+//     KB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 // Arguments of every launch; mirrored by ctypes.Structure in
 // flash_attention.py (pointers, then 64-bit strides, then ints, floats).
@@ -321,6 +359,326 @@ flash_fwd_kernel(const FlashArgs a) {
   }
 }
 
+// --------------------------------------- forward, bf16 on tensor cores
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Shared-memory tiles of 64 rows of HD bf16, rows padded by 16 B: Q, then
+// kFwdStages stages of K and V (3 stages measured no faster than 2).
+constexpr int kFwdStages = 2;
+template <int HD>
+__host__ __device__ constexpr int ld_mma() { return HD + 8; }
+template <int HD>
+constexpr int fwd_mma_smem() {
+  return (1 + 2 * kFwdStages) * kTile * ld_mma<HD>() * 2;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, or 16 zero bytes if !ok.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// d (16x8 f32) += a (16x16 bf16, row-major) b (16x8 bf16, column-major)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the SFU; 2^-1e30 = 0.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Every (query, key) pair of a live (q tile, k tile) holds a valid score
+// for the tile's query rows that exist: no mask is needed.
+__device__ __forceinline__ bool tile_full(const FlashArgs& a, int q0, int k0) {
+  if (k0 + kTile > a.T) return false;
+  if (a.causal && k0 + kTile - 1 > q0) return false;
+  if (a.window > 0 && k0 <= q0 + kTile - 1 - a.window) return false;
+  return true;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The first 64 rows of a [len, HD] bf16 slab with row stride `rs`
+// (elements) into shared memory at `dst` by cp.async; rows past `len`
+// are zeros.
+template <int HD>
+__device__ __forceinline__ void load_tile_async(uint32_t dst,
+                                                const __nv_bfloat16* src,
+                                                long long rs, int len) {
+  constexpr int kChunks = HD / 8;                 // 16-byte chunks a row
+  for (int i = threadIdx.x; i < kTile * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    const bool ok = r < len;
+    cp_async16(dst + (r * ld_mma<HD>() + c * 8) * 2,
+               src + (ok ? r * rs + c * 8 : 0), ok);
+  }
+}
+
+// Reductions over the 4 threads of a quad, which share an mma row.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// How a tile's scores are formed: kPlain, every pair valid and no
+// softcap; kMasked, pairs tested against the masks, no softcap; kSoftcap,
+// pairs tested and scores softcapped.
+enum SoftmaxMode { kPlain, kMasked, kSoftcap };
+
+// One tile's online-softmax step, in base 2, for this thread's two rows
+// (qrow[i]): fragment element (j, 2i + c) of S is row qrow[i], key
+// k0 + 8j + 2 * (lane % 4) + c. Rescales o and l by the change of the
+// running max m, and leaves p in s; masked p are 0. Without softcap, m is
+// taken over the raw dots and p = 2^(dot * scale * log2e - m) is one FFMA
+// and one ex2.
+template <SoftmaxMode kMode, int NS, int NO>
+__device__ __forceinline__ void softmax_step(const FlashArgs& a,
+                                             float (&s)[NS][4],
+                                             float (&o)[NO][4], float (&m)[2],
+                                             float (&l)[2],
+                                             const int (&qrow)[2], int k0,
+                                             int lane, float scale_log2) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    uint32_t ok = 0;
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float& x = s[j][2 * i + c];
+        if (kMode != kPlain) {
+          const bool valid =
+              score_valid(a, qrow[i], k0 + 8 * j + 2 * (lane % 4) + c);
+          ok |= static_cast<uint32_t>(valid) << (2 * j + c);
+          float t;
+          if (kMode == kSoftcap)
+            x = valid ? score(a, x, &t) * kLog2e : kNegInf;
+          else
+            x = valid ? x : kNegInf;
+        }
+        mx = fmaxf(mx, x);
+      }
+    if (kMode != kSoftcap) mx *= scale_log2;   // raw dots; -1e30 stays low
+    const float m_new = fmaxf(m[i], quad_max(mx));
+    const float alpha = ex2(m[i] - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float& x = s[j][2 * i + c];
+        const float p = kMode == kSoftcap ? ex2(x - m_new)
+                                          : ex2(fmaf(x, scale_log2, -m_new));
+        x = kMode == kPlain || (ok >> (2 * j + c)) & 1u ? p : 0.f;
+        sum += x;
+      }
+    l[i] = l[i] * alpha + sum;             // this thread's part of the row
+    m[i] = m_new;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      o[j][2 * i] *= alpha;
+      o[j][2 * i + 1] *= alpha;
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_mma_kernel(const FlashArgs a) {
+  constexpr int LD = ld_mma<HD>();
+  constexpr int kTileBytes = kTile * LD * 2;
+  constexpr int KS = HD / 16;              // k16 steps of Q K^T
+  constexpr int NO = HD / 8;               // n8 blocks of the output
+  constexpr int NS = kTile / 8;            // n8 blocks of S
+  constexpr int ST = kFwdStages;
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  const uint32_t sq = smem_u32(smem_mma);
+  auto sk = [&](int st) { return sq + (1 + 2 * st) * kTileBytes; };
+  auto sv = [&](int st) { return sq + (2 + 2 * st) * kTileBytes; };
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_qt = (a.S + kTile - 1) / kTile;
+  const int q0 = (n_qt - 1 - blockIdx.x) * kTile;   // longest rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (a.nq / a.nkv);
+  const auto* qp = static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb +
+                   h * a.q_sh;
+  const auto* kp = static_cast<const __nv_bfloat16*>(a.k) + b * a.k_sb +
+                   hk * a.k_sh;
+  const auto* vp = static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb +
+                   hk * a.v_sh;
+  const int n_kt = (a.T + kTile - 1) / kTile;
+  const float scale_log2 = a.scale * kLog2e;
+  auto next_live = [&](int kt) {
+    do ++kt; while (kt < n_kt && !tile_live(a, q0, kt * kTile));
+    return kt;
+  };
+  auto load_kv = [&](int st, int kt) {
+    const int k0 = kt * kTile;
+    load_tile_async<HD>(sk(st), kp + static_cast<long long>(k0) * a.k_ss,
+                        a.k_ss, a.T - k0);
+    load_tile_async<HD>(sv(st), vp + static_cast<long long>(k0) * a.v_ss,
+                        a.v_ss, a.T - k0);
+  };
+
+  // Q, then the first ST - 1 live K/V tiles, one cp.async group each.
+  load_tile_async<HD>(sq, qp + static_cast<long long>(q0) * a.q_ss, a.q_ss,
+                      a.S - q0);
+  int kt = next_live(-1), kt_load = kt;
+#pragma unroll
+  for (int st = 0; st < ST - 1; ++st) {
+    if (kt_load < n_kt) {
+      load_kv(st, kt_load);
+      kt_load = next_live(kt_load);
+    }
+    cp_async_commit();
+  }
+
+  // This thread's rows of the warp's 16: lane / 4 and lane / 4 + 8.
+  const int qrow[2] = {q0 + warp * 16 + lane / 4,
+                       q0 + warp * 16 + lane / 4 + 8};
+  uint32_t qf[KS][4];
+  float o[NO][4], m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[j][c] = 0.f;
+
+  for (int st = 0, first = 1; kt < n_kt; first = 0) {
+    // load ST - 1 tiles ahead, into the stage the last iteration freed
+    if (kt_load < n_kt) {
+      load_kv(st == 0 ? ST - 1 : st - 1, kt_load);
+      kt_load = next_live(kt_load);
+    }
+    cp_async_commit();
+    cp_async_wait<ST - 1>();               // Q and this tile have landed
+    __syncthreads();
+    if (first) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ldmatrix_x4(qf[kk], sq + ((warp * 16 + lane % 16) * LD + 16 * kk +
+                                  (lane / 16) * 8) * 2);
+    }
+
+    // S = Q K^T for the warp's 16 rows and the tile's 64 keys.
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int jp = 0; jp < NS / 2; ++jp) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, sk(st) + ((16 * jp + lane % 8 + (lane / 16) * 8) * LD +
+                                  16 * kk + ((lane / 8) % 2) * 8) * 2);
+        mma_bf16(s[2 * jp], qf[kk], kb[0], kb[1]);
+        mma_bf16(s[2 * jp + 1], qf[kk], kb[2], kb[3]);
+      }
+
+    // Online softmax over the tile. The three modes are separate
+    // instantiations, chosen once per tile, so none carries another's
+    // branches: on the causal path only the diagonal tile is masked.
+    const int k0 = kt * kTile;
+    if (a.softcap > 0.f)
+      softmax_step<kSoftcap>(a, s, o, m, l, qrow, k0, lane, scale_log2);
+    else if (tile_full(a, q0, k0))
+      softmax_step<kPlain>(a, s, o, m, l, qrow, k0, lane, scale_log2);
+    else
+      softmax_step<kMasked>(a, s, o, m, l, qrow, k0, lane, scale_log2);
+
+    // O += P V: P's A fragment for keys 16t .. 16t + 15 is S's n8 blocks
+    // 2t and 2t + 1, rounded to bf16.
+#pragma unroll
+    for (int t = 0; t < kTile / 16; ++t) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * t][0], s[2 * t][1]),
+                              pack_bf16(s[2 * t][2], s[2 * t][3]),
+                              pack_bf16(s[2 * t + 1][0], s[2 * t + 1][1]),
+                              pack_bf16(s[2 * t + 1][2], s[2 * t + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < NO / 2; ++dp) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, sv(st) + ((16 * t + lane % 8 +
+                                         ((lane / 8) % 2) * 8) * LD +
+                                        16 * dp + (lane / 16) * 8) * 2);
+        mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
+        mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();                       // done with stage st
+    kt = next_live(kt);
+    st = st == ST - 1 ? 0 : st + 1;
+  }
+  cp_async_wait<0>();
+
+  auto* op = static_cast<__nv_bfloat16*>(a.out);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float l_row = quad_sum(l[i]);
+    if (qrow[i] >= a.S) continue;
+    const float inv = 1.f / fmaxf(l_row, 1e-30f);
+    __nv_bfloat16* row =
+        op + ((static_cast<long long>(b) * a.S + qrow[i]) * a.nq + h) * HD;
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * (lane % 4)) =
+          __floats2bfloat162_rn(o[j][2 * i] * inv, o[j][2 * i + 1] * inv);
+    if (lane % 4 == 0)
+      a.lse[(static_cast<long long>(b) * a.nq + h) * a.S + qrow[i]] =
+          (m[i] + log2f(l_row)) * kLn2;
+  }
+}
+
 // ------------------------------------------------------------ backward
 // dq kernel; also writes D = rowsum(dO * O) for the dk/dv kernel.
 template <typename T, int HD>
@@ -568,10 +926,16 @@ int launch(Kernel kernel, dim3 grid, int smem, const FlashArgs& a,
   return static_cast<int>(cudaGetLastError());
 }
 
+// bf16 takes the tensor-core kernel, f32 the CUDA-core one.
 template <typename T, int HD>
 int fwd(const FlashArgs& a, void* stream) {
   const dim3 grid((a.S + kTile - 1) / kTile, a.nq, a.B);
-  return launch(flash_fwd_kernel<T, HD>, grid, fwd_smem<HD>(), a, stream);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>)
+    return launch(flash_fwd_mma_kernel<HD>, grid, fwd_mma_smem<HD>(), a,
+                  stream);
+  else
+    return launch(flash_fwd_kernel<float, HD>, grid, fwd_smem<HD>(), a,
+                  stream);
 }
 
 template <typename T, int HD>
@@ -645,15 +1009,19 @@ extern "C" int flash_attention_bwd_dkdv(const FlashArgs* a, int hd, int bf16,
   return dispatch<BwdDkdv>(*a, hd, bf16, stream);
 }
 
-// Dynamic shared memory of a launch: which = 0 forward, 1 dq, 2 dk/dv.
-extern "C" int flash_attention_smem_bytes(int which, int hd) {
+// Dynamic shared memory of a launch: which = 0 forward, 1 dq, 2 dk/dv;
+// bf16 = 1 for the bf16 forward (the backward's is the same for both).
+template <int HD>
+int smem_bytes(int which, int bf16) {
+  if (which == 0) return bf16 ? fwd_mma_smem<HD>() : fwd_smem<HD>();
+  return which == 1 ? dq_smem<HD>() : dkdv_smem<HD>();
+}
+
+extern "C" int flash_attention_smem_bytes(int which, int hd, int bf16) {
   switch (hd) {
-    case 16: return which == 0 ? fwd_smem<16>() : which == 1 ? dq_smem<16>()
-                                                             : dkdv_smem<16>();
-    case 64: return which == 0 ? fwd_smem<64>() : which == 1 ? dq_smem<64>()
-                                                             : dkdv_smem<64>();
-    case 128: return which == 0 ? fwd_smem<128>()
-                     : which == 1 ? dq_smem<128>() : dkdv_smem<128>();
+    case 16: return smem_bytes<16>(which, bf16);
+    case 64: return smem_bytes<64>(which, bf16);
+    case 128: return smem_bytes<128>(which, bf16);
   }
   return kBadHeadDim;
 }

@@ -4,10 +4,14 @@ softcapping.
 
 Counterpart of `repro/kernels/flash_attention.py` (`flash_attention`). For
 CUDA tensors the functions here launch the hand-written Hopper kernels in
-`csrc/flash_attention.cu` (its note gives the bound and the design); for
-CPU tensors they compute the plain versions, `ref.flash_attention_ref` and
-`ref.flash_attention_bwd_ref`. Nothing sends a CUDA tensor to a plain
-version.
+`csrc/flash_attention.cu` (its note gives the bound and the designs); the
+forward picks its kernel by dtype: bf16 runs on the tensor cores
+(`mma.sync`), f32 on the CUDA cores. For CPU tensors they compute the
+plain versions, `ref.flash_attention_ref` and `ref.flash_attention_bwd_ref`.
+Nothing sends a CUDA tensor to a plain version. The bf16 forward copies
+its inputs with `cp.async`, 16 bytes at a time: `cp_async_ready` hands it
+a contiguous copy of any input whose base or strides are not 16-byte
+aligned.
 
 - `flash_attention` is the differentiable entry point: on CUDA a
   `torch.autograd.Function` whose forward and backward are kernels; on the
@@ -110,6 +114,18 @@ def _check_cuda(*ts: torch.Tensor) -> None:
                              f"(stride 1), got strides {t.stride()}")
 
 
+def cp_async_ready(t: torch.Tensor) -> torch.Tensor:
+    """`t` itself if its base address and its batch, sequence and head
+    strides (those of dims longer than 1) are multiples of 16 bytes, else
+    a contiguous copy: a layout step, the same values."""
+    nbytes = t.element_size()
+    if t.data_ptr() % 16 == 0 and all(
+            st * nbytes % 16 == 0
+            for st, n in zip(t.stride()[:3], t.shape[:3]) if n > 1):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _strides(args: _Args, name: str, t: torch.Tensor) -> None:
     sb, ss, sh, _ = t.stride()
     setattr(args, f"{name}_sb", sb)
@@ -157,6 +173,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap)
     _check_cuda(q, k, v)
+    if q.dtype == torch.bfloat16:
+        q, k, v = (cp_async_ready(t) for t in (q, k, v))
     b, s, nq, hd = q.shape
     o = torch.empty((b, s, nq, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, nq, s), dtype=torch.float32, device=q.device)
