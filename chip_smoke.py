@@ -12,7 +12,8 @@ its own failure):
      `src/repro_torch/kernels/csrc/` with nvcc for sm_90a, one nvcc per
      source, started together; print the build times and ptxas's report
      (registers, spills, static smem) for every kernel, the bf16
-     tensor-core ones included, and the flash kernels' dynamic smem;
+     tensor-core ones included, and the flash kernels' dynamic smem
+     (forward, dq and dk/dv, each in both routes);
   3. `moe_gemm` against its plain PyTorch version on the card, in bf16
      (the wgmma/TMA kernel) and f32 (the CUDA-core kernel): the
      qwen2-moe serving path's two shapes, the Jamba prefill's (C=640) and
@@ -22,15 +23,17 @@ its own failure):
      version and `torch.bmm` for one MoE layer at the qwen2-moe serving
      shapes (bf16 and f32), at the Jamba prefill's and at Jamba decode's,
      beside the least time the card could take;
-  4. the flash-attention forward (bf16 on tensor cores, f32 on CUDA
-     cores) and backward kernels against their plain versions (and the
+  4. the flash-attention forward and backward kernels (bf16 on tensor
+     cores, f32 on CUDA cores) against their plain versions (and the
      backward against autograd through `attention_ref`) at the training
      path's shape, the forward at the Jamba prefill's (S=4096, 32:8
      heads, hd 128), a ragged S, MQA at head dim 128 and causal + window
-     + softcap, in bf16 and f32; times of the kernels, the plain versions
-     and `scaled_dot_product_attention` at the path's shape (the forward
-     in both dtypes) and of the bf16 forward at the Jamba shape, beside
-     their bounds;
+     + softcap, in bf16 and f32; two backward calls on the same inputs
+     give bit-identical dq, dk and dv; times of the kernels, the plain
+     versions and `scaled_dot_product_attention` at the path's shape
+     (forward and backward in both dtypes, and the bf16 backward's dq and
+     dk/dv kernels each alone) and of the bf16 forward at the Jamba
+     shape, beside their bounds;
   5. slice 1's main path: `serve()` on full-width qwen2-moe-a2.7b with
      random bf16 weights from a seeded generator, with the `moe_gemm`
      launch count set to 0 just before and read just after;
@@ -44,10 +47,13 @@ its own failure):
   9. slice 2's main path: `train()` on full-width qwen2-0.5b, 6 steps of
      B=4 x S=2048 in bf16, with the flash-attention launch counts set to
      0 just before and read just after; then a torch.profiler window over
-     two train steps;
+     two train steps, which must show 24 launches a step of each bf16
+     kernel (`flash_fwd_mma_kernel`, `flash_bwd_dq_mma_kernel`,
+     `flash_bwd_dkdv_mma_kernel`) and none of the CUDA-core flash kernels;
  10. tiny qwen2-0.5b training in f32 on the card: the loss falls over 24
      steps, and a resume from the step-24 checkpoint to step 30 equals a
-     straight run to step 30;
+     straight run to step 30; the flash launch counts of these 60 steps
+     (the f32 routes' launches);
  11. the selective-scan and linear-scan kernels against their plain
      versions, in bf16 and f32: the Jamba prefill path's shape (B=1,
      S=4096, D=8192, N=16), a ragged S and D, a state dim that is not a
@@ -71,8 +77,8 @@ its own failure):
      `selective_scan` and `ssm_scan` on a CUDA operand that requires
      grad raise;
  15. a JSON line with the kernels' numbers (the bf16 and f32 routes of
-     `moe_gemm` and of the flash forward as entries of their own), then,
-     last, the result line {"ok": true, "device": {...}}.
+     `moe_gemm` and of the flash forward and backward as entries of their
+     own), then, last, the result line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
 """
@@ -300,7 +306,12 @@ def check_flash(gen) -> dict:
                 torch.cuda.empty_cache()
                 continue
             grads = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+            again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
             torch.cuda.synchronize()
+            # no atomics: the same inputs give the same bits
+            for name, g, g2 in zip("qkv", grads, again):
+                assert torch.equal(g, g2), \
+                    f"d{name} differs between two calls ({label}, {dtype})"
             rgrads = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
             qa, ka, va = (t.detach().clone().requires_grad_()
                           for t in (q, k, v))
@@ -323,13 +334,15 @@ def check_flash(gen) -> dict:
                   f"{e_lse:.3e} (tol {tol_lse}); dq/dk/dv vs plain "
                   f"backward {e_g:.3e} (tol {tol_g[dtype]}), vs autograd "
                   f"through attention_ref {e_ag:.3e} (tol {tol_ag[dtype]}); "
-                  f"tolerances hold |diff| <= tol * (1 + |plain|)")
-            del q, k, v, do, o, lse, ro, rlse, grads, rgrads, agrads, qa, \
-                ka, va
+                  f"two calls bit-identical; tolerances hold |diff| <= tol "
+                  f"* (1 + |plain|)")
+            del q, k, v, do, o, lse, ro, rlse, grads, again, rgrads, agrads, \
+                qa, ka, va
             torch.cuda.empty_cache()
     return {"o": errs[("path", torch.bfloat16)][0],
             "o_f32": errs[("path", torch.float32)][0],
-            "grads": errs[("path", torch.bfloat16)][1]}
+            "grads": errs[("path", torch.bfloat16)][1],
+            "grads_f32": errs[("path", torch.float32)][1]}
 
 
 def time_fwd(label, dtype, gen, flops_peak, mem_bps, plain_reps) -> dict:
@@ -366,14 +379,15 @@ def time_fwd(label, dtype, gen, flops_peak, mem_bps, plain_reps) -> dict:
     return t
 
 
-def time_flash(gen, bf16_fps, f32_fps, mem_bps) -> dict:
-    """Forward and backward at the path's shape in bf16: the kernels, the
-    plain versions and SDPA (forward; backward alone through
-    autograd.grad on a retained graph), beside their bounds; then the bf16
-    forward at the Jamba shape and the f32 forward at the path's shape."""
+def time_bwd(dtype, gen, flops_peak, mem_bps, plain_reps) -> dict:
+    """The backward at the path's shape, causal: the two kernels, the plain
+    version and SDPA's backward alone (autograd.grad on a retained graph),
+    beside the bound of its 5 products; in bf16 also the dq and dk/dv
+    kernels each alone beside the bounds of their 3 and 4 products, and
+    SDPA's forward + backward."""
     case = ATTN_CASES["path"]
-    b, s, nq, nkv, hd, _, _ = case
-    q, k, v, do = attn_inputs(case, torch.bfloat16, gen)
+    b, s, nq, _, hd, _, _ = case
+    q, k, v, do = attn_inputs(case, dtype, gen)
     o, lse = flash_attention_fwd(q, k, v, causal=True)
     qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
@@ -384,38 +398,72 @@ def time_flash(gen, bf16_fps, f32_fps, mem_bps) -> dict:
             qs, ks, vs, is_causal=True, enable_gqa=True)
 
     so = sdpa()
-    sdpa_bwd = lambda: torch.autograd.grad(so, (qs, ks, vs), dos,  # noqa: E731
-                                           retain_graph=True)
-    sdpa_fwd_bwd = lambda: torch.autograd.grad(  # noqa: E731
-        sdpa(), (qs, ks, vs), dos)
-    qkv = 2 * (q.numel() + k.numel() + v.numel())
-    lse_b = 4 * lse.numel()
-    out = {"forward": time_fwd("path", torch.bfloat16, gen, bf16_fps,
-                               mem_bps, (20, 3))}
-    fwd = out["forward"]
-    bwd = {"ms": time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
-                                                     causal=True)),
-           "plain_ms": time_ms(lambda: flash_attention_bwd_ref(
-               q, k, v, o, lse, do, causal=True)),
-           "library_ms": time_ms(sdpa_bwd)}
-    bwd["bound_ms"], bwd["bound_by"] = attn_bound(
-        b, s, nq, hd, 2, 5, 2 * qkv + 4 * o.numel() + lse_b, bf16_fps,
-        mem_bps)
-    fwd_bwd_lib = time_ms(sdpa_fwd_bwd)
-    print(f"[time] flash_attention backward {case[:5]} causal bf16: kernels "
-          f"{bwd['ms']:.4f} ms, plain {bwd['plain_ms']:.4f} ms, SDPA "
-          f"{bwd['library_ms']:.4f} ms, bound {bwd['bound_ms']:.4f} ms "
-          f"({bwd['bound_by']}); kernels at "
-          f"{100 * bwd['bound_ms'] / bwd['ms']:.2f}% of the bound")
-    out["backward"] = bwd
-    print(f"[time] flash_attention forward+backward: kernels "
-          f"{fwd['ms'] + bwd['ms']:.4f} ms, SDPA {fwd_bwd_lib:.4f} ms")
+    t = {"ms": time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                   causal=True)),
+         "plain_ms": time_ms(lambda: flash_attention_bwd_ref(
+             q, k, v, o, lse, do, causal=True), *plain_reps),
+         "library_ms": time_ms(lambda: torch.autograd.grad(
+             so, (qs, ks, vs), dos, retain_graph=True))}
+    size = q.element_size()
+    qb, kvb = size * q.numel(), size * (k.numel() + v.numel())
+    stat = 4 * lse.numel()                   # lse, or the D scratch
+    # bytes: q, k, v, o, do and lse read, dq, dk, dv written
+    t["bound_ms"], t["bound_by"] = attn_bound(
+        b, s, nq, hd, size, 5, 4 * qb + 2 * kvb + stat, flops_peak, mem_bps)
+    route = ("bf16 (mma.sync)" if dtype == torch.bfloat16
+             else "f32 (CUDA cores)")
+    print(f"[time] flash_attention backward {case[:5]} causal {route}: "
+          f"kernels {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA's "
+          f"backward {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}); kernels at "
+          f"{100 * t['bound_ms'] / t['ms']:.2f}% of the bound")
+    if dtype == torch.bfloat16:
+        args, _alive, _ = fa._bwd_args(q, k, v, o, lse, do, causal=True,
+                                       window=None, softcap=None)
+        fa._launch("flash_attention_bwd_dq", args, q)   # D for dk/dv alone
+        # dq: q, k, v, o, do, lse read; dq, D written. dk/dv: q, k, v, do,
+        # lse, D read; dk, dv written.
+        for name, products, nbytes in (
+                ("dq", 3, 3 * qb + kvb + 2 * stat),
+                ("dkdv", 4, 2 * qb + 2 * kvb + 2 * stat)):
+            ms = time_ms(lambda: fa._launch(f"flash_attention_bwd_{name}",
+                                            args, q))
+            bms, by = attn_bound(b, s, nq, hd, size, products, nbytes,
+                                 flops_peak, mem_bps)
+            t[name] = {"ms": ms, "bound_ms": bms, "bound_by": by}
+            print(f"[time]   {name} kernel alone: {ms:.4f} ms, bound of its "
+                  f"{products} products {bms:.4f} ms ({by}), "
+                  f"{100 * bms / ms:.2f}% of it")
+        print(f"[time]   the two kernels recompute S and dP (7 products in "
+              f"all, no atomics): their own ceiling is "
+              f"{t['bound_ms'] * 7 / 5:.4f} ms, the backward at "
+              f"{100 * t['bound_ms'] * 7 / 5 / t['ms']:.2f}% of it")
+        del args, _alive
+        t["sdpa_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            sdpa(), (qs, ks, vs), dos))
     del q, k, v, do, o, lse, qs, ks, vs, dos, so
     torch.cuda.empty_cache()
+    return t
+
+
+def time_flash(gen, bf16_fps, f32_fps, mem_bps) -> dict:
+    """Forward and backward at the path's shape in both dtypes (kernels,
+    plain versions, SDPA), and the bf16 forward at the Jamba shape, beside
+    their bounds."""
+    out = {"forward": time_fwd("path", torch.bfloat16, gen, bf16_fps,
+                               mem_bps, (20, 3)),
+           "backward": time_bwd(torch.bfloat16, gen, bf16_fps, mem_bps,
+                                (20, 3))}
+    fwd, bwd = out["forward"], out["backward"]
+    print(f"[time] flash_attention forward+backward bf16: kernels "
+          f"{fwd['ms'] + bwd['ms']:.4f} ms, SDPA "
+          f"{bwd['sdpa_fwd_bwd_ms']:.4f} ms")
     out["jamba"] = time_fwd("jamba", torch.bfloat16, gen, bf16_fps, mem_bps,
                             (3, 1))
     out["forward_f32"] = time_fwd("path", torch.float32, gen, f32_fps,
                                   mem_bps, (5, 1))
+    out["backward_f32"] = time_bwd(torch.float32, gen, f32_fps, mem_bps,
+                                   (5, 1))
     return out
 
 
@@ -482,6 +530,19 @@ def profile_train(cfg, n_steps: int = 2) -> None:
     print_groups(rows, "ms/step (launches/step)")
     for ms, count, key in rows[:12]:
         print(f"[profile]   {ms:8.4f} ms/step {count:6.1f}x  {key[:90]}")
+    # the bf16 step runs only the tensor-core flash kernels, one of each
+    # an attention layer
+    flash = {}
+    for ms, count, key in rows:
+        m = re.search(r"(flash_\w+?_kernel)", key)
+        if m:
+            flash[m.group(1)] = flash.get(m.group(1), 0.0) + count
+    n_attn = sum(b.mixer.startswith("attn") for b in cfg.pattern) \
+        * cfg.repeats
+    print(f"[profile] flash kernels, launches/step: {flash}")
+    assert flash == {"flash_fwd_mma_kernel": n_attn,
+                     "flash_bwd_dq_mma_kernel": n_attn,
+                     "flash_bwd_dkdv_mma_kernel": n_attn}, flash
 
 
 def print_groups(rows, unit: str) -> None:
@@ -911,8 +972,10 @@ def main() -> int:
     flib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
     for which, bf16, kname in ((0, 1, "flash_fwd_mma_kernel<bf16>"),
                                (0, 0, "flash_fwd_kernel<f32>"),
-                               (1, 0, "flash_bwd_dq_kernel"),
-                               (2, 0, "flash_bwd_dkdv_kernel")):
+                               (1, 1, "flash_bwd_dq_mma_kernel<bf16>"),
+                               (1, 0, "flash_bwd_dq_kernel<f32>"),
+                               (2, 1, "flash_bwd_dkdv_mma_kernel<bf16>"),
+                               (2, 0, "flash_bwd_dkdv_kernel<f32>")):
         print(f"[build]   {kname}: dynamic smem " + ", ".join(
             f"hd {hd} {flib.flash_attention_smem_bytes(which, hd, bf16)} B"
             for hd in fa.HEAD_DIMS))
@@ -1124,11 +1187,20 @@ def main() -> int:
         run = dict(tiny=True, batch=4, seq=32, log_every=100,
                    schedule_steps=30, device="cuda", dtype="float32")
         d1, d2 = str(Path(tiny_dir) / "a"), str(Path(tiny_dir) / "b")
+        fa.flash_attention.launches = 0
+        fa.flash_attention_bwd.launches = 0
         first = train(TRAIN_ARCH, steps=24, ckpt_dir=d1, **run)
         resumed = train(TRAIN_ARCH, steps=30, ckpt_dir=d1, **run)
         straight = train(TRAIN_ARCH, steps=30, ckpt_dir=d2, **run)
+        f32_train = {"forward": fa.flash_attention.launches,
+                     "backward": fa.flash_attention_bwd.launches}
     finally:
         shutil.rmtree(tiny_dir, ignore_errors=True)
+    tiny_attn = sum(b.mixer.startswith("attn")
+                    for b in tiny_config(TRAIN_ARCH).pattern) \
+        * tiny_config(TRAIN_ARCH).repeats
+    assert f32_train == {"forward": 60 * tiny_attn,
+                         "backward": 60 * tiny_attn * BWD_KERNELS}, f32_train
     assert first["final_loss"] < first["losses"][0], first["losses"]
     assert len(resumed["losses"]) == 6
     assert math.isclose(resumed["losses"][-1], straight["losses"][-1],
@@ -1137,7 +1209,8 @@ def main() -> int:
           f"{first['losses'][0]:.4f} -> {first['final_loss']:.4f} over 24 "
           f"steps; step-30 loss resumed from step 24 "
           f"{resumed['losses'][-1]:.6f}, straight "
-          f"{straight['losses'][-1]:.6f}")
+          f"{straight['losses'][-1]:.6f}; flash launches over the 60 "
+          f"steps {f32_train}")
 
     # ---- 11. the scan kernels vs plain, and their times ----------------
     gc.collect()
@@ -1151,10 +1224,10 @@ def main() -> int:
     f32_counts = jamba_tiny_checks()
 
     # ---- 15. results -----------------------------------------------------
-    # Both dtypes of moe_gemm and of the flash forward count in one
-    # `launches`; each route's own count is that of a run in its dtype:
-    # bf16 the main paths (phases 5 and 9), f32 the tiny f32 Jamba
-    # forward (phase 14).
+    # Both dtypes of moe_gemm and of the flash forward and backward count
+    # in one `launches`; each route's own count is that of a run in its
+    # dtype: bf16 the main paths (phases 5 and 9), f32 the tiny f32 Jamba
+    # forward (phase 14) and the tiny f32 training (phase 10).
     def times_of(t):
         return {k_: t[k_] for k_ in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")}
@@ -1182,31 +1255,39 @@ def main() -> int:
                 "jamba_decode_layer": times_of(times["jamba decode layer"])}
                if bf16 else {}),
         })
-    for kname, kern, replaces, count, err, t, unit in (
+    bwd_unit = ("one layer's call (dq, then dk/dv: two launches) at the "
+                "training path's shape (B=4, S=T=2048, 14:2 heads, hd 64, "
+                "causal)")
+    for kname, kern, replaces, count, err, t, unit, extra in (
             ("flash_attention (bf16)", "flash_fwd_mma_kernel",
              "src/repro/kernels/flash_attention.py:30", fwd_launches,
              flash_errs["o"], flash_times["forward"],
              "one layer's forward at the training path's bf16 shape (B=4, "
              "S=T=2048, 14:2 heads, hd 64, causal); launches over the "
-             "train run"),
+             "train run", {"jamba": times_of(flash_times["jamba"])}),
             ("flash_attention (f32)", "flash_fwd_kernel",
              "src/repro/kernels/flash_attention.py:30",
              f32_counts["flash_attention"], flash_errs["o_f32"],
              flash_times["forward_f32"],
              "one layer's forward at the training path's shape in f32; "
-             "launches: the tiny f32 Jamba forward"),
-            ("flash_attention_bwd", "flash_bwd_dq_kernel, "
-             "flash_bwd_dkdv_kernel", None, bwd_launches,
-             flash_errs["grads"], flash_times["backward"],
-             "one layer's call at the training path's bf16 shape; two "
-             "launches (dq, dk/dv), library = SDPA's backward alone")):
+             "launches: the tiny f32 Jamba forward", {}),
+            ("flash_attention_bwd (bf16)",
+             "flash_bwd_dq_mma_kernel, flash_bwd_dkdv_mma_kernel", None,
+             bwd_launches, flash_errs["grads"], flash_times["backward"],
+             bwd_unit + " in bf16; launches over the train run; library = "
+             "SDPA's backward alone",
+             {k_: flash_times["backward"][k_] for k_ in ("dq", "dkdv")}),
+            ("flash_attention_bwd (f32)",
+             "flash_bwd_dq_kernel, flash_bwd_dkdv_kernel", None,
+             f32_train["backward"], flash_errs["grads_f32"],
+             flash_times["backward_f32"],
+             bwd_unit + " in f32; launches: the tiny f32 training (60 "
+             "steps); library = SDPA's backward alone, f32", {})):
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "kernel": kern, "replaces": replaces, "launches": count,
-            "max_abs_err": err, **times_of(t), "unit": unit,
-            **({"jamba": times_of(flash_times["jamba"])}
-               if kname.endswith("(bf16)") else {}),
+            "max_abs_err": err, **times_of(t), "unit": unit, **extra,
         })
     for kname, replaces, count in (
             ("selective_scan", "src/repro/kernels/ssm_scan.py:27",

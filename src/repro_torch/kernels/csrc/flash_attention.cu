@@ -21,6 +21,8 @@
 // causal, bf16) the forward does 30.1 GFLOP on 34 MB and the backward's
 // five products 75.2 GFLOP: both are bound by operations, 0.030 ms and
 // 0.076 ms at the H100 SXM's 989 bf16 tensor-core TFLOP/s (arithmetic).
+// The backward's two kernels recompute S (and dP) in each, 7 products in
+// all: dq's 3 are bound at 0.046 ms, dk/dv's 4 at 0.061, both 0.106.
 //
 // Forward, bf16: flash_fwd_mma_kernel, FlashAttention-2's organisation on
 // the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulators):
@@ -55,11 +57,47 @@
 //     must be 16-byte aligned (cp.async); the wrapper copies any that are
 //     not.
 //
-// Forward in f32, and the backward in both dtypes: simple and right
-// first. No tensor cores: tiles are staged in shared memory as f32 by
-// plain loads and every product runs on the CUDA cores in f32 (67
-// TFLOP/s on the H100 SXM, so these kernels sit far above the bound;
-// tensor cores would take f32 only as TF32).
+// Backward, bf16: FlashAttention-2's backward on the same mma.sync, in
+// two launches and no atomics (the gradients are the same bits from run
+// to run). P = 2^(dot * scale * log2e - lse * log2e) is recomputed from
+// the saved lse, dS = P (dP - D) [* (1 - tanh^2) under softcap], in f32
+// in the accumulator fragments, in the forward's three modes a tile. P
+// and dS are rounded to bf16 once, when packed straight into the A
+// fragments of the products they feed; neither touches shared memory.
+//   * flash_bwd_dq_mma_kernel: one block per (64-row q tile, q head,
+//     batch), longest rows first, 4 warps of 16 rows. D = rowsum(dO * O)
+//     from the bf16 values, for its rows, also written to the scratch
+//     for dk/dv. K and V stream through two cp.async stages; S = Q K^T
+//     and dP = dO V^T read K and V by ldmatrix, dQ += dS K reads K by
+//     ldmatrix.trans. Q and dO fragments come from shared memory at each
+//     use: held in registers they left room for only 2 blocks an SM.
+//   * flash_bwd_dkdv_mma_kernel, transposed: one block per (64-key tile,
+//     kv head, batch), each warp owning 16 keys, with K and V fragments
+//     in registers (from shared memory at hd 128). S^T = K Q^T and dP^T =
+//     V dO^T read Q and dO tiles by ldmatrix, dV += P^T dO and dK +=
+//     dS^T Q read them by ldmatrix.trans; lse and D of the tile's queries
+//     arrive in shared memory with them. A k tile's work is its group's
+//     query heads times its live q tiles (224 steps at k0 = 0 on the
+//     causal path, 7 at the last tile): two warpgroups take every other
+//     (head, q tile) pair, each with its own two cp.async stages and
+//     named barrier, and sum dK and dV through shared memory at the end
+//     in a fixed order. The grid puts the k tile last, so the longest
+//     blocks start first. At hd 128 a step takes 32 queries (dK and dV
+//     hold 128 registers a thread).
+//   * Measured on an H100 SXM at 700 W (PERF.md): dq 0.23 ms and
+//     dk/dv 0.25 ms at the training shape, 0.48 ms in all against SDPA's
+//     backward at 0.29 (was 8.67 on the CUDA cores); ~22% of the 7
+//     products' bound. Each warp reads whole Q and dO (or K and V) tiles
+//     for its 16 rows: a 512-byte ldmatrix.x4 feeds two mma, so at 128
+//     B of shared memory an SM a clock the reads take twice the tensor
+//     cores' time. 32-query steps in dk/dv, or K and V read from shared
+//     memory there, were slower.
+//
+// Forward and backward in f32: simple and right first. No tensor cores:
+// tiles are staged in shared memory as f32 by plain loads and every
+// product runs on the CUDA cores in f32 (67 TFLOP/s on the H100 SXM, so
+// these kernels sit far above the bound; tensor cores would take f32
+// only as TF32, and the f32 checks need 1e-4).
 //   * 64x64 tiles, 128 threads. Thread (tx, ty) = (tid % 16, tid / 16)
 //     owns tile rows ty*8 .. ty*8+7 and columns tx + 16*j, so the 16
 //     threads that share a row are one half-warp and row maxima and sums
@@ -74,8 +112,7 @@
 //     accumulator stay in f32 registers; p is masked explicitly, so a
 //     live tile in which a row has no valid key adds nothing to it.
 //     The denominator is clamped at 1e-30 and the output rounded once.
-//   * Backward, two launches and no atomics (the gradients are the same
-//     from run to run):
+//   * Backward, two launches and no atomics:
 //       dq:   one block per (q tile, q head, batch); first D = rowsum(
 //             dO * O) for its rows (also written to scratch for dkdv),
 //             then over the live k tiles P = exp(s - lse),
@@ -84,9 +121,10 @@
 //       dk/dv: one block per (k tile, kv head, batch), looping over the
 //             group's nq/nkv query heads and the live q tiles:
 //             dV += P^T dO, dK += scale * dS^T Q.
-//   * Shared memory per block (dynamic), hd = 64 / 128: forward 68 / 118
-//     KB in f32 and 45 / 85 KB in bf16, dq 86 / 154 KB, dk/dv 103 / 171
-//     KB.
+//
+// Shared memory per block (dynamic), hd = 64 / 128: forward 68 / 118 KB
+// in f32 and 45 / 85 KB in bf16; dq 86 / 154 KB in f32 and 54 / 102 KB in
+// bf16; dk/dv 103 / 171 KB in f32 and 92 / 103 KB in bf16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -131,23 +169,17 @@ constexpr int kLdT = kTile + 4;    // stride of transposed tiles (16B rows)
 constexpr float kNegInf = -1e30f;  // the masked score, as in the TPU kernel
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
-// A (q tile, k tile) pair holds a live score unless the causal or the
-// window test rules the whole tile out (flash_attention.py:50-54).
-__device__ __forceinline__ bool tile_live(const FlashArgs& a, int q0, int k0) {
-  if (a.causal && k0 > q0 + kTile - 1) return false;
+// A (q tile of bq rows, k tile) pair holds a live score unless the causal
+// or the window test rules the whole tile out (flash_attention.py:50-54).
+__device__ __forceinline__ bool tile_live(const FlashArgs& a, int q0, int k0,
+                                          int bq = kTile) {
+  if (a.causal && k0 > q0 + bq - 1) return false;
   if (a.window > 0 && k0 + kTile - 1 <= q0 - a.window) return false;
   return true;
 }
@@ -430,10 +462,11 @@ __device__ __forceinline__ float ex2(float x) {
 
 // Every (query, key) pair of a live (q tile, k tile) holds a valid score
 // for the tile's query rows that exist: no mask is needed.
-__device__ __forceinline__ bool tile_full(const FlashArgs& a, int q0, int k0) {
+__device__ __forceinline__ bool tile_full(const FlashArgs& a, int q0, int k0,
+                                          int bq = kTile) {
   if (k0 + kTile > a.T) return false;
   if (a.causal && k0 + kTile - 1 > q0) return false;
-  if (a.window > 0 && k0 <= q0 + kTile - 1 - a.window) return false;
+  if (a.window > 0 && k0 <= q0 + bq - 1 - a.window) return false;
   return true;
 }
 
@@ -442,15 +475,59 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// The first 64 rows of a [len, HD] bf16 slab with row stride `rs`
-// (elements) into shared memory at `dst` by cp.async; rows past `len`
-// are zeros.
-template <int HD>
+// 4 bytes from global to shared memory, or 4 zero bytes if !ok.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+
+// The A fragment of rows 16 * w .. 16 * w + 15, columns 16 * kk ..
+// 16 * kk + 15 of a bf16 tile in shared memory, by ldmatrix.
+template <int LD>
+__device__ __forceinline__ uint32_t a_frag_addr(uint32_t tile, int w,
+                                                int kk, int lane) {
+  return tile + ((w * 16 + lane % 16) * LD + 16 * kk + (lane / 16) * 8) * 2;
+}
+// The B fragments of n8 blocks 2 * jp and 2 * jp + 1 (rows 16 * jp ..) and
+// columns 16 * kk .. 16 * kk + 15 of a row-major [n][k] tile (B = tile^T).
+template <int LD>
+__device__ __forceinline__ uint32_t b_frag_addr(uint32_t tile, int jp,
+                                                int kk, int lane) {
+  return tile + ((16 * jp + lane % 8 + (lane / 16) * 8) * LD + 16 * kk +
+                 ((lane / 8) % 2) * 8) * 2;
+}
+// The B fragments, by ldmatrix.trans, of rows 16 * t .. 16 * t + 15 (the
+// k dim) and n8 blocks 2 * dp, 2 * dp + 1 of a row-major [k][n] tile.
+template <int LD>
+__device__ __forceinline__ uint32_t bt_frag_addr(uint32_t tile, int t,
+                                                 int dp, int lane) {
+  return tile + ((16 * t + lane % 8 + ((lane / 8) % 2) * 8) * LD + 16 * dp +
+                 (lane / 16) * 8) * 2;
+}
+
+// The A fragment of k16 step t (n8 blocks 2t and 2t + 1) of a 16-row f32
+// accumulator tile, rounded to bf16: S's fragment becomes P V's A.
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4],
+                                       const float (&s)[N][4], int t) {
+  a[0] = pack_bf16(s[2 * t][0], s[2 * t][1]);
+  a[1] = pack_bf16(s[2 * t][2], s[2 * t][3]);
+  a[2] = pack_bf16(s[2 * t + 1][0], s[2 * t + 1][1]);
+  a[3] = pack_bf16(s[2 * t + 1][2], s[2 * t + 1][3]);
+}
+
+// The first ROWS rows of a [len, HD] bf16 slab with row stride `rs`
+// (elements) into shared memory at `dst` by cp.async, shared among the
+// `nthr` threads numbered `tid`; rows past `len` are zeros.
+template <int HD, int ROWS = kTile>
 __device__ __forceinline__ void load_tile_async(uint32_t dst,
                                                 const __nv_bfloat16* src,
-                                                long long rs, int len) {
+                                                long long rs, int len,
+                                                int tid = threadIdx.x,
+                                                int nthr = kThreads) {
   constexpr int kChunks = HD / 8;                 // 16-byte chunks a row
-  for (int i = threadIdx.x; i < kTile * kChunks; i += kThreads) {
+  for (int i = tid; i < ROWS * kChunks; i += nthr) {
     const int r = i / kChunks, c = i % kChunks;
     const bool ok = r < len;
     cp_async16(dst + (r * ld_mma<HD>() + c * 8) * 2,
@@ -605,8 +682,7 @@ flash_fwd_mma_kernel(const FlashArgs a) {
     if (first) {
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk)
-        ldmatrix_x4(qf[kk], sq + ((warp * 16 + lane % 16) * LD + 16 * kk +
-                                  (lane / 16) * 8) * 2);
+        ldmatrix_x4(qf[kk], a_frag_addr<LD>(sq, warp, kk, lane));
     }
 
     // S = Q K^T for the warp's 16 rows and the tile's 64 keys.
@@ -620,8 +696,7 @@ flash_fwd_mma_kernel(const FlashArgs a) {
 #pragma unroll
       for (int jp = 0; jp < NS / 2; ++jp) {
         uint32_t kb[4];
-        ldmatrix_x4(kb, sk(st) + ((16 * jp + lane % 8 + (lane / 16) * 8) * LD +
-                                  16 * kk + ((lane / 8) % 2) * 8) * 2);
+        ldmatrix_x4(kb, b_frag_addr<LD>(sk(st), jp, kk, lane));
         mma_bf16(s[2 * jp], qf[kk], kb[0], kb[1]);
         mma_bf16(s[2 * jp + 1], qf[kk], kb[2], kb[3]);
       }
@@ -641,16 +716,12 @@ flash_fwd_mma_kernel(const FlashArgs a) {
     // 2t and 2t + 1, rounded to bf16.
 #pragma unroll
     for (int t = 0; t < kTile / 16; ++t) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * t][0], s[2 * t][1]),
-                              pack_bf16(s[2 * t][2], s[2 * t][3]),
-                              pack_bf16(s[2 * t + 1][0], s[2 * t + 1][1]),
-                              pack_bf16(s[2 * t + 1][2], s[2 * t + 1][3])};
+      uint32_t pa[4];
+      pack_a(pa, s, t);
 #pragma unroll
       for (int dp = 0; dp < NO / 2; ++dp) {
         uint32_t vb[4];
-        ldmatrix_x4_trans(vb, sv(st) + ((16 * t + lane % 8 +
-                                         ((lane / 8) % 2) * 8) * LD +
-                                        16 * dp + (lane / 16) * 8) * 2);
+        ldmatrix_x4_trans(vb, bt_frag_addr<LD>(sv(st), t, dp, lane));
         mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
         mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
       }
@@ -902,6 +973,462 @@ flash_bwd_dkdv_kernel(const FlashArgs a) {
   }
 }
 
+// -------------------------------------- backward, bf16 on tensor cores
+// Shared by the two kernels below: for one tile, P and dS in f32, in
+// place. On entry s holds the raw dots and dp holds dP; on exit s holds P
+// (masked P are 0) and dp holds dS = P (dP - D) [* (1 - tanh^2) under
+// softcap]. Fragment element (j, 2i + c) has row row[i] and column
+// col0 + 8j + 2 * (lane % 4) + c; kT: rows are keys and columns queries
+// (the dk/dv kernel), else rows are queries. stats(j, i, c) gives the
+// element's query's (lse * log2e, D). P = 2^(dot * scale * log2e - lse *
+// log2e) is one FFMA and one ex2 without softcap.
+template <SoftmaxMode kMode, bool kT, int NS, class Stats>
+__device__ __forceinline__ void p_ds_tile(const FlashArgs& a,
+                                          float (&s)[NS][4],
+                                          float (&dp)[NS][4],
+                                          const int (&row)[2], int col0,
+                                          int lane, float scale_log2,
+                                          Stats stats) {
+#pragma unroll
+  for (int j = 0; j < NS; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int e = 2 * i + c, col = col0 + 8 * j + 2 * (lane % 4) + c;
+        const float2 st = stats(j, i, c);
+        float p, dcap = 1.f;
+        if constexpr (kMode == kSoftcap) {
+          float t;
+          const float x = score(a, s[j][e], &t);
+          dcap = 1.f - t * t;
+          p = ex2(fmaf(x, kLog2e, -st.x));
+        } else {
+          p = ex2(fmaf(s[j][e], scale_log2, -st.x));
+        }
+        if (kMode != kPlain && !(kT ? score_valid(a, col, row[i])
+                                    : score_valid(a, row[i], col)))
+          p = 0.f;
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - st.y) * dcap;
+      }
+}
+
+// Q and dO, then 2 stages of K and V: 64-row bf16 tiles, rows padded.
+template <int HD>
+constexpr int dq_mma_smem() { return 6 * kTile * ld_mma<HD>() * 2; }
+
+// dq on the tensor cores; also writes D = rowsum(dO * O) for the dk/dv
+// kernel. One block per (64-row q tile, q head, batch), 4 warps of 16
+// query rows, the live K/V tiles streamed through two cp.async stages.
+// Q and dO fragments are read from shared memory at each use, which
+// leaves room for 3 blocks an SM at hd <= 64 without spilling.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, HD <= 64 ? 3 : 1)
+flash_bwd_dq_mma_kernel(const FlashArgs a) {
+  constexpr int LD = ld_mma<HD>();
+  constexpr int kTileBytes = kTile * LD * 2;
+  constexpr int KS = HD / 16;              // k16 steps of Q K^T and dO V^T
+  constexpr int NO = HD / 8;               // n8 blocks of dQ
+  constexpr int NS = kTile / 8;            // n8 blocks of S and dP
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  __shared__ float d_s[kTile];
+  const uint32_t sq = smem_u32(smem_mma), sdo = sq + kTileBytes;
+  auto sk = [&](int st) { return sq + (2 + 2 * st) * kTileBytes; };
+  auto sv = [&](int st) { return sq + (3 + 2 * st) * kTileBytes; };
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_qt = (a.S + kTile - 1) / kTile;
+  const int q0 = (n_qt - 1 - blockIdx.x) * kTile;   // longest rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (a.nq / a.nkv);
+  using bf16 = __nv_bfloat16;
+  const auto* qp = static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const auto* kp = static_cast<const bf16*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const auto* vp = static_cast<const bf16*>(a.v) + b * a.v_sb + hk * a.v_sh;
+  const auto* op = static_cast<const bf16*>(a.o) + b * a.o_sb + h * a.o_sh;
+  const auto* dop = static_cast<const bf16*>(a.dout) + b * a.do_sb +
+                    h * a.do_sh;
+  const long long rowbase = (static_cast<long long>(b) * a.nq + h) * a.S;
+  const int n_kt = (a.T + kTile - 1) / kTile;
+  const float scale_log2 = a.scale * kLog2e;
+  auto next_live = [&](int kt) {
+    do ++kt; while (kt < n_kt && !tile_live(a, q0, kt * kTile));
+    return kt;
+  };
+  auto load_kv = [&](int st, int kt) {
+    const int k0 = kt * kTile;
+    load_tile_async<HD>(sk(st), kp + static_cast<long long>(k0) * a.k_ss,
+                        a.k_ss, a.T - k0);
+    load_tile_async<HD>(sv(st), vp + static_cast<long long>(k0) * a.v_ss,
+                        a.v_ss, a.T - k0);
+  };
+
+  // Q, dO and the first live K/V tile: one cp.async group.
+  load_tile_async<HD>(sq, qp + static_cast<long long>(q0) * a.q_ss, a.q_ss,
+                      a.S - q0);
+  load_tile_async<HD>(sdo, dop + static_cast<long long>(q0) * a.do_ss,
+                      a.do_ss, a.S - q0);
+  int kt = next_live(-1);
+  if (kt < n_kt) load_kv(0, kt);
+  cp_async_commit();
+
+  {  // D of the tile's rows from the bf16 O and dO: two threads a row
+    const int r = threadIdx.x / 2, half = threadIdx.x % 2;
+    const int qpos = q0 + r;
+    float part = 0.f;
+    if (qpos < a.S) {
+      const auto* orow = reinterpret_cast<const uint4*>(
+          op + static_cast<long long>(qpos) * a.o_ss + half * (HD / 2));
+      const auto* drow = reinterpret_cast<const uint4*>(
+          dop + static_cast<long long>(qpos) * a.do_ss + half * (HD / 2));
+#pragma unroll
+      for (int c = 0; c < HD / 16; ++c) {   // 8 bf16 a 16-byte chunk
+        const uint4 ov = orow[c], dv = drow[c];
+        const auto* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const auto* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 of = __bfloat1622float2(o2[e]);
+          const float2 df = __bfloat1622float2(d2[e]);
+          part = fmaf(of.x, df.x, fmaf(of.y, df.y, part));
+        }
+      }
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    if (half == 0) {
+      d_s[r] = part;
+      if (qpos < a.S) a.dsum[rowbase + qpos] = part;
+    }
+  }
+  __syncthreads();
+
+  // This thread's rows of the warp's 16: lane / 4 and lane / 4 + 8. Rows
+  // past S read Q = dO = 0 and lse = D = 0, so their dS is 0.
+  const int qrow[2] = {q0 + warp * 16 + lane / 4,
+                       q0 + warp * 16 + lane / 4 + 8};
+  float2 stat[2];                          // (lse * log2e, D) of each row
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    stat[i] = qrow[i] < a.S
+                  ? make_float2(a.lse[rowbase + qrow[i]] * kLog2e,
+                                d_s[qrow[i] - q0])
+                  : make_float2(0.f, 0.f);
+  auto stats = [&](int, int i, int) { return stat[i]; };
+
+  float dq[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dq[j][c] = 0.f;
+
+  for (int st = 0; kt < n_kt; st ^= 1) {
+    const int kt_next = next_live(kt);
+    if (kt_next < n_kt) load_kv(st ^ 1, kt_next);
+    cp_async_commit();
+    cp_async_wait<1>();                    // this stage has landed
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T for the warp's 16 rows, the tile's 64 keys.
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[j][c] = dp[j][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[4], da[4];
+      ldmatrix_x4(qa, a_frag_addr<LD>(sq, warp, kk, lane));
+      ldmatrix_x4(da, a_frag_addr<LD>(sdo, warp, kk, lane));
+#pragma unroll
+      for (int jp = 0; jp < NS / 2; ++jp) {
+        uint32_t kb[4], vb[4];
+        ldmatrix_x4(kb, b_frag_addr<LD>(sk(st), jp, kk, lane));
+        mma_bf16(s[2 * jp], qa, kb[0], kb[1]);
+        mma_bf16(s[2 * jp + 1], qa, kb[2], kb[3]);
+        ldmatrix_x4(vb, b_frag_addr<LD>(sv(st), jp, kk, lane));
+        mma_bf16(dp[2 * jp], da, vb[0], vb[1]);
+        mma_bf16(dp[2 * jp + 1], da, vb[2], vb[3]);
+      }
+    }
+
+    const int k0 = kt * kTile;
+    if (a.softcap > 0.f)
+      p_ds_tile<kSoftcap, false>(a, s, dp, qrow, k0, lane, scale_log2, stats);
+    else if (tile_full(a, q0, k0))
+      p_ds_tile<kPlain, false>(a, s, dp, qrow, k0, lane, scale_log2, stats);
+    else
+      p_ds_tile<kMasked, false>(a, s, dp, qrow, k0, lane, scale_log2, stats);
+
+    // dQ += dS K: dS's A fragment for keys 16t .. 16t + 15 is dP's n8
+    // blocks 2t and 2t + 1, rounded to bf16; K through ldmatrix.trans.
+#pragma unroll
+    for (int t = 0; t < kTile / 16; ++t) {
+      uint32_t da[4];
+      pack_a(da, dp, t);
+#pragma unroll
+      for (int d2 = 0; d2 < NO / 2; ++d2) {
+        uint32_t kb[4];
+        ldmatrix_x4_trans(kb, bt_frag_addr<LD>(sk(st), t, d2, lane));
+        mma_bf16(dq[2 * d2], da, kb[0], kb[1]);
+        mma_bf16(dq[2 * d2 + 1], da, kb[2], kb[3]);
+      }
+    }
+    __syncthreads();                       // done with stage st
+    kt = kt_next;
+  }
+  cp_async_wait<0>();
+
+  auto* dqp = static_cast<bf16*>(a.dq);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (qrow[i] >= a.S) continue;
+    bf16* row =
+        dqp + ((static_cast<long long>(b) * a.S + qrow[i]) * a.nq + h) * HD;
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + 2 * (lane % 4)) =
+          __floats2bfloat162_rn(dq[j][2 * i] * a.scale,
+                                dq[j][2 * i + 1] * a.scale);
+  }
+}
+
+// dk/dv on the tensor cores: two warpgroups, each taking every other
+// (query head of the group, live q tile) pair of the block's 64 keys, and
+// summing their dK, dV through shared memory at the end, warpgroup 0
+// plus warpgroup 1 (a fixed order: no atomics).
+constexpr int kDkdvThreads = 256;
+// Queries a step: 64, or 32 at hd 128, where dK and dV take 128
+// registers a thread.
+template <int HD>
+__host__ __device__ constexpr int dkdv_bq() {
+  return HD <= 64 ? kTile : kTile / 2;
+}
+// A warpgroup's stage: Q and dO tiles of BQ rows, then lse and D of BQ
+// queries (f32).
+template <int HD>
+__host__ __device__ constexpr int dkdv_stage_bytes() {
+  return 2 * dkdv_bq<HD>() * ld_mma<HD>() * 2 + 2 * dkdv_bq<HD>() * 4;
+}
+// K and V, then 2 stages for each warpgroup; the final sum reuses the
+// front: 128 threads x (dK, dV) = HD floats each.
+template <int HD>
+constexpr int dkdv_mma_smem() {
+  constexpr int loop =
+      2 * kTile * ld_mma<HD>() * 2 + 4 * dkdv_stage_bytes<HD>();
+  constexpr int sum = kThreads * HD * 4;
+  return loop > sum ? loop : sum;
+}
+
+// A barrier of one warpgroup (named barrier 1 + wg, 128 threads).
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, %1;" ::"r"(1 + wg), "n"(kThreads) : "memory");
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kDkdvThreads, 1)
+flash_bwd_dkdv_mma_kernel(const FlashArgs a) {
+  constexpr int LD = ld_mma<HD>();
+  constexpr int BQ = dkdv_bq<HD>();
+  constexpr int kTileBytes = kTile * LD * 2, kQBytes = BQ * LD * 2;
+  constexpr int KS = HD / 16;              // k16 steps of K Q^T and V dO^T
+  constexpr int NO = HD / 8;               // n8 blocks of dK and dV
+  constexpr int NS = BQ / 8;               // n8 blocks of S^T and dP^T
+  constexpr bool kRegs = HD <= 64;         // K, V fragments in registers
+  extern __shared__ __align__(16) unsigned char smem_mma[];
+  const uint32_t sk = smem_u32(smem_mma), sv = sk + kTileBytes;
+  const int tid = threadIdx.x, wg = tid / kThreads, wtid = tid % kThreads;
+  const int warp = wtid / 32, lane = tid % 32;
+  auto stage_off = [&](int st) {
+    return 2 * kTileBytes + (2 * wg + st) * dkdv_stage_bytes<HD>();
+  };
+
+  // Grid (kv head, batch, k tile): the k tiles with the most live q tiles
+  // under the causal mask start first.
+  const int hk = blockIdx.x, b = blockIdx.y, k0 = blockIdx.z * kTile;
+  const int group = a.nq / a.nkv;
+  using bf16 = __nv_bfloat16;
+  const auto* kp = static_cast<const bf16*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const auto* vp = static_cast<const bf16*>(a.v) + b * a.v_sb + hk * a.v_sh;
+  const float scale_log2 = a.scale * kLog2e;
+
+  // The live q tiles of this k tile are one range (the causal test keeps
+  // tiles from some q0 on, the window's up to some q0).
+  const int n_qt = (a.S + BQ - 1) / BQ;
+  int qt_lo = 0;
+  while (qt_lo < n_qt && !tile_live(a, qt_lo * BQ, k0, BQ)) ++qt_lo;
+  int qt_hi = qt_lo;
+  while (qt_hi < n_qt && tile_live(a, qt_hi * BQ, k0, BQ)) ++qt_hi;
+  const int n_live = qt_hi - qt_lo, n_pairs = group * n_live;
+  auto head_of = [&](int idx) { return hk * group + idx / n_live; };
+  auto q0_of = [&](int idx) { return (qt_lo + idx % n_live) * BQ; };
+  auto load_q = [&](int st, int idx) {     // Q, dO, lse and D of pair idx
+    const int h = head_of(idx), q0 = q0_of(idx);
+    const uint32_t base = sk + stage_off(st);
+    load_tile_async<HD, BQ>(
+        base, static_cast<const bf16*>(a.q) + b * a.q_sb + h * a.q_sh +
+                  static_cast<long long>(q0) * a.q_ss,
+        a.q_ss, a.S - q0, wtid, kThreads);
+    load_tile_async<HD, BQ>(
+        base + kQBytes, static_cast<const bf16*>(a.dout) + b * a.do_sb +
+                            h * a.do_sh + static_cast<long long>(q0) * a.do_ss,
+        a.do_ss, a.S - q0, wtid, kThreads);
+    const long long row = (static_cast<long long>(b) * a.nq + h) * a.S + q0;
+    for (int r = wtid; r < 2 * BQ; r += kThreads) {   // zeros past S
+      const int qr = r % BQ;
+      const bool ok = q0 + qr < a.S;
+      cp_async4(base + 2 * kQBytes + r * 4,
+                (r < BQ ? a.lse : a.dsum) + row + (ok ? qr : 0), ok);
+    }
+  };
+
+  // K and V (all 256 threads) and each warpgroup's first pair.
+  load_tile_async<HD>(sk, kp + static_cast<long long>(k0) * a.k_ss, a.k_ss,
+                      a.T - k0, tid, kDkdvThreads);
+  load_tile_async<HD>(sv, vp + static_cast<long long>(k0) * a.v_ss, a.v_ss,
+                      a.T - k0, tid, kDkdvThreads);
+  int idx = wg;
+  if (idx < n_pairs) load_q(0, idx);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  uint32_t kf[kRegs ? KS : 1][4], vf[kRegs ? KS : 1][4];
+  if constexpr (kRegs) {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      ldmatrix_x4(kf[kk], a_frag_addr<LD>(sk, warp, kk, lane));
+      ldmatrix_x4(vf[kk], a_frag_addr<LD>(sv, warp, kk, lane));
+    }
+  }
+  // This thread's keys of the warp's 16: lane / 4 and lane / 4 + 8.
+  const int krow[2] = {k0 + warp * 16 + lane / 4,
+                       k0 + warp * 16 + lane / 4 + 8};
+  float dk[NO][4], dv[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dk[j][c] = dv[j][c] = 0.f;
+
+  for (int st = 0; idx < n_pairs; st ^= 1) {
+    const int next = idx + 2;
+    if (next < n_pairs) load_q(st ^ 1, next);
+    cp_async_commit();
+    cp_async_wait<1>();                    // this stage has landed
+    wg_sync(wg);
+    const uint32_t sq = sk + stage_off(st), sdo = sq + kQBytes;
+    const float* lse_s =
+        reinterpret_cast<const float*>(smem_mma + stage_off(st) + 2 * kQBytes);
+    const float* d_s = lse_s + BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T: the warp's 16 keys, BQ queries.
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[j][c] = dp[j][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t ka[4], va[4];
+      if constexpr (kRegs) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          ka[c] = kf[kk][c];
+          va[c] = vf[kk][c];
+        }
+      } else {
+        ldmatrix_x4(ka, a_frag_addr<LD>(sk, warp, kk, lane));
+        ldmatrix_x4(va, a_frag_addr<LD>(sv, warp, kk, lane));
+      }
+#pragma unroll
+      for (int jp = 0; jp < NS / 2; ++jp) {
+        uint32_t qb[4], db[4];
+        ldmatrix_x4(qb, b_frag_addr<LD>(sq, jp, kk, lane));
+        mma_bf16(s[2 * jp], ka, qb[0], qb[1]);
+        mma_bf16(s[2 * jp + 1], ka, qb[2], qb[3]);
+        ldmatrix_x4(db, b_frag_addr<LD>(sdo, jp, kk, lane));
+        mma_bf16(dp[2 * jp], va, db[0], db[1]);
+        mma_bf16(dp[2 * jp + 1], va, db[2], db[3]);
+      }
+    }
+
+    const int q0 = q0_of(idx);
+    auto stats = [&](int j, int, int c) {
+      const int col = 8 * j + 2 * (lane % 4) + c;
+      return make_float2(lse_s[col] * kLog2e, d_s[col]);
+    };
+    if (a.softcap > 0.f)
+      p_ds_tile<kSoftcap, true>(a, s, dp, krow, q0, lane, scale_log2, stats);
+    else if (tile_full(a, q0, k0, BQ))
+      p_ds_tile<kPlain, true>(a, s, dp, krow, q0, lane, scale_log2, stats);
+    else
+      p_ds_tile<kMasked, true>(a, s, dp, krow, q0, lane, scale_log2, stats);
+
+    // dV += P^T dO and dK += dS^T Q: the A fragments for queries 16t ..
+    // 16t + 15 are n8 blocks 2t and 2t + 1 of P^T and dS^T, rounded to
+    // bf16; dO and Q through ldmatrix.trans.
+#pragma unroll
+    for (int t = 0; t < BQ / 16; ++t) {
+      uint32_t pa[4], da[4];
+      pack_a(pa, s, t);
+      pack_a(da, dp, t);
+#pragma unroll
+      for (int d2 = 0; d2 < NO / 2; ++d2) {
+        uint32_t ob[4], qb[4];
+        ldmatrix_x4_trans(ob, bt_frag_addr<LD>(sdo, t, d2, lane));
+        mma_bf16(dv[2 * d2], pa, ob[0], ob[1]);
+        mma_bf16(dv[2 * d2 + 1], pa, ob[2], ob[3]);
+        ldmatrix_x4_trans(qb, bt_frag_addr<LD>(sq, t, d2, lane));
+        mma_bf16(dk[2 * d2], da, qb[0], qb[1]);
+        mma_bf16(dk[2 * d2 + 1], da, qb[2], qb[3]);
+      }
+    }
+    wg_sync(wg);                           // done with stage st
+    idx = next;
+  }
+  cp_async_wait<0>();
+
+  // dK, dV = warpgroup 0's + warpgroup 1's, each thread's fragment through
+  // its own column of shared memory (consecutive threads, consecutive
+  // banks).
+  __syncthreads();
+  auto* sum = reinterpret_cast<float*>(smem_mma);
+  if (wg == 1) {
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        sum[(4 * j + c) * kThreads + wtid] = dk[j][c];
+        sum[(4 * (NO + j) + c) * kThreads + wtid] = dv[j][c];
+      }
+  }
+  __syncthreads();
+  if (wg == 1) return;
+  auto* dkp = static_cast<bf16*>(a.dk);
+  auto* dvp = static_cast<bf16*>(a.dv);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (krow[i] >= a.T) continue;
+    const long long base =
+        ((static_cast<long long>(b) * a.T + krow[i]) * a.nkv + hk) * HD;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      const int e0 = 2 * i, col = 8 * j + 2 * (lane % 4);
+      const float k_lo = dk[j][e0] + sum[(4 * j + e0) * kThreads + wtid];
+      const float k_hi =
+          dk[j][e0 + 1] + sum[(4 * j + e0 + 1) * kThreads + wtid];
+      const float v_lo =
+          dv[j][e0] + sum[(4 * (NO + j) + e0) * kThreads + wtid];
+      const float v_hi =
+          dv[j][e0 + 1] + sum[(4 * (NO + j) + e0 + 1) * kThreads + wtid];
+      *reinterpret_cast<__nv_bfloat162*>(dkp + base + col) =
+          __floats2bfloat162_rn(k_lo * a.scale, k_hi * a.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvp + base + col) =
+          __floats2bfloat162_rn(v_lo, v_hi);
+    }
+  }
+}
+
 template <int HD>
 constexpr int fwd_smem() {
   return (HD * kLdT + 2 * kTile * (HD + 1) + kTile * kLdT) * 4;
@@ -918,11 +1445,11 @@ constexpr int dkdv_smem() {
 
 template <typename Kernel>
 int launch(Kernel kernel, dim3 grid, int smem, const FlashArgs& a,
-           void* stream) {
+           void* stream, int threads = kThreads) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -938,17 +1465,27 @@ int fwd(const FlashArgs& a, void* stream) {
                   stream);
 }
 
+// The backward likewise: bf16 on the tensor cores, f32 on the CUDA cores.
 template <typename T, int HD>
 int bwd_dq(const FlashArgs& a, void* stream) {
   const dim3 grid((a.S + kTile - 1) / kTile, a.nq, a.B);
-  return launch(flash_bwd_dq_kernel<T, HD>, grid, dq_smem<HD>(), a, stream);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>)
+    return launch(flash_bwd_dq_mma_kernel<HD>, grid, dq_mma_smem<HD>(), a,
+                  stream);
+  else
+    return launch(flash_bwd_dq_kernel<float, HD>, grid, dq_smem<HD>(), a,
+                  stream);
 }
 
 template <typename T, int HD>
 int bwd_dkdv(const FlashArgs& a, void* stream) {
-  const dim3 grid((a.T + kTile - 1) / kTile, a.nkv, a.B);
-  return launch(flash_bwd_dkdv_kernel<T, HD>, grid, dkdv_smem<HD>(), a,
-                stream);
+  const int n_kt = (a.T + kTile - 1) / kTile;
+  if constexpr (std::is_same_v<T, __nv_bfloat16>)
+    return launch(flash_bwd_dkdv_mma_kernel<HD>, dim3(a.nkv, a.B, n_kt),
+                  dkdv_mma_smem<HD>(), a, stream, kDkdvThreads);
+  else
+    return launch(flash_bwd_dkdv_kernel<float, HD>, dim3(n_kt, a.nkv, a.B),
+                  dkdv_smem<HD>(), a, stream);
 }
 
 constexpr int kBadHeadDim = -1;
@@ -1010,11 +1547,12 @@ extern "C" int flash_attention_bwd_dkdv(const FlashArgs* a, int hd, int bf16,
 }
 
 // Dynamic shared memory of a launch: which = 0 forward, 1 dq, 2 dk/dv;
-// bf16 = 1 for the bf16 forward (the backward's is the same for both).
+// bf16 = 1 for the bf16 (tensor-core) kernels, 0 for the f32 ones.
 template <int HD>
 int smem_bytes(int which, int bf16) {
   if (which == 0) return bf16 ? fwd_mma_smem<HD>() : fwd_smem<HD>();
-  return which == 1 ? dq_smem<HD>() : dkdv_smem<HD>();
+  if (which == 1) return bf16 ? dq_mma_smem<HD>() : dq_smem<HD>();
+  return bf16 ? dkdv_mma_smem<HD>() : dkdv_smem<HD>();
 }
 
 extern "C" int flash_attention_smem_bytes(int which, int hd, int bf16) {

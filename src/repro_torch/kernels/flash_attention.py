@@ -5,13 +5,13 @@ softcapping.
 Counterpart of `repro/kernels/flash_attention.py` (`flash_attention`). For
 CUDA tensors the functions here launch the hand-written Hopper kernels in
 `csrc/flash_attention.cu` (its note gives the bound and the designs); the
-forward picks its kernel by dtype: bf16 runs on the tensor cores
-(`mma.sync`), f32 on the CUDA cores. For CPU tensors they compute the
-plain versions, `ref.flash_attention_ref` and `ref.flash_attention_bwd_ref`.
-Nothing sends a CUDA tensor to a plain version. The bf16 forward copies
-its inputs with `cp.async`, 16 bytes at a time: `cp_async_ready` hands it
-a contiguous copy of any input whose base or strides are not 16-byte
-aligned.
+forward and the backward pick their kernels by dtype: bf16 runs on the
+tensor cores (`mma.sync`), f32 on the CUDA cores. For CPU tensors they
+compute the plain versions, `ref.flash_attention_ref` and
+`ref.flash_attention_bwd_ref`. Nothing sends a CUDA tensor to a plain
+version. The bf16 kernels copy their inputs with `cp.async`, 16 bytes at
+a time: `cp_async_ready` hands them a contiguous copy of any input whose
+base or strides are not 16-byte aligned.
 
 - `flash_attention` is the differentiable entry point: on CUDA a
   `torch.autograd.Function` whose forward and backward are kernels; on the
@@ -41,6 +41,7 @@ from .ref import flash_attention_bwd_ref, flash_attention_ref
 HEAD_DIMS = (16, 64, 128)            # the kernels' instantiations
 _DTYPES = (torch.bfloat16, torch.float32)
 _MAX_GRID_YZ = 65535
+_KV_TILE = 64                        # keys a dk/dv block (grid z on bf16)
 
 
 class _Args(ctypes.Structure):
@@ -126,6 +127,14 @@ def cp_async_ready(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
+def _kernel_inputs(*ts: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The tensors as the kernels read them: bf16 ones through
+    `cp_async_ready`, f32 ones as they are."""
+    if ts[0].dtype != torch.bfloat16:
+        return ts
+    return tuple(cp_async_ready(t) for t in ts)
+
+
 def _strides(args: _Args, name: str, t: torch.Tensor) -> None:
     sb, ss, sh, _ = t.stride()
     setattr(args, f"{name}_sb", sb)
@@ -173,8 +182,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap)
     _check_cuda(q, k, v)
-    if q.dtype == torch.bfloat16:
-        q, k, v = (cp_async_ready(t) for t in (q, k, v))
+    q, k, v = _kernel_inputs(q, k, v)
     b, s, nq, hd = q.shape
     o = torch.empty((b, s, nq, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, nq, s), dtype=torch.float32, device=q.device)
@@ -207,9 +215,30 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _device_type(q) == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                        window=window, softcap=softcap)
+    args, _alive, grads = _bwd_args(q, k, v, o, lse, do, causal=causal,
+                                    window=window, softcap=softcap)
+    _launch("flash_attention_bwd_dq", args, q)      # writes dsum first
+    flash_attention_bwd.launches += 1
+    _launch("flash_attention_bwd_dkdv", args, q)
+    flash_attention_bwd.launches += 1
+    return grads
+
+
+def _bwd_args(q, k, v, o, lse, do, *, causal, window, softcap
+              ) -> tuple[_Args, tuple, tuple[torch.Tensor, ...]]:
+    """The backward kernels' arguments for CUDA tensors that passed
+    `flash_attention_bwd`'s checks -> (args, the tensors args points into
+    that the caller must keep alive, (dq, dk, dv) to be written). Launch
+    "flash_attention_bwd_dq" first: it writes the D scratch that
+    "flash_attention_bwd_dkdv" reads."""
     _check_cuda(q, k, v, o, do)
     if not lse.is_contiguous():
         raise ValueError("flash_attention_bwd needs a contiguous lse")
+    b, s, nq, hd = q.shape
+    if -(-k.shape[1] // _KV_TILE) > _MAX_GRID_YZ:
+        raise ValueError(f"flash_attention_bwd takes at most "
+                         f"{_MAX_GRID_YZ * _KV_TILE} keys, got {k.shape[1]}")
+    q, k, v, o, do = _kernel_inputs(q, k, v, o, do)
     dq = torch.empty((b, s, nq, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
@@ -220,11 +249,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     args.o, args.dout, args.lse, args.dsum = (o.data_ptr(), do.data_ptr(),
                                               lse.data_ptr(), dsum.data_ptr())
     args.dq, args.dk, args.dv = dq.data_ptr(), dk.data_ptr(), dv.data_ptr()
-    _launch("flash_attention_bwd_dq", args, q)      # writes dsum first
-    flash_attention_bwd.launches += 1
-    _launch("flash_attention_bwd_dkdv", args, q)
-    flash_attention_bwd.launches += 1
-    return dq, dk, dv
+    return args, (q, k, v, o, do, lse, dsum), (dq, dk, dv)
 
 
 class _FlashAttention(torch.autograd.Function):
