@@ -12,8 +12,9 @@ its own failure):
      `src/repro_torch/kernels/csrc/` with nvcc for sm_90a, one nvcc per
      source, started together; print the build times and ptxas's report
      (registers, spills, static smem) for every kernel, the bf16
-     tensor-core ones included, and the flash kernels' dynamic smem
-     (forward, dq and dk/dv, each in both routes);
+     tensor-core ones included, the flash kernels' dynamic smem
+     (forward, dq and dk/dv, each in both routes), the selective scan's
+     dynamic smem and both scans' resident blocks an SM;
   3. `moe_gemm` against its plain PyTorch version on the card, in bf16
      (the wgmma/TMA kernel) and f32 (the CUDA-core kernel): the
      qwen2-moe serving path's two shapes, the Jamba prefill's (C=640) and
@@ -56,12 +57,19 @@ its own failure):
      (the f32 routes' launches);
  11. the selective-scan and linear-scan kernels against their plain
      versions, in bf16 and f32: the Jamba prefill path's shape (B=1,
-     S=4096, D=8192, N=16), a ragged S and D, a state dim that is not a
-     power of two, h0 given (h_last held too), and the state carried
-     across two calls equal to one call; the linear scan's carried pair
-     goes through `ops.ssm_scan` with its launch count set to 0 just
-     before and read just after; times of kernels and plain versions
-     beside their bounds (no single PyTorch call computes either scan);
+     S=4096, D=8192, N=16), S=4097 with D=8200 beside it, B=2, a ragged S
+     and D, a state dim that is not a power of two, h0 given (h_last held
+     too), B and C as strided column slices; two calls on the same inputs
+     bit for bit (both kernels), and the selective scan's state carried
+     across two calls equal to one call bit for bit; the linear scan also
+     on LIN_DEEP, 2,048 tiles 1,024 deep in time against ~260 resident
+     blocks (look-back waits on tiles still loading); the linear scan's
+     carried pair goes through `ops.ssm_scan` with its launch count set to
+     0 just before and read just after (within 1e-4: the look-back
+     associates differently across the split); times of kernels and plain
+     versions beside their bounds, the selective scan in every (states a
+     thread, of them on the FMA pipes) split built (no single PyTorch call
+     computes either scan);
  12. slice 3's main path: `make_prefill_step` on full-width Jamba cut to
      2 of its 4 periods (16 layers), random bf16 weights from a seeded
      generator, B=1 x S=4096, with the selective-scan, flash-forward and
@@ -116,6 +124,7 @@ from repro_torch.kernels.moe_gemm import moe_gemm  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     attention_ref, flash_attention_bwd_ref, flash_attention_ref, moe_gemm_ref,
     selective_scan_ref, ssm_scan_ref)
+from repro_torch.kernels import ssm_scan as sscan  # noqa: E402
 from repro_torch.kernels.ssm_scan import selective_scan, ssm_scan  # noqa: E402
 from repro_torch.launch.serve import serve, serve_requests  # noqa: E402
 from repro_torch.launch.train import idle_workers, train  # noqa: E402
@@ -145,9 +154,18 @@ JAMBA = "jamba-v0.1-52b"
 JAMBA_REPEATS, PREFILL_SEQ = 2, 4096     # 2 of 4 periods; S cut from 32,768
 # (B, S, D, N) of the scans; "path" is the Jamba prefill's (D = 2 x 4096)
 SCAN_CASES = {"path": (1, PREFILL_SEQ, 8192, 16),
+              "S=4097 D=8200": (1, PREFILL_SEQ + 1, 8200, 16),
+              "B=2": (2, 1024, 8192, 16),
               "ragged S=1000 D=200": (2, 1000, 200, 16),
               "N=5": (1, 300, 72, 5)}
+# (B, S, D) of a linear scan with 2,048 tiles of 64 steps, 1,024 deep in
+# time: far more than the card holds blocks at once, so look-backs wait on
+# tiles still loading and walk back over aggregates
+LIN_DEEP = (1, 65536, 512)
+# the selective scan's (states a thread, of them on the FMA pipes) built
+SEL_SPLITS = ((2, 0), (2, 1), (4, 0), (4, 1), (4, 2), (8, 0), (8, 3))
 SCAN_SPLIT = 1000                        # carried state: steps of call 1
+BACKLOG_CYCLES = 20_000_000              # ~10 ms of device sleep
 SFU_PER_CLOCK = 16                       # exp2 results a clock on an SM
 # f32 flops an exp2 costs on the FMA pipes instead of the SFU: range
 # reduction and a degree-3 polynomial, ~5 instructions of 2 flops' issue
@@ -167,11 +185,17 @@ def peaks_for(name: str):
     return key, PEAKS[key]
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of `fn` in ms, by CUDA events around each call."""
+def time_ms(fn, reps: int = 20, warmup: int = 3,
+            backlog: bool = False) -> float:
+    """Median device time of `fn` in ms, by CUDA events around each call.
+    `backlog`: first queue a device sleep longer than the calls' host work,
+    so that the card runs them back to back and the events time the device
+    even where a call's host work outlasts its kernel."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if backlog:
+        torch.cuda._sleep(BACKLOG_CYCLES)
     events = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -238,14 +262,16 @@ def ptxas_report(lib: Path) -> None:
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             k = re.search(r"([a-z_]+_kernel)I(13__nv_bfloat16|f)"
-                          r"(?:Li(\d+)E)?", m.group(1))
+                          r"((?:Li\d+E)*)E", m.group(1))
             t = re.search(r"([a-z_]+_kernel)ILi(\d+)EE", m.group(1))
-            param = "NL " if k and k.group(1) == "sel_scan_kernel" \
-                else "hd "
             if k:
+                labels = (("R", "P") if k.group(1) == "sel_scan_kernel"
+                          else ("hd",))
+                params = "".join(
+                    f", {lb} {v}" for lb, v in
+                    zip(labels, re.findall(r"Li(\d+)E", k.group(3))))
                 name = (f"{k.group(1)}<"
-                        f"{'bf16' if k.group(2) != 'f' else 'f32'}"
-                        f"{', ' + param + k.group(3) if k.group(3) else ''}>")
+                        f"{'bf16' if k.group(2) != 'f' else 'f32'}{params}>")
             elif t:                  # the bf16 tensor-core kernels
                 name = (f"{t.group(1)}<bf16, "
                         f"{'warpgroups' if 'moe' in t.group(1) else 'hd'} "
@@ -635,7 +661,7 @@ def sel_inputs(case, dtype, gen, with_h0=True):
 
 
 def lin_inputs(case, dtype, gen):
-    b, s, d, _ = case
+    b, s, d = case[:3]
     a = torch.sigmoid(torch.randn((b, s, d), generator=gen, device="cuda"))
     bx = torch.randn((b, s, d), generator=gen, device="cuda")
     h0 = torch.randn((b, d), generator=gen, device="cuda")
@@ -644,26 +670,32 @@ def lin_inputs(case, dtype, gen):
 
 def check_scans(gen, mem_bps, sfu_rate, f32_fps) -> dict:
     """Both scan kernels against their plain versions (y at the dtype's
-    tolerance, h_last at 1e-3: tests/test_kernels.py's), and the state
-    carried across two kernel calls against one; then their times at the
-    path's shape in bf16. Returns, for each kernel, its max |kernel -
-    plain| at the path's shape in bf16, its times and bound, and the
-    linear scan's launches through `ops.ssm_scan`."""
+    tolerance, h_last at 1e-3: tests/test_kernels.py's), two calls on the
+    same inputs bit for bit, and the selective scan's state carried across
+    two calls equal to one call bit for bit; the linear scan also on
+    LIN_DEEP, more tiles than the card holds blocks; then the times at the
+    path's shape in bf16, the selective scan for every (R, P) split built.
+    Returns, for each kernel, its max |kernel - plain| at the path's shape
+    in bf16, its times and bound, and the linear scan's launches through
+    `ops.ssm_scan`."""
     tol = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
     tol_h = 1e-3
     out = {"selective_scan": {}, "ssm_scan": {}}
+    lib = sscan._lib()
     for dtype in (torch.bfloat16, torch.float32):
         for label, case in SCAN_CASES.items():
             args = sel_inputs(case, dtype, gen)
             y, h = selective_scan(*args)
+            y_again, h_again = selective_scan(*args)
             torch.cuda.synchronize()
+            assert torch.equal(y, y_again) and torch.equal(h, h_again), label
             yr, hr = selective_scan_ref(*args)
             torch.testing.assert_close(y.float(), yr.float(), rtol=tol[dtype],
                                        atol=tol[dtype])
             torch.testing.assert_close(h, hr, rtol=tol_h, atol=tol_h)
             e_y = (y.float() - yr.float()).abs().max().item()
             e_h = (h - hr).abs().max().item()
-            # the state carried across two calls equals one call
+            # the state carried across two calls equals one call, bit for bit
             x, dt, a_log, bm, cm, dv, h0 = args
             k = min(SCAN_SPLIT, case[1] // 2)
             y1, h1 = selective_scan(x[:, :k], dt[:, :k], a_log, bm[:, :k],
@@ -671,34 +703,48 @@ def check_scans(gen, mem_bps, sfu_rate, f32_fps) -> dict:
             y2, h2 = selective_scan(x[:, k:], dt[:, k:], a_log, bm[:, k:],
                                     cm[:, k:], dv, h1)
             torch.cuda.synchronize()
-            torch.testing.assert_close(torch.cat([y1, y2], 1).float(),
-                                       y.float(), rtol=tol[dtype],
-                                       atol=tol[dtype])
-            torch.testing.assert_close(h2, h, rtol=tol_h, atol=tol_h)
-            e_c = max((torch.cat([y1, y2], 1).float() - y.float()).abs()
-                      .max().item(), (h2 - h).abs().max().item())
+            assert torch.equal(torch.cat([y1, y2], 1), y) and \
+                torch.equal(h2, h), (label, dtype)
             if label == "path" and dtype == torch.bfloat16:
                 out["selective_scan"]["max_abs_err"] = e_y
             print(f"[check] selective_scan {label} {case} {dtype}, h0 "
-                  f"given: max |kernel - plain| y {e_y:.3e} (tol "
-                  f"{tol[dtype]}), h_last {e_h:.3e} (tol {tol_h}); state "
-                  f"carried over 2 calls ({k} + {case[1] - k} steps) vs 1: "
-                  f"{e_c:.3e}; tolerances hold |diff| <= tol * (1 + |plain|)")
-            a, bx, h0 = lin_inputs(case, dtype, gen)
-            got, want = ssm_scan(a, bx, h0), ssm_scan_ref(a, bx, h0)
-            torch.cuda.synchronize()
-            torch.testing.assert_close(got.float(), want.float(),
-                                       rtol=tol[dtype], atol=tol[dtype])
-            e_l = (got.float() - want.float()).abs().max().item()
-            if label == "path" and dtype == torch.bfloat16:
-                out["ssm_scan"]["max_abs_err"] = e_l
-            print(f"[check] ssm_scan {label} {case[:3]} {dtype}, h0 given: "
-                  f"max |kernel - plain| {e_l:.3e} (tol {tol[dtype]})")
-            del args, y, h, yr, hr, x, dt, bm, cm, y1, h1, y2, h2, a, bx, \
-                got, want
+                  f"given, B and C strided: max |kernel - plain| y "
+                  f"{e_y:.3e} (tol {tol[dtype]}), h_last {e_h:.3e} (tol "
+                  f"{tol_h}); two calls bit-identical; state carried over "
+                  f"2 calls ({k} + {case[1] - k} steps) == 1 call bit for "
+                  f"bit; tolerances hold |diff| <= tol * (1 + |plain|)")
+            del args, y, h, y_again, h_again, yr, hr, x, dt, bm, cm, y1, \
+                h1, y2, h2
+            lin_cases = [(label, case[:3])]
+            if label == "path":
+                lin_cases.append(("deep", LIN_DEEP))
+            for lin_label, lcase in lin_cases:
+                a, bx, h0 = lin_inputs(lcase, dtype, gen)
+                got, again = ssm_scan(a, bx, h0), ssm_scan(a, bx, h0)
+                want = ssm_scan_ref(a, bx, h0)
+                torch.cuda.synchronize()
+                assert torch.equal(got, again), (lin_label, dtype)
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=tol[dtype], atol=tol[dtype])
+                e_l = (got.float() - want.float()).abs().max().item()
+                if label == "path" and lin_label == "path" and \
+                        dtype == torch.bfloat16:
+                    out["ssm_scan"]["max_abs_err"] = e_l
+                b_, s_, d_ = lcase
+                tiles = b_ * -(-d_ // lib.ssm_scan_tile(1)) \
+                    * -(-s_ // lib.ssm_scan_tile(0))
+                resident = torch.cuda.get_device_properties(0) \
+                    .multi_processor_count * lib.ssm_scan_blocks_per_sm(
+                        int(dtype == torch.bfloat16))
+                print(f"[check] ssm_scan {lin_label} {lcase} {dtype}, h0 "
+                      f"given: max |kernel - plain| {e_l:.3e} (tol "
+                      f"{tol[dtype]}); two calls bit-identical; {tiles} "
+                      f"tiles, {resident} blocks resident at once")
+                del a, bx, h0, got, again, want
             torch.cuda.empty_cache()
 
     # ssm_scan's path: ops.ssm_scan, the state carried across two calls
+    # (within rounding: the split changes how the look-back associates)
     b, s, d, _ = SCAN_CASES["path"]
     a, bx, _ = lin_inputs(SCAN_CASES["path"], torch.float32, gen)
     whole = ops.ssm_scan(a, bx)
@@ -712,26 +758,59 @@ def check_scans(gen, mem_bps, sfu_rate, f32_fps) -> dict:
     torch.testing.assert_close(torch.cat([first, rest], 1), whole,
                                rtol=1e-4, atol=1e-4)
     print(f"[check] ops.ssm_scan at the path's shape, f32, state carried "
-          f"over 2 calls ({SCAN_SPLIT} + {s - SCAN_SPLIT} steps) == 1 "
+          f"over 2 calls ({SCAN_SPLIT} + {s - SCAN_SPLIT} steps) vs 1 "
           f"call: max diff "
-          f"{(torch.cat([first, rest], 1) - whole).abs().max().item():.3e};"
-          f" ssm_scan launches {out['ssm_scan']['launches']}")
+          f"{(torch.cat([first, rest], 1) - whole).abs().max().item():.3e} "
+          f"(tol 1e-4); ssm_scan launches {out['ssm_scan']['launches']} "
+          f"(one kernel a call)")
     del a, bx, whole, first, rest
 
     # times at the path's shape in bf16 (plain versions: one Python step
-    # per time step, so few repeats)
+    # per time step, so few repeats); the selective scan in every (R, P)
+    # split built, each held against the plain version first
     n = SCAN_CASES["path"][3]
     args = sel_inputs(SCAN_CASES["path"], torch.bfloat16, gen, False)
-    t = {"ms": time_ms(lambda: selective_scan(*args)),
+    yr, _ = selective_scan_ref(*args)
+    default = sscan.SEL_SPLIT
+    splits = {}
+    try:
+        for split in SEL_SPLITS:
+            sscan.SEL_SPLIT = split
+            y, _ = selective_scan(*args)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(y.float(), yr.float(), rtol=3e-2,
+                                       atol=3e-2)
+            splits[split] = time_ms(lambda: selective_scan(*args),
+                                    backlog=True)
+            print(f"[time] selective_scan {SCAN_CASES['path']} bf16, R="
+                  f"{split[0]} states a thread, P={split[1]} of them on "
+                  f"the FMA pipes: {splits[split]:.4f} ms; max |kernel - "
+                  f"plain| {(y.float() - yr.float()).abs().max().item():.3e}"
+                  f"{' (default)' if split == default else ''}")
+            del y
+    finally:
+        sscan.SEL_SPLIT = default
+    del yr
+    # the same steps over D/8 channels: 32 blocks, one an SM, so the time is
+    # one block's walk through time with the SM to itself
+    lone_args = sel_inputs((b, s, d // 8, n), torch.bfloat16, gen, False)
+    lone = time_ms(lambda: selective_scan(*lone_args), backlog=True)
+    print(f"[time] selective_scan {(b, s, d // 8, n)} bf16, one block an "
+          f"SM: {lone:.4f} ms, {1e6 * lone / s:.2f} ns a step")
+    del lone_args
+    t = {"ms": time_ms(lambda: selective_scan(*args), backlog=True),
          "plain_ms": time_ms(lambda: selective_scan_ref(*args), 3, 1),
-         "library_ms": None}
+         "library_ms": None,
+         "splits_ms": {f"R={r_} P={p_}": v for (r_, p_), v in
+                       splits.items()},
+         "one_block_an_sm_ms": lone}
     nbytes = 2 * (3 * b * s * d + 2 * b * s * n) + 4 * (d * n + d
                                                         + b * d * n)
     t.update(scan_bound(nbytes, b * s * d * n, 6 * b * s * d * n, mem_bps,
                         sfu_rate, f32_fps))
     out["selective_scan"].update(t)
     a, bx, _ = lin_inputs(SCAN_CASES["path"], torch.bfloat16, gen)
-    t = {"ms": time_ms(lambda: ssm_scan(a, bx)),
+    t = {"ms": time_ms(lambda: ssm_scan(a, bx), backlog=True),
          "plain_ms": time_ms(lambda: ssm_scan_ref(a, bx), 3, 1),
          "library_ms": None}
     t.update(scan_bound(2 * 3 * b * s * d, 0, 2 * b * s * d, mem_bps,
@@ -979,6 +1058,15 @@ def main() -> int:
         print(f"[build]   {kname}: dynamic smem " + ", ".join(
             f"hd {hd} {flib.flash_attention_smem_bytes(which, hd, bf16)} B"
             for hd in fa.HEAD_DIMS))
+    slib = sscan._lib()
+    print(f"[build]   sel_scan_kernel: dynamic smem bf16 "
+          f"{slib.selective_scan_smem_bytes(1)} B, f32 "
+          f"{slib.selective_scan_smem_bytes(0)} B")
+    print(f"[build]   blocks an SM: sel_scan_kernel<R 4, P 1> bf16 "
+          f"{slib.selective_scan_blocks_per_sm(1)}, f32 "
+          f"{slib.selective_scan_blocks_per_sm(0)}; lin_scan_kernel bf16 "
+          f"{slib.ssm_scan_blocks_per_sm(1)}, f32 "
+          f"{slib.ssm_scan_blocks_per_sm(0)}")
 
     # ---- 3. kernel vs plain ---------------------------------------------
     cfg = get_config(ARCH)
@@ -1304,6 +1392,11 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "bytes_bound_ms": t["bytes_bound_ms"],
             "sfu_only_bound_ms": t["sfu_only_bound_ms"],
+            **({"split": {"states_per_thread": sscan.SEL_SPLIT[0],
+                          "fma_exp_states": sscan.SEL_SPLIT[1]},
+                "splits_ms": t["splits_ms"],
+                "one_block_an_sm_ms": t["one_block_an_sm_ms"]}
+               if kname == "selective_scan" else {}),
             "unit": ("one Mamba layer's call at the Jamba prefill path's "
                      "bf16 shape (B=1, S=4096, D=8192, N=16); launches "
                      "over 4 prefills (14 each)"

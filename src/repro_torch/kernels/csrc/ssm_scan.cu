@@ -3,9 +3,10 @@
 // Replaces the TPU kernels repro/kernels/ssm_scan.py:_sel_scan_kernel
 // (launched by selective_scan_pallas) and _lin_scan_kernel (launched by
 // ssm_scan_pallas). Plain versions: repro_torch/kernels/ref.py:
-// selective_scan_ref and ssm_scan_ref. Wrapper, checks and launch counts:
-// repro_torch/kernels/ssm_scan.py.
+// selective_scan_ref and ssm_scan_ref. Wrapper, checks, scratch and launch
+// counts: repro_torch/kernels/ssm_scan.py.
 //
+// ---------------------------------------------------------------------
 // Selective scan, for each batch row b, channel d and state n:
 //   h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) * B_t,  A = -exp(a_log)
 //   y_t = sum_n h_t * C_t + D * x_t
@@ -16,49 +17,84 @@
 // arithmetic are f32.
 //
 // Bound. On the Jamba prefill path (B=1, S=4096, D=8192, N=16, bf16) the
-// scan must read x and dt and write y, 3 x 2 B x 33.5 M = 201 MB (B, C,
-// a_log, D and h_last add 0.8 MB): 0.060 ms at the H100 SXM's 3.35 TB/s.
-// It must also take B*S*D*N = 537 M exponentials; the SFU gives 16 a clock
-// on each of the 132 SMs, 4.2 T/s at 1.98 GHz: 0.13 ms if every one runs
-// there. That is an upper estimate of the floor: exp2 can also run on the
-// FMA pipes as a range reduction and a polynomial (~5 instructions), as
-// FlashAttention-3/4 split it. With the other f32 work (~6 flops per
-// (t, d, n), 3.2 GFLOP at 67 TFLOP/s) sharing those pipes, the best split
-// puts ~38% of the exponentials there: ~0.08 ms. The operations bind
-// either way, above the bytes' 0.060 ms (arithmetic; chip_smoke.py
-// computes all three from the card's clock).
+// scan must read x and dt and write y, 3 x 2 B x 33.5 M = 201 MB: 0.060 ms
+// at 3.35 TB/s. It must also take B*S*D*N = 537 M exponentials; the SFU
+// gives 16 a clock on each of the 132 SMs, 0.13 ms if every one runs
+// there. An exp2 can run on the FMA pipes instead (exp2_fma below), so
+// the operations bind at ~0.08 ms with the best split (chip_smoke.py's
+// scan_bound computes all three from the card's clock).
 //
-// Design, simple and right first (no wgmma, TMA or chunked parallel scan):
-//   * The TPU walked time as a sequential grid axis with the state in
-//     VMEM scratch. Blocks here run in no order, so each block owns a set
-//     of channels of one batch row and loops over all of time itself.
-//   * One thread per (channel, state n): the NL = 8 (N <= 8) or 16
-//     (N <= 16, Mamba's) lanes of a channel are neighbours in a warp, so a
-//     block of 256 threads holds 256 / NL channels and B x D x NL threads
-//     fill the card (131,072 at the path's shape, not the 8,192 of one
-//     thread per channel). Lanes n >= N carry h = 0 and add nothing.
-//   * Time goes in chunks of 32 steps. The block stages the chunk's x and
-//     dt (coalesced along D) and B and C (shared by all its channels) in
-//     shared memory as f32, and loads the next chunk into registers while
-//     it computes this one.
-//   * y_t needs a sum over the NL lanes of a channel. After NL steps each
-//     lane holds NL products h_t * C_t; a transposing butterfly of NL - 1
-//     shuffles leaves lane n with the sum for step n of the group (about
-//     one shuffle per (t, d, n), not log2(NL)). The sums go to shared
-//     memory and out as coalesced rows, with D * x added there.
-//   * A ragged S and D are masked: steps past S are staged with dt = 0 and
-//     x = 0, so exp(0) = 1 leaves h as it is; channels past D are computed
-//     on zeros and never stored. Nothing asks S or D to divide a tile.
-//   * exp(dt * A) is exp2(dt * A * log2(e)), one SFU op a step.
+// Design. The TPU walked time as a sequential grid axis with the state in
+// VMEM. Here a block owns kCh = 32 channels of one batch row and walks all
+// of time itself:
+//   * R states a thread (R = 2, 4 or 8; 4 by default, the fastest of the
+//     three on an H100, see PERF.md). A thread owns one
+//     channel and R of its 16 (padded) states in registers, so the NL =
+//     16 / R lanes of a channel sit side by side in a warp. sum_n h C is
+//     taken in-thread over the R states and kept for each step of the
+//     chunk: the chunk's steps are one straight run with no shuffle or
+//     store in it, which the compiler schedules as one region, the
+//     exponentials of every kExpAhead steps issued before their
+//     recurrences (the SFU's latency is longer than a step). Then a
+//     transposing butterfly (NL - 1 shuffles every NL steps) leaves lane
+//     q with the sum for step q of each group. B_t and C_t come as 16-byte
+//     shared-memory broadcasts, (dt, x) as one 8-byte load a step.
+//   * Asynchronous staging. One producer warp streams chunks of kChunk
+//     steps: x and dt tiles [kChunk][kCh] and the B and C rows by 16-byte
+//     cp.async (zero-filled past S, D and N) into a ring of kRawStages raw
+//     stages, then widens each chunk to f32 ((dt, x) pairs, B, C) into a
+//     ring of kStages stages and arrives on that stage's "full" mbarrier.
+//     The consumer warps wait on "full" and release through "empty"; the
+//     time loop has no __syncthreads (one named barrier among the
+//     consumer warps a chunk, for the y tile below).
+//   * exp2 on two pipes: of each thread's R states the first P take exp2
+//     on the FMA pipes (exp2_fma: Cody-Waite reduction and a degree-5
+//     polynomial, 11 instructions), the rest ex2.approx on the SFU (P = 1
+//     of 4 by default). The choice depends on the state only, never on
+//     the step, so a state carried across two calls equals one call bit
+//     for bit.
+//   * y = sum + D * x is formed per (step, channel) into the block's y
+//     tile of the chunk (two tiles alternate); after the named barrier
+//     each consumer warp writes whole rows of it as 16-byte pieces, the 4
+//     (bf16) or 8 (f32) pieces of a row on neighbouring lanes: one 64- or
+//     128-byte write a row, where a warp's own 16 bytes of 32 rows were
+//     slow. A ragged S is zero-filled: dt = 0 gives exp2(0) = 1 exactly on
+//     both pipes and leaves h as it is; channels past D and states past N
+//     compute on zeros and are not stored.
 //
+// ---------------------------------------------------------------------
 // Linear scan: h_t = a_t * h_{t-1} + bx_t over axis 1, a and bx [B,S,D]
-// contiguous of one dtype, h0 [B,D] f32, every h_t out in that dtype. One
-// thread per (b, d), coalesced along D; 16 steps of loads are issued
-// before their 16 dependent FMAs. Bound: the bytes of a, bx and the
-// output (no model calls it; ops.ssm_scan is its only entry point).
+// contiguous of one dtype, h0 [B,D] f32, every h_t out in that dtype.
+// Bound: one read of a and bx and one write of h, 0.060 ms at the path's
+// (1, 4096, 8192) bf16. The old kernel, one thread a channel walking all
+// of time, had too few loads in flight to approach it.
+//
+// Design: a single-pass chunked scan with decoupled look-back. The pair
+// (a, b) composes associatively, (a1, b1) o (a2, b2) = (a1 a2, a2 b1 + b2).
+//   * A tile is kLinSteps steps x kLinCh channels of one batch row; its
+//     block takes the tile's index from an atomic counter, ordered time
+//     chunk slowest, so a block only ever waits on tiles handed out before
+//     its own, to blocks already running.
+//   * Each thread loads a 4-byte column (2 bf16 channels or 1 f32) over
+//     the tile's steps into registers, all loads in flight at once, and
+//     forms its aggregate (prod a, end state from 0). The block publishes
+//     the aggregates and sets its flag to 1 (release); chunk 0 publishes
+//     its inclusive end state at once (flag 2).
+//   * Look-back: thread 0 walks back over the predecessors' flags to the
+//     nearest inclusive state j; every thread then rolls forward
+//     h = A_i h + B_i over i = j+1 .. k-1 and publishes its own inclusive
+//     state fma(A_k, h, B_k), flag 2. Rolling forward in time order gives
+//     each inclusive state the same bits whichever j the walk stopped at,
+//     so the result does not depend on timing: two calls agree bit for bit.
+//   * The block rescans its registers from the incoming state and writes
+//     every h_t. The wrapper zeroes the counter and the flags and allocates
+//     the aggregates; the kernel allocates nothing.
+// A state carried across two calls agrees with one call within rounding,
+// not bit for bit: the association of the products changes with the split.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 // Arguments of a selective-scan launch; mirrored by ctypes.Structure in
 // ssm_scan.py (pointers, then 64-bit strides, then ints).
@@ -74,20 +110,77 @@ struct SelScanArgs {
   float* h_last;
   long long x_sb, x_ss, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss;
   int B, S, D, N;
+  int states_per_thread;   // R: 2, 4 or 8
+  int fma_exp_states;      // P: of each thread's R states, those on the FMA pipes
+};
+
+// Arguments of a linear-scan launch; mirrored in ssm_scan.py.
+struct LinScanArgs {
+  const void* a;
+  const void* bx;
+  const float* h0;
+  void* out;
+  int* tile_state;   // [1 + tiles]: the tile counter, then a flag a tile
+  float2* agg;       // [tiles][kLinCh]: (prod a, end state from 0)
+  float* incl;       // [tiles][kLinCh]: end state from the true h0
+  int B, S, D;
+  int vec;           // 1: a thread's 4-byte column loads as one word
 };
 
 namespace {
 
-constexpr int kThreads = 256;   // threads of a selective-scan block
-constexpr int kChunk = 32;      // time steps staged per pass
-constexpr int kLinThreads = 64;   // 128 blocks at D = 8192: one an SM
-constexpr int kLinSteps = 16;   // linear scan: loads in flight per thread
+constexpr int kChunk = 32;       // time steps a stage (== warp size)
+constexpr int kCh = 32;          // channels a selective-scan block
+constexpr int kNP = 16;          // states, padded: N <= 16
+constexpr int kTilePitch = kCh + 8;   // f32 a row of a y tile: the 4
+                                      // lanes of a channel hit 4 bank groups
+constexpr int kRawStages = 3;    // cp.async ring, raw dtype
+constexpr int kExpAhead = 4;     // steps whose exp2 are issued together
+constexpr int kStages = 3;       // f32 ring the consumers read
+constexpr int kLinSteps = 64;    // linear scan: steps a tile
+constexpr int kLinCh = 256;      // linear scan: channels a tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kBadStateDim = 1000;   // N outside 1..16 (not a cudaError_t)
+constexpr int kBadSplit = 1001;      // (R, P) with no kernel
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+static_assert(kChunk == 32, "a consumer lane writes one row of a chunk");
+
+// Coefficients of exp2_fma's polynomial: 2^f ~ 1 + f (c1 + f (c2 + ...)),
+// a relative minimax fit on [-1/2, 1/2] with p(0) = 1 exactly
+// (tests/test_torch_ssm_scan.py reads them from here).
+constexpr float kExp2C1 = 0.6931470036506653f;
+constexpr float kExp2C2 = 0.24022242426872253f;
+constexpr float kExp2C3 = 0.05550733953714371f;
+constexpr float kExp2C4 = 0.009671512991189957f;
+constexpr float kExp2C5 = 0.0013264714507386088f;
+// 1.5 * 2^23 + 127: x + kExp2Round rounds x to an integer j in the low
+// mantissa bits, biased by 127, so those bits shifted left by 23 are 2^j
+constexpr float kExp2Round = 12583039.0f;
+
+// 2^x for x <= 0 on the FMA pipes, within 2^-21 relative (its float32
+// model in tests/test_torch_ssm_scan.py); 0 below -126.
+// x = j + f with j = rint(x), |f| <= 1/2; 2^f by the polynomial; 2^j from
+// j's bits. x is clamped at -127, where 2^j's bits are 0; results below
+// 2^-126 flush to 0 (mul.ftz), as ex2.approx.ftz does.
+__device__ __forceinline__ float exp2_fma(float x) {
+  x = fmaxf(x, -127.f);
+  const float t = x + kExp2Round;
+  const float f = x - (t - kExp2Round);
+  float p = fmaf(kExp2C5, f, kExp2C4);
+  p = fmaf(p, f, kExp2C3);
+  p = fmaf(p, f, kExp2C2);
+  p = fmaf(p, f, kExp2C1);
+  p = fmaf(p, f, 1.f);
+  const float scale = __uint_as_float(__float_as_uint(t) << 23);
+  float r;
+  asm("mul.ftz.f32 %0, %1, %2;" : "=f"(r) : "f"(p), "f"(scale));
+  return r;
+}
+
+__device__ __forceinline__ float exp2_sfu(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
 }
 
 template <typename T>
@@ -99,184 +192,599 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
+// Two consecutive elements of shared memory, widened to f32.
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// Four consecutive elements of shared memory, widened to f32.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+// Two f32 values as one word of two bf16, a in the low half, each rounded
+// to nearest even.
+__device__ __forceinline__ uint32_t pack2(__nv_bfloat16*, float a,
+                                          float b) {
+  uint32_t w;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(w) : "f"(b), "f"(a));
+  return w;
+}
+
+// A 4-byte word of T (2 bf16 or 1 f32) widened to f32, and back.
+template <typename T>
+__device__ __forceinline__ void unpack(uint32_t w, float (&v)[4 / sizeof(T)]);
+template <>
+__device__ __forceinline__ void unpack<float>(uint32_t w, float (&v)[1]) {
+  v[0] = __uint_as_float(w);
+}
+template <>
+__device__ __forceinline__ void unpack<__nv_bfloat16>(uint32_t w,
+                                                      float (&v)[2]) {
+  v[0] = __uint_as_float(w << 16);
+  v[1] = __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ uint32_t to_word(const float (&e)[1]) {
+  return __float_as_uint(e[0]);
+}
+__device__ __forceinline__ uint32_t to_word(const __nv_bfloat16 (&e)[2]) {
+  return __bfloat16_as_ushort(e[0])
+         | (static_cast<uint32_t>(__bfloat16_as_ushort(e[1])) << 16);
+}
+__device__ __forceinline__ uint32_t pack_word(float*, const float (&h)[1]) {
+  return __float_as_uint(h[0]);
+}
+__device__ __forceinline__ uint32_t pack_word(__nv_bfloat16* o,
+                                              const float (&h)[2]) {
+  return pack2(o, h[0], h[1]);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory: the first `bytes` (0..16) from
+// src, zeros after them.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ int clamp16(int bytes) {
+  return bytes < 0 ? 0 : bytes > 16 ? 16 : bytes;
+}
+
 // Transposing butterfly over the NL lanes of a channel: at width W a lane
 // keeps the half of its pairs (i, i + W) that its bit W selects and
-// receives the other half from lane n ^ W. Slot i then stands for step
-// i + (n & W) + the bits already fixed, so at the end v[0] of lane n is
-// the sum over the NL lanes of their step-n values. A recursion on W, so
-// that every index into v is a constant and v stays in registers.
+// receives the other half from lane q ^ W. Slot i then stands for step
+// i + (q & W) + the bits already fixed, so at the end v[0] of lane q is
+// the sum over the NL lanes of their step-q values, always grouped the
+// same way. A recursion on W, so that every index into v is a constant
+// and v stays in registers.
 template <int W, int NL>
-__device__ __forceinline__ void butterfly(float (&v)[NL], int n) {
+__device__ __forceinline__ void butterfly(float (&v)[NL], int q) {
   if constexpr (W >= 1) {
-    const bool upper = (n & W) != 0;
+    const bool upper = (q & W) != 0;
 #pragma unroll
     for (int i = 0; i < W; ++i) {
       const float send = upper ? v[i] : v[i + W];
       const float keep = upper ? v[i + W] : v[i];
       v[i] = keep + __shfl_xor_sync(0xffffffffu, send, W);
     }
-    butterfly<W / 2>(v, n);
+    butterfly<W / 2>(v, q);
   }
 }
 
-template <typename T, int NL>
-__global__ void __launch_bounds__(kThreads)
-sel_scan_kernel(const SelScanArgs p) {
-  constexpr int CH = kThreads / NL;                      // channels a block
-  constexpr int kLoadX = kChunk * CH / kThreads;         // x, dt per thread
-  constexpr int kLoadB = (kChunk * NL + kThreads - 1) / kThreads;  // B, C
-  static_assert(kChunk % NL == 0 && kChunk * CH % kThreads == 0, "tiles");
-
-  __shared__ float2 s_xdt[kChunk][CH];        // (dt, x) of a step, channel
-  __shared__ float2 s_bc[kChunk][NL];         // (B, C) of a step, state
-  __shared__ float s_y[kChunk][CH + 1];       // sum_n h C; +1: fewer bank
-                                              // conflicts on the column write
-  __shared__ float s_d[CH];
-
-  const int tid = threadIdx.x;
-  const int n = tid % NL;
-  const int ch = tid / NL;
-  const int bi = blockIdx.y;
-  const int d0 = blockIdx.x * CH;
-  const int dd = d0 + ch;
-  const int S = p.S, D = p.D, N = p.N;
-  const bool live = dd < D && n < N;
-
-  const T* x = static_cast<const T*>(p.x) + bi * p.x_sb;
-  const T* dt = static_cast<const T*>(p.dt) + bi * p.dt_sb;
-  const T* bm = static_cast<const T*>(p.b) + bi * p.b_sb;
-  const T* cm = static_cast<const T*>(p.c) + bi * p.c_sb;
-  T* y = static_cast<T*>(p.y) + static_cast<size_t>(bi) * S * D;
-  const size_t h_off = (static_cast<size_t>(bi) * D + dd) * N + n;
-
-  float h = live ? p.h0[h_off] : 0.f;
-  const float a2 = live ? -expf(p.a_log[static_cast<size_t>(dd) * N + n])
-                              * kLog2e
-                        : 0.f;
-  if (tid < CH) s_d[tid] = d0 + tid < D ? p.d[d0 + tid] : 0.f;
-
-  // next chunk, loaded into registers while the current one is computed
-  T rx[kLoadX], rdt[kLoadX], rb[kLoadB], rc[kLoadB];
-  const T zero = from_f32<T>(0.f);
-  auto load = [&](int t0) {
+// R consecutive f32 values of shared memory, as 16- or 8-byte loads.
+template <int R>
+__device__ __forceinline__ void load_states(const float* p, float (&v)[R]) {
+  if constexpr (R % 4 == 0) {
 #pragma unroll
-    for (int k = 0; k < kLoadX; ++k) {
-      const int i = tid + k * kThreads, t = t0 + i / CH, c = d0 + i % CH;
-      const bool ok = t < S && c < D;
-      rx[k] = ok ? x[t * p.x_ss + c] : zero;
-      rdt[k] = ok ? dt[t * p.dt_ss + c] : zero;
+    for (int i = 0; i < R; i += 4) {
+      const float4 u = *reinterpret_cast<const float4*>(p + i);
+      v[i] = u.x; v[i + 1] = u.y; v[i + 2] = u.z; v[i + 3] = u.w;
     }
+  } else {
+    static_assert(R == 2, "R is 2, 4 or 8");
+    const float2 u = *reinterpret_cast<const float2*>(p);
+    v[0] = u.x; v[1] = u.y;
+  }
+}
+
+// Byte offsets of the selective scan's dynamic shared memory.
+template <typename T>
+struct SelSmem {
+  static constexpr int kRawX = kChunk * kCh * sizeof(T);    // x or dt tile
+  static constexpr int kRawB = kChunk * kNP * sizeof(T);    // B or C rows
+  static constexpr int kRaw = 2 * kRawX + 2 * kRawB;        // a raw stage
+  static constexpr int kDx = kChunk * kCh * 8;              // (dt, x) f32
+  static constexpr int kFb = kChunk * kNP * 4;              // B or C f32
+  static constexpr int kStage = kDx + 2 * kFb;              // an f32 stage
+  static constexpr int kStageOff = kRawStages * kRaw;
+  static constexpr int kYOff = kStageOff + kStages * kStage;
+  static constexpr int kBarOff = kYOff + 2 * kChunk * kTilePitch * 4;
+  static constexpr int kBytes = kBarOff + 2 * kStages * 8;
+  static_assert(kRawB % 16 == 0 && kRaw % 16 == 0 && kStage % 16 == 0,
+                "16-byte pieces");
+};
+
+// One 16-byte piece of a row of a y tile: 16 / sizeof(T) f32 values at
+// src (shared memory), `valid` of them inside D, out to dst as T in one
+// store where they all are.
+template <typename T>
+__device__ __forceinline__ void store_piece(T* dst, const float* src,
+                                            int valid, bool vec) {
+  constexpr int E = 16 / sizeof(T);
+  if (vec && valid >= E) {
+    const float4 u = *reinterpret_cast<const float4*>(src);
+    if constexpr (sizeof(T) == 4) {
+      *reinterpret_cast<float4*>(dst) = u;
+    } else {
+      const float4 w = *reinterpret_cast<const float4*>(src + 4);
+      *reinterpret_cast<uint4*>(dst) =
+          make_uint4(pack2(dst, u.x, u.y), pack2(dst, u.z, u.w),
+                     pack2(dst, w.x, w.y), pack2(dst, w.z, w.w));
+    }
+  } else {
+    for (int i = 0; i < E && i < valid; ++i) dst[i] = from_f32<T>(src[i]);
+  }
+}
+
+// Selective scan: one block per (kCh channels, batch row); NL consumer
+// warps (kCh channels x NL lanes) and one producer warp, the last.
+template <typename T, int R, int P>
+__global__ void __launch_bounds__(32 * (kNP / R + 1))
+sel_scan_kernel(const SelScanArgs p) {
+  constexpr int NL = kNP / R;           // lanes a channel
+  constexpr int NCW = NL;               // consumer warps
+  static_assert(kChunk % NL == 0 && P <= R, "tiles");
+  static_assert((kChunk * kCh) % 128 == 0 && (kChunk * kNP) % 64 == 0,
+                "the producer's lanes split a chunk evenly");
+  using L = SelSmem<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t bars = smem_addr(smem + L::kBarOff);
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kStages + s); };
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bi = blockIdx.y, d0 = blockIdx.x * kCh;
+  const int S = p.S, D = p.D, N = p.N;
+  const int n_chunks = (S + kChunk - 1) / kChunk;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 32);
+      mbar_init(empty(s), NCW);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == NCW) {                    // ---------------- the producer
+    const T* xg = static_cast<const T*>(p.x) + bi * p.x_sb;
+    const T* dtg = static_cast<const T*>(p.dt) + bi * p.dt_sb;
+    const T* bg = static_cast<const T*>(p.b) + bi * p.b_sb;
+    const T* cg = static_cast<const T*>(p.c) + bi * p.c_sb;
+    constexpr int E = 16 / sizeof(T);   // elements a 16-byte piece
+    constexpr int XP = kCh / E;         // pieces a row of x or dt
+    constexpr int BP = kNP / E;         // pieces a row of B or C
+    auto issue = [&](int kc) {
+      unsigned char* raw = smem + (kc % kRawStages) * L::kRaw;
+      const int t0 = kc * kChunk;
 #pragma unroll
-    for (int k = 0; k < kLoadB; ++k) {
-      const int i = tid + k * kThreads, t = t0 + i / NL, m = i % NL;
-      const bool ok = i < kChunk * NL && t < S && m < N;
-      rb[k] = ok ? bm[t * p.b_ss + m] : zero;
-      rc[k] = ok ? cm[t * p.c_ss + m] : zero;
+      for (int m = 0; m < kChunk * XP / 32; ++m) {
+        const int i = lane + 32 * m;
+        const int t = t0 + i / XP, col = d0 + (i % XP) * E;
+        const int bytes = t < S ? clamp16((D - col) * int(sizeof(T))) : 0;
+        const long long ox = bytes ? t * p.x_ss + col : 0;
+        const long long od = bytes ? t * p.dt_ss + col : 0;
+        cp_async16(smem_addr(raw + 16 * i), xg + ox, bytes);
+        cp_async16(smem_addr(raw + L::kRawX + 16 * i), dtg + od, bytes);
+      }
+#pragma unroll
+      for (int m = 0; m < kChunk * BP / 32; ++m) {
+        const int i = lane + 32 * m;
+        const int t = t0 + i / BP, n = (i % BP) * E;
+        const int bytes = t < S ? clamp16((N - n) * int(sizeof(T))) : 0;
+        const long long ob = bytes ? t * p.b_ss + n : 0;
+        const long long oc = bytes ? t * p.c_ss + n : 0;
+        cp_async16(smem_addr(raw + 2 * L::kRawX + 16 * i), bg + ob, bytes);
+        cp_async16(smem_addr(raw + 2 * L::kRawX + L::kRawB + 16 * i),
+                   cg + oc, bytes);
+      }
+    };
+    for (int kc = 0; kc < kRawStages - 1; ++kc) {
+      if (kc < n_chunks) issue(kc);
+      cp_async_commit();
+    }
+    for (int kc = 0; kc < n_chunks; ++kc) {
+      if (kc + kRawStages - 1 < n_chunks) issue(kc + kRawStages - 1);
+      cp_async_commit();
+      cp_async_wait<kRawStages - 1>();  // this lane's pieces of chunk kc
+      __syncwarp();                     // ... and every lane's
+      const int s = kc % kStages;
+      if (kc >= kStages) mbar_wait(empty(s), ((kc / kStages) + 1) & 1);
+      const unsigned char* raw = smem + (kc % kRawStages) * L::kRaw;
+      const T* rx = reinterpret_cast<const T*>(raw);
+      const T* rdt = reinterpret_cast<const T*>(raw + L::kRawX);
+      const T* rb = reinterpret_cast<const T*>(raw + 2 * L::kRawX);
+      const T* rc = reinterpret_cast<const T*>(raw + 2 * L::kRawX + L::kRawB);
+      unsigned char* st = smem + L::kStageOff + s * L::kStage;
+      float4* dx = reinterpret_cast<float4*>(st);
+      float2* fb = reinterpret_cast<float2*>(st + L::kDx);
+      float2* fc = reinterpret_cast<float2*>(st + L::kDx + L::kFb);
+      // all of a lane's loads first, then its stores: one shared-memory
+      // round trip a chunk
+      float4 xq[kChunk * kCh / 128], dq[kChunk * kCh / 128];
+      float2 bq[kChunk * kNP / 64], cq[kChunk * kNP / 64];
+#pragma unroll
+      for (int m = 0; m < kChunk * kCh / 128; ++m) {
+        xq[m] = load4(rx + 4 * (lane + 32 * m));
+        dq[m] = load4(rdt + 4 * (lane + 32 * m));
+      }
+#pragma unroll
+      for (int m = 0; m < kChunk * kNP / 64; ++m) {
+        bq[m] = load2(rb + 2 * (lane + 32 * m));
+        cq[m] = load2(rc + 2 * (lane + 32 * m));
+      }
+#pragma unroll
+      for (int m = 0; m < kChunk * kCh / 128; ++m) {
+        const int i = 2 * (lane + 32 * m);
+        dx[i] = make_float4(dq[m].x, xq[m].x, dq[m].y, xq[m].y);
+        dx[i + 1] = make_float4(dq[m].z, xq[m].z, dq[m].w, xq[m].w);
+      }
+#pragma unroll
+      for (int m = 0; m < kChunk * kNP / 64; ++m) {
+        fb[lane + 32 * m] = bq[m];
+        fc[lane + 32 * m] = cq[m];
+      }
+      mbar_arrive(full(s));
+      __syncwarp();                     // raw slot read before it refills
+    }
+    return;
+  }
+
+  // ------------------------------------------------------ the consumers
+  const int ch = threadIdx.x / NL, q = threadIdx.x % NL, n0 = q * R;
+  const int d = d0 + ch;
+  const bool dok = d < D;
+  float h[R], a2[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int n = n0 + r;
+    const bool live = dok && n < N;
+    h[r] = live ? p.h0[(static_cast<size_t>(bi) * D + d) * N + n] : 0.f;
+    a2[r] = live ? -expf(p.a_log[static_cast<size_t>(d) * N + n]) * kLog2e
+                 : 0.f;
+  }
+  const float dv = dok ? p.d[d] : 0.f;
+  float* ys = reinterpret_cast<float*>(smem + L::kYOff);   // two tiles
+  // Consumer warp w writes rows of the chunk's tile: each lane a piece of
+  // kPiece channels of one row, a row's pieces on neighbouring lanes.
+  constexpr int kPiece = 16 / sizeof(T);           // channels a 16 B store
+  constexpr int kLanesRow = kCh / kPiece;          // lanes a row
+  constexpr int kRowsPass = 32 / kLanesRow;        // rows a warp store
+  const int pr = lane / kLanesRow, pc = (lane % kLanesRow) * kPiece;
+  const bool vec = (static_cast<long long>(D) * sizeof(T)) % 16 == 0;
+  T* yb = static_cast<T*>(p.y) + static_cast<size_t>(bi) * S * D + d0 + pc;
+  auto flush = [&](const float* tile, int kc) {
+#pragma unroll
+    for (int r0 = warp * kRowsPass; r0 < kChunk; r0 += NCW * kRowsPass) {
+      const int row = r0 + pr, t = kc * kChunk + row;
+      if (t < S)
+        store_piece<T>(yb + static_cast<size_t>(t) * D,
+                       tile + row * kTilePitch + pc, D - d0 - pc, vec);
     }
   };
-
-  load(0);
-  for (int t0 = 0; t0 < S; t0 += kChunk) {
-    // the previous pass ended in a barrier: the tiles are free to write
+  for (int kc = 0; kc < n_chunks; ++kc) {
+    const int s = kc % kStages;
+    mbar_wait(full(s), (kc / kStages) & 1);
+    const unsigned char* st = smem + L::kStageOff + s * L::kStage;
+    const float2* dx = reinterpret_cast<const float2*>(st);
+    const float* fb = reinterpret_cast<const float*>(st + L::kDx);
+    const float* fc = reinterpret_cast<const float*>(st + L::kDx + L::kFb);
+    // the chunk's steps as one straight run with no shuffle or store in
+    // it (a shuffle's convergence check would end the compiler's
+    // scheduling region), each step's sum over this thread's R states
+    // kept; then the sums across the NL lanes
+    float part[kChunk];
 #pragma unroll
-    for (int k = 0; k < kLoadX; ++k) {
-      const int i = tid + k * kThreads;
-      s_xdt[i / CH][i % CH] = make_float2(to_f32(rdt[k]), to_f32(rx[k]));
-    }
+    for (int t0 = 0; t0 < kChunk; t0 += kExpAhead) {
+      // a sub-block's exponentials first, then its recurrences: each
+      // exp2's result is used a sub-block of work after it is issued
+      float da[kExpAhead][R], dtx[kExpAhead];
 #pragma unroll
-    for (int k = 0; k < kLoadB; ++k) {
-      const int i = tid + k * kThreads;
-      if (i < kChunk * NL)
-        s_bc[i / NL][i % NL] = make_float2(to_f32(rb[k]), to_f32(rc[k]));
+      for (int j = 0; j < kExpAhead; ++j) {
+        const float2 e = dx[(t0 + j) * kCh + ch];     // (dt, x)
+        dtx[j] = e.x * e.y;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float arg = e.x * a2[r];
+          da[j][r] = r < P ? exp2_fma(arg) : exp2_sfu(arg);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kExpAhead; ++j) {
+        const int t = t0 + j;
+        float bb[R], cc[R];
+        load_states<R>(fb + t * kNP + n0, bb);
+        load_states<R>(fc + t * kNP + n0, cc);
+        float acc = 0.f;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          h[r] = fmaf(da[j][r], h[r], dtx[j] * bb[r]);
+          acc = r == 0 ? h[r] * cc[r] : fmaf(h[r], cc[r], acc);
+        }
+        part[t] = acc;
+      }
     }
-    __syncthreads();
-    if (t0 + kChunk < S) load(t0 + kChunk);
-
-#pragma unroll 1
-    for (int tb = 0; tb < kChunk; tb += NL) {
+    float yv[kChunk / NL];              // y of steps q, q + NL, ...
+#pragma unroll
+    for (int gi = 0; gi < kChunk / NL; ++gi) {
       float v[NL];
 #pragma unroll
-      for (int j = 0; j < NL; ++j) {
-        const float2 xd = s_xdt[tb + j][ch];
-        const float2 bc = s_bc[tb + j][n];
-        const float da = exp2f(xd.x * a2);
-        h = fmaf(da, h, (xd.x * xd.y) * bc.x);
-        v[j] = h * bc.y;
-      }
-      butterfly<NL / 2>(v, n);
-      s_y[tb + n][ch] = v[0];
+      for (int j = 0; j < NL; ++j) v[j] = part[gi * NL + j];
+      butterfly<NL / 2>(v, q);
+      yv[gi] = fmaf(dv, dx[(gi * NL + q) * kCh + ch].y, v[0]);
     }
-    __syncthreads();
-
-    for (int i = tid; i < kChunk * CH; i += kThreads) {
-      const int t = i / CH, c = i % CH;
-      if (t0 + t < S && d0 + c < D)
-        y[static_cast<size_t>(t0 + t) * D + d0 + c] =
-            from_f32<T>(s_y[t][c] + s_d[c] * s_xdt[t][c].y);
-    }
-    __syncthreads();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+    // the block's y tile of the chunk, then each consumer warp writes
+    // whole rows of it (one named barrier among the consumer warps a
+    // chunk; the two tiles alternate, so a warp still writing out tile
+    // kc & 1 is never overtaken before the next barrier)
+    float* tile = ys + (kc & 1) * kChunk * kTilePitch;
+#pragma unroll
+    for (int gi = 0; gi < kChunk / NL; ++gi)
+      tile[(gi * NL + q) * kTilePitch + ch] = yv[gi];
+    asm volatile("bar.sync 1, %0;" ::"n"(32 * NCW) : "memory");
+    flush(tile, kc);
   }
-  if (live) p.h_last[h_off] = h;
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (dok && n0 + r < N)
+      p.h_last[(static_cast<size_t>(bi) * D + d) * N + n0 + r] = h[r];
 }
 
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// Linear scan: one tile a block, kLinCh / CPT threads of CPT channels.
+// Two bf16 blocks an SM: 255 registers a thread hold the 128 words with
+// few spills (three blocks an SM spilled more and ran slower).
 template <typename T>
-__global__ void __launch_bounds__(kLinThreads)
-lin_scan_kernel(const T* __restrict__ a, const T* __restrict__ bx,
-                const float* __restrict__ h0, T* __restrict__ out, int S,
-                int D) {
-  const int dd = blockIdx.x * kLinThreads + threadIdx.x;
-  if (dd >= D) return;
-  const size_t base = static_cast<size_t>(blockIdx.y) * S * D + dd;
-  float h = h0[static_cast<size_t>(blockIdx.y) * D + dd];
-  for (int t0 = 0; t0 < S; t0 += kLinSteps) {
-    float av[kLinSteps], bv[kLinSteps];
+__global__ void __launch_bounds__(kLinCh * sizeof(T) / 4,
+                                  sizeof(T) == 2 ? 2 : 1)
+lin_scan_kernel(const LinScanArgs p) {
+  constexpr int CPT = 4 / sizeof(T);    // channels a thread: one 4-byte word
+  __shared__ int s_tile, s_from;
+  const int S = p.S, D = p.D;
+  if (threadIdx.x == 0) s_tile = atomicAdd(p.tile_state, 1);
+  __syncthreads();
+  const int n_ct = (D + kLinCh - 1) / kLinCh;
+  const int n_k = (S + kLinSteps - 1) / kLinSteps;
+  const int k = s_tile / (p.B * n_ct);            // time chunk, slowest
+  const int col = s_tile % (p.B * n_ct);          // (batch row, channels)
+  const int bi = col / n_ct;
+  const int c0 = (col % n_ct) * kLinCh + threadIdx.x * CPT;
+  const int t0 = k * kLinSteps;
+  const int nvalid = min(CPT, D - c0);            // <= 0: past D
+  const size_t base = (static_cast<size_t>(bi) * S + t0) * D + c0;
+  const T* a = static_cast<const T*>(p.a) + base;
+  const T* bx = static_cast<const T*>(p.bx) + base;
+
+  // the tile's column in registers, one 4-byte word a step (2 bf16
+  // channels or 1 f32); pad steps and channels are (1, 0)
+  uint32_t wa[kLinSteps], wb[kLinSteps];
+  const bool whole = p.vec && nvalid == CPT && t0 + kLinSteps <= S;
+  if (whole) {                          // every tile but the ragged ones
 #pragma unroll
     for (int j = 0; j < kLinSteps; ++j) {
-      const bool ok = t0 + j < S;
-      const size_t off = base + static_cast<size_t>(t0 + j) * D;
-      av[j] = ok ? to_f32(a[off]) : 0.f;
-      bv[j] = ok ? to_f32(bx[off]) : 0.f;
+      const size_t off = static_cast<size_t>(j) * D;
+      wa[j] = *reinterpret_cast<const uint32_t*>(a + off);
+      wb[j] = *reinterpret_cast<const uint32_t*>(bx + off);
     }
+  } else {
 #pragma unroll
     for (int j = 0; j < kLinSteps; ++j) {
-      h = fmaf(av[j], h, bv[j]);
-      if (t0 + j < S)
-        out[base + static_cast<size_t>(t0 + j) * D] = from_f32<T>(h);
+      const size_t off = static_cast<size_t>(j) * D;
+      T ea[CPT], eb[CPT];
+#pragma unroll
+      for (int i = 0; i < CPT; ++i) {
+        const bool in = t0 + j < S && i < nvalid;
+        ea[i] = in ? a[off + i] : from_f32<T>(1.f);
+        eb[i] = in ? bx[off + i] : from_f32<T>(0.f);
+      }
+      wa[j] = to_word(ea);
+      wb[j] = to_word(eb);
+    }
+  }
+  float ag[CPT], bg[CPT];
+#pragma unroll
+  for (int i = 0; i < CPT; ++i) {
+    ag[i] = 1.f;
+    bg[i] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < kLinSteps; ++j) {
+    float va[CPT], vb[CPT];
+    unpack<T>(wa[j], va);
+    unpack<T>(wb[j], vb);
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      ag[i] *= va[i];
+      bg[i] = fmaf(va[i], bg[i], vb[i]);
+    }
+  }
+
+  const int tile = col * n_k + k;
+  const size_t slot = static_cast<size_t>(tile) * kLinCh + threadIdx.x * CPT;
+  float h[CPT];
+  if (k == 0) {
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      h[i] = i < nvalid ? p.h0[static_cast<size_t>(bi) * D + c0 + i] : 0.f;
+      p.incl[slot + i] = fmaf(ag[i], h[i], bg[i]);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) st_release(p.tile_state + 1 + tile, 2);
+  } else {
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) p.agg[slot + i] = make_float2(ag[i], bg[i]);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      st_release(p.tile_state + 1 + tile, 1);
+      int j = k - 1;                  // back to the nearest inclusive state
+      for (;;) {
+        const int f = ld_acquire(p.tile_state + 1 + col * n_k + j);
+        if (f == 2) break;
+        if (f == 1) --j;
+      }
+      s_from = j;
+    }
+    __syncthreads();
+    const int j = s_from;
+    const size_t cs = static_cast<size_t>(col) * n_k;
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      h[i] = __ldcg(p.incl + (cs + j) * kLinCh + threadIdx.x * CPT + i);
+      for (int m = j + 1; m < k; ++m) {
+        const float2 g = __ldcg(p.agg + (cs + m) * kLinCh
+                                + threadIdx.x * CPT + i);
+        h[i] = fmaf(g.x, h[i], g.y);
+      }
+      p.incl[slot + i] = fmaf(ag[i], h[i], bg[i]);
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) st_release(p.tile_state + 1 + tile, 2);
+  }
+
+  T* out = static_cast<T*>(p.out) + base;
+#pragma unroll
+  for (int j = 0; j < kLinSteps; ++j) {
+    float va[CPT], vb[CPT];
+    unpack<T>(wa[j], va);
+    unpack<T>(wb[j], vb);
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) h[i] = fmaf(va[i], h[i], vb[i]);
+    const size_t off = static_cast<size_t>(j) * D;
+    if (whole) {
+      *reinterpret_cast<uint32_t*>(out + off) = pack_word(out, h);
+    } else if (t0 + j < S) {
+#pragma unroll
+      for (int i = 0; i < CPT; ++i)
+        if (i < nvalid) out[off + i] = from_f32<T>(h[i]);
     }
   }
 }
 
-template <typename T, int NL>
+// The selective scan's dynamic shared memory, and the largest
+// shared-memory carveout: three blocks an SM.
+template <typename T, int R, int P>
+cudaError_t prepare_sel() {
+  cudaError_t err = cudaFuncSetAttribute(
+      sel_scan_kernel<T, R, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SelSmem<T>::kBytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(sel_scan_kernel<T, R, P>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return err;
+}
+
+template <typename T, int R, int P>
 int launch_sel(const SelScanArgs& a, cudaStream_t stream) {
-  const dim3 grid((a.D + kThreads / NL - 1) / (kThreads / NL), a.B);
-  sel_scan_kernel<T, NL><<<grid, kThreads, 0, stream>>>(a);
+  constexpr int kBytes = SelSmem<T>::kBytes;
+  const cudaError_t err = prepare_sel<T, R, P>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.D + kCh - 1) / kCh, a.B);
+  sel_scan_kernel<T, R, P><<<grid, 32 * (kNP / R + 1), kBytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The (R, P) splits built: R = 4 with 1 state of 4 on the FMA pipes is the
+// default (ssm_scan.py); the others are there to be timed against it.
 template <typename T>
 int dispatch_sel(const SelScanArgs& a, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  if (a.N < 1) return kBadStateDim;
-  if (a.N <= 8) return launch_sel<T, 8>(a, s);
-  if (a.N <= 16) return launch_sel<T, 16>(a, s);
-  return kBadStateDim;
+  if (a.N < 1 || a.N > kNP) return kBadStateDim;
+  switch (a.states_per_thread * 16 + a.fma_exp_states) {
+    case 2 * 16 + 0: return launch_sel<T, 2, 0>(a, s);
+    case 2 * 16 + 1: return launch_sel<T, 2, 1>(a, s);
+    case 4 * 16 + 0: return launch_sel<T, 4, 0>(a, s);
+    case 4 * 16 + 1: return launch_sel<T, 4, 1>(a, s);
+    case 4 * 16 + 2: return launch_sel<T, 4, 2>(a, s);
+    case 8 * 16 + 0: return launch_sel<T, 8, 0>(a, s);
+    case 8 * 16 + 3: return launch_sel<T, 8, 3>(a, s);
+    default: return kBadSplit;
+  }
 }
 
 template <typename T>
-int launch_lin(const void* a, const void* bx, const float* h0, void* out,
-               int B, int S, int D, void* stream) {
-  const dim3 grid((D + kLinThreads - 1) / kLinThreads, B);
-  lin_scan_kernel<T><<<grid, kLinThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(a), static_cast<const T*>(bx), h0,
-      static_cast<T*>(out), S, D);
+int launch_lin(const LinScanArgs& a, void* stream) {
+  const long long tiles =
+      static_cast<long long>(a.B) * ((a.D + kLinCh - 1) / kLinCh)
+      * ((a.S + kLinSteps - 1) / kLinSteps);
+  lin_scan_kernel<T><<<static_cast<unsigned>(tiles),
+                       kLinCh * sizeof(T) / 4, 0,
+                       static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry points for ctypes. Each returns cudaGetLastError() after
-// the launch (0 = cudaSuccess) or kBadStateDim; the launch is
+// the launch (0 = cudaSuccess), kBadStateDim or kBadSplit; the launch is
 // asynchronous on `stream`.
 extern "C" int selective_scan_bf16(const SelScanArgs* a, void* stream) {
   return dispatch_sel<__nv_bfloat16>(*a, stream);
@@ -286,17 +794,55 @@ extern "C" int selective_scan_f32(const SelScanArgs* a, void* stream) {
   return dispatch_sel<float>(*a, stream);
 }
 
-extern "C" int ssm_scan_bf16(const void* a, const void* bx, const float* h0,
-                             void* out, int B, int S, int D, void* stream) {
-  return launch_lin<__nv_bfloat16>(a, bx, h0, out, B, S, D, stream);
+extern "C" int ssm_scan_bf16(const LinScanArgs* a, void* stream) {
+  return launch_lin<__nv_bfloat16>(*a, stream);
 }
 
-extern "C" int ssm_scan_f32(const void* a, const void* bx, const float* h0,
-                            void* out, int B, int S, int D, void* stream) {
-  return launch_lin<float>(a, bx, h0, out, B, S, D, stream);
+extern "C" int ssm_scan_f32(const LinScanArgs* a, void* stream) {
+  return launch_lin<float>(*a, stream);
+}
+
+// The selective scan's dynamic shared memory a block, in bytes.
+extern "C" int selective_scan_smem_bytes(int bf16) {
+  return bf16 ? SelSmem<__nv_bfloat16>::kBytes : SelSmem<float>::kBytes;
+}
+
+// Selective-scan blocks an SM holds at once, for the default (R, P) =
+// (4, 1) (0 on error).
+template <typename T>
+int sel_blocks_per_sm() {
+  int n = 0;
+  cudaError_t err = prepare_sel<T, 4, 1>();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, sel_scan_kernel<T, 4, 1>, 32 * 5, SelSmem<T>::kBytes);
+  return err == cudaSuccess ? n : 0;
+}
+
+extern "C" int selective_scan_blocks_per_sm(int bf16) {
+  return bf16 ? sel_blocks_per_sm<__nv_bfloat16>()
+              : sel_blocks_per_sm<float>();
+}
+
+// Linear-scan blocks an SM holds at once (0 on error).
+extern "C" int ssm_scan_blocks_per_sm(int bf16) {
+  int n = 0;
+  const cudaError_t err =
+      bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &n, lin_scan_kernel<__nv_bfloat16>, kLinCh / 2, 0)
+           : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &n, lin_scan_kernel<float>, kLinCh, 0);
+  return err == cudaSuccess ? n : 0;
+}
+
+// The linear scan's tile shape, for the wrapper's scratch.
+extern "C" int ssm_scan_tile(int which) {
+  return which == 0 ? kLinSteps : kLinCh;
 }
 
 extern "C" const char* ssm_scan_error_string(int code) {
   if (code == kBadStateDim) return "state dim N has no kernel (1..16)";
+  if (code == kBadSplit)
+    return "no kernel for this (states_per_thread, fma_exp_states)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -6,7 +6,10 @@ launch the hand-written Hopper kernels in `csrc/ssm_scan.cu` (its note
 gives the bound and the design); for CPU tensors they compute the plain
 versions, `ref.selective_scan_ref` and `ref.ssm_scan_ref`. Nothing sends a
 CUDA tensor to a plain version. `selective_scan.launches` and
-`ssm_scan.launches` count kernel launches. Neither kernel has a backward,
+`ssm_scan.launches` count kernel launches: one a call each (the linear
+scan's look-back runs inside its one kernel; its flags are zeroed by a
+`torch.zeros` the wrapper makes, not by a kernel of this module). Neither
+kernel has a backward,
 here or in the JAX package: a CUDA call that autograd would have to
 differentiate raises rather than return an output that no gradient
 reaches.
@@ -23,8 +26,14 @@ from . import _build
 from .ref import selective_scan_ref, ssm_scan_ref
 
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
-_MAX_BATCH = 65535              # the kernels' grid.y
-_MAX_STATE = 16                 # lanes of one channel (csrc/ssm_scan.cu)
+_MAX_BATCH = 65535              # the selective scan's grid.y
+_MAX_STATE = 16                 # states a channel (csrc/ssm_scan.cu: kNP)
+# The selective scan's split of a channel's 16 states: R a thread, of which
+# P take exp2 on the FMA pipes and R - P on the SFU. The kernel is built
+# for (2, 0), (2, 1), (4, 0), (4, 1), (4, 2), (8, 0) and (8, 3), and
+# chip_smoke.py times each; (4, 1) is the design's split (PERF.md §6 has
+# the times: on an H100, (4, 0) measures faster).
+SEL_SPLIT = (4, 1)
 
 
 class _SelArgs(ctypes.Structure):
@@ -33,7 +42,16 @@ class _SelArgs(ctypes.Structure):
                  ("x", "dt", "a_log", "b", "c", "d", "h0", "y", "h_last")]
                 + [(f"{t}_s{s}", ctypes.c_longlong)
                    for t in ("x", "dt", "b", "c") for s in "bs"]
-                + [(n, ctypes.c_int) for n in ("B", "S", "D", "N")])
+                + [(n, ctypes.c_int) for n in
+                   ("B", "S", "D", "N", "states_per_thread",
+                    "fma_exp_states")])
+
+
+class _LinArgs(ctypes.Structure):
+    """Mirror of `LinScanArgs` in csrc/ssm_scan.cu."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in
+                 ("a", "bx", "h0", "out", "tile_state", "agg", "incl")]
+                + [(n, ctypes.c_int) for n in ("B", "S", "D", "vec")])
 
 
 @functools.cache
@@ -44,9 +62,12 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.POINTER(_SelArgs), ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fn = getattr(lib, f"ssm_scan_{suffix}")
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
-            [ctypes.c_void_p]
+        fn.argtypes = [ctypes.POINTER(_LinArgs), ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    for name in ("ssm_scan_tile", "ssm_scan_blocks_per_sm",
+                 "selective_scan_smem_bytes", "selective_scan_blocks_per_sm"):
+        getattr(lib, name).argtypes = [ctypes.c_int]
+        getattr(lib, name).restype = ctypes.c_int
     lib.ssm_scan_error_string.argtypes = [ctypes.c_int]
     lib.ssm_scan_error_string.restype = ctypes.c_char_p
     return lib
@@ -78,9 +99,21 @@ def _on_cuda(name: str, tensors) -> bool:
     return True
 
 
-def _unit_inner(t: torch.Tensor) -> torch.Tensor:
-    """`t` if its last dim is contiguous, else a contiguous copy."""
-    return t if t.stride(-1) == 1 else t.contiguous()
+def aligned_rows(t: torch.Tensor) -> torch.Tensor:
+    """`t` [B,S,W] itself if its last dim is contiguous and each of its
+    rows starts on 16 bytes (the selective scan's cp.async pieces), else
+    a copy whose rows do: W padded to a multiple of 16 bytes, returned as
+    the view of its first W columns. The pad is never read as data."""
+    esz = t.element_size()
+    if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+            st * esz % 16 == 0
+            for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1):
+        return t
+    w = t.shape[-1]
+    wp = -(-w * esz // 16) * 16 // esz
+    out = t.new_empty(t.shape[:-1] + (wp,))[..., :w]
+    out.copy_(t)
+    return out
 
 
 def _check_sel(x, dt, a_log, b, c, d, h0) -> None:
@@ -114,8 +147,8 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     """x/dt [B,S,D]; a_log [D,N]; b/c [B,S,N]; d [D]; h0 [B,D,N] ->
     (y [B,S,D] in x's dtype, h_last [B,D,N] f32). a_log, d and h0 are
     taken in f32. x, dt, b and c may be strided (b and c are column
-    slices of the x_proj output on the Mamba path) as long as their last
-    dim is contiguous."""
+    slices of the x_proj output on the Mamba path); on CUDA any whose rows
+    do not start on 16 bytes is copied first (`aligned_rows`)."""
     _check_sel(x, dt, a_log, b, c, d, h0)
     ops = [x, dt, a_log, b, c, d] + ([] if h0 is None else [h0])
     if not _on_cuda("selective_scan", ops):
@@ -125,7 +158,7 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     if n > _MAX_STATE:
         raise ValueError(f"selective_scan's kernel takes N <= {_MAX_STATE}, "
                          f"got {n}")
-    x, dt, b, c = (_unit_inner(t) for t in (x, dt, b, c))
+    x, dt, b, c = (aligned_rows(t) for t in (x, dt, b, c))
     a_log = a_log.float().contiguous()
     d = d.float().contiguous()
     h0 = (torch.zeros((bsz, dd, n), dtype=torch.float32, device=x.device)
@@ -137,7 +170,7 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                     y.data_ptr(), h_last.data_ptr(),
                     x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
                     b.stride(0), b.stride(1), c.stride(0), c.stride(1),
-                    bsz, s, dd, n)
+                    bsz, s, dd, n, *SEL_SPLIT)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     fn = getattr(_lib(), f"selective_scan_{_DTYPES[x.dtype]}")
     _raise_on(fn(ctypes.byref(args), stream), "selective_scan")
@@ -165,14 +198,26 @@ def ssm_scan(a: torch.Tensor, bx: torch.Tensor,
                         f"f32, got {a.dtype} and {bx.dtype}")
     if not _on_cuda("ssm_scan", [a, bx] + ([] if h0 is None else [h0])):
         return ssm_scan_ref(a, bx, h0)
-    a, bx = a.contiguous(), bx.contiguous()
+    a, bx = (t.clone() if t.data_ptr() % 4 else t
+             for t in (a.contiguous(), bx.contiguous()))
     h0 = (torch.zeros((bsz, dd), dtype=torch.float32, device=a.device)
           if h0 is None else h0.float().contiguous())
-    out = torch.empty_like(bx)
+    out = torch.empty((bsz, s, dd), dtype=bx.dtype, device=a.device)
+    # look-back scratch: the tile counter and a flag a tile, zeroed each
+    # call, and each tile's aggregates and inclusive end states
+    lib = _lib()
+    steps, chans = lib.ssm_scan_tile(0), lib.ssm_scan_tile(1)
+    tiles = bsz * -(-dd // chans) * -(-s // steps)
+    flags = torch.zeros(1 + tiles, dtype=torch.int32, device=a.device)
+    agg = torch.empty((tiles, chans, 2), dtype=torch.float32, device=a.device)
+    incl = torch.empty((tiles, chans), dtype=torch.float32, device=a.device)
+    vec = a.element_size() == 4 or dd % 2 == 0
+    args = _LinArgs(a.data_ptr(), bx.data_ptr(), h0.data_ptr(),
+                    out.data_ptr(), flags.data_ptr(), agg.data_ptr(),
+                    incl.data_ptr(), bsz, s, dd, int(vec))
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    fn = getattr(_lib(), f"ssm_scan_{_DTYPES[a.dtype]}")
-    _raise_on(fn(a.data_ptr(), bx.data_ptr(), h0.data_ptr(), out.data_ptr(),
-                 bsz, s, dd, stream), "ssm_scan")
+    fn = getattr(lib, f"ssm_scan_{_DTYPES[a.dtype]}")
+    _raise_on(fn(ctypes.byref(args), stream), "ssm_scan")
     ssm_scan.launches += 1
     return out
 

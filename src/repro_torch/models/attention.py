@@ -94,13 +94,20 @@ class Attention(nn.Module):
         q = apply_rope(q, cos, sin)
         kn = apply_rope(kn, cos, sin)
         k, v = cache["k"], cache["v"]
+        # A position past the cache writes its last row, as the reference's
+        # dynamic_update_slice clamps its start index, while RoPE and
+        # kv_len keep the true position. That is parity with the JAX
+        # package, not a claim that overwriting the last row is right.
+        last = k.shape[1] - 1
         if pos_t.ndim == 0:
-            k[:, pos_t] = kn[:, 0].to(k.dtype)
-            v[:, pos_t] = vn[:, 0].to(v.dtype)
+            row = pos_t.clamp(max=last)
+            k[:, row] = kn[:, 0].to(k.dtype)
+            v[:, row] = vn[:, 0].to(v.dtype)
         else:                                            # per-slot positions
             rows = torch.arange(b, device=x.device)
-            k[rows, pos_b] = kn[:, 0].to(k.dtype)
-            v[rows, pos_b] = vn[:, 0].to(v.dtype)
+            row = pos_b.clamp(max=last)
+            k[rows, row] = kn[:, 0].to(k.dtype)
+            v[rows, row] = vn[:, 0].to(v.dtype)
         o = kops.attention(q, k, v, kv_len=pos_b + 1, window=self.window,
                            softcap=self.cfg.attn_softcap)
         return o.reshape(b, 1, -1) @ self.wo

@@ -31,7 +31,7 @@ def get_model(cfg: ModelConfig, device: DeviceLike = "cuda") -> ModelAPI:
     dev = resolve_device(device)
 
     def forward(params: transformer.Transformer, batch: Dict[str, Any]):
-        return params(batch["tokens"])
+        return params(batch["tokens"], embeds=batch.get("embeds"))
 
     def decode_step(params: transformer.Transformer, cache, tokens, pos):
         return params.decode_step(cache, tokens, pos)

@@ -14,7 +14,7 @@ raise.
 """
 from __future__ import annotations
 
-from typing import List, Union
+from typing import List, Optional, Union
 
 import torch
 from torch import nn
@@ -102,9 +102,12 @@ class Transformer(nn.Module):
             for i in range(cfg.num_layers))
         self.final_norm = Norm(cfg, device)
 
-    def forward(self, tokens: torch.Tensor
+    def forward(self, tokens: torch.Tensor,
+                embeds: Optional[torch.Tensor] = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-        """tokens [B,S] -> (logits [B,S,V], MoE aux loss). Differentiable
+        """tokens [B,S] (or `embeds` [B,S,d] from a modality frontend, used
+        in place of the embedding lookup) -> (logits [B,S,V], MoE aux
+        loss). Differentiable
         on the CPU; on CUDA only for attention and MLP stacks, since the
         CUDA `moe_gemm` and scans have no backward yet and raise under
         autograd (ROADMAP 4b). The prefill (`train_step.make_prefill_step`)
@@ -114,7 +117,7 @@ class Transformer(nn.Module):
         transformer.py:110), which does not change the result; this one
         keeps every activation for autograd: about 11 GB for full-width qwen2-0.5b at B=4, S=2048
         (arithmetic), besides the logits and the loss's f32 copies."""
-        x = self.embed.embed(tokens)
+        x = embeds if embeds is not None else self.embed.embed(tokens)
         aux = x.new_zeros((), dtype=torch.float32)
         for block in self.layers:
             x, a = block(x)
