@@ -10,7 +10,9 @@ its own failure):
   1. the card's name and power limit (nvidia-smi); TF32 off for f32;
   2. build the `moe_gemm`, `flash_attention` and `ssm_scan` kernels from
      `src/repro_torch/kernels/csrc/` with nvcc for sm_90a, one nvcc per
-     source, started together; print the build times and ptxas's report
+     source, and a copy of `ssm_scan.cu` for each selective-scan split of
+     SEL_SPLITS (phase 11 times them), all started together; print the
+     build times and ptxas's report
      (registers, spills, static smem) for every kernel, the bf16
      tensor-core ones included, the flash kernels' dynamic smem
      (forward, dq and dk/dv, each in both routes), the selective scan's
@@ -59,17 +61,20 @@ its own failure):
      versions, in bf16 and f32: the Jamba prefill path's shape (B=1,
      S=4096, D=8192, N=16), S=4097 with D=8200 beside it, B=2, a ragged S
      and D, a state dim that is not a power of two, h0 given (h_last held
-     too), B and C as strided column slices; two calls on the same inputs
-     bit for bit (both kernels), and the selective scan's state carried
-     across two calls equal to one call bit for bit; the linear scan also
+     too, and not given), B and C as strided column slices; two calls on
+     the same inputs bit for bit (both kernels), and the selective scan's
+     state carried across two calls equal to one call bit for bit; the
+     linear scan also
      on LIN_DEEP, 2,048 tiles 1,024 deep in time against ~260 resident
      blocks (look-back waits on tiles still loading); the linear scan's
      carried pair goes through `ops.ssm_scan` with its launch count set to
      0 just before and read just after (within 1e-4: the look-back
-     associates differently across the split); times of kernels and plain
-     versions beside their bounds, the selective scan in every (states a
-     thread, of them on the FMA pipes) split built (no single PyTorch call
-     computes either scan);
+     associates differently across the split); times of kernels (through
+     their wrappers by plain CUDA events, as every kernel here, and behind
+     a queued device sleep) and plain versions beside their bounds, and
+     the selective scan in every (states a thread, of them on the FMA
+     pipes) split of SEL_SPLITS, each built as its own copy of the source
+     (no single PyTorch call computes either scan);
  12. slice 3's main path: `make_prefill_step` on full-width Jamba cut to
      2 of its 4 periods (16 layers), random bf16 weights from a seeded
      generator, B=1 x S=4096, with the selective-scan, flash-forward and
@@ -162,7 +167,10 @@ SCAN_CASES = {"path": (1, PREFILL_SEQ, 8192, 16),
 # time: far more than the card holds blocks at once, so look-backs wait on
 # tiles still loading and walk back over aggregates
 LIN_DEEP = (1, 65536, 512)
-# the selective scan's (states a thread, of them on the FMA pipes) built
+# (states a thread, of them on the FMA pipes) of the selective scan: phase
+# 2 builds a copy of ssm_scan.cu for each (-DSEL_SCAN_R, -DSEL_SCAN_P) and
+# phase 11 times them beside one another; the wrapper uses the split the
+# source itself defines
 SEL_SPLITS = ((2, 0), (2, 1), (4, 0), (4, 1), (4, 2), (8, 0), (8, 3))
 SCAN_SPLIT = 1000                        # carried state: steps of call 1
 BACKLOG_CYCLES = 20_000_000              # ~10 ms of device sleep
@@ -255,8 +263,9 @@ def scan_bound(nbytes, exps, flops, mem_bps, sfu_rate, f32_fps) -> dict:
             "sfu_only_bound_ms": max(t_bytes, t_sfu_only) * 1e3}
 
 
-def ptxas_report(lib: Path) -> None:
-    """ptxas's registers, spills and static smem for each kernel entry."""
+def ptxas_report(lib: Path, only: str = "") -> None:
+    """ptxas's registers, spills and static smem for each kernel entry
+    (those whose name starts with `only`)."""
     name = "?"
     for line in lib.with_suffix(".log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -278,7 +287,8 @@ def ptxas_report(lib: Path) -> None:
                         f"{t.group(2)}>")
             else:
                 name = m.group(1)
-        elif "registers" in line or "spill" in line or "smem" in line:
+        elif ("registers" in line or "spill" in line or "smem" in line) \
+                and name.startswith(only):
             print(f"[build]   {name}: {line.strip()}")
 
 
@@ -668,13 +678,16 @@ def lin_inputs(case, dtype, gen):
     return a.to(dtype), bx.to(dtype), h0
 
 
-def check_scans(gen, mem_bps, sfu_rate, f32_fps) -> dict:
+def check_scans(gen, mem_bps, sfu_rate, f32_fps, split_libs) -> dict:
     """Both scan kernels against their plain versions (y at the dtype's
     tolerance, h_last at 1e-3: tests/test_kernels.py's), two calls on the
     same inputs bit for bit, and the selective scan's state carried across
     two calls equal to one call bit for bit; the linear scan also on
     LIN_DEEP, more tiles than the card holds blocks; then the times at the
-    path's shape in bf16, the selective scan for every (R, P) split built.
+    path's shape in bf16: each kernel through its wrapper by plain CUDA
+    events (as every kernel in the table is timed) and behind a queued
+    device sleep (the device's time alone), and the selective scan in
+    every (R, P) split of `split_libs` behind the sleep.
     Returns, for each kernel, its max |kernel - plain| at the path's shape
     in bf16, its times and bound, and the linear scan's launches through
     `ops.ssm_scan`."""
@@ -743,6 +756,25 @@ def check_scans(gen, mem_bps, sfu_rate, f32_fps) -> dict:
                 del a, bx, h0, got, again, want
             torch.cuda.empty_cache()
 
+    # h0 not given: both kernels start from a zero state (a null pointer)
+    case = SCAN_CASES["ragged S=1000 D=200"]
+    for dtype in (torch.bfloat16, torch.float32):
+        args = sel_inputs(case, dtype, gen, False)
+        (y, h), (yr, hr) = selective_scan(*args), selective_scan_ref(*args)
+        a, bx, _ = lin_inputs(case, dtype, gen)
+        got, want = ssm_scan(a, bx), ssm_scan_ref(a, bx)
+        torch.cuda.synchronize()
+        for kout, kref in ((y, yr), (got, want)):
+            torch.testing.assert_close(kout.float(), kref.float(),
+                                       rtol=tol[dtype], atol=tol[dtype])
+        torch.testing.assert_close(h, hr, rtol=tol_h, atol=tol_h)
+        print(f"[check] selective_scan and ssm_scan {case} {dtype}, no h0: "
+              f"max |kernel - plain| y "
+              f"{(y.float() - yr.float()).abs().max().item():.3e}, h_last "
+              f"{(h - hr).abs().max().item():.3e}, ssm_scan "
+              f"{(got.float() - want.float()).abs().max().item():.3e}")
+        del args, y, h, yr, hr, a, bx, got, want
+
     # ssm_scan's path: ops.ssm_scan, the state carried across two calls
     # (within rounding: the split changes how the look-back associates)
     b, s, d, _ = SCAN_CASES["path"]
@@ -767,38 +799,39 @@ def check_scans(gen, mem_bps, sfu_rate, f32_fps) -> dict:
 
     # times at the path's shape in bf16 (plain versions: one Python step
     # per time step, so few repeats); the selective scan in every (R, P)
-    # split built, each held against the plain version first
+    # split built, each held against the plain version first and timed
+    # behind the device sleep, as its launches alone (no wrapper checks)
     n = SCAN_CASES["path"][3]
     args = sel_inputs(SCAN_CASES["path"], torch.bfloat16, gen, False)
     yr, _ = selective_scan_ref(*args)
-    default = sscan.SEL_SPLIT
+    shipped = (lib.selective_scan_split(0), lib.selective_scan_split(1))
     splits = {}
-    try:
-        for split in SEL_SPLITS:
-            sscan.SEL_SPLIT = split
-            y, _ = selective_scan(*args)
-            torch.cuda.synchronize()
-            torch.testing.assert_close(y.float(), yr.float(), rtol=3e-2,
-                                       atol=3e-2)
-            splits[split] = time_ms(lambda: selective_scan(*args),
-                                    backlog=True)
-            print(f"[time] selective_scan {SCAN_CASES['path']} bf16, R="
-                  f"{split[0]} states a thread, P={split[1]} of them on "
-                  f"the FMA pipes: {splits[split]:.4f} ms; max |kernel - "
-                  f"plain| {(y.float() - yr.float()).abs().max().item():.3e}"
-                  f"{' (default)' if split == default else ''}")
-            del y
-    finally:
-        sscan.SEL_SPLIT = default
+    for split, vlib in split_libs.items():
+        y, _ = sscan.launch_sel(vlib.selective_scan_bf16, *args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y.float(), yr.float(), rtol=3e-2,
+                                   atol=3e-2)
+        splits[split] = time_ms(
+            lambda: sscan.launch_sel(vlib.selective_scan_bf16, *args),
+            backlog=True)
+        err = (y.float() - yr.float()).abs().max().item()
+        mark = " (the split the wrapper runs)" if split == shipped else ""
+        print(f"[time] selective_scan {SCAN_CASES['path']} bf16, R="
+              f"{split[0]} states a thread, P={split[1]} of them on the FMA "
+              f"pipes, behind a device sleep: {splits[split]:.4f} ms; max "
+              f"|kernel - plain| {err:.3e}{mark}")
+        del y
     del yr
     # the same steps over D/8 channels: 32 blocks, one an SM, so the time is
     # one block's walk through time with the SM to itself
     lone_args = sel_inputs((b, s, d // 8, n), torch.bfloat16, gen, False)
     lone = time_ms(lambda: selective_scan(*lone_args), backlog=True)
     print(f"[time] selective_scan {(b, s, d // 8, n)} bf16, one block an "
-          f"SM: {lone:.4f} ms, {1e6 * lone / s:.2f} ns a step")
+          f"SM, behind a device sleep: {lone:.4f} ms, {1e6 * lone / s:.2f} "
+          f"ns a step")
     del lone_args
-    t = {"ms": time_ms(lambda: selective_scan(*args), backlog=True),
+    t = {"ms": time_ms(lambda: selective_scan(*args)),
+         "device_ms": time_ms(lambda: selective_scan(*args), backlog=True),
          "plain_ms": time_ms(lambda: selective_scan_ref(*args), 3, 1),
          "library_ms": None,
          "splits_ms": {f"R={r_} P={p_}": v for (r_, p_), v in
@@ -810,7 +843,8 @@ def check_scans(gen, mem_bps, sfu_rate, f32_fps) -> dict:
                         sfu_rate, f32_fps))
     out["selective_scan"].update(t)
     a, bx, _ = lin_inputs(SCAN_CASES["path"], torch.bfloat16, gen)
-    t = {"ms": time_ms(lambda: ssm_scan(a, bx), backlog=True),
+    t = {"ms": time_ms(lambda: ssm_scan(a, bx)),
+         "device_ms": time_ms(lambda: ssm_scan(a, bx), backlog=True),
          "plain_ms": time_ms(lambda: ssm_scan_ref(a, bx), 3, 1),
          "library_ms": None}
     t.update(scan_bound(2 * 3 * b * s * d, 0, 2 * b * s * d, mem_bps,
@@ -818,7 +852,8 @@ def check_scans(gen, mem_bps, sfu_rate, f32_fps) -> dict:
     out["ssm_scan"].update(t)
     for kname, t in out.items():
         shape = SCAN_CASES["path"][:3 if kname == "ssm_scan" else 4]
-        print(f"[time] {kname} {shape} bf16: kernel {t['ms']:.4f} ms, "
+        print(f"[time] {kname} {shape} bf16: kernel {t['ms']:.4f} ms "
+              f"(behind a device sleep {t['device_ms']:.4f} ms), "
               f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
               f"({t['bound_by']}; bytes alone {t['bytes_bound_ms']:.4f} ms, "
               f"every exp2 on the SFU {t['sfu_only_bound_ms']:.4f} ms); "
@@ -1037,16 +1072,27 @@ def main() -> int:
           f"{sfu_rate / 1e12:.3f} T exp2/s ({SFU_PER_CLOCK} a clock an SM)")
 
     # ---- 2. build, one nvcc per source, all started together ----------
-    def timed_build(name):
+    def timed_build(job):
+        name, split = job
+        defines = () if split is None else (f"-DSEL_SCAN_R={split[0]}",
+                                            f"-DSEL_SCAN_P={split[1]}")
         t0 = time.time()
-        return name, _build.build(name), time.time() - t0
+        return name, split, _build.build(name, defines), time.time() - t0
 
-    sources = ["moe_gemm", "flash_attention", "ssm_scan"]
-    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
-        built = list(pool.map(timed_build, sources))
-    for kname, lib, secs in built:
-        print(f"[build] {kname}: {secs:.2f} s -> {lib.name}")
-        ptxas_report(lib)
+    jobs = [("moe_gemm", None), ("flash_attention", None), ("ssm_scan", None)]
+    jobs += [("ssm_scan", split) for split in SEL_SPLITS]
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        built = list(pool.map(timed_build, jobs))
+    split_libs = {}
+    for kname, split, lib, secs in built:
+        if split is None:
+            print(f"[build] {kname}: {secs:.2f} s -> {lib.name}")
+            ptxas_report(lib)
+        else:
+            print(f"[build] {kname} with R={split[0]} P={split[1]}, to time "
+                  f"it: {secs:.2f} s -> {lib.name}")
+            ptxas_report(lib, only="sel_scan_kernel<bf16")
+            split_libs[split] = sscan.load(lib)
     flib = fa._lib()
     flib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
     for which, bf16, kname in ((0, 1, "flash_fwd_mma_kernel<bf16>"),
@@ -1062,7 +1108,9 @@ def main() -> int:
     print(f"[build]   sel_scan_kernel: dynamic smem bf16 "
           f"{slib.selective_scan_smem_bytes(1)} B, f32 "
           f"{slib.selective_scan_smem_bytes(0)} B")
-    print(f"[build]   blocks an SM: sel_scan_kernel<R 4, P 1> bf16 "
+    print(f"[build]   blocks an SM: sel_scan_kernel<R "
+          f"{slib.selective_scan_split(0)}, P {slib.selective_scan_split(1)}>"
+          f" bf16 "
           f"{slib.selective_scan_blocks_per_sm(1)}, f32 "
           f"{slib.selective_scan_blocks_per_sm(0)}; lin_scan_kernel bf16 "
           f"{slib.ssm_scan_blocks_per_sm(1)}, f32 "
@@ -1303,7 +1351,7 @@ def main() -> int:
     # ---- 11. the scan kernels vs plain, and their times ----------------
     gc.collect()
     torch.cuda.empty_cache()
-    scans = check_scans(gen, mem_bps, sfu_rate, f32_fps)
+    scans = check_scans(gen, mem_bps, sfu_rate, f32_fps, split_libs)
 
     # ---- 12, 13. slice 3's main path: full-width Jamba prefill, serve ---
     jamba = jamba_prefill_and_serve()
@@ -1392,8 +1440,11 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "bytes_bound_ms": t["bytes_bound_ms"],
             "sfu_only_bound_ms": t["sfu_only_bound_ms"],
-            **({"split": {"states_per_thread": sscan.SEL_SPLIT[0],
-                          "fma_exp_states": sscan.SEL_SPLIT[1]},
+            "device_ms": t["device_ms"],
+            **({"split": {"states_per_thread": sscan._lib()
+                          .selective_scan_split(0),
+                          "fma_exp_states": sscan._lib()
+                          .selective_scan_split(1)},
                 "splits_ms": t["splits_ms"],
                 "one_block_an_sm_ms": t["one_block_an_sm_ms"]}
                if kname == "selective_scan" else {}),

@@ -33,18 +33,21 @@ def _nvcc() -> str:
     return found
 
 
-def build(name: str) -> Path:
+def build(name: str, defines: tuple[str, ...] = ()) -> Path:
     """Compile `csrc/<name>.cu` unless its library is already built; return
-    the library's path. Raises with nvcc's output if the build fails."""
+    the library's path. `defines` are extra `-D` flags (a copy of the
+    library built with other compile-time constants). Raises with nvcc's
+    output if the build fails."""
     src = CSRC / f"{name}.cu"
+    flags = (*NVCC_FLAGS, *defines)
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                            + " ".join(flags).encode()).hexdigest()
     lib = BUILD_DIR / f"{name}-{digest[:16]}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:

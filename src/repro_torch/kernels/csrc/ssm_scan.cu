@@ -12,7 +12,8 @@
 //   y_t = sum_n h_t * C_t + D * x_t
 // x, dt [B,S,D] and B, C [B,S,N] in bf16 or f32, read through their batch
 // and time strides (unit stride along D or N: B and C are column slices of
-// the x_proj output); a_log [D,N], D [D], h0 and h_last [B,D,N] in f32;
+// the x_proj output); a_log [D,N], D [D], h0 and h_last [B,D,N] in f32
+// (h0 null: a zero state);
 // y [B,S,D] contiguous, in x's dtype, rounded once. The state and all
 // arithmetic are f32.
 //
@@ -27,8 +28,8 @@
 // Design. The TPU walked time as a sequential grid axis with the state in
 // VMEM. Here a block owns kCh = 32 channels of one batch row and walks all
 // of time itself:
-//   * R states a thread (R = 2, 4 or 8; 4 by default, the fastest of the
-//     three on an H100, see PERF.md). A thread owns one
+//   * R = kR = 4 states a thread (of R = 2, 4 and 8 the fastest on an
+//     H100, see PERF.md). A thread owns one
 //     channel and R of its 16 (padded) states in registers, so the NL =
 //     16 / R lanes of a channel sit side by side in a warp. sum_n h C is
 //     taken in-thread over the R states and kept for each step of the
@@ -49,8 +50,8 @@
 //     consumer warps a chunk, for the y tile below).
 //   * exp2 on two pipes: of each thread's R states the first P take exp2
 //     on the FMA pipes (exp2_fma: Cody-Waite reduction and a degree-5
-//     polynomial, 11 instructions), the rest ex2.approx on the SFU (P = 1
-//     of 4 by default). The choice depends on the state only, never on
+//     polynomial, 11 instructions), the rest ex2.approx on the SFU (P =
+//     kP = 1 of 4). The choice depends on the state only, never on
 //     the step, so a state carried across two calls equals one call bit
 //     for bit.
 //   * y = sum + D * x is formed per (step, channel) into the block's y
@@ -64,7 +65,8 @@
 //
 // ---------------------------------------------------------------------
 // Linear scan: h_t = a_t * h_{t-1} + bx_t over axis 1, a and bx [B,S,D]
-// contiguous of one dtype, h0 [B,D] f32, every h_t out in that dtype.
+// contiguous of one dtype, h0 [B,D] f32 (null: zero), every h_t out in
+// that dtype.
 // Bound: one read of a and bx and one write of h, 0.060 ms at the path's
 // (1, 4096, 8192) bf16. The old kernel, one thread a channel walking all
 // of time, had too few loads in flight to approach it.
@@ -87,14 +89,17 @@
 //     each inclusive state the same bits whichever j the walk stopped at,
 //     so the result does not depend on timing: two calls agree bit for bit.
 //   * The block rescans its registers from the incoming state and writes
-//     every h_t. The wrapper zeroes the counter and the flags and allocates
-//     the aggregates; the kernel allocates nothing.
+//     every h_t. The wrapper allocates the counter, the flags and the
+//     aggregates in one buffer; the launch zeroes the counter and flags
+//     (cudaMemsetAsync on the stream) and the kernel allocates nothing.
 // A state carried across two calls agrees with one call within rounding,
 // not bit for bit: the association of the products changes with the split.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 // Arguments of a selective-scan launch; mirrored by ctypes.Structure in
 // ssm_scan.py (pointers, then 64-bit strides, then ints).
@@ -110,8 +115,6 @@ struct SelScanArgs {
   float* h_last;
   long long x_sb, x_ss, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss;
   int B, S, D, N;
-  int states_per_thread;   // R: 2, 4 or 8
-  int fma_exp_states;      // P: of each thread's R states, those on the FMA pipes
 };
 
 // Arguments of a linear-scan launch; mirrored in ssm_scan.py.
@@ -141,7 +144,22 @@ constexpr int kLinSteps = 64;    // linear scan: steps a tile
 constexpr int kLinCh = 256;      // linear scan: channels a tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kBadStateDim = 1000;   // N outside 1..16 (not a cudaError_t)
-constexpr int kBadSplit = 1001;      // (R, P) with no kernel
+
+// The selective scan's split of a channel's kNP states: kR a thread, the
+// first kP of them through exp2_fma. The library is built with this one
+// split; chip_smoke.py also builds copies with -DSEL_SCAN_R and
+// -DSEL_SCAN_P set, to time other splits beside it.
+#ifndef SEL_SCAN_R
+#define SEL_SCAN_R 4
+#endif
+#ifndef SEL_SCAN_P
+#define SEL_SCAN_P 1
+#endif
+constexpr int kR = SEL_SCAN_R;
+constexpr int kP = SEL_SCAN_P;
+constexpr int kSelThreads = 32 * (kNP / kR + 1);   // NL consumer warps + 1
+static_assert((kR == 2 || kR == 4 || kR == 8) && 0 <= kP && kP <= kR,
+              "a split of the 16 states");
 
 static_assert(kChunk == 32, "a consumer lane writes one row of a chunk");
 
@@ -494,7 +512,8 @@ sel_scan_kernel(const SelScanArgs p) {
   for (int r = 0; r < R; ++r) {
     const int n = n0 + r;
     const bool live = dok && n < N;
-    h[r] = live ? p.h0[(static_cast<size_t>(bi) * D + d) * N + n] : 0.f;
+    h[r] = live && p.h0 ? p.h0[(static_cast<size_t>(bi) * D + d) * N + n]
+                        : 0.f;
     a2[r] = live ? -expf(p.a_log[static_cast<size_t>(d) * N + n]) * kLog2e
                  : 0.f;
   }
@@ -673,7 +692,8 @@ lin_scan_kernel(const LinScanArgs p) {
   if (k == 0) {
 #pragma unroll
     for (int i = 0; i < CPT; ++i) {
-      h[i] = i < nvalid ? p.h0[static_cast<size_t>(bi) * D + c0 + i] : 0.f;
+      h[i] = i < nvalid && p.h0 ? p.h0[static_cast<size_t>(bi) * D + c0 + i]
+                                : 0.f;
       p.incl[slot + i] = fmaf(ag[i], h[i], bg[i]);
     }
     __syncthreads();
@@ -729,45 +749,38 @@ lin_scan_kernel(const LinScanArgs p) {
 }
 
 // The selective scan's dynamic shared memory, and the largest
-// shared-memory carveout: three blocks an SM.
-template <typename T, int R, int P>
+// shared-memory carveout: three blocks an SM. Set once a device: the
+// attributes hold for every later launch there.
+template <typename T>
 cudaError_t prepare_sel() {
-  cudaError_t err = cudaFuncSetAttribute(
-      sel_scan_kernel<T, R, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SelSmem<T>::kBytes);
+  constexpr int kMaxDevices = 64;
+  static std::atomic<bool> done[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && done[dev].load(std::memory_order_acquire))
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(sel_scan_kernel<T, kR, kP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SelSmem<T>::kBytes);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(sel_scan_kernel<T, R, P>,
+    err = cudaFuncSetAttribute(sel_scan_kernel<T, kR, kP>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && dev < kMaxDevices)
+    done[dev].store(true, std::memory_order_release);
   return err;
 }
 
-template <typename T, int R, int P>
-int launch_sel(const SelScanArgs& a, cudaStream_t stream) {
-  constexpr int kBytes = SelSmem<T>::kBytes;
-  const cudaError_t err = prepare_sel<T, R, P>();
+template <typename T>
+int launch_sel(const SelScanArgs& a, void* stream) {
+  if (a.N < 1 || a.N > kNP) return kBadStateDim;
+  const cudaError_t err = prepare_sel<T>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.D + kCh - 1) / kCh, a.B);
-  sel_scan_kernel<T, R, P><<<grid, 32 * (kNP / R + 1), kBytes, stream>>>(a);
+  sel_scan_kernel<T, kR, kP><<<grid, kSelThreads, SelSmem<T>::kBytes,
+                               static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
-}
-
-// The (R, P) splits built: R = 4 with 1 state of 4 on the FMA pipes is the
-// default (ssm_scan.py); the others are there to be timed against it.
-template <typename T>
-int dispatch_sel(const SelScanArgs& a, void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (a.N < 1 || a.N > kNP) return kBadStateDim;
-  switch (a.states_per_thread * 16 + a.fma_exp_states) {
-    case 2 * 16 + 0: return launch_sel<T, 2, 0>(a, s);
-    case 2 * 16 + 1: return launch_sel<T, 2, 1>(a, s);
-    case 4 * 16 + 0: return launch_sel<T, 4, 0>(a, s);
-    case 4 * 16 + 1: return launch_sel<T, 4, 1>(a, s);
-    case 4 * 16 + 2: return launch_sel<T, 4, 2>(a, s);
-    case 8 * 16 + 0: return launch_sel<T, 8, 0>(a, s);
-    case 8 * 16 + 3: return launch_sel<T, 8, 3>(a, s);
-    default: return kBadSplit;
-  }
 }
 
 template <typename T>
@@ -775,23 +788,26 @@ int launch_lin(const LinScanArgs& a, void* stream) {
   const long long tiles =
       static_cast<long long>(a.B) * ((a.D + kLinCh - 1) / kLinCh)
       * ((a.S + kLinSteps - 1) / kLinSteps);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      cudaMemsetAsync(a.tile_state, 0, (1 + tiles) * sizeof(int), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   lin_scan_kernel<T><<<static_cast<unsigned>(tiles),
-                       kLinCh * sizeof(T) / 4, 0,
-                       static_cast<cudaStream_t>(stream)>>>(a);
+                       kLinCh * sizeof(T) / 4, 0, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Plain C entry points for ctypes. Each returns cudaGetLastError() after
-// the launch (0 = cudaSuccess), kBadStateDim or kBadSplit; the launch is
+// the launch (0 = cudaSuccess) or kBadStateDim; the launch is
 // asynchronous on `stream`.
 extern "C" int selective_scan_bf16(const SelScanArgs* a, void* stream) {
-  return dispatch_sel<__nv_bfloat16>(*a, stream);
+  return launch_sel<__nv_bfloat16>(*a, stream);
 }
 
 extern "C" int selective_scan_f32(const SelScanArgs* a, void* stream) {
-  return dispatch_sel<float>(*a, stream);
+  return launch_sel<float>(*a, stream);
 }
 
 extern "C" int ssm_scan_bf16(const LinScanArgs* a, void* stream) {
@@ -807,15 +823,19 @@ extern "C" int selective_scan_smem_bytes(int bf16) {
   return bf16 ? SelSmem<__nv_bfloat16>::kBytes : SelSmem<float>::kBytes;
 }
 
-// Selective-scan blocks an SM holds at once, for the default (R, P) =
-// (4, 1) (0 on error).
+// The split built: which 0 gives kR, 1 gives kP.
+extern "C" int selective_scan_split(int which) {
+  return which == 0 ? kR : kP;
+}
+
+// Selective-scan blocks an SM holds at once (0 on error).
 template <typename T>
 int sel_blocks_per_sm() {
   int n = 0;
-  cudaError_t err = prepare_sel<T, 4, 1>();
+  cudaError_t err = prepare_sel<T>();
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, sel_scan_kernel<T, 4, 1>, 32 * 5, SelSmem<T>::kBytes);
+        &n, sel_scan_kernel<T, kR, kP>, kSelThreads, SelSmem<T>::kBytes);
   return err == cudaSuccess ? n : 0;
 }
 
@@ -842,7 +862,5 @@ extern "C" int ssm_scan_tile(int which) {
 
 extern "C" const char* ssm_scan_error_string(int code) {
   if (code == kBadStateDim) return "state dim N has no kernel (1..16)";
-  if (code == kBadSplit)
-    return "no kernel for this (states_per_thread, fma_exp_states)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

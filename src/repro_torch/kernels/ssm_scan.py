@@ -8,7 +8,7 @@ versions, `ref.selective_scan_ref` and `ref.ssm_scan_ref`. Nothing sends a
 CUDA tensor to a plain version. `selective_scan.launches` and
 `ssm_scan.launches` count kernel launches: one a call each (the linear
 scan's look-back runs inside its one kernel; its flags are zeroed by a
-`torch.zeros` the wrapper makes, not by a kernel of this module). Neither
+`cudaMemsetAsync` before it, not by a kernel of this module). Neither
 kernel has a backward,
 here or in the JAX package: a CUDA call that autograd would have to
 differentiate raises rather than return an output that no gradient
@@ -28,12 +28,6 @@ from .ref import selective_scan_ref, ssm_scan_ref
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _MAX_BATCH = 65535              # the selective scan's grid.y
 _MAX_STATE = 16                 # states a channel (csrc/ssm_scan.cu: kNP)
-# The selective scan's split of a channel's 16 states: R a thread, of which
-# P take exp2 on the FMA pipes and R - P on the SFU. The kernel is built
-# for (2, 0), (2, 1), (4, 0), (4, 1), (4, 2), (8, 0) and (8, 3), and
-# chip_smoke.py times each; (4, 1) is the design's split (PERF.md §6 has
-# the times: on an H100, (4, 0) measures faster).
-SEL_SPLIT = (4, 1)
 
 
 class _SelArgs(ctypes.Structure):
@@ -42,9 +36,7 @@ class _SelArgs(ctypes.Structure):
                  ("x", "dt", "a_log", "b", "c", "d", "h0", "y", "h_last")]
                 + [(f"{t}_s{s}", ctypes.c_longlong)
                    for t in ("x", "dt", "b", "c") for s in "bs"]
-                + [(n, ctypes.c_int) for n in
-                   ("B", "S", "D", "N", "states_per_thread",
-                    "fma_exp_states")])
+                + [(n, ctypes.c_int) for n in ("B", "S", "D", "N")])
 
 
 class _LinArgs(ctypes.Structure):
@@ -56,7 +48,18 @@ class _LinArgs(ctypes.Structure):
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(_build.build("ssm_scan")))
+    return load(_build.build("ssm_scan"))
+
+
+@functools.cache
+def _lin_tile() -> tuple[int, int]:
+    """(steps, channels) of a linear-scan tile."""
+    return _lib().ssm_scan_tile(0), _lib().ssm_scan_tile(1)
+
+
+def load(path) -> ctypes.CDLL:
+    """A built ssm_scan library with its C entry points typed."""
+    lib = ctypes.CDLL(str(path))
     for suffix in _DTYPES.values():
         fn = getattr(lib, f"selective_scan_{suffix}")
         fn.argtypes = [ctypes.POINTER(_SelArgs), ctypes.c_void_p]
@@ -65,7 +68,8 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.POINTER(_LinArgs), ctypes.c_void_p]
         fn.restype = ctypes.c_int
     for name in ("ssm_scan_tile", "ssm_scan_blocks_per_sm",
-                 "selective_scan_smem_bytes", "selective_scan_blocks_per_sm"):
+                 "selective_scan_smem_bytes", "selective_scan_blocks_per_sm",
+                 "selective_scan_split"):
         getattr(lib, name).argtypes = [ctypes.c_int]
         getattr(lib, name).restype = ctypes.c_int
     lib.ssm_scan_error_string.argtypes = [ctypes.c_int]
@@ -153,6 +157,17 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     ops = [x, dt, a_log, b, c, d] + ([] if h0 is None else [h0])
     if not _on_cuda("selective_scan", ops):
         return selective_scan_ref(x, dt, a_log, b, c, d, h0)
+    y, h_last = launch_sel(
+        getattr(_lib(), f"selective_scan_{_DTYPES[x.dtype]}"),
+        x, dt, a_log, b, c, d, h0)
+    selective_scan.launches += 1
+    return y, h_last
+
+
+def launch_sel(fn, x, dt, a_log, b, c, d, h0):
+    """Launch the C entry point `fn` (`selective_scan_bf16` or `_f32` of
+    a built library) on checked CUDA operands of `selective_scan`, on the
+    current stream; returns (y, h_last). Counts nothing."""
     bsz, s, dd = x.shape
     n = a_log.shape[1]
     if n > _MAX_STATE:
@@ -161,20 +176,18 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     x, dt, b, c = (aligned_rows(t) for t in (x, dt, b, c))
     a_log = a_log.float().contiguous()
     d = d.float().contiguous()
-    h0 = (torch.zeros((bsz, dd, n), dtype=torch.float32, device=x.device)
-          if h0 is None else h0.float().contiguous())
+    h0 = None if h0 is None else h0.float().contiguous()  # None: zero
     y = torch.empty((bsz, s, dd), dtype=x.dtype, device=x.device)
     h_last = torch.empty((bsz, dd, n), dtype=torch.float32, device=x.device)
     args = _SelArgs(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(),
-                    b.data_ptr(), c.data_ptr(), d.data_ptr(), h0.data_ptr(),
+                    b.data_ptr(), c.data_ptr(), d.data_ptr(),
+                    None if h0 is None else h0.data_ptr(),
                     y.data_ptr(), h_last.data_ptr(),
                     x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
                     b.stride(0), b.stride(1), c.stride(0), c.stride(1),
-                    bsz, s, dd, n, *SEL_SPLIT)
+                    bsz, s, dd, n)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    fn = getattr(_lib(), f"selective_scan_{_DTYPES[x.dtype]}")
     _raise_on(fn(ctypes.byref(args), stream), "selective_scan")
-    selective_scan.launches += 1
     return y, h_last
 
 
@@ -200,23 +213,25 @@ def ssm_scan(a: torch.Tensor, bx: torch.Tensor,
         return ssm_scan_ref(a, bx, h0)
     a, bx = (t.clone() if t.data_ptr() % 4 else t
              for t in (a.contiguous(), bx.contiguous()))
-    h0 = (torch.zeros((bsz, dd), dtype=torch.float32, device=a.device)
-          if h0 is None else h0.float().contiguous())
+    h0 = None if h0 is None else h0.float().contiguous()  # None: zero
     out = torch.empty((bsz, s, dd), dtype=bx.dtype, device=a.device)
-    # look-back scratch: the tile counter and a flag a tile, zeroed each
-    # call, and each tile's aggregates and inclusive end states
-    lib = _lib()
-    steps, chans = lib.ssm_scan_tile(0), lib.ssm_scan_tile(1)
+    # look-back scratch in one buffer of 4-byte words: the tile counter and
+    # a flag a tile (zeroed by the launch), padded to 16 bytes, then each
+    # tile's aggregates (2 words a channel) and inclusive end states
+    steps, chans = _lin_tile()
     tiles = bsz * -(-dd // chans) * -(-s // steps)
-    flags = torch.zeros(1 + tiles, dtype=torch.int32, device=a.device)
-    agg = torch.empty((tiles, chans, 2), dtype=torch.float32, device=a.device)
-    incl = torch.empty((tiles, chans), dtype=torch.float32, device=a.device)
+    n_flags = -(-(1 + tiles) // 4) * 4
+    scratch = torch.empty(n_flags + 3 * tiles * chans, dtype=torch.int32,
+                          device=a.device)
+    base = scratch.data_ptr()
     vec = a.element_size() == 4 or dd % 2 == 0
-    args = _LinArgs(a.data_ptr(), bx.data_ptr(), h0.data_ptr(),
-                    out.data_ptr(), flags.data_ptr(), agg.data_ptr(),
-                    incl.data_ptr(), bsz, s, dd, int(vec))
+    args = _LinArgs(a.data_ptr(), bx.data_ptr(),
+                    None if h0 is None else h0.data_ptr(), out.data_ptr(),
+                    base, base + 4 * n_flags,
+                    base + 4 * (n_flags + 2 * tiles * chans),
+                    bsz, s, dd, int(vec))
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    fn = getattr(lib, f"ssm_scan_{_DTYPES[a.dtype]}")
+    fn = getattr(_lib(), f"ssm_scan_{_DTYPES[a.dtype]}")
     _raise_on(fn(ctypes.byref(args), stream), "ssm_scan")
     ssm_scan.launches += 1
     return out
