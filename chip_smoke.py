@@ -8,7 +8,8 @@ Phases, in order; any failure raises and exits non-zero (no phase catches
 its own failure):
 
   1. the card's name and power limit (nvidia-smi); TF32 off for f32;
-  2. build the `moe_gemm`, `flash_attention` and `ssm_scan` kernels from
+  2. build the `moe_gemm` (forward and backward), `flash_attention` and
+     `ssm_scan` kernels from
      `src/repro_torch/kernels/csrc/` with nvcc for sm_90a, one nvcc per
      source, and a copy of `ssm_scan.cu` for each selective-scan split of
      SEL_SPLITS (phase 11 times them), all started together; print the
@@ -17,15 +18,19 @@ its own failure):
      tensor-core ones included, the flash kernels' dynamic smem
      (forward, dq and dk/dv, each in both routes), the selective scan's
      dynamic smem and both scans' resident blocks an SM;
-  3. `moe_gemm` against its plain PyTorch version on the card, in bf16
-     (the wgmma/TMA kernel) and f32 (the CUDA-core kernel): the
-     qwen2-moe serving path's two shapes, the Jamba prefill's (C=640) and
-     Jamba decode's, up and down, a ragged shape, one with d and f not
-     multiples of 8 (bf16 goes through the padding), expert isolation;
-     times (CUDA events, median after warm-up) of the kernel, the plain
-     version and `torch.bmm` for one MoE layer at the qwen2-moe serving
-     shapes (bf16 and f32), at the Jamba prefill's and at Jamba decode's,
-     beside the least time the card could take;
+  3. `moe_gemm` and its backward kernels (dx, dw) against their plain
+     PyTorch versions on the card, in bf16 (wgmma/TMA) and f32 (CUDA
+     cores): the qwen2-moe serving path's two shapes, the Jamba prefill's
+     (C=640) and Jamba decode's, the MoE train shapes (C=640),
+     qwen3-moe's E=128 experts at decode, up and down, a ragged shape, one
+     with d and f not multiples of 8 (bf16 goes through the padding); the
+     backward's two calls bit for bit and exact zeros for an expert no
+     token reaches; expert isolation; times (CUDA events, median after
+     warm-up) of the kernel, the plain version and `torch.bmm` for one MoE
+     layer at the qwen2-moe serving shapes (bf16 and f32), at the Jamba
+     prefill's and at Jamba decode's, and of the forward, dx and dw at the
+     train shapes in both routes, beside the least time the card could
+     take;
   4. the flash-attention forward and backward kernels (bf16 on tensor
      cores, f32 on CUDA cores) against their plain versions (and the
      backward against autograd through `attention_ref`) at the training
@@ -45,8 +50,10 @@ its own failure):
      kernel (device idle share = 1 - busy / wall);
   7. the tiny qwen2-moe engine in f32 on the card gives the same tokens as
      the port's greedy decode for each request;
-  8. `moe_gemm` on a CUDA weight that requires grad raises (its backward
-     is not ported);
+  8. `moe_gemm`'s gradients through its autograd Function (the dx and dw
+     kernels) equal autograd through `moe_gemm_ref`, in bf16 and f32, one
+     launch of each a call, and dw alone when only the weight requires
+     grad;
   9. slice 2's main path: `train()` on full-width qwen2-0.5b, 6 steps of
      B=4 x S=2048 in bf16, with the flash-attention launch counts set to
      0 just before and read just after; then a torch.profiler window over
@@ -56,7 +63,7 @@ its own failure):
  10. tiny qwen2-0.5b training in f32 on the card: the loss falls over 24
      steps, and a resume from the step-24 checkpoint to step 30 equals a
      straight run to step 30; the flash launch counts of these 60 steps
-     (the f32 routes' launches);
+     (the f32 routes' launches; no moe_gemm);
  11. the selective-scan and linear-scan kernels against their plain
      versions, in bf16 and f32: the Jamba prefill path's shape (B=1,
      S=4096, D=8192, N=16), S=4097 with D=8200 beside it, B=2, a ragged S
@@ -89,9 +96,19 @@ its own failure):
      flash kernels) within 1e-4, and the engine equals greedy decode;
      `selective_scan` and `ssm_scan` on a CUDA operand that requires
      grad raise;
- 15. a JSON line with the kernels' numbers (the bf16 and f32 routes of
-     `moe_gemm` and of the flash forward and backward as entries of their
-     own), then, last, the result line {"ok": true, "device": {...}}.
+ 15. slice 7's main path: `make_train_step` on full-width qwen2-moe-a2.7b
+     cut to 4 of its 24 layers, random bf16 weights from a seeded
+     generator, f32 AdamW, 6 steps of B=4 x S=2048, with the moe_gemm
+     (forward, dx, dw) and flash launch counts set to 0 just before and
+     read just after (12, 12, 12, 4 and 8 a step); step wall, tokens/s,
+     peak memory; then a torch.profiler window over two more steps;
+ 16. tiny qwen2-moe training in f32 on the card, as phase 10: the loss
+     falls, a resume is exact; the f32 routes' launches of its 60 steps
+     (forward, dx and dw 360 each);
+ 17. a JSON line with the kernels' numbers (the bf16 and f32 routes of
+     `moe_gemm`, of its backward and of the flash forward and backward as
+     entries of their own), then, last, the result line {"ok": true,
+     "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
 """
@@ -125,9 +142,11 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_bwd, flash_attention_fwd)
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.moe_gemm import moe_gemm  # noqa: E402
+from repro_torch.kernels.moe_gemm import (  # noqa: E402
+    moe_gemm, moe_gemm_bwd_dw, moe_gemm_bwd_dx)
 from repro_torch.kernels.ref import (  # noqa: E402
-    attention_ref, flash_attention_bwd_ref, flash_attention_ref, moe_gemm_ref,
+    attention_ref, flash_attention_bwd_ref, flash_attention_ref,
+    moe_gemm_bwd_ref, moe_gemm_dw_ref, moe_gemm_dx_ref, moe_gemm_ref,
     selective_scan_ref, ssm_scan_ref)
 from repro_torch.kernels import ssm_scan as sscan  # noqa: E402
 from repro_torch.kernels.ssm_scan import selective_scan, ssm_scan  # noqa: E402
@@ -145,6 +164,8 @@ from repro_torch.train.train_step import (  # noqa: E402
 
 ARCH = "qwen2-moe-a2.7b"
 SLOTS, CLIENTS, REQUESTS, MAX_NEW = 4, 4, 16, 8
+MOE_TRAIN_REPEATS = 4                    # of qwen2-moe-a2.7b's 24 layers
+QWEN3 = "qwen3-moe-235b-a22b"            # the zoo's E=128 expert shape
 TRAIN_ARCH = "qwen2-0.5b"
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 4, 2048
 BWD_KERNELS = 2                         # dq, then dk/dv, per backward call
@@ -273,7 +294,11 @@ def ptxas_report(lib: Path, only: str = "") -> None:
             k = re.search(r"([a-z_]+_kernel)I(13__nv_bfloat16|f)"
                           r"((?:Li\d+E)*)E", m.group(1))
             t = re.search(r"([a-z_]+_kernel)ILi(\d+)EE", m.group(1))
-            if k:
+            b = re.search(r"(moe_gemm_bwd_kernel)ILb(\d)ELb\dEE", m.group(1))
+            if b:                    # the f32 backward: <1, 1> is dw
+                name = (f"{b.group(1)}<f32, "
+                        f"{'dw' if b.group(2) == '1' else 'dx'}>")
+            elif k:
                 labels = (("R", "P") if k.group(1) == "sel_scan_kernel"
                           else ("hd",))
                 params = "".join(
@@ -290,6 +315,141 @@ def ptxas_report(lib: Path, only: str = "") -> None:
         elif ("registers" in line or "spill" in line or "smem" in line) \
                 and name.startswith(only):
             print(f"[build]   {name}: {line.strip()}")
+
+
+def check_moe_bwd(label, x, w, scale, tol, gen) -> tuple[float, float]:
+    """The backward kernels on the forward's x [E,C,d] and w [E,d,f] and a
+    random dy [E,C,f] at `scale`, the last expert's x and dy rows all zero
+    (an expert no token reaches): dx and dw against `moe_gemm_bwd_ref` at
+    `tol`, two calls bit for bit, that expert's dx and dw exact zeros.
+    Returns max |kernel - plain| of dx and of dw."""
+    e, c, _ = x.shape
+    dy = (torch.randn((e, c, w.shape[2]), generator=gen, device="cuda")
+          * scale).to(x.dtype)
+    x = x.clone()
+    x[-1] = 0
+    dy[-1] = 0
+    dx, dw = moe_gemm_bwd_dx(dy, w), moe_gemm_bwd_dw(x, dy)
+    dx2, dw2 = moe_gemm_bwd_dx(dy, w), moe_gemm_bwd_dw(x, dy)
+    rdx, rdw = moe_gemm_bwd_ref(x, w, dy)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2), \
+        f"moe_gemm backward differs between two calls ({label}, {x.dtype})"
+    assert not (dx[-1].any() or dw[-1].any()), \
+        f"an expert with no token got a nonzero gradient ({label})"
+    for g, r in ((dx, rdx), (dw, rdw)):
+        torch.testing.assert_close(g.float(), r.float(), rtol=tol, atol=tol)
+    e_dx = (dx.float() - rdx.float()).abs().max().item()
+    e_dw = (dw.float() - rdw.float()).abs().max().item()
+    print(f"[check] moe_gemm backward {label} {tuple(x.shape)} x "
+          f"{tuple(w.shape)} {x.dtype}: max |kernel - plain| dx {e_dx:.3e}, "
+          f"dw {e_dw:.3e} (tol {tol}); two calls bit-identical; the expert "
+          f"with no token has exact-zero dx and dw")
+    return e_dx, e_dw
+
+
+def check_moe_autograd(gen) -> None:
+    """`moe_gemm`'s gradients through its autograd Function (the dx and dw
+    kernels) against autograd through `moe_gemm_ref`, in bf16 and f32, at
+    phase 3's tolerances, with one launch of each kernel a call; then a
+    weight alone that requires grad launches dw and not dx."""
+    tols = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
+    for dtype in (torch.bfloat16, torch.float32):
+        for e, c, d, f in ((4, 100, 96, 72), (3, 100, 93, 71)):
+            x, w, dy = ((torch.randn(shp, generator=gen, device="cuda") * 0.3)
+                        .to(dtype) for shp in ((e, c, d), (e, d, f),
+                                               (e, c, f)))
+            xk, wk, xr, wr = (t.clone().requires_grad_()
+                              for t in (x, w, x, w))
+            moe_gemm_bwd_dx.launches = moe_gemm_bwd_dw.launches = 0
+            got = torch.autograd.grad(moe_gemm(xk, wk), (xk, wk), dy)
+            launches = (moe_gemm_bwd_dx.launches, moe_gemm_bwd_dw.launches)
+            want = torch.autograd.grad(moe_gemm_ref(xr, wr), (xr, wr), dy)
+            torch.cuda.synchronize()
+            assert launches == (1, 1), launches
+            errs = []
+            for g, r in zip(got, want):
+                torch.testing.assert_close(g.float(), r.float(),
+                                           rtol=tols[dtype], atol=tols[dtype])
+                errs.append((g.float() - r.float()).abs().max().item())
+            print(f"[check] moe_gemm autograd {(e, c, d, f)} {dtype}: dx, dw "
+                  f"through the kernels vs autograd through moe_gemm_ref "
+                  f"max |diff| {errs[0]:.3e}, {errs[1]:.3e} (tol "
+                  f"{tols[dtype]}); launches dx, dw {launches}")
+        moe_gemm_bwd_dx.launches = moe_gemm_bwd_dw.launches = 0
+        torch.autograd.grad(moe_gemm(x, wk), wk, dy)
+        torch.cuda.synchronize()
+        launches = (moe_gemm_bwd_dx.launches, moe_gemm_bwd_dw.launches)
+        assert launches == (0, 1), launches
+        print(f"[check] moe_gemm autograd {dtype}, only w requires grad: "
+              f"launches dx, dw {launches}")
+
+
+def bwd_bound(shapes, itemsize: int, flops_peak: float, bytes_peak: float):
+    """Least ms for the backward (dx and dw) of grouped matmuls of `shapes`
+    (E,C,d,f): x, w and dy read once, dx and dw written once, or the two
+    products at the peak rate, whichever is longer."""
+    nbytes = sum((2 * e * c * d + 2 * e * d * f + e * c * f) * itemsize
+                 for e, c, d, f in shapes)
+    flops = sum(4 * e * c * d * f for e, c, d, f in shapes)
+    t_bytes, t_ops = nbytes / bytes_peak, flops / flops_peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                        else "operations")
+
+
+def time_moe_train_layer(shapes, dtype, gen, flops_peak, mem_bps) -> dict:
+    """One MoE layer's three calls (gate, up, down) at the train shapes
+    `shapes` (E,C,d,f each): the forward, dx and dw, each through its
+    wrapper (by plain CUDA events, as every kernel row, and behind a
+    queued device sleep: the device's time alone), its plain version and
+    `torch.bmm` on the same operands, beside its bound; then the backward
+    as dx + dw."""
+    calls = []
+    for e, c, d, f in shapes:
+        scale = d ** -0.25
+        calls.append(tuple(
+            (torch.randn(shp, generator=gen, device="cuda") * scale)
+            .to(dtype) for shp in ((e, c, d), (e, d, f), (e, c, f))))
+    size = calls[0][0].element_size()
+    reps = (20, 3) if dtype == torch.bfloat16 else (5, 1)
+    fns = {"forward": (lambda x, w, dy: moe_gemm(x, w),
+                       lambda x, w, dy: moe_gemm_ref(x, w),
+                       lambda x, w, dy: torch.bmm(x, w)),
+           "dx": (lambda x, w, dy: moe_gemm_bwd_dx(dy, w),
+                  lambda x, w, dy: moe_gemm_dx_ref(dy, w),
+                  lambda x, w, dy: torch.bmm(dy, w.transpose(1, 2))),
+           "dw": (lambda x, w, dy: moe_gemm_bwd_dw(x, dy),
+                  lambda x, w, dy: moe_gemm_dw_ref(x, dy),
+                  lambda x, w, dy: torch.bmm(x.transpose(1, 2), dy))}
+    out = {}
+    for kname, (kern, plain, lib) in fns.items():
+        t = {key: time_ms(lambda: [fn(*a) for a in calls], *reps)
+             for key, fn in (("ms", kern), ("plain_ms", plain),
+                             ("library_ms", lib))}
+        t["device_ms"] = time_ms(lambda: [kern(*a) for a in calls], *reps,
+                                 backlog=True)
+        # dx and dw move the forward's three tensors' sizes and do its
+        # products: the same bound
+        t["bound_ms"], t["bound_by"] = bound(shapes, size, flops_peak,
+                                             mem_bps)
+        out[kname] = t
+    bwd = {k_: out["dx"][k_] + out["dw"][k_]
+           for k_ in ("ms", "device_ms", "plain_ms", "library_ms")}
+    bwd["bound_ms"], bwd["bound_by"] = bwd_bound(shapes, size, flops_peak,
+                                                 mem_bps)
+    out["backward"] = bwd
+    route = ("bf16 (wgmma)" if dtype == torch.bfloat16
+             else "f32 (CUDA cores)")
+    for kname, t in out.items():
+        print(f"[time] moe_gemm {kname} train layer {shapes} {route}: kernel "
+              f"{t['ms']:.4f} ms (behind a device sleep "
+              f"{t['device_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms, "
+              f"torch.bmm {t['library_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}); kernel at "
+              f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound")
+    del calls
+    torch.cuda.empty_cache()
+    return out
 
 
 def attn_inputs(case, dtype, gen):
@@ -505,7 +665,9 @@ def time_flash(gen, bf16_fps, f32_fps, mem_bps) -> dict:
 
 # kernel-name substrings -> the group a train step's device time is
 # summed under (first match wins)
-KERNEL_GROUPS = (("moe_gemm", ("moe_gemm",)),
+KERNEL_GROUPS = (("moe_gemm backward", ("moe_gemm_dx", "moe_gemm_dw",
+                                         "moe_gemm_bwd")),
+                 ("moe_gemm", ("moe_gemm",)),
                  ("selective scan", ("sel_scan",)),
                  ("flash attention", ("flash_",)),
                  ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
@@ -1045,6 +1207,145 @@ def jamba_tiny_checks() -> dict:
     return counts
 
 
+def zero_train_counts() -> None:
+    for fn in (moe_gemm, moe_gemm_bwd_dx, moe_gemm_bwd_dw,
+               fa.flash_attention, fa.flash_attention_bwd):
+        fn.launches = 0
+
+
+def read_train_counts() -> dict:
+    return {fn.__name__: fn.launches
+            for fn in (moe_gemm, moe_gemm_bwd_dx, moe_gemm_bwd_dw,
+                       fa.flash_attention, fa.flash_attention_bwd)}
+
+
+def train_step_counts(cfg) -> dict:
+    """Kernel launches of one train step of `cfg` (attention with MLP or
+    MoE layers): three grouped GEMMs a MoE layer, each with its dx and dw,
+    and the flash forward and its two backward kernels an attention
+    layer."""
+    per = lambda f: sum(map(f, cfg.pattern)) * cfg.repeats  # noqa: E731
+    moe = 3 * per(lambda b: b.ffn == "moe")
+    attn = per(lambda b: b.mixer.startswith("attn"))
+    return {"moe_gemm": moe, "moe_gemm_bwd_dx": moe, "moe_gemm_bwd_dw": moe,
+            "flash_attention": attn, "flash_attention_bwd": BWD_KERNELS * attn}
+
+
+def moe_train_path() -> dict:
+    """Slice 7's main path: `make_train_step` on full-width qwen2-moe-a2.7b
+    cut to MOE_TRAIN_REPEATS of its 24 layers, random bf16 weights from a
+    seeded generator, f32 AdamW, `SyntheticLM` batches of TRAIN_BATCH x
+    TRAIN_SEQ, TRAIN_STEPS steps with the launch counts set to 0 just
+    before and read just after; then a torch.profiler window over two more
+    steps."""
+    cfg = get_config(ARCH).scaled(repeats=MOE_TRAIN_REPEATS)
+    per_step = train_step_counts(cfg)
+    assert per_step == {"moe_gemm": 12, "moe_gemm_bwd_dx": 12,
+                        "moe_gemm_bwd_dw": 12, "flash_attention": 4,
+                        "flash_attention_bwd": 8}, per_step
+    torch.cuda.reset_peak_memory_stats()
+    model = get_model(cfg, "cuda")
+    params = model.init_params(torch.Generator("cuda").manual_seed(0))
+    opt = init_opt_state(params)
+    n_params = sum(p.numel() for p in params.parameters())
+    step_fn = make_train_step(model, TrainConfig(opt=OptConfig(
+        peak_lr=1e-3, warmup_steps=20, total_steps=100)))
+    ds = SyntheticLM(cfg, DataConfig(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ))
+    losses, gnorms, walls = [], [], []
+    zero_train_counts()
+    for i in range(TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in ds.batch_at(i).items()}
+        t0 = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, batch)
+        losses.append(float(metrics["loss"]))     # the step's sync
+        walls.append(time.perf_counter() - t0)
+        gnorms.append(float(metrics["grad_norm"]))
+    counts = read_train_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    wall = statistics.median(walls[1:])
+    print(f"[moe-train] {ARCH} full width, {cfg.num_layers} of "
+          f"{get_config(ARCH).num_layers} layers, {n_params / 1e9:.3f} B "
+          f"parameters, bf16, f32 AdamW, B={TRAIN_BATCH} S={TRAIN_SEQ}: "
+          f"losses {[round(x_, 4) for x_ in losses]}; grad norms "
+          f"{[round(x_, 4) for x_ in gnorms]}")
+    print(f"[moe-train] wall per step (host, ends in the loss's sync) "
+          f"{[round(1e3 * t, 1) for t in walls]} ms; steps 2.. median "
+          f"{1e3 * wall:.1f} ms, {tokens / wall:.0f} tok/s; peak memory "
+          f"{peak / 2**30:.2f} GiB; launches over {TRAIN_STEPS} steps "
+          f"{counts} ({per_step} a step)")
+    assert all(math.isfinite(x_) for x_ in losses + gnorms), (losses, gnorms)
+    assert counts == {k: v * TRAIN_STEPS for k, v in per_step.items()}, \
+        counts
+
+    batches = [{k: torch.from_numpy(v).cuda()
+                for k, v in ds.batch_at(TRAIN_STEPS + i).items()}
+               for i in range(2)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for b in batches:
+            params, opt, metrics = step_fn(params, opt, b)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+    rows = kernel_rows(prof, len(batches))
+    busy = sum(r[0] for r in rows)
+    moe_ms = {kn: sum(r[0] for r in rows if kn in r[2])
+               for kn in ("moe_gemm_dx_wgmma_kernel",
+                          "moe_gemm_dw_wgmma_kernel", "moe_gemm_wgmma_kernel")}
+    print(f"[profile] full-width {ARCH} train step ({cfg.num_layers} "
+          f"layers), B={TRAIN_BATCH} S={TRAIN_SEQ}: wall {1e3 * wall:.3f} "
+          f"ms/step (no profiler); device busy {busy:.3f} ms/step in "
+          f"{sum(r[1] for r in rows):.0f} kernels; idle share "
+          f"{1 - busy / (1e3 * wall):.3f}; moe_gemm ms/step: forward "
+          f"{moe_ms['moe_gemm_wgmma_kernel']:.3f}, dx "
+          f"{moe_ms['moe_gemm_dx_wgmma_kernel']:.3f}, dw "
+          f"{moe_ms['moe_gemm_dw_wgmma_kernel']:.3f}")
+    if not rows:
+        print("[profile] device time not measured: the profiler saw no "
+              "CUDA kernels")
+    print_groups(rows, "ms/step (launches/step)")
+    for ms, count, key in rows[:14]:
+        print(f"[profile]   {ms:8.4f} ms/step {count:6.1f}x  {key[:90]}")
+    del model, params, opt, step_fn, batches, metrics, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"counts": counts, "wall_ms": 1e3 * wall, "busy_ms": busy,
+            "peak_gib": peak / 2**30}
+
+
+def tiny_f32_train(arch: str) -> dict:
+    """Tiny `arch` in f32 through `train()` on the card: the loss falls over
+    24 steps, and a resume from the step-24 checkpoint to step 30 equals a
+    straight run to step 30. Returns the launches of those 60 steps (the
+    f32 routes'), which must be 60 steps' worth."""
+    tiny_dir = tempfile.mkdtemp(prefix="chip_smoke_tiny_")
+    try:
+        run = dict(tiny=True, batch=4, seq=32, log_every=100,
+                   schedule_steps=30, device="cuda", dtype="float32")
+        d1, d2 = str(Path(tiny_dir) / "a"), str(Path(tiny_dir) / "b")
+        zero_train_counts()
+        first = train(arch, steps=24, ckpt_dir=d1, **run)
+        resumed = train(arch, steps=30, ckpt_dir=d1, **run)
+        straight = train(arch, steps=30, ckpt_dir=d2, **run)
+        counts = read_train_counts()
+    finally:
+        shutil.rmtree(tiny_dir, ignore_errors=True)
+    per_step = train_step_counts(tiny_config(arch))
+    assert counts == {k: 60 * v for k, v in per_step.items()}, counts
+    assert first["final_loss"] < first["losses"][0], first["losses"]
+    assert len(resumed["losses"]) == 6
+    assert math.isclose(resumed["losses"][-1], straight["losses"][-1],
+                        rel_tol=1e-4), (resumed["losses"], straight["losses"])
+    print(f"[check] tiny {arch} f32 training on the card: loss "
+          f"{first['losses'][0]:.4f} -> {first['final_loss']:.4f} over 24 "
+          f"steps; step-30 loss resumed from step 24 "
+          f"{resumed['losses'][-1]:.6f}, straight "
+          f"{straight['losses'][-1]:.6f}; launches over the 60 steps "
+          f"{counts}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1131,6 +1432,14 @@ def main() -> int:
                       ("jamba decode", jc_decode)):
         gemm_cases += [(f"{label} gate/up", (je, jc, jd, jf)),
                        (f"{label} down", (je, jc, jf, jd))]
+    # MoE training (slice 7): B=4 x S=2048, 160 slots an expert a row
+    c_train = TRAIN_BATCH * capacity(cfg, TRAIN_SEQ)
+    train_up, train_down = (e_pad, c_train, d, f), (e_pad, c_train, f, d)
+    qcfg = get_config(QWEN3)
+    qe, qc = padded_experts(qcfg), SLOTS * capacity(qcfg, 1)
+    gemm_cases += [("train gate/up", train_up), ("train down", train_down),
+                   ("qwen3 gate/up", (qe, qc, qcfg.d_model, qcfg.moe_d_ff)),
+                   ("qwen3 down", (qe, qc, qcfg.moe_d_ff, qcfg.d_model))]
     gemm_cases.append(("ragged", (3, 100, 96, 72)))
     # d and f not multiples of 8: bf16 goes through the wrapper's padding
     gemm_cases.append(("unaligned d, f", (3, 100, 93, 71)))
@@ -1143,15 +1452,17 @@ def main() -> int:
         return x.to(dtype), w.to(dtype)
 
     tols = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
-    errs = {}
+    errs, bwd_errs = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         for label, shape in gemm_cases:
-            # Jamba's shapes: operands at d**-0.25, so outputs have unit
-            # variance as in the model. At 0.3 they reach |out| ~ 65, and
-            # f32 sums over d=4096 in the kernel's and cuBLAS's orders
-            # part by up to 1.5e-4 (H100 80GB HBM3, 700 W).
-            x, w = operands(shape, dtype, shape[2] ** -0.25
-                            if label.startswith("jamba") else 0.3)
+            # Jamba's, the train and the qwen3 shapes: operands at
+            # d**-0.25, so outputs have unit variance as in the model. At
+            # 0.3 they reach |out| ~ 65, and f32 sums over d=4096 in the
+            # kernel's and cuBLAS's orders part by up to 1.5e-4 (H100 80GB
+            # HBM3, 700 W).
+            scale = (shape[2] ** -0.25 if label.startswith(
+                ("jamba", "train", "qwen3")) else 0.3)
+            x, w = operands(shape, dtype, scale)
             got, want = moe_gemm(x, w), moe_gemm_ref(x, w)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
@@ -1161,6 +1472,11 @@ def main() -> int:
             print(f"[check] moe_gemm {label} {tuple(shape)} {dtype}: "
                   f"max |kernel - plain| = {err:.3e} (holds "
                   f"|diff| <= {tols[dtype]} * (1 + |plain|))")
+            del got, want
+            bwd_errs[(label, dtype)] = check_moe_bwd(label, x, w, scale,
+                                                     tols[dtype], gen)
+            del x, w
+            torch.cuda.empty_cache()
     x, w = operands((4, 32, 64, 64), torch.float32, 1.0)
     base = moe_gemm(x, w)
     x[2] = 999.0
@@ -1209,8 +1525,13 @@ def main() -> int:
               f"({t['bound_by']}); kernel at "
               f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound")
     del xu, wg, wu, xd, wd, xju, wjg, wju, xjd, wjd, xju1, xjd1, xu32, \
-        wg32, wu32, xd32, wd32, x, w, base, pert, got, want, args, calls
+        wg32, wu32, xd32, wd32, x, w, base, pert, args, calls
     torch.cuda.empty_cache()
+
+    train_times = {dtype: time_moe_train_layer(
+        [train_up, train_up, train_down], dtype, gen,
+        bf16_fps if dtype == torch.bfloat16 else f32_fps, mem_bps)
+        for dtype in (torch.bfloat16, torch.float32)}
 
     # ---- 4. flash attention vs plain, and its times ---------------------
     flash_errs = check_flash(gen)
@@ -1262,17 +1583,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ---- 8. moe_gemm under grad raises ---------------------------------
-    x = torch.randn((2, 16, 64), device="cuda")
-    w = torch.randn((2, 64, 64), device="cuda", requires_grad=True)
-    try:
-        moe_gemm(x, w)
-    except NotImplementedError as e:
-        print(f"[check] moe_gemm on a weight that requires grad raises: {e}")
-    else:
-        raise AssertionError("moe_gemm under grad did not raise")
-    with torch.no_grad():
-        moe_gemm(x, w)
+    # ---- 8. moe_gemm's gradients: the kernels vs autograd of the plain --
+    check_moe_autograd(gen)
 
     # ---- 9. slice 2's main path: full-width training --------------------
     tcfg = get_config(TRAIN_ARCH)
@@ -1318,35 +1630,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 10. tiny training in f32 on the card: learns, resumes exactly --
-    tiny_dir = tempfile.mkdtemp(prefix="chip_smoke_tiny_")
-    try:
-        run = dict(tiny=True, batch=4, seq=32, log_every=100,
-                   schedule_steps=30, device="cuda", dtype="float32")
-        d1, d2 = str(Path(tiny_dir) / "a"), str(Path(tiny_dir) / "b")
-        fa.flash_attention.launches = 0
-        fa.flash_attention_bwd.launches = 0
-        first = train(TRAIN_ARCH, steps=24, ckpt_dir=d1, **run)
-        resumed = train(TRAIN_ARCH, steps=30, ckpt_dir=d1, **run)
-        straight = train(TRAIN_ARCH, steps=30, ckpt_dir=d2, **run)
-        f32_train = {"forward": fa.flash_attention.launches,
-                     "backward": fa.flash_attention_bwd.launches}
-    finally:
-        shutil.rmtree(tiny_dir, ignore_errors=True)
-    tiny_attn = sum(b.mixer.startswith("attn")
-                    for b in tiny_config(TRAIN_ARCH).pattern) \
-        * tiny_config(TRAIN_ARCH).repeats
-    assert f32_train == {"forward": 60 * tiny_attn,
-                         "backward": 60 * tiny_attn * BWD_KERNELS}, f32_train
-    assert first["final_loss"] < first["losses"][0], first["losses"]
-    assert len(resumed["losses"]) == 6
-    assert math.isclose(resumed["losses"][-1], straight["losses"][-1],
-                        rel_tol=1e-4), (resumed["losses"], straight["losses"])
-    print(f"[check] tiny {TRAIN_ARCH} f32 training on the card: loss "
-          f"{first['losses'][0]:.4f} -> {first['final_loss']:.4f} over 24 "
-          f"steps; step-30 loss resumed from step 24 "
-          f"{resumed['losses'][-1]:.6f}, straight "
-          f"{straight['losses'][-1]:.6f}; flash launches over the 60 "
-          f"steps {f32_train}")
+    tiny_counts = tiny_f32_train(TRAIN_ARCH)
+    f32_train = {"forward": tiny_counts["flash_attention"],
+                 "backward": tiny_counts["flash_attention_bwd"]}
 
     # ---- 11. the scan kernels vs plain, and their times ----------------
     gc.collect()
@@ -1359,11 +1645,18 @@ def main() -> int:
     # ---- 14. tiny f32 Jamba on the card; the scans under grad raise -----
     f32_counts = jamba_tiny_checks()
 
-    # ---- 15. results -----------------------------------------------------
-    # Both dtypes of moe_gemm and of the flash forward and backward count
-    # in one `launches`; each route's own count is that of a run in its
-    # dtype: bf16 the main paths (phases 5 and 9), f32 the tiny f32 Jamba
-    # forward (phase 14) and the tiny f32 training (phase 10).
+    # ---- 15. slice 7's main path: full-width MoE training --------------
+    moe_train = moe_train_path()
+
+    # ---- 16. tiny f32 MoE training on the card: learns, resumes exactly -
+    moe_f32 = tiny_f32_train(ARCH)
+
+    # ---- 17. results -----------------------------------------------------
+    # Both dtypes of moe_gemm, of its backward and of the flash forward and
+    # backward count in one `launches`; each route's own count is that of
+    # a run in its dtype: bf16 the main paths (phases 5, 9 and 15), f32 the
+    # tiny f32 Jamba forward (phase 14) and the tiny f32 trainings (phases
+    # 10 and 16).
     def times_of(t):
         return {k_: t[k_] for k_ in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")}
@@ -1390,6 +1683,45 @@ def main() -> int:
             **({"jamba_prefill_layer": times_of(times["jamba prefill layer"]),
                 "jamba_decode_layer": times_of(times["jamba decode layer"])}
                if bf16 else {}),
+            "train_layer": {
+                **times_of(train_times[dtype]["forward"]),
+                "device_ms": train_times[dtype]["forward"]["device_ms"],
+                "launches": (moe_train["counts"] if bf16
+                             else moe_f32)["moe_gemm"],
+                "unit": "one MoE layer's three calls at the MoE train "
+                        "shapes (E=64, C=640, d=2048, f=1408); launches "
+                        + ("over the 6 full-width train steps" if bf16
+                           else "over the tiny f32 MoE training (60 steps)")},
+        })
+    # the backward: no TPU counterpart (the JAX package differentiates its
+    # jnp oracle); each route's launches are those of its training run
+    for dtype, count in ((torch.bfloat16, moe_train["counts"]),
+                         (torch.float32, moe_f32)):
+        bf16 = dtype == torch.bfloat16
+        t = train_times[dtype]
+        kernels.append({
+            "name": f"moe_gemm_bwd ({'bf16' if bf16 else 'f32'})",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/moe_gemm.cu",
+            "kernel": ("moe_gemm_dx_wgmma_kernel, moe_gemm_dw_wgmma_kernel"
+                       if bf16 else "moe_gemm_bwd_kernel"),
+            "replaces": None,
+            "launches": count["moe_gemm_bwd_dx"] + count["moe_gemm_bwd_dw"],
+            "max_abs_err": max(max(bwd_errs[(lb, dtype)])
+                               for lb in ("train gate/up", "train down")),
+            **times_of(t["backward"]), "device_ms": t["backward"]["device_ms"],
+            "unit": "one MoE layer's backward at the train shapes (E=64, "
+                    "C=640, d=2048, f=1408): dx and dw of the gate, up and "
+                    "down calls, 6 launches; launches "
+                    + ("over the 6 full-width train steps" if bf16 else
+                       "over the tiny f32 MoE training (60 steps)")
+                    + "; library = torch.bmm on the same operands",
+            **{g: {**times_of(t[g]), "device_ms": t[g]["device_ms"],
+                   "launches": count[f"moe_gemm_bwd_{g}"],
+                   "max_abs_err": max(bwd_errs[(lb, dtype)][i]
+                                      for lb in ("train gate/up",
+                                                 "train down"))}
+               for i, g in enumerate(("dx", "dw"))},
         })
     bwd_unit = ("one layer's call (dq, then dk/dv: two launches) at the "
                 "training path's shape (B=4, S=T=2048, 14:2 heads, hd 64, "

@@ -1,4 +1,5 @@
-// Grouped (per-expert) matmul for Hopper: out[e] = x[e] @ w[e].
+// Grouped (per-expert) matmul for Hopper, out[e] = x[e] @ w[e], and its
+// two gradients (dx, dw; see "Backward" below).
 //
 // Replaces the TPU kernel repro/kernels/moe_gemm.py:_moe_gemm_kernel
 // (launched by moe_gemm_pallas). Plain version:
@@ -63,12 +64,36 @@
 // On the TPU the contraction was a sequential grid axis carrying an f32
 // VMEM accumulator. Blocks here run in no order, so the contraction is
 // a loop inside the block.
+//
+// Backward (no TPU counterpart: the JAX package differentiates its jnp
+// oracle, repro/kernels/ref.py:moe_gemm_ref). Plain version:
+// repro_torch/kernels/ref.py:moe_gemm_bwd_ref. From the forward's x, w
+// and the output gradient dy [E,C,F]:
+//   dx [E,C,D] = dy w^T   (per expert: M = C, N = D, K = F)
+//   dw [E,D,F] = x^T dy   (per expert: M = D, N = F, K = C)
+// Bound: each is one more grouped GEMM of the forward's 2*E*C*D*F flops.
+// At the MoE training shape (E = 64, C = 640, d = 2048, f = 1408) that is
+// 0.236 TFLOP a call, 0.239 ms at 989 bf16 TFLOP/s, against 0.65 GB of
+// operands (0.195 ms at 3.35 TB/s): the products bound it, close to
+// balance. Designs, one launch a gradient, f32 sums rounded once:
+//   * bf16: moe_gemm_dx_wgmma_kernel and moe_gemm_dw_wgmma_kernel, the
+//     forward's producer warp, TMA ring and wgmma consumers with the
+//     operands' major-ness flipped (see grouped_wgmma). dx tiles (C, D) and
+//     loops over F; dw tiles (D, F) and loops over all of C inside the
+//     block. No split-K and no atomics: each output element is one
+//     thread's sum in a fixed order, so two calls agree bit for bit, and
+//     an expert that no token reaches (all its rows zero) gets exact zeros
+//     in dw. dw's K = C is short (10 steps of 64 at C = 640), so filling
+//     and draining the ring costs a larger share than in the forward.
+//   * f32: moe_gemm_bwd_kernel<kAmn, kBmn>, a tiled CUDA-core GEMM with
+//     the operand layouts as template parameters (see there).
 
 #include <cuda.h>  // CUtensorMap and its types; no -lcuda needed
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstdio>
 
 namespace {
 
@@ -175,6 +200,89 @@ moe_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
+// f32 backward on the CUDA cores: out[e] (M x N) = A[e] (M x K) x B[e]
+// (K x N), for dx = dy w^T (A = dy [C,f], B = w [d,f] read as [N,K]) and
+// dw = x^T dy (A = x [C,d] read as [K,M], B = dy [C,f]). A is stored
+// [M][K] or, kAmn, [K][M]; B is stored [N][K] or, kBmn, [K][N].
+//   * One block per (64 x 64 output tile, expert); 16 x 16 threads, each
+//     4 x 4 outputs 16 apart, so a warp's shared-memory reads are
+//     broadcasts or consecutive words.
+//   * The contraction runs in chunks of 16 staged in shared memory as
+//     [k][m] and [k][n], rows padded to 65 words, so that a warp storing
+//     a K-major operand (k varying fastest) conflicts at most two ways.
+//     Global loads run along each operand's contiguous dim, so they
+//     coalesce in both layouts.
+//   * Every output is one thread's sum in a fixed k order: no atomics, two
+//     calls agree bit for bit, and an expert whose rows are all zero gets
+//     exact zeros.
+constexpr int kGT = 64;                        // output tile, rows and cols
+constexpr int kGK = 16;                        // contraction chunk
+constexpr int kGThreads = 256;
+
+template <bool kAmn, bool kBmn>
+__global__ void __launch_bounds__(kGThreads)
+moe_gemm_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                    float* __restrict__ out, int M, int N, int K) {
+  __shared__ float as[kGK][kGT + 1];
+  __shared__ float bs[kGK][kGT + 1];
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int m0 = blockIdx.x * kGT, n0 = blockIdx.y * kGT, e = blockIdx.z;
+  const float* ae = a + static_cast<size_t>(e) * M * K;
+  const float* be = b + static_cast<size_t>(e) * K * N;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += kGK) {
+    __syncthreads();  // every thread is done with the previous chunk
+    for (int i = threadIdx.x; i < kGK * kGT; i += kGThreads) {
+      const int kk = kAmn ? i / kGT : i % kGK;
+      const int mm = kAmn ? i % kGT : i / kGK;
+      const int m = m0 + mm, k = k0 + kk;
+      as[kk][mm] = (m < M && k < K)
+                       ? ae[kAmn ? static_cast<size_t>(k) * M + m
+                                 : static_cast<size_t>(m) * K + k]
+                       : 0.f;
+    }
+    for (int i = threadIdx.x; i < kGK * kGT; i += kGThreads) {
+      const int kk = kBmn ? i / kGT : i % kGK;
+      const int nn = kBmn ? i % kGT : i / kGK;
+      const int n = n0 + nn, k = k0 + kk;
+      bs[kk][nn] = (n < N && k < K)
+                       ? be[kBmn ? static_cast<size_t>(k) * N + n
+                                 : static_cast<size_t>(n) * K + k]
+                       : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kGK; ++kk) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = as[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = bs[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+  float* oe = out + static_cast<size_t>(e) * M * N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty + 16 * i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + tx + 16 * j;
+      if (n < N) oe[static_cast<size_t>(m) * N + n] = acc[i][j];
+    }
+  }
+}
+
 // ------------------------------------------------ bf16: wgmma fed by TMA
 constexpr int kBN = 128;                   // output columns of a block
 constexpr int kBK = 64;                    // contraction step: 128 B of bf16
@@ -261,9 +369,11 @@ __device__ __forceinline__ void fence_acc(float (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d[64] += A (64 x 16, K-major, from shared memory) x B (16 x 128,
-// MN-major: the transpose bit is set), f32 accumulators. scale_d = 0
+// d[64] += A (64 x 16) x B (16 x 128), both from shared memory, f32
+// accumulators. An operand is K-major (the contraction dim contiguous)
+// unless its transpose bit, kTA or kTB, marks it MN-major. scale_d = 0
 // overwrites d instead.
+template <int kTA, int kTB>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
                                                  uint64_t b, int scale_d) {
   asm volatile(
@@ -277,7 +387,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -294,14 +404,32 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTA), "n"(kTB));
 }
 
-template <int WG>
-__global__ void __launch_bounds__(Tile<WG>::kThreads)
-moe_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
-                      const __grid_constant__ CUtensorMap map_w,
-                      __nv_bfloat16* __restrict__ out, int C, int D, int F) {
+// out[e] (M x N) = A[e] (M x K) x B[e] (K x N) for one block's 64 * WG
+// rows and 128 columns of one expert, with each operand's major-ness a
+// template parameter (K-major: the contraction dim contiguous):
+//   * forward, out = x w (M = C, N = F, K = D): A = x [C,D] K-major, one
+//     box of 64 (D) x 64 * WG rows (C); B = w [D,F] MN-major, two boxes of
+//     64 (F) x 64 rows (D), read through the transpose bit;
+//   * dx = dy w^T (M = C, N = D, K = F): A = dy [C,F] K-major as x above;
+//     B = w [D,F] K-major, one box of 64 (F) x 128 rows (D);
+//   * dw = x^T dy (M = D, N = F, K = C): A = x [C,D] MN-major, one box of
+//     64 (D) x 64 rows (C) a warpgroup, through the transpose bit; B = dy
+//     [C,F] MN-major as w in the forward.
+// TMA's zero fill pads a ragged M, N or K (a ragged C in dw: in both
+// operands). In a K-major tile rows are 128 B, 8-row groups 1024 B apart
+// (the descriptor's stride byte offset), and a k16 slice is 32 B further
+// along the (swizzled) row. In an MN-major tile rows run along K: the
+// leading byte offset is the step between 64-element (128 B) chunks along
+// M or N, the stride byte offset the step between 8-row groups along K,
+// and a k16 slice is 16 rows (2 KB) further.
+template <int WG, bool kAmn, bool kBmn>
+__device__ __forceinline__ void grouped_wgmma(const CUtensorMap* map_a,
+                                              const CUtensorMap* map_b,
+                                              __nv_bfloat16* __restrict__ out,
+                                              int M, int N, int K) {
   using L = Tile<WG>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + kSwizzleAlign - 1) &
@@ -315,7 +443,7 @@ moe_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
   const int m0 = blockIdx.x * L::kBM;
   const int n0 = blockIdx.y * kBN;
   const int e = blockIdx.z;
-  const int n_k = (D + kBK - 1) / kBK;
+  const int n_k = (K + kBK - 1) / kBK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   if (threadIdx.x == 0) {
@@ -333,10 +461,21 @@ moe_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
         const int s = k % L::kStages;
         if (k >= L::kStages) mbar_wait(empty(s), (k / L::kStages - 1) & 1);
         mbar_expect_tx(full(s), L::kStage);
-        tma_load_3d(tile_a(s), &map_x, full(s), k * kBK, m0, e);
-        tma_load_3d(tile_b(s), &map_w, full(s), n0, k * kBK, e);
-        tma_load_3d(tile_b(s) + kHalfB, &map_w, full(s), n0 + 64, k * kBK,
-                    e);
+        if (kAmn) {
+#pragma unroll
+          for (int h = 0; h < WG; ++h)
+            tma_load_3d(tile_a(s) + h * kHalfB, map_a, full(s), m0 + 64 * h,
+                        k * kBK, e);
+        } else {
+          tma_load_3d(tile_a(s), map_a, full(s), k * kBK, m0, e);
+        }
+        if (kBmn) {
+          tma_load_3d(tile_b(s), map_b, full(s), n0, k * kBK, e);
+          tma_load_3d(tile_b(s) + kHalfB, map_b, full(s), n0 + 64, k * kBK,
+                      e);
+        } else {
+          tma_load_3d(tile_b(s), map_b, full(s), k * kBK, n0, e);
+        }
       }
     }
     return;
@@ -354,14 +493,14 @@ moe_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
     asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
-      // A: 64 rows of 128 B, 8-row groups 1024 B apart; a k16 slice is
-      // 32 B further along the (swizzled) row.
-      const uint64_t da = smem_desc(tile_a(s) + g * 64 * 128 + kk * 32, 16,
-                                    1024);
-      // B: 16 rows of w (k) at 128 B, 8-row groups 1024 B apart; the two
-      // 64-column halves kHalfB apart; a k16 slice is 16 rows further.
-      const uint64_t db = smem_desc(tile_b(s) + kk * 16 * 128, kHalfB, 1024);
-      wgmma_m64n128k16(acc, da, db, 1);
+      const uint64_t da =
+          kAmn ? smem_desc(tile_a(s) + g * kHalfB + kk * 16 * 128, kHalfB,
+                           1024)
+               : smem_desc(tile_a(s) + g * 64 * 128 + kk * 32, 16, 1024);
+      const uint64_t db =
+          kBmn ? smem_desc(tile_b(s) + kk * 16 * 128, kHalfB, 1024)
+               : smem_desc(tile_b(s) + kk * 32, 16, 1024);
+      wgmma_m64n128k16<kAmn, kBmn>(acc, da, db, 1);
     }
     asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
     fence_acc(acc);
@@ -376,24 +515,51 @@ moe_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
   // Accumulator fragment of m64n128: register 4j + 2i + c holds row
   // 16 * (warp % 4) + lane / 4 + 8i, column 8j + 2 * (lane % 4) + c.
   const int row0 = m0 + g * 64 + 16 * (warp % 4) + lane / 4;
-  __nv_bfloat16* oe = out + static_cast<size_t>(e) * C * F;
+  __nv_bfloat16* oe = out + static_cast<size_t>(e) * M * N;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + 8 * i;
-    if (row >= C) continue;
-    __nv_bfloat16* orow = oe + static_cast<size_t>(row) * F;
+    if (row >= M) continue;
+    __nv_bfloat16* orow = oe + static_cast<size_t>(row) * N;
 #pragma unroll
     for (int j = 0; j < kBN / 8; ++j) {
       const int col = n0 + 8 * j + 2 * (lane % 4);
       const float v0 = acc[4 * j + 2 * i], v1 = acc[4 * j + 2 * i + 1];
-      if (col + 1 < F) {
+      if (col + 1 < N) {
         *reinterpret_cast<__nv_bfloat162*>(orow + col) =
             __floats2bfloat162_rn(v0, v1);
-      } else if (col < F) {
+      } else if (col < N) {
         orow[col] = __float2bfloat16(v0);
       }
     }
   }
+}
+
+// One kernel name for each product, so that a profile tells them apart.
+template <int WG>
+__global__ void __launch_bounds__(Tile<WG>::kThreads)
+moe_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                      const __grid_constant__ CUtensorMap map_w,
+                      __nv_bfloat16* __restrict__ out, int C, int D, int F) {
+  grouped_wgmma<WG, false, true>(&map_x, &map_w, out, C, F, D);
+}
+
+template <int WG>
+__global__ void __launch_bounds__(Tile<WG>::kThreads)
+moe_gemm_dx_wgmma_kernel(const __grid_constant__ CUtensorMap map_dy,
+                         const __grid_constant__ CUtensorMap map_w,
+                         __nv_bfloat16* __restrict__ dx, int C, int D,
+                         int F) {
+  grouped_wgmma<WG, false, false>(&map_dy, &map_w, dx, C, D, F);
+}
+
+template <int WG>
+__global__ void __launch_bounds__(Tile<WG>::kThreads)
+moe_gemm_dw_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                         const __grid_constant__ CUtensorMap map_dy,
+                         __nv_bfloat16* __restrict__ dw, int C, int D,
+                         int F) {
+  grouped_wgmma<WG, true, true>(&map_x, &map_dy, dw, D, F, C);
 }
 
 // ------------------------------------------------------- host side
@@ -431,6 +597,8 @@ EncodeTiled encode_tiled() {
 // A 3-D bf16 tensor map over [E, rows, cols] (cols contiguous) with
 // boxes of box_cols x box_rows x 1 and the 128-byte swizzle; reads past
 // an edge fill zeros.
+int last_map_error = 0;  // the CUresult of the last refused map
+
 bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int E,
               int rows, int cols, int box_rows, int box_cols) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
@@ -441,30 +609,78 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int E,
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
                              static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-             dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const CUresult res = enc(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+      strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (res != CUDA_SUCCESS) last_map_error = static_cast<int>(res);
+  return res == CUDA_SUCCESS;
 }
 
-template <int WG>
-int launch_wgmma(const void* x, const void* w, void* out, int E, int C,
+enum class Product { kForward, kDx, kDw };
+
+// One launch of the wgmma kernel of product P on its operands (a, b): the
+// forward (x, w), dx (dy, w) or dw (x, dy), with x [E,C,D], w [E,D,F]
+// and dy [E,C,F]. The tensor maps' boxes are those grouped_wgmma loads; the
+// grid covers the output's [M, N] tiles and the experts.
+template <int WG, Product P>
+int launch_wgmma(const void* a, const void* b, void* out, int E, int C,
                  int D, int F, cudaStream_t stream) {
   using L = Tile<WG>;
+  const auto kernel = P == Product::kForward ? moe_gemm_wgmma_kernel<WG>
+                      : P == Product::kDx    ? moe_gemm_dx_wgmma_kernel<WG>
+                                             : moe_gemm_dw_wgmma_kernel<WG>;
+  // A runtime-API call before cuTensorMapEncodeTiled: it makes the
+  // device's primary context current on this thread (autograd runs the
+  // backward on a thread of its own, where the encoder refused the maps
+  // without it).
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return kErrEntry;
-  CUtensorMap map_x, map_w;
-  if (!make_map(enc, &map_x, x, E, C, D, L::kBM, kBK) ||
-      !make_map(enc, &map_w, w, E, D, F, kBK, 64))
-    return kErrTensorMap;
-  const cudaError_t err = cudaFuncSetAttribute(
-      moe_gemm_wgmma_kernel<WG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L::kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((C + L::kBM - 1) / L::kBM, (F + kBN - 1) / kBN, E);
-  moe_gemm_wgmma_kernel<WG><<<grid, L::kThreads, L::kSmem, stream>>>(
-      map_x, map_w, static_cast<__nv_bfloat16*>(out), C, D, F);
+  CUtensorMap map_a, map_b;
+  bool ok;
+  int M, N;
+  if (P == Product::kForward) {
+    ok = make_map(enc, &map_a, a, E, C, D, L::kBM, kBK) &&
+         make_map(enc, &map_b, b, E, D, F, kBK, 64);
+    M = C;
+    N = F;
+  } else if (P == Product::kDx) {
+    ok = make_map(enc, &map_a, a, E, C, F, L::kBM, kBK) &&
+         make_map(enc, &map_b, b, E, D, F, kBN, kBK);
+    M = C;
+    N = D;
+  } else {
+    ok = make_map(enc, &map_a, a, E, C, D, kBK, 64) &&
+         make_map(enc, &map_b, b, E, C, F, kBK, 64);
+    M = D;
+    N = F;
+  }
+  if (!ok) return kErrTensorMap;
+  const dim3 grid((M + L::kBM - 1) / L::kBM, (N + kBN - 1) / kBN, E);
+  kernel<<<grid, L::kThreads, L::kSmem, stream>>>(
+      map_a, map_b, static_cast<__nv_bfloat16*>(out), C, D, F);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kDw>
+int launch_bwd_f32(const void* a, const void* b, void* out, int E, int C,
+                   int D, int F, cudaStream_t stream) {
+  const int M = kDw ? D : C, N = kDw ? F : D, K = kDw ? C : F;
+  const dim3 grid((M + kGT - 1) / kGT, (N + kGT - 1) / kGT, E);
+  moe_gemm_bwd_kernel<kDw, kDw><<<grid, kGThreads, 0, stream>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<float*>(out), M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool bf16_layout_ok(const void* a, const void* b, int D, int F) {
+  return D % 8 == 0 && F % 8 == 0 &&
+         ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) &
+          15) == 0;
 }
 
 int launch_f32(const void* x, const void* w, void* out, int E, int C, int D,
@@ -485,18 +701,48 @@ int launch_f32(const void* x, const void* w, void* out, int E, int C, int D,
 // bf16 needs d and f multiples of 8 and 16-byte-aligned x and w.
 extern "C" int moe_gemm_bf16(const void* x, const void* w, void* out, int E,
                              int C, int D, int F, void* stream) {
-  if (D % 8 != 0 || F % 8 != 0 ||
-      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) &
-       15) != 0)
-    return kErrLayout;
+  if (!bf16_layout_ok(x, w, D, F)) return kErrLayout;
   const auto s = static_cast<cudaStream_t>(stream);
-  return C >= 128 ? launch_wgmma<2>(x, w, out, E, C, D, F, s)
-                  : launch_wgmma<1>(x, w, out, E, C, D, F, s);
+  constexpr Product P = Product::kForward;
+  return C >= 128 ? launch_wgmma<2, P>(x, w, out, E, C, D, F, s)
+                  : launch_wgmma<1, P>(x, w, out, E, C, D, F, s);
 }
 
 extern "C" int moe_gemm_f32(const void* x, const void* w, void* out, int E,
                             int C, int D, int F, void* stream) {
   return launch_f32(x, w, out, E, C, D, F, static_cast<cudaStream_t>(stream));
+}
+
+// The backward, for the forward's x [E,C,D], w [E,D,F] and the output
+// gradient dy [E,C,F]: dx [E,C,D] = dy w^T and dw [E,D,F] = x^T dy.
+extern "C" int moe_gemm_bwd_dx_bf16(const void* dy, const void* w, void* dx,
+                                    int E, int C, int D, int F,
+                                    void* stream) {
+  if (!bf16_layout_ok(dy, w, D, F)) return kErrLayout;
+  const auto s = static_cast<cudaStream_t>(stream);
+  return C >= 128 ? launch_wgmma<2, Product::kDx>(dy, w, dx, E, C, D, F, s)
+                  : launch_wgmma<1, Product::kDx>(dy, w, dx, E, C, D, F, s);
+}
+
+extern "C" int moe_gemm_bwd_dw_bf16(const void* x, const void* dy, void* dw,
+                                    int E, int C, int D, int F,
+                                    void* stream) {
+  if (!bf16_layout_ok(x, dy, D, F)) return kErrLayout;
+  const auto s = static_cast<cudaStream_t>(stream);
+  return D >= 128 ? launch_wgmma<2, Product::kDw>(x, dy, dw, E, C, D, F, s)
+                  : launch_wgmma<1, Product::kDw>(x, dy, dw, E, C, D, F, s);
+}
+
+extern "C" int moe_gemm_bwd_dx_f32(const void* dy, const void* w, void* dx,
+                                   int E, int C, int D, int F, void* stream) {
+  return launch_bwd_f32<false>(dy, w, dx, E, C, D, F,
+                               static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int moe_gemm_bwd_dw_f32(const void* x, const void* dy, void* dw,
+                                   int E, int C, int D, int F, void* stream) {
+  return launch_bwd_f32<true>(x, dy, dw, E, C, D, F,
+                              static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* moe_gemm_error_string(int code) {
@@ -506,8 +752,13 @@ extern "C" const char* moe_gemm_error_string(int code) {
              "operands";
     case kErrEntry:
       return "cuTensorMapEncodeTiled not found";
-    case kErrTensorMap:
-      return "cuTensorMapEncodeTiled refused a tensor map";
+    case kErrTensorMap: {
+      static char msg[64];
+      snprintf(msg, sizeof msg,
+               "cuTensorMapEncodeTiled refused a tensor map (CUresult %d)",
+               last_map_error);
+      return msg;
+    }
   }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

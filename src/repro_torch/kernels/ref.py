@@ -9,6 +9,8 @@ is f32 as with JAX's ``preferred_element_type=jnp.float32``.
 of the flash-attention kernels: the forward's arithmetic as
 `repro/kernels/flash_attention.py` does it (f32 softmax weights, a
 start-aligned causal mask), and the backward the kernel computes.
+`moe_gemm_bwd_ref` is the plain version of the `moe_gemm` backward
+kernels (dx and dw, which the JAX package leaves to autodiff).
 `selective_scan_ref` and `ssm_scan_ref` walk time in a Python loop in f32;
 the JAX oracle's chunked `jax.checkpoint` (a memory device for its
 backward) does not change the result and is left out.
@@ -184,3 +186,21 @@ def moe_gemm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Grouped (per-expert) matmul: x [E,C,d] @ w [E,d,f] -> [E,C,f],
     accumulating in f32, output in x's dtype."""
     return torch.bmm(x.float(), w.float()).to(x.dtype)
+
+
+def moe_gemm_dx_ref(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """dx [E,C,d] = dy [E,C,f] @ w[E,d,f]^T in f32, in dy's dtype."""
+    return torch.bmm(dy.float(), w.float().transpose(1, 2)).to(dy.dtype)
+
+
+def moe_gemm_dw_ref(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """dw [E,d,f] = x[E,C,d]^T @ dy [E,C,f] in f32, in dy's dtype."""
+    return torch.bmm(x.float().transpose(1, 2), dy.float()).to(dy.dtype)
+
+
+def moe_gemm_bwd_ref(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain `moe_gemm` backward: (dx [E,C,d], dw [E,d,f]) from the
+    forward's x and w and the output gradient dy [E,C,f], f32 products
+    rounded once to the operands' dtype."""
+    return moe_gemm_dx_ref(dy, w), moe_gemm_dw_ref(x, dy)

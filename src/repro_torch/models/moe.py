@@ -10,7 +10,8 @@ as in the JAX package, so the same tokens are kept and dropped:
   the expert by a running count, capacity per (row, expert)
   `max(4, ceil4(S*k*cf/E_pad))`, overflow slots sent to a drop bin;
 * three grouped matmuls through `kernels.ops.moe_gemm` over the E-major
-  buffer [E_pad, B*cap, d];
+  buffer [E_pad, B*cap, d] (differentiable: on CUDA the backward runs the
+  dx and dw kernels, on the CPU autograd through the plain version);
 * a combine in the activation dtype with `index_add_`, plus the shared
   experts as one gated MLP of width `num_shared_experts * moe_d_ff`.
 

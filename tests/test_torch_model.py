@@ -1,7 +1,8 @@
 """Port model vs the JAX model on the same weights: the weight bridge,
 `MoE.forward` against `apply_moe` (decode and a dropping prefill),
-`decode_step` logits with per-slot positions in f32 and bf16, and the
-port's decode against its own forward (tests/test_archs.py's check)."""
+`decode_step` logits with per-slot positions in f32 and bf16, the
+port's decode against its own forward (tests/test_archs.py's check), and
+the whole forward of tiny qwen2-moe and qwen3-moe against JAX's."""
 import functools
 
 import numpy as np
@@ -153,11 +154,21 @@ def test_decode_matches_own_forward(arch):
     assert float((dec - ref).abs().max()) < 1e-4
 
 
-def test_forward_matches_jax():
-    jm, jp, tm, tp = _pair(capacity_factor=16.0)
+def _check_forward(arch):
+    jm, jp, tm, tp = _pair(arch=arch, capacity_factor=16.0)
     toks = np.random.RandomState(2).randint(0, 500, (2, 8)).astype(np.int32)
     want, want_aux = jm.forward(jp, {"tokens": jnp.asarray(toks)})
     with torch.inference_mode():
         got, aux = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
     _close(got, want, 1e-4)
     _close(aux, want_aux, 1e-5)
+
+
+def test_forward_matches_jax():
+    _check_forward(ARCH)
+
+
+def test_qwen3_moe_forward_matches_jax():
+    """qwen3-moe-235b-a22b: 128 experts top-8 (tiny: 8 top-2), no shared
+    experts, GQA with head_dim set apart from d_model / num_heads."""
+    _check_forward("qwen3-moe-235b-a22b")

@@ -1,8 +1,9 @@
 """The port's training substrate on the CPU, against the JAX package where
 they share a contract: port versions of tests/test_train_substrate.py's
 optimizer, checkpoint, fault, data and end-to-end tests; the microbatch
-order; and one train step on bridged f32 params and optimizer state
-against JAX's on the same numpy batch."""
+order; the loss and every parameter gradient, and one train step on
+bridged f32 params and optimizer state, against JAX's on the same numpy
+batch, for the dense arch and the MoE archs (`MOE_ARCHS`)."""
 import threading
 import time
 
@@ -41,6 +42,8 @@ from repro_torch.train.train_step import (TrainConfig,  # noqa: E402
                                           microbatch_schedule)
 
 ARCH = "qwen2-0.5b"
+MOE_ARCH = "qwen2-moe-a2.7b"
+MOE_ARCHS = [MOE_ARCH, "qwen3-moe-235b-a22b"]
 
 
 class _Params(nn.Module):
@@ -253,19 +256,19 @@ def test_microbatch_schedule_matches_jax(n):
 _TCFG = dict(opt=OptConfig(peak_lr=1e-3, warmup_steps=2, total_steps=10))
 
 
-def _bridged(seed=0):
-    """JAX tiny f32 qwen2-0.5b (model, params) and the port's model and
-    params with the same weights."""
-    jm = jax_get_model(jax_tiny_config(ARCH).scaled(dtype="float32"))
+def _bridged(seed=0, arch=ARCH):
+    """JAX tiny f32 `arch` (model, params) and the port's model and params
+    with the same weights."""
+    jm = jax_get_model(jax_tiny_config(arch).scaled(dtype="float32"))
     jp = jm.init_params(jax.random.key(seed))
-    tm = get_model(tiny_config(ARCH).scaled(dtype="float32"), "cpu")
+    tm = get_model(tiny_config(arch).scaled(dtype="float32"), "cpu")
     tp = tm.init_params(torch.Generator().manual_seed(1))
     load_jax_params(tp, jax.tree.map(np.asarray, jp))
     return jm, jp, tm, tp
 
 
-def _batches(n, batch=4, seq=16):
-    ds = SyntheticLM(tiny_config(ARCH), DataConfig(batch=batch, seq_len=seq))
+def _batches(n, batch=4, seq=16, arch=ARCH):
+    ds = SyntheticLM(tiny_config(arch), DataConfig(batch=batch, seq_len=seq))
     out = []
     for i in range(n):
         b = ds.batch_at(i)
@@ -280,10 +283,12 @@ def _close(got, want, tol=1e-4):
                                rtol=tol, atol=tol)
 
 
-def test_loss_gradients_match_jax():
-    jm, jp, tm, tp = _bridged()
+def _check_loss_gradients(arch):
+    """The total loss (NLL, z-loss and, for MoE, the aux loss) and every
+    parameter gradient of tiny f32 `arch`, within 1e-4."""
+    jm, jp, tm, tp = _bridged(arch=arch)
     tcfg = TrainConfig(**_TCFG)
-    (jb, tb), = _batches(1)
+    (jb, tb), = _batches(1, arch=arch)
     (jtotal, jmet), jg = jax.jit(jax.value_and_grad(
         jts.make_loss_fn(jm, tcfg), has_aux=True))(jp, jb)
     total, met = make_loss_fn(tm, tcfg)(tp, tb)
@@ -291,19 +296,33 @@ def test_loss_gradients_match_jax():
     grads = dict(zip(names, torch.autograd.grad(total, plist)))
     _close(total, jtotal)
     _close(met["loss"], jmet["loss"])
+    _close(met["aux"], jmet["aux"])
     want = jax_grads(tp, jax.tree.map(np.asarray, jg))
     assert sorted(want) == sorted(grads)
     for name, g in grads.items():
         _close(g, want[name].numpy())
 
 
-@pytest.mark.parametrize("microbatches", [1, 2])
-def test_train_step_matches_jax(microbatches):
+def test_loss_gradients_match_jax():
+    _check_loss_gradients(ARCH)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_loss_gradients_match_jax(arch):
+    """The MoE archs' gradients go through `moe_gemm`'s backward (its
+    plain version here), the dispatch, the combine and the aux loss."""
+    _check_loss_gradients(arch)
+
+
+@pytest.mark.parametrize("microbatches,arch",
+                         [(1, ARCH), (2, ARCH), (1, MOE_ARCH), (2, MOE_ARCH)],
+                         ids=["1", "2", "moe-1", "moe-2"])
+def test_train_step_matches_jax(microbatches, arch):
     """One JAX step from init makes m, v and step non-trivial; both then
     take the next step from the bridged state on the same batch."""
-    jm, jp, tm, tp = _bridged()
+    jm, jp, tm, tp = _bridged(arch=arch)
     tcfg = TrainConfig(num_microbatches=microbatches, **_TCFG)
-    (jb0, _), (jb1, tb1) = _batches(2)
+    (jb0, _), (jb1, tb1) = _batches(2, arch=arch)
     jstep = jax.jit(jts.make_train_step(jm, tcfg))
     jp, jo, _ = jstep(jp, jopt.init_opt_state(jp), jb0)
     load_jax_params(tp, jax.tree.map(np.asarray, jp))
@@ -332,18 +351,26 @@ def test_opt_state_bridge_raises_on_missing_leaf():
 
 
 # ----------------------------------------------------------- end-to-end
-def test_train_loss_decreases_and_resume_exact(tmp_path):
+def _check_train_and_resume(tmp_path, arch):
     run = dict(tiny=True, batch=4, seq=32, log_every=100, schedule_steps=30,
                device="cpu")
     d1 = str(tmp_path / "a")
-    out = train(ARCH, steps=24, ckpt_dir=d1, **run)
+    out = train(arch, steps=24, ckpt_dir=d1, **run)
     assert out["final_loss"] < out["losses"][0]   # learning happens
     # resume: continue to 30 from the step-24 checkpoint
-    out2 = train(ARCH, steps=30, ckpt_dir=d1, **run)
+    out2 = train(arch, steps=30, ckpt_dir=d1, **run)
     assert len(out2["losses"]) == 6
     # straight-through run to 30 in a fresh dir must match the resumed one
-    out3 = train(ARCH, steps=30, ckpt_dir=str(tmp_path / "b"), **run)
+    out3 = train(arch, steps=30, ckpt_dir=str(tmp_path / "b"), **run)
     assert out2["losses"][-1] == pytest.approx(out3["losses"][-1], rel=1e-4)
+
+
+def test_train_loss_decreases_and_resume_exact(tmp_path):
+    _check_train_and_resume(tmp_path, ARCH)
+
+
+def test_moe_train_loss_decreases_and_resume_exact(tmp_path):
+    _check_train_and_resume(tmp_path, MOE_ARCH)
 
 
 def test_train_defaults_to_cuda_and_raises_without_it(tmp_path):
