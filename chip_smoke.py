@@ -17,11 +17,13 @@ its own failure):
      (registers, spills, static smem) for every kernel, the bf16
      tensor-core ones included, the flash kernels' dynamic smem
      (forward, dq and dk/dv, each in both routes), the selective scan's
-     dynamic smem and both scans' resident blocks an SM;
+     and its backward's dynamic smem and the three scan kernels' resident
+     blocks an SM;
   3. `moe_gemm` and its backward kernels (dx, dw) against their plain
      PyTorch versions on the card, in bf16 (wgmma/TMA) and f32 (CUDA
      cores): the qwen2-moe serving path's two shapes, the Jamba prefill's
-     (C=640) and Jamba decode's, the MoE train shapes (C=640),
+     (C=640) and Jamba decode's, the MoE train shapes (C=640), the Jamba
+     train shapes (E=16, C=1280, d=4096, f=14336),
      qwen3-moe's E=128 experts at decode, up and down, a ragged shape, one
      with d and f not multiples of 8 (bf16 goes through the padding); the
      backward's two calls bit for bit and exact zeros for an expert no
@@ -29,8 +31,8 @@ its own failure):
      warm-up) of the kernel, the plain version and `torch.bmm` for one MoE
      layer at the qwen2-moe serving shapes (bf16 and f32), at the Jamba
      prefill's and at Jamba decode's, and of the forward, dx and dw at the
-     train shapes in both routes, beside the least time the card could
-     take;
+     MoE train shapes in both routes and at the Jamba train shapes in
+     bf16, beside the least time the card could take;
   4. the flash-attention forward and backward kernels (bf16 on tensor
      cores, f32 on CUDA cores) against their plain versions (and the
      backward against autograd through `attention_ref`) at the training
@@ -81,7 +83,19 @@ its own failure):
      a queued device sleep) and plain versions beside their bounds, and
      the selective scan in every (states a thread, of them on the FMA
      pipes) split of SEL_SPLITS, each built as its own copy of the source
-     (no single PyTorch call computes either scan);
+     (no single PyTorch call computes either scan), and a SHA-256 digest
+     of the selective scan's y and h_last on seeded inputs (to compare
+     two trees' kernels bit for bit); then the selective scan's
+     backward kernel and its second pass against
+     `selective_scan_bwd_ref` at every SCAN_CASES shape (the Jamba train
+     path's, B=2 S=4096, among them), in bf16 and f32, with h0 and a
+     dh_last cotangent and without either, B and C strided: two calls bit
+     for bit, the forward that keeps the segment states bit-identical to
+     the plain one; gradients through `selective_scan`'s autograd Function
+     equal autograd through `selective_scan_ref`; the backward's time at
+     the train path's shape (CUDA events, and behind a device sleep)
+     beside its bound and the plain version, and the forward's with and
+     without the states kept;
  12. slice 3's main path: `make_prefill_step` on full-width Jamba cut to
      2 of its 4 periods (16 layers), random bf16 weights from a seeded
      generator, B=1 x S=4096, with the selective-scan, flash-forward and
@@ -94,8 +108,8 @@ its own failure):
  14. tiny Jamba with the full 8-position pattern, in f32 on the card:
      decode step by step equals the forward (which runs the scan and
      flash kernels) within 1e-4, and the engine equals greedy decode;
-     `selective_scan` and `ssm_scan` on a CUDA operand that requires
-     grad raise;
+     under grad `selective_scan` runs its autograd Function and only
+     `ssm_scan` raises;
  15. slice 7's main path: `make_train_step` on full-width qwen2-moe-a2.7b
      cut to 4 of its 24 layers, random bf16 weights from a seeded
      generator, f32 AdamW, 6 steps of B=4 x S=2048, with the moe_gemm
@@ -105,10 +119,21 @@ its own failure):
  16. tiny qwen2-moe training in f32 on the card, as phase 10: the loss
      falls, a resume is exact; the f32 routes' launches of its 60 steps
      (forward, dx and dw 360 each);
- 17. a JSON line with the kernels' numbers (the bf16 and f32 routes of
+ 17. slice 8's main path: `make_train_step` on full-width Jamba cut to
+     layers 0-1 of its period (Mamba + MLP, Mamba + 16-expert top-2 MoE;
+     3,733,864,448 parameters by `ModelConfig.param_count`), random bf16
+     weights from a seeded generator, f32 AdamW, 6 steps of B=2 x
+     S=4096, with the launch counts set to 0 just before and read just
+     after (a step: selective scan 2, its backward 2 and the backward's
+     second pass 2, moe_gemm forward, dx and dw 3 each, flash 0); step
+     wall, tokens/s, peak memory; then a torch.profiler window over two
+     more steps;
+ 18. tiny Jamba training in f32 on the card through `train()`, as phase
+     10: the loss falls, a resume is exact;
+ 19. a JSON line with the kernels' numbers (the bf16 and f32 routes of
      `moe_gemm`, of its backward and of the flash forward and backward as
-     entries of their own), then, last, the result line {"ok": true,
-     "device": {...}}.
+     entries of their own; the selective scan's backward), then, last,
+     the result line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
 """
@@ -116,6 +141,7 @@ from __future__ import annotations
 
 import ctypes
 import gc
+import hashlib
 import json
 import math
 import re
@@ -147,9 +173,10 @@ from repro_torch.kernels.moe_gemm import (  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     attention_ref, flash_attention_bwd_ref, flash_attention_ref,
     moe_gemm_bwd_ref, moe_gemm_dw_ref, moe_gemm_dx_ref, moe_gemm_ref,
-    selective_scan_ref, ssm_scan_ref)
+    selective_scan_bwd_ref, selective_scan_ref, ssm_scan_ref)
 from repro_torch.kernels import ssm_scan as sscan  # noqa: E402
-from repro_torch.kernels.ssm_scan import selective_scan, ssm_scan  # noqa: E402
+from repro_torch.kernels.ssm_scan import (  # noqa: E402
+    selective_scan, selective_scan_bwd, ssm_scan)
 from repro_torch.launch.serve import serve, serve_requests  # noqa: E402
 from repro_torch.launch.train import idle_workers, train  # noqa: E402
 from repro_torch.models.layers import padded_vocab  # noqa: E402
@@ -178,8 +205,13 @@ ATTN_CASES = {"path": (4, 2048, 14, 2, 64, None, None),
 ATTN_FWD_ONLY = ("jamba",)               # the prefill runs no backward
 JAMBA = "jamba-v0.1-52b"
 JAMBA_REPEATS, PREFILL_SEQ = 2, 4096     # 2 of 4 periods; S cut from 32,768
+# Jamba training: layers 0-1 of the period (Mamba + MLP, Mamba + MoE),
+# B x S = 8,192 tokens a step as in the other train cells
+JAMBA_TRAIN_LAYERS, JAMBA_TRAIN_BATCH, JAMBA_TRAIN_SEQ = 2, 2, 4096
+JAMBA_TRAIN_PARAMS = 3_733_864_448       # ModelConfig.param_count of the cut
 # (B, S, D, N) of the scans; "path" is the Jamba prefill's (D = 2 x 4096)
 SCAN_CASES = {"path": (1, PREFILL_SEQ, 8192, 16),
+              "train": (JAMBA_TRAIN_BATCH, JAMBA_TRAIN_SEQ, 8192, 16),
               "S=4097 D=8200": (1, PREFILL_SEQ + 1, 8200, 16),
               "B=2": (2, 1024, 8192, 16),
               "ragged S=1000 D=200": (2, 1000, 200, 16),
@@ -292,7 +324,7 @@ def ptxas_report(lib: Path, only: str = "") -> None:
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             k = re.search(r"([a-z_]+_kernel)I(13__nv_bfloat16|f)"
-                          r"((?:Li\d+E)*)E", m.group(1))
+                          r"((?:Li\d+E)*)(?:Lb(\d)E)?E", m.group(1))
             t = re.search(r"([a-z_]+_kernel)ILi(\d+)EE", m.group(1))
             b = re.search(r"(moe_gemm_bwd_kernel)ILb(\d)ELb\dEE", m.group(1))
             if b:                    # the f32 backward: <1, 1> is dw
@@ -304,6 +336,8 @@ def ptxas_report(lib: Path, only: str = "") -> None:
                 params = "".join(
                     f", {lb} {v}" for lb, v in
                     zip(labels, re.findall(r"Li(\d+)E", k.group(3))))
+                if k.group(4) is not None:      # the forward's kStates
+                    params += f", states {k.group(4)}"
                 name = (f"{k.group(1)}<"
                         f"{'bf16' if k.group(2) != 'f' else 'f32'}{params}>")
             elif t:                  # the bf16 tensor-core kernels
@@ -668,6 +702,7 @@ def time_flash(gen, bf16_fps, f32_fps, mem_bps) -> dict:
 KERNEL_GROUPS = (("moe_gemm backward", ("moe_gemm_dx", "moe_gemm_dw",
                                          "moe_gemm_bwd")),
                  ("moe_gemm", ("moe_gemm",)),
+                 ("selective scan backward", ("sel_scan_bwd",)),
                  ("selective scan", ("sel_scan",)),
                  ("flash attention", ("flash_",)),
                  ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
@@ -832,6 +867,18 @@ def sel_inputs(case, dtype, gen, with_h0=True):
             rnd(b, d, n) if with_h0 else None)
 
 
+def scan_digest() -> str:
+    """SHA-256 of the selective scan's y and h_last at the path's shape in
+    bf16 with no h0, on inputs from a generator seeded 7: the bits of the
+    forward kernel as the inference path launches it, to compare two
+    trees' kernels."""
+    args = sel_inputs(SCAN_CASES["path"], torch.bfloat16,
+                      torch.Generator("cuda").manual_seed(7), False)
+    y, h_last = selective_scan(*args)
+    return hashlib.sha256(y.view(torch.int16).cpu().numpy().tobytes()
+                          + h_last.cpu().numpy().tobytes()).hexdigest()
+
+
 def lin_inputs(case, dtype, gen):
     b, s, d = case[:3]
     a = torch.sigmoid(torch.randn((b, s, d), generator=gen, device="cuda"))
@@ -959,6 +1006,9 @@ def check_scans(gen, mem_bps, sfu_rate, f32_fps, split_libs) -> dict:
           f"(one kernel a call)")
     del a, bx, whole, first, rest
 
+    print(f"[check] selective_scan {SCAN_CASES['path']} bf16, no h0, seeded "
+          f"7: sha256 of y and h_last {scan_digest()}")
+
     # times at the path's shape in bf16 (plain versions: one Python step
     # per time step, so few repeats); the selective scan in every (R, P)
     # split built, each held against the plain version first and timed
@@ -1023,6 +1073,154 @@ def check_scans(gen, mem_bps, sfu_rate, f32_fps, split_libs) -> dict:
               f"{100 * t['bytes_bound_ms'] / t['ms']:.2f}% of the bytes' "
               f"time; no single PyTorch call computes it")
     del args, a, bx
+    torch.cuda.empty_cache()
+    return out
+
+
+# The backward's tolerance, by output dtype, on max |kernel - plain| /
+# max(1, max |plain|): its sums over time, D and the batch run in other
+# orders than the plain version's and its exp2 is ex2.approx, so f32
+# outputs are held to 1e-3, the forward's h_last tolerance; bf16 outputs
+# (dx, ddt, dB, dC) are rounded once on each side, up to 2^-8 apart.
+SCAN_BWD_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-3}
+SCAN_GRADS = ("dx", "ddt", "da_log", "db", "dc", "dd", "dh0")
+
+
+def grad_err(got, want) -> tuple[float, float]:
+    """(max |got - want|, that over max(1, max |want|))."""
+    err = (got.float() - want.float()).abs().max().item()
+    return err, err / max(1.0, want.float().abs().max().item())
+
+
+def check_scan_bwd(gen, mem_bps, sfu_rate, f32_fps) -> dict:
+    """The selective-scan backward kernel (and its second pass) against
+    `selective_scan_bwd_ref` at every SCAN_CASES shape, in bf16 and f32,
+    with h0 and a dh_last cotangent and without either, B and C strided:
+    each gradient within SCAN_BWD_TOL, two calls bit for bit, and the
+    forward that keeps the segment states bit-identical to the plain
+    launch in y and h_last. Then the gradients through `selective_scan`'s
+    autograd Function against autograd through `selective_scan_ref`; then
+    times at the Jamba train path's shape in bf16 (the Mamba path: no h0,
+    no dh_last). Returns the max |kernel - plain| there and the times."""
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, case in SCAN_CASES.items():
+            for with_h0 in (True, False):
+                args = sel_inputs(case, dtype, gen, with_h0)
+                y, h_last, h_seg = sscan._forward_states(*args)
+                y_plain, h_plain = selective_scan(*args)
+                dy = torch.randn(y.shape, generator=gen,
+                                 device="cuda").to(dtype)
+                dh = (torch.randn(h_last.shape, generator=gen, device="cuda")
+                      if with_h0 else None)
+                got = selective_scan_bwd(*args, dy, dh, h_seg)
+                again = selective_scan_bwd(*args, dy, dh, h_seg)
+                want = selective_scan_bwd_ref(*args, dy, dh)
+                torch.cuda.synchronize()
+                assert torch.equal(y, y_plain) and \
+                    torch.equal(h_last, h_plain), (label, dtype)
+                assert all(torch.equal(a, b) for a, b in zip(got, again)), \
+                    f"selective_scan_bwd differs between two calls {label}"
+                errs = {}
+                for name, g, w in zip(SCAN_GRADS, got, want):
+                    assert g.dtype == w.dtype and g.shape == w.shape, \
+                        (name, g.dtype, w.dtype, g.shape, w.shape)
+                    errs[name] = grad_err(g, w)
+                    tol = SCAN_BWD_TOL[g.dtype]
+                    assert errs[name][1] <= tol, (label, dtype, name,
+                                                  errs[name], tol)
+                if label == "train" and dtype == torch.bfloat16 and \
+                        not with_h0:
+                    out["max_abs_err"] = max(e for e, _ in errs.values())
+                print(f"[check] selective_scan_bwd {label} {case} {dtype}, "
+                      f"{'h0 and dh_last' if with_h0 else 'no h0, no dh_last'}"
+                      f", B and C strided: max |kernel - plain| (over max(1,"
+                      f" |plain|)) " + ", ".join(
+                          f"{k} {e:.3e} ({r:.2e})" for k, (e, r) in
+                          errs.items())
+                      + f" (tol {SCAN_BWD_TOL[dtype]} for {dtype} outputs, "
+                      f"{SCAN_BWD_TOL[torch.float32]} for f32); two calls "
+                      f"bit-identical; the forward keeping the states "
+                      f"equals the plain launch bit for bit")
+                del args, y, h_last, h_seg, y_plain, h_plain, dy, dh, got, \
+                    again, want
+            torch.cuda.empty_cache()
+
+    # through the autograd Function: b and c column slices of one leaf
+    for dtype in (torch.bfloat16, torch.float32):
+        b_, s_, d_, n_ = 2, 100, 64, 16
+        x, dt, a_log, bm, cm, dv, h0 = sel_inputs((b_, s_, d_, n_), dtype, gen)
+        dbc = torch.cat([torch.zeros_like(bm[..., :8]), bm, cm], -1)
+        base = (x, dt, a_log, dbc, dv, h0)
+        wy = torch.randn((b_, s_, d_), generator=gen, device="cuda")
+        wh = torch.randn((b_, d_, n_), generator=gen, device="cuda")
+
+        def grads(fn):
+            leaves = [t.detach().clone().requires_grad_() for t in base]
+            xx, dtt, al, bc, dd_, hh = leaves
+            y, hl = fn(xx, dtt, al, bc[..., 8:8 + n_], bc[..., 8 + n_:], dd_,
+                       hh)
+            loss = (y.float() * wy).sum() + (hl * wh).sum()
+            return torch.autograd.grad(loss, leaves)
+
+        zero_train_counts()
+        got = grads(selective_scan)
+        counts = read_train_counts()
+        want = grads(selective_scan_ref)
+        torch.cuda.synchronize()
+        assert (counts["selective_scan"], counts["selective_scan_bwd"],
+                counts["selective_scan_bwd_reduce"]) == (1, 1, 1), counts
+        errs = {}
+        for name, g, w in zip(("x", "dt", "a_log", "dbc", "d", "h0"), got,
+                              want):
+            errs[name] = grad_err(g, w)
+            assert errs[name][1] <= SCAN_BWD_TOL[g.dtype], (name, errs)
+        print(f"[check] selective_scan autograd {(b_, s_, d_, n_)} {dtype}, "
+              f"B and C slices of one leaf, h0 and h_last in the loss: "
+              f"grads through the kernels vs autograd through "
+              f"selective_scan_ref, max |diff| (over max(1, |plain|)) "
+              + ", ".join(f"{k} {e:.3e} ({r:.2e})"
+                          for k, (e, r) in errs.items())
+              + "; one launch each of the forward, the backward and its "
+              "second pass")
+
+    # times at the Jamba train path's shape, bf16
+    b, s, d, n = SCAN_CASES["train"]
+    args = sel_inputs(SCAN_CASES["train"], torch.bfloat16, gen, False)
+    _, _, h_seg = sscan._forward_states(*args)
+    dy = torch.randn((b, s, d), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    t = {"ms": time_ms(lambda: selective_scan_bwd(*args, dy, None, h_seg)),
+         "device_ms": time_ms(lambda: selective_scan_bwd(*args, dy, None,
+                                                         h_seg),
+                              backlog=True),
+         "plain_ms": time_ms(lambda: selective_scan_bwd_ref(*args, dy), 2, 1),
+         "library_ms": None,
+         # the forward as the path runs it, plain and keeping the states
+         "forward_device_ms": time_ms(lambda: selective_scan(*args),
+                                      backlog=True),
+         "forward_states_device_ms": time_ms(
+             lambda: sscan._forward_states(*args), backlog=True)}
+    # bytes: x, dt, dy, B, C and h_seg read, dx, ddt, dB, dC written (bf16),
+    # a_log and D read and da_log, dD, dh0 written (f32); operations: one
+    # exp2 and ~20 flops a state a step (the recurrence and the reverse
+    # walk's products)
+    nseg = h_seg.shape[1]
+    nbytes = (2 * (5 * b * s * d + 4 * b * s * n) + 4 * b * nseg * d * n
+              + 4 * 2 * (d * n + d) + 4 * b * d * n)
+    t.update(scan_bound(nbytes, b * s * d * n, 20 * b * s * d * n, mem_bps,
+                        sfu_rate, f32_fps))
+    out.update(t)
+    print(f"[time] selective_scan_bwd {(b, s, d, n)} bf16 (both kernels): "
+          f"{t['ms']:.4f} ms (behind a device sleep {t['device_ms']:.4f} "
+          f"ms), plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}; bytes alone {t['bytes_bound_ms']:.4f} ms, "
+          f"every exp2 on the SFU {t['sfu_only_bound_ms']:.4f} ms); kernel "
+          f"at {100 * t['bound_ms'] / t['ms']:.2f}% of the bound; no single "
+          f"PyTorch call computes it. The forward at this shape behind a "
+          f"device sleep: {t['forward_device_ms']:.4f} ms plain, "
+          f"{t['forward_states_device_ms']:.4f} ms keeping the states")
+    del args, h_seg, dy
     torch.cuda.empty_cache()
     return out
 
@@ -1152,8 +1350,9 @@ def jamba_prefill_and_serve(n_calls: int = 3) -> dict:
 
 def jamba_tiny_checks() -> dict:
     """Tiny f32 Jamba (full pattern) on the card: decode == forward, the
-    engine == greedy decode; then the scans under autograd raise. Returns
-    the kernel launches of the f32 forward."""
+    engine == greedy decode; then under autograd the selective scan runs
+    its Function and ssm_scan raises. Returns the kernel launches of the
+    f32 forward."""
     cfg = jamba_tiny_f32()
     model = get_model(cfg, "cuda")
     params = model.init_params(torch.Generator("cuda").manual_seed(0))
@@ -1187,62 +1386,73 @@ def jamba_tiny_checks() -> dict:
           f"{len(prompts)} requests (f32, cuda)")
     del model, params, eng
 
+    # under grad the selective scan runs its autograd Function; ssm_scan,
+    # with no backward kernel, raises
     args = sel_inputs((1, 64, 32, 16), torch.float32,
                       torch.Generator("cuda").manual_seed(4))
     x = args[0].clone().requires_grad_()
+    y, _ = selective_scan(x, *args[1:])
+    assert y.grad_fn is not None, "selective_scan under grad has no grad_fn"
     a = torch.rand((1, 64, 32), device="cuda", requires_grad=True)
-    for kname, call in (("selective_scan",
-                         lambda: selective_scan(x, *args[1:])),
-                        ("ssm_scan", lambda: ssm_scan(a, args[0]))):
-        try:
-            call()
-        except NotImplementedError as e:
-            print(f"[check] {kname} on an operand that requires grad "
-                  f"raises: {e}")
-        else:
-            raise AssertionError(f"{kname} under grad did not raise")
-        with torch.no_grad():
-            call()
+    try:
+        ssm_scan(a, args[0])
+    except NotImplementedError as e:
+        print(f"[check] selective_scan under grad returns y with grad_fn "
+              f"{type(y.grad_fn).__name__}; ssm_scan on an operand that "
+              f"requires grad raises: {e}")
+    else:
+        raise AssertionError("ssm_scan under grad did not raise")
+    with torch.no_grad():
+        ssm_scan(a, args[0])
     torch.cuda.synchronize()
     return counts
 
 
+# (name, wrapper, counter) of every kernel a train step can launch
+TRAIN_COUNTERS = (("moe_gemm", moe_gemm, "launches"),
+                  ("moe_gemm_bwd_dx", moe_gemm_bwd_dx, "launches"),
+                  ("moe_gemm_bwd_dw", moe_gemm_bwd_dw, "launches"),
+                  ("flash_attention", fa.flash_attention, "launches"),
+                  ("flash_attention_bwd", fa.flash_attention_bwd, "launches"),
+                  ("selective_scan", selective_scan, "launches"),
+                  ("selective_scan_bwd", selective_scan_bwd, "launches"),
+                  ("selective_scan_bwd_reduce", selective_scan_bwd,
+                   "reduce_launches"))
+
+
 def zero_train_counts() -> None:
-    for fn in (moe_gemm, moe_gemm_bwd_dx, moe_gemm_bwd_dw,
-               fa.flash_attention, fa.flash_attention_bwd):
-        fn.launches = 0
+    for _, fn, attr in TRAIN_COUNTERS:
+        setattr(fn, attr, 0)
 
 
 def read_train_counts() -> dict:
-    return {fn.__name__: fn.launches
-            for fn in (moe_gemm, moe_gemm_bwd_dx, moe_gemm_bwd_dw,
-                       fa.flash_attention, fa.flash_attention_bwd)}
+    return {key: getattr(fn, attr) for key, fn, attr in TRAIN_COUNTERS}
 
 
 def train_step_counts(cfg) -> dict:
-    """Kernel launches of one train step of `cfg` (attention with MLP or
-    MoE layers): three grouped GEMMs a MoE layer, each with its dx and dw,
-    and the flash forward and its two backward kernels an attention
-    layer."""
+    """Kernel launches of one train step of `cfg`: three grouped GEMMs a
+    MoE layer, each with its dx and dw; the flash forward and its two
+    backward kernels an attention layer; the selective scan, its backward
+    and the backward's second pass a Mamba layer."""
     per = lambda f: sum(map(f, cfg.pattern)) * cfg.repeats  # noqa: E731
     moe = 3 * per(lambda b: b.ffn == "moe")
     attn = per(lambda b: b.mixer.startswith("attn"))
+    mamba = per(lambda b: b.mixer == "mamba")
     return {"moe_gemm": moe, "moe_gemm_bwd_dx": moe, "moe_gemm_bwd_dw": moe,
-            "flash_attention": attn, "flash_attention_bwd": BWD_KERNELS * attn}
+            "flash_attention": attn, "flash_attention_bwd": BWD_KERNELS * attn,
+            "selective_scan": mamba, "selective_scan_bwd": mamba,
+            "selective_scan_bwd_reduce": mamba}
 
 
-def moe_train_path() -> dict:
-    """Slice 7's main path: `make_train_step` on full-width qwen2-moe-a2.7b
-    cut to MOE_TRAIN_REPEATS of its 24 layers, random bf16 weights from a
-    seeded generator, f32 AdamW, `SyntheticLM` batches of TRAIN_BATCH x
-    TRAIN_SEQ, TRAIN_STEPS steps with the launch counts set to 0 just
-    before and read just after; then a torch.profiler window over two more
-    steps."""
-    cfg = get_config(ARCH).scaled(repeats=MOE_TRAIN_REPEATS)
-    per_step = train_step_counts(cfg)
-    assert per_step == {"moe_gemm": 12, "moe_gemm_bwd_dx": 12,
-                        "moe_gemm_bwd_dw": 12, "flash_attention": 4,
-                        "flash_attention_bwd": 8}, per_step
+def train_cell(name: str, cfg, batch: int, seq: int, per_step: dict,
+               kernels: tuple) -> dict:
+    """`make_train_step` on `cfg`, random bf16 weights from a seeded
+    generator, f32 AdamW, `SyntheticLM` batches of batch x seq,
+    TRAIN_STEPS steps with the launch counts set to 0 just before and read
+    just after (`per_step` a step); then a torch.profiler window over two
+    more steps, with the device time of each of `kernels` (name
+    substrings) a step."""
+    assert train_step_counts(cfg) == per_step, train_step_counts(cfg)
     torch.cuda.reset_peak_memory_stats()
     model = get_model(cfg, "cuda")
     params = model.init_params(torch.Generator("cuda").manual_seed(0))
@@ -1250,27 +1460,29 @@ def moe_train_path() -> dict:
     n_params = sum(p.numel() for p in params.parameters())
     step_fn = make_train_step(model, TrainConfig(opt=OptConfig(
         peak_lr=1e-3, warmup_steps=20, total_steps=100)))
-    ds = SyntheticLM(cfg, DataConfig(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ))
+    ds = SyntheticLM(cfg, DataConfig(batch=batch, seq_len=seq))
     losses, gnorms, walls = [], [], []
     zero_train_counts()
     for i in range(TRAIN_STEPS):
-        batch = {k: torch.from_numpy(v).cuda()
-                 for k, v in ds.batch_at(i).items()}
+        batch_dev = {k: torch.from_numpy(v).cuda()
+                     for k, v in ds.batch_at(i).items()}
         t0 = time.perf_counter()
-        params, opt, metrics = step_fn(params, opt, batch)
+        params, opt, metrics = step_fn(params, opt, batch_dev)
         losses.append(float(metrics["loss"]))     # the step's sync
         walls.append(time.perf_counter() - t0)
         gnorms.append(float(metrics["grad_norm"]))
     counts = read_train_counts()
     peak = torch.cuda.max_memory_allocated()
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = batch * seq
     wall = statistics.median(walls[1:])
-    print(f"[moe-train] {ARCH} full width, {cfg.num_layers} of "
-          f"{get_config(ARCH).num_layers} layers, {n_params / 1e9:.3f} B "
-          f"parameters, bf16, f32 AdamW, B={TRAIN_BATCH} S={TRAIN_SEQ}: "
-          f"losses {[round(x_, 4) for x_ in losses]}; grad norms "
+    print(f"[{name}] {cfg.name} full width, {cfg.num_layers} layers "
+          f"({'/'.join(f'{b.mixer}+{b.ffn}' for b in cfg.pattern)} x "
+          f"{cfg.repeats}), {n_params / 1e9:.3f} B parameters "
+          f"(ModelConfig.param_count {cfg.param_count():,}), bf16, f32 "
+          f"AdamW, B={batch} S={seq}: losses "
+          f"{[round(x_, 4) for x_ in losses]}; grad norms "
           f"{[round(x_, 4) for x_ in gnorms]}")
-    print(f"[moe-train] wall per step (host, ends in the loss's sync) "
+    print(f"[{name}] wall per step (host, ends in the loss's sync) "
           f"{[round(1e3 * t, 1) for t in walls]} ms; steps 2.. median "
           f"{1e3 * wall:.1f} ms, {tokens / wall:.0f} tok/s; peak memory "
           f"{peak / 2**30:.2f} GiB; launches over {TRAIN_STEPS} steps "
@@ -1290,17 +1502,13 @@ def moe_train_path() -> dict:
         torch.cuda.synchronize()
     rows = kernel_rows(prof, len(batches))
     busy = sum(r[0] for r in rows)
-    moe_ms = {kn: sum(r[0] for r in rows if kn in r[2])
-               for kn in ("moe_gemm_dx_wgmma_kernel",
-                          "moe_gemm_dw_wgmma_kernel", "moe_gemm_wgmma_kernel")}
-    print(f"[profile] full-width {ARCH} train step ({cfg.num_layers} "
-          f"layers), B={TRAIN_BATCH} S={TRAIN_SEQ}: wall {1e3 * wall:.3f} "
-          f"ms/step (no profiler); device busy {busy:.3f} ms/step in "
+    kernel_ms = {kn: sum(r[0] for r in rows if kn in r[2]) for kn in kernels}
+    print(f"[profile] full-width {cfg.name} train step ({cfg.num_layers} "
+          f"layers), B={batch} S={seq}: wall {1e3 * wall:.3f} ms/step (no "
+          f"profiler); device busy {busy:.3f} ms/step in "
           f"{sum(r[1] for r in rows):.0f} kernels; idle share "
-          f"{1 - busy / (1e3 * wall):.3f}; moe_gemm ms/step: forward "
-          f"{moe_ms['moe_gemm_wgmma_kernel']:.3f}, dx "
-          f"{moe_ms['moe_gemm_dx_wgmma_kernel']:.3f}, dw "
-          f"{moe_ms['moe_gemm_dw_wgmma_kernel']:.3f}")
+          f"{1 - busy / (1e3 * wall):.3f}; ms/step " + ", ".join(
+              f"{kn} {ms:.3f}" for kn, ms in kernel_ms.items()))
     if not rows:
         print("[profile] device time not measured: the profiler saw no "
               "CUDA kernels")
@@ -1311,7 +1519,42 @@ def moe_train_path() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"counts": counts, "wall_ms": 1e3 * wall, "busy_ms": busy,
-            "peak_gib": peak / 2**30}
+            "peak_gib": peak / 2**30, "kernel_ms": kernel_ms}
+
+
+MOE_KERNELS = ("moe_gemm_wgmma_kernel", "moe_gemm_dx_wgmma_kernel",
+               "moe_gemm_dw_wgmma_kernel")
+
+
+def moe_train_path() -> dict:
+    """Slice 7's main path: full-width qwen2-moe-a2.7b cut to
+    MOE_TRAIN_REPEATS of its 24 layers, TRAIN_BATCH x TRAIN_SEQ, through
+    `train_cell`."""
+    cfg = get_config(ARCH).scaled(repeats=MOE_TRAIN_REPEATS)
+    return train_cell("moe-train", cfg, TRAIN_BATCH, TRAIN_SEQ, {
+        "moe_gemm": 12, "moe_gemm_bwd_dx": 12, "moe_gemm_bwd_dw": 12,
+        "flash_attention": 4, "flash_attention_bwd": 8, "selective_scan": 0,
+        "selective_scan_bwd": 0, "selective_scan_bwd_reduce": 0},
+        MOE_KERNELS)
+
+
+def jamba_train_path() -> dict:
+    """Slice 8's main path: full-width Jamba cut to layers 0-1 of its
+    period (Mamba + MLP, Mamba + 16-expert top-2 MoE), JAMBA_TRAIN_BATCH
+    x JAMBA_TRAIN_SEQ, through `train_cell`: a step runs two selective
+    scans with their backwards and one MoE layer (3 grouped GEMMs with dx
+    and dw), and no attention."""
+    full = get_config(JAMBA)
+    cfg = full.scaled(pattern=full.pattern[:JAMBA_TRAIN_LAYERS], repeats=1)
+    assert cfg.param_count() == JAMBA_TRAIN_PARAMS, cfg.param_count()
+    return train_cell("jamba-train", cfg, JAMBA_TRAIN_BATCH, JAMBA_TRAIN_SEQ,
+                      {"moe_gemm": 3, "moe_gemm_bwd_dx": 3,
+                       "moe_gemm_bwd_dw": 3, "flash_attention": 0,
+                       "flash_attention_bwd": 0, "selective_scan": 2,
+                       "selective_scan_bwd": 2,
+                       "selective_scan_bwd_reduce": 2},
+                      ("sel_scan_kernel", "sel_scan_bwd_kernel",
+                       "sel_scan_bwd_reduce_kernel") + MOE_KERNELS)
 
 
 def tiny_f32_train(arch: str) -> dict:
@@ -1416,6 +1659,10 @@ def main() -> int:
           f"{slib.selective_scan_blocks_per_sm(0)}; lin_scan_kernel bf16 "
           f"{slib.ssm_scan_blocks_per_sm(1)}, f32 "
           f"{slib.ssm_scan_blocks_per_sm(0)}")
+    print(f"[build]   sel_scan_bwd_kernel: dynamic smem "
+          f"{slib.selective_scan_bwd_smem_bytes()} B; blocks an SM bf16 "
+          f"{slib.selective_scan_bwd_blocks_per_sm(1)}, f32 "
+          f"{slib.selective_scan_bwd_blocks_per_sm(0)}")
 
     # ---- 3. kernel vs plain ---------------------------------------------
     cfg = get_config(ARCH)
@@ -1435,6 +1682,12 @@ def main() -> int:
     # MoE training (slice 7): B=4 x S=2048, 160 slots an expert a row
     c_train = TRAIN_BATCH * capacity(cfg, TRAIN_SEQ)
     train_up, train_down = (e_pad, c_train, d, f), (e_pad, c_train, f, d)
+    # Jamba training (slice 8): B=2 x S=4096, 640 slots an expert a row
+    jc_train = JAMBA_TRAIN_BATCH * capacity(jcfg, JAMBA_TRAIN_SEQ)
+    jtrain_up, jtrain_down = (je, jc_train, jd, jf), (je, jc_train, jf, jd)
+    assert jc_train == 1280, jc_train
+    gemm_cases += [("jamba train gate/up", jtrain_up),
+                   ("jamba train down", jtrain_down)]
     qcfg = get_config(QWEN3)
     qe, qc = padded_experts(qcfg), SLOTS * capacity(qcfg, 1)
     gemm_cases += [("train gate/up", train_up), ("train down", train_down),
@@ -1532,6 +1785,9 @@ def main() -> int:
         [train_up, train_up, train_down], dtype, gen,
         bf16_fps if dtype == torch.bfloat16 else f32_fps, mem_bps)
         for dtype in (torch.bfloat16, torch.float32)}
+    jamba_train_times = time_moe_train_layer(
+        [jtrain_up, jtrain_up, jtrain_down], torch.bfloat16, gen, bf16_fps,
+        mem_bps)
 
     # ---- 4. flash attention vs plain, and its times ---------------------
     flash_errs = check_flash(gen)
@@ -1638,11 +1894,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     scans = check_scans(gen, mem_bps, sfu_rate, f32_fps, split_libs)
+    scans["selective_scan_bwd"] = check_scan_bwd(gen, mem_bps, sfu_rate,
+                                                 f32_fps)
 
     # ---- 12, 13. slice 3's main path: full-width Jamba prefill, serve ---
     jamba = jamba_prefill_and_serve()
 
-    # ---- 14. tiny f32 Jamba on the card; the scans under grad raise -----
+    # ---- 14. tiny f32 Jamba on the card; ssm_scan under grad raises -----
     f32_counts = jamba_tiny_checks()
 
     # ---- 15. slice 7's main path: full-width MoE training --------------
@@ -1651,12 +1909,19 @@ def main() -> int:
     # ---- 16. tiny f32 MoE training on the card: learns, resumes exactly -
     moe_f32 = tiny_f32_train(ARCH)
 
-    # ---- 17. results -----------------------------------------------------
+    # ---- 17. slice 8's main path: full-width Jamba training ------------
+    jamba_train = jamba_train_path()
+
+    # ---- 18. tiny f32 Jamba training on the card: learns, resumes -------
+    jamba_f32 = tiny_f32_train(JAMBA)
+
+    # ---- 19. results -----------------------------------------------------
     # Both dtypes of moe_gemm, of its backward and of the flash forward and
     # backward count in one `launches`; each route's own count is that of
     # a run in its dtype: bf16 the main paths (phases 5, 9 and 15), f32 the
     # tiny f32 Jamba forward (phase 14) and the tiny f32 trainings (phases
-    # 10 and 16).
+    # 10 and 16). The selective scan's backward counts its launches on the
+    # Jamba train path (phase 17).
     def times_of(t):
         return {k_: t[k_] for k_ in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms")}
@@ -1681,7 +1946,15 @@ def main() -> int:
                                for lb in ("gate/up", "down")),
             **times_of(t), "unit": unit,
             **({"jamba_prefill_layer": times_of(times["jamba prefill layer"]),
-                "jamba_decode_layer": times_of(times["jamba decode layer"])}
+                "jamba_decode_layer": times_of(times["jamba decode layer"]),
+                "jamba_train_layer": {
+                    **times_of(jamba_train_times["forward"]),
+                    "device_ms": jamba_train_times["forward"]["device_ms"],
+                    "launches": jamba_train["counts"]["moe_gemm"],
+                    "unit": "one MoE layer's three calls at the Jamba "
+                            "train shapes (E=16, C=1280, d=4096, "
+                            "f=14336); launches over the 6 full-width "
+                            "Jamba train steps"}}
                if bf16 else {}),
             "train_layer": {
                 **times_of(train_times[dtype]["forward"]),
@@ -1722,6 +1995,18 @@ def main() -> int:
                                       for lb in ("train gate/up",
                                                  "train down"))}
                for i, g in enumerate(("dx", "dw"))},
+            **({"jamba_train_layer": {
+                **times_of(jamba_train_times["backward"]),
+                "device_ms": jamba_train_times["backward"]["device_ms"],
+                "launches": jamba_train["counts"]["moe_gemm_bwd_dx"]
+                + jamba_train["counts"]["moe_gemm_bwd_dw"],
+                "max_abs_err": max(max(bwd_errs[(lb, dtype)])
+                                   for lb in ("jamba train gate/up",
+                                              "jamba train down")),
+                "unit": "dx and dw of one MoE layer's three calls at the "
+                        "Jamba train shapes (E=16, C=1280, d=4096, "
+                        "f=14336); launches over the 6 full-width Jamba "
+                        "train steps"}} if bf16 else {}),
         })
     bwd_unit = ("one layer's call (dq, then dk/dv: two launches) at the "
                 "training path's shape (B=4, S=T=2048, 14:2 heads, hd 64, "
@@ -1787,7 +2072,34 @@ def main() -> int:
                      "one call at B=1, S=4096, D=8192 in bf16; launches: "
                      "the carried pair through ops.ssm_scan (no model "
                      "calls it)"),
+            **({"jamba_train_launches":
+                jamba_train["counts"]["selective_scan"]}
+               if kname == "selective_scan" else {}),
         })
+    # the selective scan's backward: no TPU counterpart (the JAX package
+    # differentiates its oracle)
+    t = scans["selective_scan_bwd"]
+    kernels.append({
+        "name": "selective_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+        "kernel": "sel_scan_bwd_kernel, sel_scan_bwd_reduce_kernel",
+        "replaces": None,
+        "launches": jamba_train["counts"]["selective_scan_bwd"],
+        "reduce_launches":
+            jamba_train["counts"]["selective_scan_bwd_reduce"],
+        "max_abs_err": t["max_abs_err"], **times_of(t),
+        "bytes_bound_ms": t["bytes_bound_ms"],
+        "sfu_only_bound_ms": t["sfu_only_bound_ms"],
+        "device_ms": t["device_ms"],
+        "forward_device_ms": t["forward_device_ms"],
+        "forward_states_device_ms": t["forward_states_device_ms"],
+        "f32_launches": jamba_f32["selective_scan_bwd"],
+        "unit": "one Mamba layer's backward (the scan kernel and its "
+                "second pass) at the Jamba train path's bf16 shape (B=2, "
+                "S=4096, D=8192, N=16); launches (one of each kernel a "
+                "call) over the 6 full-width Jamba train steps; f32: the "
+                "tiny f32 Jamba training (60 steps)",
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

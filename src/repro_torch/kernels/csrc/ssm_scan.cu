@@ -2,9 +2,11 @@
 //
 // Replaces the TPU kernels repro/kernels/ssm_scan.py:_sel_scan_kernel
 // (launched by selective_scan_pallas) and _lin_scan_kernel (launched by
-// ssm_scan_pallas). Plain versions: repro_torch/kernels/ref.py:
-// selective_scan_ref and ssm_scan_ref. Wrapper, checks, scratch and launch
-// counts: repro_torch/kernels/ssm_scan.py.
+// ssm_scan_pallas), and adds the selective scan's backward, which the JAX
+// package leaves to autodiff of its oracle. Plain versions:
+// repro_torch/kernels/ref.py: selective_scan_ref, selective_scan_bwd_ref
+// and ssm_scan_ref. Wrapper, checks, scratch and launch counts:
+// repro_torch/kernels/ssm_scan.py.
 //
 // ---------------------------------------------------------------------
 // Selective scan, for each batch row b, channel d and state n:
@@ -62,6 +64,48 @@
 //     slow. A ragged S is zero-filled: dt = 0 gives exp2(0) = 1 exactly on
 //     both pipes and leaves h as it is; channels past D and states past N
 //     compute on zeros and are not stored.
+//   * For the backward the forward can also store h before every kSeg-step
+//     segment, f32 [B, ceil(S/kSeg), D, N] (h_seg). That is a separate
+//     instantiation (kStates), launched when h_seg is not null, so the
+//     inference path runs the same code as without it.
+//
+// ---------------------------------------------------------------------
+// Selective-scan backward, from dy [B,S,D] (x's dtype) and dh_last
+// [B,D,N] f32 (null: zero), with A = -exp(a_log), da_t = exp(dt_t A) and
+// g_t the gradient of h_t:
+//   g_t = dy_t C_t + da_{t+1} g_{t+1}         (g after the last step: dh_last)
+//   dx_t = sum_n g_t dt_t B_t + D dy_t        ddt_t = sum_n g_t (A da_t h_{t-1}
+//                                                       + x_t B_t)
+//   dB_t = sum_d g_t dt_t x_t                 dC_t = sum_d dy_t h_t
+//   da_log = A sum_{b,t} g_t dt_t da_t h_{t-1} dD = sum_{b,t} dy_t x_t
+//   dh0 = da_1 g_1
+// dx, ddt [B,S,D] and dB, dC [B,S,N] contiguous in the inputs' dtype;
+// da_log [D,N], dD [D] and dh0 [B,D,N] in f32.
+//
+// Bound. It reads x, dt, dy, B, C and h_seg and writes dx, ddt, dB, dC,
+// dh0: on the Jamba train path (B=2, S=4096, D=8192, N=16, bf16) about
+// 5 x 2 B x 67 M + 134 MB of h_seg, 0.24 ms at 3.35 TB/s; and B*S*D*N =
+// 1.1 G exponentials with about 20 f32 flops each, about 0.3 ms
+// (chip_smoke.py's scan_bound). This kernel takes two exponentials a state
+// a step (the recomputed forward's, then the reverse walk's).
+//
+// Design: a simple kernel, right first (no producer warp, no FMA-pipe
+// exp2). The grid is the forward's, (kCh-channel blocks, batch rows); a
+// thread owns kBR = 4 states of one channel, kBNL = 4 lanes a channel.
+// The block walks the segments last to first. For each it stages the
+// segment's x, dt, dy, B and C in shared memory as f32 (zeros past S, D
+// and N), recomputes the segment's states from the saved h_seg into a
+// shared-memory trail (h_{t-1} of each step, 64 KB), then walks the steps
+// in reverse with g in registers:
+//   * dx and ddt: the sums over n across a channel's 4 lanes by shuffles;
+//   * da_log and dD: summed over time in registers;
+//   * dB and dC: summed over the warp's 8 channels by shuffles, then over
+//     the block's 4 warps in a fixed order into a per-block partial
+//     [B, blocks, 2, S, N] in device memory.
+// A second kernel (sel_scan_bwd_reduce_kernel) sums the partials over
+// the channel blocks and da_log's and dD's over the batch, each in a
+// fixed order, and scales da_log by A. No atomics: two calls give the
+// same bits.
 //
 // ---------------------------------------------------------------------
 // Linear scan: h_t = a_t * h_{t-1} + bx_t over axis 1, a and bx [B,S,D]
@@ -113,6 +157,33 @@ struct SelScanArgs {
   const float* h0;
   void* y;
   float* h_last;
+  float* h_seg;      // [B, ceil(S/kSeg), D, N]: h before each segment, or null
+  long long x_sb, x_ss, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss;
+  int B, S, D, N;
+};
+
+// Arguments of a selective-scan backward launch (both of its kernels);
+// mirrored in ssm_scan.py.
+struct SelScanBwdArgs {
+  const void* x;
+  const void* dt;
+  const float* a_log;
+  const void* b;
+  const void* c;
+  const float* d;
+  const float* h_seg;     // the forward's, [B, ceil(S/kSeg), D, N]
+  const void* dy;         // [B,S,D] contiguous
+  const float* dh_last;   // [B,D,N] or null (zero)
+  void* dx;               // [B,S,D] contiguous
+  void* ddt;              // [B,S,D] contiguous
+  void* db;               // [B,S,N] contiguous
+  void* dc;               // [B,S,N] contiguous
+  float* da_log;          // [D,N]
+  float* dd;              // [D]
+  float* dh0;             // [B,D,N]
+  float* part_bc;         // [B, blocks, 2, S, N]: a block's dB and dC
+  float* part_a;          // [B,D,N]: sum_t g dt da h_{t-1}
+  float* part_d;          // [B,D]: sum_t dy x
   long long x_sb, x_ss, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss;
   int B, S, D, N;
 };
@@ -133,6 +204,7 @@ struct LinScanArgs {
 namespace {
 
 constexpr int kChunk = 32;       // time steps a stage (== warp size)
+constexpr int kSeg = kChunk;     // steps between the states h_seg keeps
 constexpr int kCh = 32;          // channels a selective-scan block
 constexpr int kNP = 16;          // states, padded: N <= 16
 constexpr int kTilePitch = kCh + 8;   // f32 a row of a y tile: the 4
@@ -162,6 +234,15 @@ static_assert((kR == 2 || kR == 4 || kR == 8) && 0 <= kP && kP <= kR,
               "a split of the 16 states");
 
 static_assert(kChunk == 32, "a consumer lane writes one row of a chunk");
+
+// The backward's split: kBR states a thread, kBNL lanes a channel.
+constexpr int kBR = 4;
+constexpr int kBNL = kNP / kBR;
+constexpr int kBThreads = kCh * kBNL;        // 128
+constexpr int kBWarps = kBThreads / 32;
+constexpr int kReduceThreads = 256;
+static_assert(kBR == 4 && 32 % kBNL == 0, "float4 states, whole channels "
+              "a warp");
 
 // Coefficients of exp2_fma's polynomial: 2^f ~ 1 + f (c1 + f (c2 + ...)),
 // a relative minimax fit on [-1/2, 1/2] with p(0) = 1 exactly
@@ -199,6 +280,11 @@ __device__ __forceinline__ float exp2_sfu(float x) {
   float r;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
   return r;
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
 }
 
 template <typename T>
@@ -391,7 +477,10 @@ __device__ __forceinline__ void store_piece(T* dst, const float* src,
 
 // Selective scan: one block per (kCh channels, batch row); NL consumer
 // warps (kCh channels x NL lanes) and one producer warp, the last.
-template <typename T, int R, int P>
+// kStates: also store h before every chunk into h_seg, for a backward (a
+// separate instantiation, so the inference path's code is the same as
+// without it).
+template <typename T, int R, int P, bool kStates>
 __global__ void __launch_bounds__(32 * (kNP / R + 1))
 sel_scan_kernel(const SelScanArgs p) {
   constexpr int NL = kNP / R;           // lanes a channel
@@ -537,6 +626,13 @@ sel_scan_kernel(const SelScanArgs p) {
     }
   };
   for (int kc = 0; kc < n_chunks; ++kc) {
+    if constexpr (kStates) {            // h before chunk kc
+      float* hs = p.h_seg
+                  + ((static_cast<size_t>(bi) * n_chunks + kc) * D + d) * N;
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (dok && n0 + r < N) hs[n0 + r] = h[r];
+    }
     const int s = kc % kStages;
     mbar_wait(full(s), (kc / kStages) & 1);
     const unsigned char* st = smem + L::kStageOff + s * L::kStage;
@@ -748,28 +844,272 @@ lin_scan_kernel(const LinScanArgs p) {
   }
 }
 
-// The selective scan's dynamic shared memory, and the largest
-// shared-memory carveout: three blocks an SM. Set once a device: the
-// attributes hold for every later launch there.
+// Byte offsets of the backward's dynamic shared memory: the trail of
+// states, then f32 tiles of kSeg steps.
+struct SelBwdSmem {
+  static constexpr int kTrail = kSeg * kBThreads * kBR * 4;   // h_{t-1}
+  static constexpr int kTile = kSeg * kCh * 4;                // [t][channel]
+  static constexpr int kRow = kSeg * kNP * 4;                 // [t][state]
+  static constexpr int kX = kTrail, kDt = kX + kTile, kDy = kDt + kTile;
+  static constexpr int kDx = kDy + kTile, kDdt = kDx + kTile;
+  static constexpr int kB = kDdt + kTile, kC = kB + kRow;
+  static constexpr int kRed = kC + kRow;       // [t][warp][dB, dC][state]
+  static constexpr int kBytes = kRed + kSeg * kBWarps * 2 * kNP * 4;
+};
+
+// Selective-scan backward: one block per (kCh channels, batch row), kBNL
+// lanes of kBR states a channel; segments last to first (see the note at
+// the top).
 template <typename T>
-cudaError_t prepare_sel() {
-  constexpr int kMaxDevices = 64;
-  static std::atomic<bool> done[kMaxDevices];
+__global__ void __launch_bounds__(kBThreads)
+sel_scan_bwd_kernel(const SelScanBwdArgs p) {
+  using L = SelBwdSmem;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float4* trail = reinterpret_cast<float4*>(smem);
+  float* xs = reinterpret_cast<float*>(smem + L::kX);
+  float* dts = reinterpret_cast<float*>(smem + L::kDt);
+  float* dys = reinterpret_cast<float*>(smem + L::kDy);
+  float* dxs = reinterpret_cast<float*>(smem + L::kDx);
+  float* ddts = reinterpret_cast<float*>(smem + L::kDdt);
+  float* bs = reinterpret_cast<float*>(smem + L::kB);
+  float* cs = reinterpret_cast<float*>(smem + L::kC);
+  float* red = reinterpret_cast<float*>(smem + L::kRed);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int ch = tid / kBNL, q = tid % kBNL, n0 = q * kBR;
+  const int bi = blockIdx.y, blk = blockIdx.x, nblk = gridDim.x;
+  const int d0 = blk * kCh, d = d0 + ch;
+  const int S = p.S, D = p.D, N = p.N;
+  const int nseg = (S + kSeg - 1) / kSeg;
+  const bool dok = d < D;
+  const T* xg = static_cast<const T*>(p.x) + bi * p.x_sb;
+  const T* dtg = static_cast<const T*>(p.dt) + bi * p.dt_sb;
+  const T* bg = static_cast<const T*>(p.b) + bi * p.b_sb;
+  const T* cg = static_cast<const T*>(p.c) + bi * p.c_sb;
+  const T* dyg = static_cast<const T*>(p.dy) + static_cast<size_t>(bi) * S * D;
+
+  // a2: A log2(e), for exp2; g: the gradient carried from the step after,
+  // da_{t+1} g_{t+1}, seeded with dh_last; acc: da_log's sum over time
+  float an[kBR], a2[kBR], g[kBR], acc[kBR];
+#pragma unroll
+  for (int r = 0; r < kBR; ++r) {
+    const int n = n0 + r;
+    const bool live = dok && n < N;
+    an[r] = live ? -expf(p.a_log[static_cast<size_t>(d) * N + n]) : 0.f;
+    a2[r] = an[r] * kLog2e;
+    g[r] = live && p.dh_last
+               ? p.dh_last[(static_cast<size_t>(bi) * D + d) * N + n] : 0.f;
+    acc[r] = 0.f;
+  }
+  const float dv = dok ? p.d[d] : 0.f;
+  float acc_d = 0.f;
+
+  for (int seg = nseg - 1; seg >= 0; --seg) {
+    const int t0 = seg * kSeg;
+    __syncthreads();                    // the last segment's tiles are read
+    for (int i = tid; i < kSeg * kCh; i += kBThreads) {
+      const int t = t0 + i / kCh, c = d0 + i % kCh;
+      const bool in = t < S && c < D;
+      xs[i] = in ? to_f32(xg[t * p.x_ss + c]) : 0.f;
+      dts[i] = in ? to_f32(dtg[t * p.dt_ss + c]) : 0.f;
+      dys[i] = in ? to_f32(dyg[static_cast<size_t>(t) * D + c]) : 0.f;
+    }
+    for (int i = tid; i < kSeg * kNP; i += kBThreads) {
+      const int t = t0 + i / kNP, n = i % kNP;
+      const bool in = t < S && n < N;
+      bs[i] = in ? to_f32(bg[t * p.b_ss + n]) : 0.f;
+      cs[i] = in ? to_f32(cg[t * p.c_ss + n]) : 0.f;
+    }
+    float h[kBR];
+    const float* hseg = p.h_seg
+        + ((static_cast<size_t>(bi) * nseg + seg) * D + d) * N;
+#pragma unroll
+    for (int r = 0; r < kBR; ++r)
+      h[r] = dok && n0 + r < N ? hseg[n0 + r] : 0.f;
+    __syncthreads();
+
+    // the segment's states from its first: trail[t] holds h_{t-1}
+    for (int t = 0; t < kSeg; ++t) {
+      trail[t * kBThreads + tid] = make_float4(h[0], h[1], h[2], h[3]);
+      const float dtv = dts[t * kCh + ch];
+      const float dtx = dtv * xs[t * kCh + ch];
+      const float4 b4 = *reinterpret_cast<const float4*>(bs + t * kNP + n0);
+      const float bb[kBR] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int r = 0; r < kBR; ++r)
+        h[r] = fmaf(exp2_sfu(dtv * a2[r]), h[r], dtx * bb[r]);
+    }
+
+    // the reverse walk (steps past S have dt = x = dy = B = C = 0: g passes
+    // through unchanged and adds nothing)
+    for (int t = kSeg - 1; t >= 0; --t) {
+      const float dtv = dts[t * kCh + ch], xv = xs[t * kCh + ch];
+      const float dyv = dys[t * kCh + ch], dtx = dtv * xv;
+      const float4 h4 = trail[t * kBThreads + tid];
+      const float4 b4 = *reinterpret_cast<const float4*>(bs + t * kNP + n0);
+      const float4 c4 = *reinterpret_cast<const float4*>(cs + t * kNP + n0);
+      const float hp[kBR] = {h4.x, h4.y, h4.z, h4.w};
+      const float bb[kBR] = {b4.x, b4.y, b4.z, b4.w};
+      const float cc[kBR] = {c4.x, c4.y, c4.z, c4.w};
+      float sx = 0.f, sdt = 0.f, pb[kBR], pc[kBR];
+#pragma unroll
+      for (int r = 0; r < kBR; ++r) {
+        const float da = exp2_sfu(dtv * a2[r]);
+        const float gt = fmaf(dyv, cc[r], g[r]);
+        const float gdh = gt * da * hp[r];
+        pc[r] = dyv * fmaf(da, hp[r], dtx * bb[r]);    // dy_t h_t
+        pb[r] = gt * dtx;
+        sx = fmaf(gt, bb[r], sx);
+        sdt = fmaf(gdh, an[r], sdt);
+        acc[r] = fmaf(gdh, dtv, acc[r]);
+        g[r] = da * gt;
+      }
+#pragma unroll
+      for (int w = 1; w < kBNL; w *= 2) {     // over the channel's lanes
+        sx += __shfl_xor_sync(0xffffffffu, sx, w);
+        sdt += __shfl_xor_sync(0xffffffffu, sdt, w);
+      }
+#pragma unroll
+      for (int w = kBNL; w < 32; w *= 2) {    // over the warp's channels
+#pragma unroll
+        for (int r = 0; r < kBR; ++r) {
+          pb[r] += __shfl_xor_sync(0xffffffffu, pb[r], w);
+          pc[r] += __shfl_xor_sync(0xffffffffu, pc[r], w);
+        }
+      }
+      if (lane < kBNL) {
+        float* rw = red + (t * kBWarps + warp) * 2 * kNP + n0;
+        *reinterpret_cast<float4*>(rw) = make_float4(pb[0], pb[1], pb[2],
+                                                     pb[3]);
+        *reinterpret_cast<float4*>(rw + kNP) =
+            make_float4(pc[0], pc[1], pc[2], pc[3]);
+      }
+      if (q == 0) {
+        dxs[t * kCh + ch] = fmaf(dtv, sx, dyv * dv);
+        ddts[t * kCh + ch] = fmaf(xv, sx, sdt);
+        acc_d = fmaf(dyv, xv, acc_d);
+      }
+    }
+    __syncthreads();
+
+    T* dxg = static_cast<T*>(p.dx) + static_cast<size_t>(bi) * S * D;
+    T* ddtg = static_cast<T*>(p.ddt) + static_cast<size_t>(bi) * S * D;
+    for (int i = tid; i < kSeg * kCh; i += kBThreads) {
+      const int t = t0 + i / kCh, c = d0 + i % kCh;
+      if (t < S && c < D) {
+        dxg[static_cast<size_t>(t) * D + c] = from_f32<T>(dxs[i]);
+        ddtg[static_cast<size_t>(t) * D + c] = from_f32<T>(ddts[i]);
+      }
+    }
+    // the block's dB and dC of the segment: the warps' sums in order
+    float* part = p.part_bc
+                  + static_cast<size_t>(bi * nblk + blk) * 2 * S * N;
+    for (int i = tid; i < 2 * kSeg * kNP; i += kBThreads) {
+      const int w = i / (kSeg * kNP), t = (i / kNP) % kSeg, n = i % kNP;
+      if (t0 + t < S && n < N) {
+        float sum = 0.f;
+#pragma unroll
+        for (int k = 0; k < kBWarps; ++k)
+          sum += red[((t * kBWarps + k) * 2 + w) * kNP + n];
+        part[(static_cast<size_t>(w) * S + t0 + t) * N + n] = sum;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kBR; ++r) {
+    const int n = n0 + r;
+    if (dok && n < N) {
+      const size_t o = (static_cast<size_t>(bi) * D + d) * N + n;
+      p.dh0[o] = g[r];
+      p.part_a[o] = acc[r];
+    }
+  }
+  if (dok && q == 0) p.part_d[static_cast<size_t>(bi) * D + d] = acc_d;
+}
+
+// The backward's second pass, one output element a thread: dB and dC
+// summed over the channel blocks, da_log (times A) and dD over the batch,
+// each in index order.
+template <typename T>
+__global__ void __launch_bounds__(kReduceThreads)
+sel_scan_bwd_reduce_kernel(const SelScanBwdArgs p) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kReduceThreads + threadIdx.x;
+  const int B = p.B, S = p.S, D = p.D, N = p.N;
+  const int nblk = (D + kCh - 1) / kCh;
+  const long long sn = static_cast<long long>(S) * N;
+  const long long nbc = B * sn, dn = static_cast<long long>(D) * N;
+  if (i < 2 * nbc) {
+    const int w = static_cast<int>(i / nbc);
+    const long long j = i % nbc;            // (b, t, n) of dB or dC
+    const long long bi = j / sn, tn = j % sn;
+    float sum = 0.f;
+    for (int k = 0; k < nblk; ++k)
+      sum += p.part_bc[((bi * nblk + k) * 2 + w) * sn + tn];
+    static_cast<T*>(w ? p.dc : p.db)[j] = from_f32<T>(sum);
+  } else if (i < 2 * nbc + dn) {
+    const long long j = i - 2 * nbc;        // (d, n)
+    float sum = 0.f;
+    for (int b = 0; b < B; ++b) sum += p.part_a[b * dn + j];
+    p.da_log[j] = -expf(p.a_log[j]) * sum;
+  } else if (i < 2 * nbc + dn + D) {
+    const long long j = i - 2 * nbc - dn;   // d
+    float sum = 0.f;
+    for (int b = 0; b < B; ++b) sum += p.part_d[b * static_cast<long long>(D)
+                                                + j];
+    p.dd[j] = sum;
+  }
+}
+
+constexpr int kMaxDevices = 64;
+
+// Runs `set` (which sets kernel attributes) once a device: the attributes
+// hold for every later launch there. `done` is the caller's.
+template <typename F>
+cudaError_t once_a_device(std::atomic<bool> (&done)[kMaxDevices], F set) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < kMaxDevices && done[dev].load(std::memory_order_acquire))
     return cudaSuccess;
-  err = cudaFuncSetAttribute(sel_scan_kernel<T, kR, kP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SelSmem<T>::kBytes);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(sel_scan_kernel<T, kR, kP>,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
+  err = set();
   if (err == cudaSuccess && dev < kMaxDevices)
     done[dev].store(true, std::memory_order_release);
   return err;
+}
+
+// A kernel's dynamic shared memory, and the largest shared-memory carveout.
+template <typename K>
+cudaError_t set_smem(K* kernel, int bytes) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return err;
+}
+
+// The selective scan's (three blocks an SM) and its backward's (two).
+template <typename T>
+cudaError_t prepare_sel() {
+  static std::atomic<bool> done[kMaxDevices];
+  return once_a_device(done, [] {
+    cudaError_t err = set_smem(sel_scan_kernel<T, kR, kP, false>,
+                               SelSmem<T>::kBytes);
+    return err == cudaSuccess ? set_smem(sel_scan_kernel<T, kR, kP, true>,
+                                         SelSmem<T>::kBytes)
+                              : err;
+  });
+}
+
+template <typename T>
+cudaError_t prepare_sel_bwd() {
+  static std::atomic<bool> done[kMaxDevices];
+  return once_a_device(done, [] {
+    return set_smem(sel_scan_bwd_kernel<T>, SelBwdSmem::kBytes);
+  });
 }
 
 template <typename T>
@@ -778,8 +1118,34 @@ int launch_sel(const SelScanArgs& a, void* stream) {
   const cudaError_t err = prepare_sel<T>();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.D + kCh - 1) / kCh, a.B);
-  sel_scan_kernel<T, kR, kP><<<grid, kSelThreads, SelSmem<T>::kBytes,
-                               static_cast<cudaStream_t>(stream)>>>(a);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (a.h_seg)
+    sel_scan_kernel<T, kR, kP, true>
+        <<<grid, kSelThreads, SelSmem<T>::kBytes, s>>>(a);
+  else
+    sel_scan_kernel<T, kR, kP, false>
+        <<<grid, kSelThreads, SelSmem<T>::kBytes, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_sel_bwd(const SelScanBwdArgs& a, void* stream) {
+  if (a.N < 1 || a.N > kNP) return kBadStateDim;
+  const cudaError_t err = prepare_sel_bwd<T>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.D + kCh - 1) / kCh, a.B);
+  sel_scan_bwd_kernel<T><<<grid, kBThreads, SelBwdSmem::kBytes,
+                           static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_sel_bwd_reduce(const SelScanBwdArgs& a, void* stream) {
+  const long long total = 2LL * a.B * a.S * a.N
+                          + static_cast<long long>(a.D) * a.N + a.D;
+  sel_scan_bwd_reduce_kernel<T>
+      <<<static_cast<unsigned>((total + kReduceThreads - 1) / kReduceThreads),
+         kReduceThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -810,6 +1176,30 @@ extern "C" int selective_scan_f32(const SelScanArgs* a, void* stream) {
   return launch_sel<float>(*a, stream);
 }
 
+// The backward: the scan kernel, then its second pass (two launches the
+// wrapper counts apart).
+extern "C" int selective_scan_bwd_bf16(const SelScanBwdArgs* a,
+                                       void* stream) {
+  return launch_sel_bwd<__nv_bfloat16>(*a, stream);
+}
+
+extern "C" int selective_scan_bwd_f32(const SelScanBwdArgs* a, void* stream) {
+  return launch_sel_bwd<float>(*a, stream);
+}
+
+extern "C" int selective_scan_bwd_reduce_bf16(const SelScanBwdArgs* a,
+                                              void* stream) {
+  return launch_sel_bwd_reduce<__nv_bfloat16>(*a, stream);
+}
+
+extern "C" int selective_scan_bwd_reduce_f32(const SelScanBwdArgs* a,
+                                             void* stream) {
+  return launch_sel_bwd_reduce<float>(*a, stream);
+}
+
+// The segment length of h_seg, in steps.
+extern "C" int selective_scan_seg_steps() { return kSeg; }
+
 extern "C" int ssm_scan_bf16(const LinScanArgs* a, void* stream) {
   return launch_lin<__nv_bfloat16>(*a, stream);
 }
@@ -835,13 +1225,35 @@ int sel_blocks_per_sm() {
   cudaError_t err = prepare_sel<T>();
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, sel_scan_kernel<T, kR, kP>, kSelThreads, SelSmem<T>::kBytes);
+        &n, sel_scan_kernel<T, kR, kP, false>, kSelThreads,
+        SelSmem<T>::kBytes);
   return err == cudaSuccess ? n : 0;
 }
 
 extern "C" int selective_scan_blocks_per_sm(int bf16) {
   return bf16 ? sel_blocks_per_sm<__nv_bfloat16>()
               : sel_blocks_per_sm<float>();
+}
+
+// The backward's dynamic shared memory a block, and its blocks an SM (0
+// on error).
+extern "C" int selective_scan_bwd_smem_bytes() {
+  return SelBwdSmem::kBytes;
+}
+
+template <typename T>
+int sel_bwd_blocks_per_sm() {
+  int n = 0;
+  cudaError_t err = prepare_sel_bwd<T>();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, sel_scan_bwd_kernel<T>, kBThreads, SelBwdSmem::kBytes);
+  return err == cudaSuccess ? n : 0;
+}
+
+extern "C" int selective_scan_bwd_blocks_per_sm(int bf16) {
+  return bf16 ? sel_bwd_blocks_per_sm<__nv_bfloat16>()
+              : sel_bwd_blocks_per_sm<float>();
 }
 
 // Linear-scan blocks an SM holds at once (0 on error).

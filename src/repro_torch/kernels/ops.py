@@ -9,12 +9,13 @@ the flash-attention kernels, forward and backward
 mask is right only because only S == T calls reach it. On the CPU every
 call is the plain op, `ref.attention_ref`, differentiated by autograd.
 `moe_gemm`, `selective_scan` and `ssm_scan` launch their kernels for CUDA
-tensors and run the plain versions for CPU tensors. `moe_gemm` is
-differentiable on both devices: on CUDA its backward launches the dx and
-dw kernels, on the CPU autograd differentiates the plain version. The
-scans have no backward kernel yet and raise under autograd on CUDA. The
-JAX package's `REPRO_FORCE_*` switches have no counterpart: the device
-decides.
+tensors and run the plain versions for CPU tensors. `moe_gemm` and
+`selective_scan` are differentiable on both devices: on CUDA their
+backwards launch their backward kernels (`moe_gemm`'s dx and dw, the
+selective scan's reverse walk and its second pass), on the CPU autograd
+differentiates the plain versions. `ssm_scan`, which no model calls, has
+no backward kernel and raises under autograd on CUDA. The JAX package's
+`REPRO_FORCE_*` switches have no counterpart: the device decides.
 """
 from __future__ import annotations
 

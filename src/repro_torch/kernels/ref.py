@@ -14,6 +14,10 @@ kernels (dx and dw, which the JAX package leaves to autodiff).
 `selective_scan_ref` and `ssm_scan_ref` walk time in a Python loop in f32;
 the JAX oracle's chunked `jax.checkpoint` (a memory device for its
 backward) does not change the result and is left out.
+`selective_scan_bwd_ref` is the plain version of the selective-scan
+backward kernel (the JAX package differentiates its oracle instead): it
+keeps the states at chunk boundaries only, as that checkpoint does, and
+walks time in reverse.
 """
 from __future__ import annotations
 
@@ -180,6 +184,74 @@ def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor,
         ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t]))
     y = torch.stack(ys, dim=1) + xf * d.float()[None, None]
     return y.to(x.dtype), h
+
+
+def selective_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor,
+                           a_log: torch.Tensor, b: torch.Tensor,
+                           c: torch.Tensor, d: torch.Tensor,
+                           h0: Optional[torch.Tensor], dy: torch.Tensor,
+                           dh_last: Optional[torch.Tensor] = None,
+                           chunk: int = 128) -> tuple[torch.Tensor, ...]:
+    """Plain selective-scan backward: the gradients of
+    `selective_scan_ref(x, dt, a_log, b, c, d, h0)` for the output
+    gradients dy [B,S,D] and dh_last [B,D,N] (None: zero), in f32.
+
+    With A = -exp(a_log), da_t = exp(dt_t A) and g_t the gradient of h_t,
+    seeded with dh_last:
+      g_t = dy_t C_t + da_{t+1} g_{t+1}
+      dC_t = sum_d dy_t h_t          dB_t = sum_d g_t dt_t x_t
+      dx_t = sum_n g_t dt_t B_t + dy_t D
+      ddt_t = sum_n g_t (A da_t h_{t-1} + x_t B_t)
+      da_log = A * sum_{b,t} g_t dt_t da_t h_{t-1}
+      dD = sum_{b,t} dy_t x_t        dh0 = da_1 g_1
+    The states are kept only at every `chunk`-th step and each chunk's
+    are recomputed from its first when the reverse walk reaches it, so
+    [B,S,D,N] is never held. Returns (dx, ddt, da_log, db, dc, dd, dh0):
+    dx, ddt, db and dc in their inputs' dtypes, the rest f32.
+    """
+    bsz, s, dd = x.shape
+    n = a_log.shape[1]
+    a = -torch.exp(a_log.float())                        # [D,N]
+    xf, dtf, bf, cf = x.float(), dt.float(), b.float(), c.float()
+    dyf, df = dy.float(), d.float()
+    h = (torch.zeros((bsz, dd, n), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+
+    def step(h, t):
+        da = torch.exp(dtf[:, t, :, None] * a[None])     # [B,D,N]
+        return da, da * h + (dtf[:, t] * xf[:, t])[..., None] \
+            * bf[:, t, None, :]
+
+    starts = []                                          # h before chunk k
+    for t in range(s):
+        if t % chunk == 0:
+            starts.append(h)
+        h = step(h, t)[1]
+    carry = (torch.zeros_like(h) if dh_last is None
+             else dh_last.float().clone())               # da_{t+1} g_{t+1}
+    dx, ddt = torch.empty_like(xf), torch.empty_like(xf)
+    db, dc = torch.empty_like(bf), torch.empty_like(cf)
+    acc_a = torch.zeros((dd, n), dtype=torch.float32, device=x.device)
+    for k in reversed(range(len(starts))):
+        t0 = k * chunk
+        hs = [starts[k]]                                 # hs[i]: h before t0+i
+        for t in range(t0, min(s, t0 + chunk) - 1):
+            hs.append(step(hs[-1], t)[1])
+        for t in reversed(range(t0, min(s, t0 + chunk))):
+            h_prev = hs[t - t0]
+            da, h_t = step(h_prev, t)
+            g = carry + dyf[:, t, :, None] * cf[:, t, None, :]
+            dc[:, t] = torch.einsum("bdn,bd->bn", h_t, dyf[:, t])
+            db[:, t] = torch.einsum("bdn,bd->bn", g, dtf[:, t] * xf[:, t])
+            sx = torch.einsum("bdn,bn->bd", g, bf[:, t])
+            dx[:, t] = dtf[:, t] * sx + dyf[:, t] * df
+            gdh = g * da * h_prev
+            ddt[:, t] = (gdh * a).sum(-1) + xf[:, t] * sx
+            acc_a += (gdh * dtf[:, t, :, None]).sum(0)
+            carry = da * g
+    dd_ = (dyf * xf).sum((0, 1))
+    return (dx.to(x.dtype), ddt.to(dt.dtype), a * acc_a, db.to(b.dtype),
+            dc.to(c.dtype), dd_, carry)
 
 
 def moe_gemm_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

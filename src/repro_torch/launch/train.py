@@ -6,13 +6,16 @@ checkpoint flushing), so the main thread only issues device steps.
       --steps 50 --batch 8 --seq 128 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch qwen2-moe-a2.7b --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch jamba-v0.1-52b --device cuda
 
-Attention + MLP archs (qwen2-0.5b) and attention + MoE archs
-(qwen2-moe-a2.7b, qwen3-moe-235b-a22b) train on both devices; on the card
-(`--device cuda`, the default) through the flash-attention and
-`moe_gemm` forward and backward kernels. Mamba archs train only on the
-CPU (the scans have no backward kernel yet). `--full` trains the published
-widths. Random weights come from a seeded `torch.Generator`.
+Attention + MLP archs (qwen2-0.5b), attention + MoE archs
+(qwen2-moe-a2.7b, qwen3-moe-235b-a22b) and the hybrid Mamba + attention +
+MoE arch (jamba-v0.1-52b) train on both devices; on the card
+(`--device cuda`, the default) through the forward and backward kernels
+of flash attention, `moe_gemm` and the selective scan. `--full` trains
+the published widths. Random weights come from a seeded
+`torch.Generator`.
 """
 from __future__ import annotations
 

@@ -1,6 +1,9 @@
 """State-space mixers; counterpart of `repro/models/ssm.py` for Mamba
 (Jamba's SSM layers). `Mamba.forward` is `mamba_train`, the full-sequence
-selective scan through `kernels.ops.selective_scan`; `Mamba.decode` is
+selective scan through `kernels.ops.selective_scan`, differentiable on
+both devices (on CUDA through the scan's backward kernel, which keeps h
+only at segment boundaries and never [B,S,D,N], as the JAX version's
+chunked remat does); `Mamba.decode` is
 `mamba_decode`, the one-step recurrence in plain ops, as in the JAX
 package. Each mirrors its JAX function's dtypes as written: the forward's
 causal conv adds shifted products in the activation dtype and its scan

@@ -108,10 +108,9 @@ class Transformer(nn.Module):
         """tokens [B,S] (or `embeds` [B,S,d] from a modality frontend, used
         in place of the embedding lookup) -> (logits [B,S,V], MoE aux
         loss). Differentiable
-        on the CPU; on CUDA for attention, MLP and MoE stacks (flash
-        attention and `moe_gemm` have backward kernels), not yet for Mamba
-        layers, whose CUDA scans have no backward and raise under autograd.
-        The prefill (`train_step.make_prefill_step`)
+        on both devices for every mixer the port has: on CUDA through the
+        backward kernels of flash attention, `moe_gemm` and the selective
+        scan. The prefill (`train_step.make_prefill_step`)
         is this forward under inference mode, as in the JAX package, where
         the prefill_32k cell lowers the same forward. The JAX forward
         rematerialises each period in the backward (`@jax.checkpoint`,

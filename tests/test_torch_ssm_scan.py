@@ -200,7 +200,8 @@ def test_scan_wrappers_reject_bad_operands():
 
 def test_cpu_plain_versions_keep_autograd():
     """On the CPU the wrappers are the plain versions, differentiable by
-    autograd (only a CUDA call, with no backward kernel, raises)."""
+    autograd (on CUDA the selective scan differentiates through its
+    backward kernel and `ssm_scan`, with none, raises under grad)."""
     _, (x, dt, a_log, b, c, d) = _sel_inputs((1, 8, 4, 4), "float32")
     x.requires_grad_()
     y, _ = selective_scan(x, dt, a_log, b, c, d)

@@ -3,7 +3,11 @@ they share a contract: port versions of tests/test_train_substrate.py's
 optimizer, checkpoint, fault, data and end-to-end tests; the microbatch
 order; the loss and every parameter gradient, and one train step on
 bridged f32 params and optimizer state, against JAX's on the same numpy
-batch, for the dense arch and the MoE archs (`MOE_ARCHS`)."""
+batch, for the dense arch, the MoE archs (`MOE_ARCHS`) and Jamba with its
+whole 8-position period (Mamba, attention and MoE layers: the selective
+scan's gradients on the CPU are autograd's over its plain version, which
+`tests/test_torch_ssm_backward.py` holds to the backward kernel's plain
+version)."""
 import threading
 import time
 
@@ -18,13 +22,14 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from torch import nn  # noqa: E402
 
+from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.configs import tiny_config as jax_tiny_config  # noqa: E402
 from repro.models.registry import get_model as jax_get_model  # noqa: E402
 from repro.train import optimizer as jopt  # noqa: E402
 from repro.train import train_step as jts  # noqa: E402
 from repro.train.data import DataConfig as JaxDataConfig  # noqa: E402
 from repro.train.data import SyntheticLM as JaxSyntheticLM  # noqa: E402
-from repro_torch.configs import tiny_config  # noqa: E402
+from repro_torch.configs import get_config, tiny_config  # noqa: E402
 from repro_torch.convert import (jax_grads, load_jax_opt_state,  # noqa: E402
                                  load_jax_params)
 from repro_torch.core.dispatcher import FunctionalityDispatcher  # noqa: E402
@@ -44,6 +49,7 @@ from repro_torch.train.train_step import (TrainConfig,  # noqa: E402
 ARCH = "qwen2-0.5b"
 MOE_ARCH = "qwen2-moe-a2.7b"
 MOE_ARCHS = [MOE_ARCH, "qwen3-moe-235b-a22b"]
+JAMBA = "jamba-v0.1-52b"
 
 
 class _Params(nn.Module):
@@ -256,12 +262,22 @@ def test_microbatch_schedule_matches_jax(n):
 _TCFG = dict(opt=OptConfig(peak_lr=1e-3, warmup_steps=2, total_steps=10))
 
 
+def _tiny_f32(tiny, full, arch):
+    """The tiny f32 config of `arch`; Jamba's with its whole 8-position
+    period and one repeat (tiny_config keeps pattern[:4], which has no
+    attention layer)."""
+    cfg = tiny(arch).scaled(dtype="float32")
+    if arch == JAMBA:
+        cfg = cfg.scaled(pattern=full(arch).pattern, repeats=1)
+    return cfg
+
+
 def _bridged(seed=0, arch=ARCH):
     """JAX tiny f32 `arch` (model, params) and the port's model and params
     with the same weights."""
-    jm = jax_get_model(jax_tiny_config(arch).scaled(dtype="float32"))
+    jm = jax_get_model(_tiny_f32(jax_tiny_config, jax_get_config, arch))
     jp = jm.init_params(jax.random.key(seed))
-    tm = get_model(tiny_config(arch).scaled(dtype="float32"), "cpu")
+    tm = get_model(_tiny_f32(tiny_config, get_config, arch), "cpu")
     tp = tm.init_params(torch.Generator().manual_seed(1))
     load_jax_params(tp, jax.tree.map(np.asarray, jp))
     return jm, jp, tm, tp
@@ -307,16 +323,19 @@ def test_loss_gradients_match_jax():
     _check_loss_gradients(ARCH)
 
 
-@pytest.mark.parametrize("arch", MOE_ARCHS)
+@pytest.mark.parametrize("arch", MOE_ARCHS + [JAMBA])
 def test_moe_loss_gradients_match_jax(arch):
     """The MoE archs' gradients go through `moe_gemm`'s backward (its
-    plain version here), the dispatch, the combine and the aux loss."""
+    plain version here), the dispatch, the combine and the aux loss;
+    Jamba's also through the selective scan, the causal conv and one
+    attention layer."""
     _check_loss_gradients(arch)
 
 
 @pytest.mark.parametrize("microbatches,arch",
-                         [(1, ARCH), (2, ARCH), (1, MOE_ARCH), (2, MOE_ARCH)],
-                         ids=["1", "2", "moe-1", "moe-2"])
+                         [(1, ARCH), (2, ARCH), (1, MOE_ARCH), (2, MOE_ARCH),
+                          (1, JAMBA)],
+                         ids=["1", "2", "moe-1", "moe-2", "jamba-1"])
 def test_train_step_matches_jax(microbatches, arch):
     """One JAX step from init makes m, v and step non-trivial; both then
     take the next step from the bridged state on the same batch."""
@@ -371,6 +390,12 @@ def test_train_loss_decreases_and_resume_exact(tmp_path):
 
 def test_moe_train_loss_decreases_and_resume_exact(tmp_path):
     _check_train_and_resume(tmp_path, MOE_ARCH)
+
+
+def test_jamba_train_loss_decreases_and_resume_exact(tmp_path):
+    """Tiny Jamba (pattern[:4]: Mamba layers, MoE every second one)
+    through `train()`."""
+    _check_train_and_resume(tmp_path, JAMBA)
 
 
 def test_train_defaults_to_cuda_and_raises_without_it(tmp_path):
