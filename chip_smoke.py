@@ -2,9 +2,13 @@
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
 
   python3 chip_smoke.py
+  python3 chip_smoke.py --ab PARENT   # moe_gemm against another checkout
 
 Run from the repository root on a machine with a Hopper card and `nvcc`.
-Phases, in order; any failure raises and exits non-zero (no phase catches
+With `--ab PARENT` (a checkout of another commit, e.g. unpacked from `git
+archive` into a directory `.gitignore` lists) it only compares the bf16
+`moe_gemm` kernels of the two trees (`compare_trees`). With no argument,
+phases, in order; any failure raises and exits non-zero (no phase catches
 its own failure):
 
   1. the card's name and power limit (nvidia-smi); TF32 off for f32;
@@ -14,7 +18,7 @@ its own failure):
      source, and a copy of `ssm_scan.cu` for each selective-scan split of
      SEL_SPLITS (phase 11 times them), all started together; print the
      build times and ptxas's report
-     (registers, spills, static smem) for every kernel, the bf16
+     (registers, spills, static smem, warnings) for every kernel, the bf16
      tensor-core ones included, the flash kernels' dynamic smem
      (forward, dq and dk/dv, each in both routes), the selective scan's
      and its backward's dynamic smem and the three scan kernels' resident
@@ -25,14 +29,20 @@ its own failure):
      (C=640) and Jamba decode's, the MoE train shapes (C=640), the Jamba
      train shapes (E=16, C=1280, d=4096, f=14336),
      qwen3-moe's E=128 experts at decode, up and down, a ragged shape, one
-     with d and f not multiples of 8 (bf16 goes through the padding); the
+     with d and f not multiples of 8 (bf16 goes through the padding), and
+     the persistent backward's edges: one expert with fewer tiles than
+     SMs, 2 x SMs + 1 tiles, one expert whose rows span many tiles; the
      backward's two calls bit for bit and exact zeros for an expert no
-     token reaches; expert isolation; times (CUDA events, median after
-     warm-up) of the kernel, the plain version and `torch.bmm` for one MoE
-     layer at the qwen2-moe serving shapes (bf16 and f32), at the Jamba
-     prefill's and at Jamba decode's, and of the forward, dx and dw at the
-     MoE train shapes in both routes and at the Jamba train shapes in
-     bf16, beside the least time the card could take;
+     token reaches (with one expert: for all-zero x and dy); expert
+     isolation; a SHA-256 digest of the bf16 forward's output on seeded
+     inputs (to compare two trees' forwards bit for bit); times (CUDA
+     events, median after warm-up) of the kernel, the plain version and
+     `torch.bmm` for one MoE layer at the qwen2-moe serving shapes (bf16
+     and f32), at the Jamba prefill's and at Jamba decode's, and of the
+     forward, dx and dw at the MoE train shapes in both routes and at the
+     Jamba train shapes in bf16 (kernel and `torch.bmm` in turns), beside
+     the least time the card could take; dw's K sweep (C = 320 ... 2560
+     at E=64, d=2048, f=1408): its fixed cost and main-loop rate;
   4. the flash-attention forward and backward kernels (bf16 on tensor
      cores, f32 on CUDA cores) against their plain versions (and the
      backward against autograd through `attention_ref`) at the training
@@ -169,7 +179,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_bwd, flash_attention_fwd)
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.moe_gemm import (  # noqa: E402
-    moe_gemm, moe_gemm_bwd_dw, moe_gemm_bwd_dx)
+    load as mg_load, moe_gemm, moe_gemm_bwd_dw, moe_gemm_bwd_dx)
 from repro_torch.kernels.ref import (  # noqa: E402
     attention_ref, flash_attention_bwd_ref, flash_attention_ref,
     moe_gemm_bwd_ref, moe_gemm_dw_ref, moe_gemm_dx_ref, moe_gemm_ref,
@@ -227,6 +237,13 @@ LIN_DEEP = (1, 65536, 512)
 SEL_SPLITS = ((2, 0), (2, 1), (4, 0), (4, 1), (4, 2), (8, 0), (8, 3))
 SCAN_SPLIT = 1000                        # carried state: steps of call 1
 BACKLOG_CYCLES = 20_000_000              # ~10 ms of device sleep
+# dw's contraction C = K of the K sweep (phase 3), at the MoE train gate/up
+# shape's (E, d, f): time against 64-deep k-steps gives the main loop's
+# rate (slope) and the fixed cost of the tiles (intercept)
+DW_SWEEP_C = (320, 640, 1280, 2560)
+DW_SWEEP_EDF = (64, 2048, 1408)
+# the forward's output digest: (E, C, d, f), the MoE train gate/up shape
+FWD_DIGEST_SHAPE = (64, 640, 2048, 1408)
 SFU_PER_CLOCK = 16                       # exp2 results a clock on an SM
 # f32 flops an exp2 costs on the FMA pipes instead of the SFU: range
 # reduction and a degree-3 polynomial, ~5 instructions of 2 flops' issue
@@ -267,6 +284,30 @@ def time_ms(fn, reps: int = 20, warmup: int = 3,
         events.append((a, b))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in events)
+
+
+def time_turns(fns: dict, reps: int = 20, warmup: int = 2) -> dict:
+    """Median device ms of each of `fns` (name -> call), by CUDA events
+    around each call, the calls interleaved in turns (the names in order,
+    then in reverse, and so on), so that a drift of the card's clock
+    under load reaches each alike."""
+    for _ in range(warmup):
+        for fn in fns.values():
+            fn()
+    torch.cuda.synchronize()
+    events = {name: [] for name in fns}
+    names = list(fns)
+    for i in range(reps):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fns[name]()
+            b.record()
+            events[name].append((a, b))
+    torch.cuda.synchronize()
+    return {name: statistics.median(a.elapsed_time(b) for a, b in ev)
+            for name, ev in events.items()}
 
 
 def bound(shapes, itemsize: int, flops_peak: float, bytes_peak: float):
@@ -345,9 +386,10 @@ def ptxas_report(lib: Path, only: str = "") -> None:
                         f"{'warpgroups' if 'moe' in t.group(1) else 'hd'} "
                         f"{t.group(2)}>")
             else:
-                name = m.group(1)
-        elif ("registers" in line or "spill" in line or "smem" in line) \
-                and name.startswith(only):
+                plain = re.search(r"\d([a-z_]+_kernel)E", m.group(1))
+                name = plain.group(1) if plain else m.group(1)
+        elif ("registers" in line or "spill" in line or "smem" in line
+              or "warning" in line) and name.startswith(only):
             print(f"[build]   {name}: {line.strip()}")
 
 
@@ -355,21 +397,29 @@ def check_moe_bwd(label, x, w, scale, tol, gen) -> tuple[float, float]:
     """The backward kernels on the forward's x [E,C,d] and w [E,d,f] and a
     random dy [E,C,f] at `scale`, the last expert's x and dy rows all zero
     (an expert no token reaches): dx and dw against `moe_gemm_bwd_ref` at
-    `tol`, two calls bit for bit, that expert's dx and dw exact zeros.
-    Returns max |kernel - plain| of dx and of dw."""
+    `tol`, two calls bit for bit, that expert's dx and dw exact zeros. With
+    one expert, that expert keeps its tokens, and a third pair of calls on
+    all-zero x and dy must give exact zeros. Returns max |kernel - plain|
+    of dx and of dw."""
     e, c, _ = x.shape
     dy = (torch.randn((e, c, w.shape[2]), generator=gen, device="cuda")
           * scale).to(x.dtype)
     x = x.clone()
-    x[-1] = 0
-    dy[-1] = 0
+    if e > 1:
+        x[-1] = 0
+        dy[-1] = 0
     dx, dw = moe_gemm_bwd_dx(dy, w), moe_gemm_bwd_dw(x, dy)
     dx2, dw2 = moe_gemm_bwd_dx(dy, w), moe_gemm_bwd_dw(x, dy)
     rdx, rdw = moe_gemm_bwd_ref(x, w, dy)
+    if e == 1:
+        zdx = moe_gemm_bwd_dx(torch.zeros_like(dy), w)
+        zdw = moe_gemm_bwd_dw(torch.zeros_like(x), torch.zeros_like(dy))
+    else:
+        zdx, zdw = dx[-1], dw[-1]
     torch.cuda.synchronize()
     assert torch.equal(dx, dx2) and torch.equal(dw, dw2), \
         f"moe_gemm backward differs between two calls ({label}, {x.dtype})"
-    assert not (dx[-1].any() or dw[-1].any()), \
+    assert not (zdx.any() or zdw.any()), \
         f"an expert with no token got a nonzero gradient ({label})"
     for g, r in ((dx, rdx), (dw, rdw)):
         torch.testing.assert_close(g.float(), r.float(), rtol=tol, atol=tol)
@@ -419,6 +469,126 @@ def check_moe_autograd(gen) -> None:
               f"launches dx, dw {launches}")
 
 
+def forward_digest(fwd) -> str:
+    """SHA-256 of the bf16 forward's output at FWD_DIGEST_SHAPE on inputs
+    from a generator seeded 7, through `fwd(x, w)`: the bits of the
+    forward kernel, to compare two trees' kernels."""
+    e, c, d, f = FWD_DIGEST_SHAPE
+    gen = torch.Generator("cuda").manual_seed(7)
+    x = (torch.randn((e, c, d), generator=gen, device="cuda")
+         * d ** -0.25).to(torch.bfloat16)
+    w = (torch.randn((e, d, f), generator=gen, device="cuda")
+         * d ** -0.25).to(torch.bfloat16)
+    out = fwd(x, w)
+    return hashlib.sha256(out.view(torch.int16).cpu().numpy()
+                          .tobytes()).hexdigest()
+
+
+def dw_sweep(dws: dict, flops_peak: float, sms: int) -> dict:
+    """dw at DW_SWEEP_EDF with C = each of DW_SWEEP_C, through each of
+    `dws` (name -> fn(x, dy)), the names in turns at each C (time_turns);
+    then, for each name, the least-squares
+    line of ms against the number of 64-deep k-steps: the slope is the
+    main loop's time a k-step over the whole output, the intercept the
+    fixed cost of the tiles. Both also per wave of `sms` tiles of 16,384
+    outputs (128 x 128 or 64 x 256), beside a k-step's products at the
+    peak rate."""
+    e, d, f = DW_SWEEP_EDF
+    gen = torch.Generator("cuda").manual_seed(3)
+    ms = {name: [] for name in dws}
+    for c in DW_SWEEP_C:
+        x = (torch.randn((e, c, d), generator=gen, device="cuda")
+             * d ** -0.25).to(torch.bfloat16)
+        dy = torch.randn((e, c, f), generator=gen, device="cuda") \
+            .to(torch.bfloat16)
+        t = time_turns({name: (lambda fn=fn: fn(x, dy))
+                        for name, fn in dws.items()})
+        for name in dws:
+            ms[name].append(t[name])
+        del x, dy
+    torch.cuda.empty_cache()
+    ks = [c / 64 for c in DW_SWEEP_C]
+    waves = e * d * f / (16384 * sms)
+    peak_us = 2 * 16384 * 64 / (flops_peak / sms) * 1e6
+    fits = {}
+    for name, t in ms.items():
+        k_mean, t_mean = statistics.mean(ks), statistics.mean(t)
+        slope = (sum((k - k_mean) * (y - t_mean) for k, y in zip(ks, t))
+                 / sum((k - k_mean) ** 2 for k in ks))
+        intercept = t_mean - slope * k_mean
+        fits[name] = {"c": list(DW_SWEEP_C), "ms": t,
+                      "ms_per_k_step": slope, "intercept_ms": intercept,
+                      "us_per_k_step_a_wave": 1e3 * slope / waves,
+                      "fixed_us_a_wave": 1e3 * intercept / waves}
+        print(f"[time] moe_gemm dw K sweep {name}, (E, d, f) = "
+              f"{DW_SWEEP_EDF}, C = {list(DW_SWEEP_C)}: "
+              + ", ".join(f"{y:.4f}" for y in t) + f" ms; fit "
+              f"{intercept:.4f} ms + {slope:.5f} ms a 64-deep k-step; "
+              f"per wave of {sms} tiles of 16,384 outputs ({waves:.1f} "
+              f"waves): {1e3 * intercept / waves:.3f} us fixed + "
+              f"{1e3 * slope / waves:.4f} us a k-step (its products at "
+              f"peak {peak_us:.4f} us)")
+    return fits
+
+
+def card_state() -> str:
+    """The card's SM clock, power draw and temperature (nvidia-smi)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip()
+
+
+def forward_sass(lib: Path) -> dict:
+    """cuobjdump's SASS of each instantiation of the bf16 forward kernel
+    in a built moe_gemm library, by its template argument (the mangled
+    name's anonymous namespace differs between sources); empty where the
+    toolkit has no cuobjdump."""
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return {}
+    text = subprocess.run([str(tool), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            t = re.search(r"moe_gemm_wgmma_kernelI(\w+?)E", m.group(1))
+            cur = t.group(1) if t else None
+            if cur:
+                funcs[cur] = []
+        elif cur and line.strip():
+            funcs[cur].append(line.strip())
+    return funcs
+
+
+def lib_fn(lib, kname: str):
+    """fn(a, b) -> out through the bf16 entry `kname` (moe_gemm,
+    moe_gemm_bwd_dx or moe_gemm_bwd_dw) of a loaded moe_gemm library, on
+    operands that need no padding, with no wrapper around it: the
+    forward's (x, w), dx's (dy, w) or dw's (x, dy)."""
+    entry = getattr(lib, f"{kname}_bf16")
+
+    def fn(a, b):
+        if kname == "moe_gemm_bwd_dx":
+            (e, c, f), d = a.shape, b.shape[1]
+            shape = (e, c, d)
+        elif kname == "moe_gemm_bwd_dw":
+            (e, c, d), f = a.shape, b.shape[2]
+            shape = (e, d, f)
+        else:
+            (e, c, d), f = a.shape, b.shape[2]
+            shape = (e, c, f)
+        out = torch.empty(shape, dtype=a.dtype, device=a.device)
+        err = entry(a.data_ptr(), b.data_ptr(), out.data_ptr(), e, c, d, f,
+                    torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{kname} launch failed: "
+                               f"{lib.moe_gemm_error_string(err).decode()}")
+        return out
+    return fn
+
+
 def bwd_bound(shapes, itemsize: int, flops_peak: float, bytes_peak: float):
     """Least ms for the backward (dx and dw) of grouped matmuls of `shapes`
     (E,C,d,f): x, w and dy read once, dx and dw written once, or the two
@@ -434,10 +604,10 @@ def bwd_bound(shapes, itemsize: int, flops_peak: float, bytes_peak: float):
 def time_moe_train_layer(shapes, dtype, gen, flops_peak, mem_bps) -> dict:
     """One MoE layer's three calls (gate, up, down) at the train shapes
     `shapes` (E,C,d,f each): the forward, dx and dw, each through its
-    wrapper (by plain CUDA events, as every kernel row, and behind a
-    queued device sleep: the device's time alone), its plain version and
-    `torch.bmm` on the same operands, beside its bound; then the backward
-    as dx + dw."""
+    wrapper (by CUDA events in turns with `torch.bmm` on the same
+    operands, and behind a queued device sleep: the device's time alone)
+    and its plain version, beside its bound; then the backward as dx +
+    dw."""
     calls = []
     for e, c, d, f in shapes:
         scale = d ** -0.25
@@ -457,9 +627,12 @@ def time_moe_train_layer(shapes, dtype, gen, flops_peak, mem_bps) -> dict:
                   lambda x, w, dy: torch.bmm(x.transpose(1, 2), dy))}
     out = {}
     for kname, (kern, plain, lib) in fns.items():
-        t = {key: time_ms(lambda: [fn(*a) for a in calls], *reps)
-             for key, fn in (("ms", kern), ("plain_ms", plain),
-                             ("library_ms", lib))}
+        # the kernel and torch.bmm in turns (the card's clock drifts under
+        # load); the plain version alone
+        t = time_turns({key: (lambda fn=fn: [fn(*a) for a in calls])
+                        for key, fn in (("ms", kern), ("library_ms", lib))},
+                       *reps)
+        t["plain_ms"] = time_ms(lambda: [plain(*a) for a in calls], *reps)
         t["device_ms"] = time_ms(lambda: [kern(*a) for a in calls], *reps,
                                  backlog=True)
         # dx and dw move the forward's three tensors' sizes and do its
@@ -484,6 +657,120 @@ def time_moe_train_layer(shapes, dtype, gen, flops_peak, mem_bps) -> dict:
     del calls
     torch.cuda.empty_cache()
     return out
+
+
+def train_shapes() -> dict:
+    """(E, C, d, f) of the grouped GEMMs of the MoE and Jamba train cells:
+    the gate/up and down calls of one layer each."""
+    cfg, jcfg = get_config(ARCH), get_config(JAMBA)
+    e, d, f = padded_experts(cfg), cfg.d_model, cfg.moe_d_ff
+    je, jd, jf = padded_experts(jcfg), jcfg.d_model, jcfg.moe_d_ff
+    # MoE training (slice 7): B=4 x S=2048, 160 slots an expert a row
+    c = TRAIN_BATCH * capacity(cfg, TRAIN_SEQ)
+    # Jamba training (slice 8): B=2 x S=4096, 640 slots an expert a row
+    jc = JAMBA_TRAIN_BATCH * capacity(jcfg, JAMBA_TRAIN_SEQ)
+    assert jc == 1280, jc
+    return {"train gate/up": (e, c, d, f), "train down": (e, c, f, d),
+            "jamba train gate/up": (je, jc, jd, jf),
+            "jamba train down": (je, jc, jf, jd)}
+
+
+def compare_trees(parent: Path) -> int:
+    """`python3 chip_smoke.py --ab PARENT`: the bf16 moe_gemm kernels of
+    this tree and of another checkout at PARENT (the parent commit from
+    `git archive`) built side by side and called through their C entry
+    points on the same operands: the forward's SASS and output digest of
+    each (the digests must be equal); dx and dw of each at several shapes,
+    against the parent's; times in turns (parent, change, change, parent)
+    of the forward, dx and dw of one layer at the MoE and Jamba train
+    shapes, beside `torch.bmm` on the same operands and their bound, and
+    of the dw K sweep."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout
+    print(smi.strip().splitlines()[0])
+    name = torch.cuda.get_device_name(0)
+    _, (mem_bps, bf16_fps, _) = peaks_for(name)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    jobs = {"parent": parent / "src/repro_torch/kernels/csrc/moe_gemm.cu",
+            "change": None}
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        built = dict(zip(jobs, pool.map(
+            lambda src: _build.build("moe_gemm", src=src), jobs.values())))
+    fns = {}
+    for tag, lib in built.items():
+        print(f"[build] moe_gemm ({tag}) -> {lib.name}")
+        ptxas_report(lib, only="moe_gemm_")
+        loaded = mg_load(lib)
+        fns[tag] = {k: lib_fn(loaded, k) for k in
+                    ("moe_gemm", "moe_gemm_bwd_dx", "moe_gemm_bwd_dw")}
+    shapes = train_shapes()
+    sass = {tag: forward_sass(lib) for tag, lib in built.items()}
+    print(f"[ab] bf16 forward kernel's SASS (cuobjdump), "
+          f"{len(sass['change'])} instantiations: "
+          + ("not compared (no cuobjdump)" if not sass["change"] else
+             f"identical in both libraries {sass['parent'] == sass['change']}"
+             f" ({sum(map(len, sass['change'].values()))} lines)"))
+    digests = {tag: forward_digest(f["moe_gemm"]) for tag, f in fns.items()}
+    print(f"[ab] bf16 forward output digest at {FWD_DIGEST_SHAPE}: "
+          + ", ".join(f"{t} {d_}" for t, d_ in digests.items()))
+    assert digests["parent"] == digests["change"], digests
+
+    gen = torch.Generator("cuda").manual_seed(5)
+    for shape in (shapes["train gate/up"], shapes["jamba train down"],
+                  (3, 100, 96, 72), (1, 256, 512, 512),
+                  (2 * sms + 1, 64, 64, 200), (1, 4096, 4096, 1024)):
+        e, c, d, f = shape
+        x, w, dy = ((torch.randn(shp, generator=gen, device="cuda")
+                     * d ** -0.25).to(torch.bfloat16)
+                    for shp in ((e, c, d), (e, d, f), (e, c, f)))
+        for kname, args in (("moe_gemm_bwd_dx", (dy, w)),
+                            ("moe_gemm_bwd_dw", (x, dy))):
+            got = {tag: fns[tag][kname](*args).float() for tag in fns}
+            print(f"[ab] {kname} at {shape}: change vs parent max |diff| "
+                  f"{(got['change'] - got['parent']).abs().max():.3e}, "
+                  f"bit-identical "
+                  f"{torch.equal(got['change'], got['parent'])}")
+        del x, w, dy, got
+    torch.cuda.empty_cache()
+
+    for label, keys in (("MoE train layer", ("train gate/up",) * 2
+                         + ("train down",)),
+                        ("Jamba train layer", ("jamba train gate/up",) * 2
+                         + ("jamba train down",))):
+        layer = [shapes[k] for k in keys]
+        calls = [tuple((torch.randn(shp, generator=gen, device="cuda")
+                        * d_ ** -0.25).to(torch.bfloat16)
+                       for shp in ((e_, c_, d_), (e_, d_, f_), (e_, c_, f_)))
+                 for e_, c_, d_, f_ in layer]
+        bound_ms, bound_by = bound(layer, 2, bf16_fps, mem_bps)
+        for kname, pick, lib in (
+                ("moe_gemm", lambda x_, w_, dy_: (x_, w_), torch.bmm),
+                ("moe_gemm_bwd_dx", lambda x_, w_, dy_: (dy_, w_),
+                 lambda a, b: torch.bmm(a, b.transpose(1, 2))),
+                ("moe_gemm_bwd_dw", lambda x_, w_, dy_: (x_, dy_),
+                 lambda a, b: torch.bmm(a.transpose(1, 2), b))):
+            fns_ = {tag: fns[tag][kname] for tag in ("parent", "change")}
+            fns_["torch.bmm"] = lib
+            runs = [time_turns({
+                tag: (lambda fn=fn: [fn(*pick(*a)) for a in calls])
+                for tag, fn in fns_.items()}) for _ in range(2)]
+            print(f"[ab] {kname} {label} {layer}, ms (two runs of 20 "
+                  f"calls each in turns): " + "; ".join(
+                      ", ".join(f"{tag} {ms:.4f}" for tag, ms in t.items())
+                      + f" (change / parent {t['change'] / t['parent']:.4f})"
+                      for t in runs)
+                  + f"; bound {bound_ms:.4f} ms ({bound_by}); change at "
+                  f"{100 * bound_ms / runs[-1]['change']:.1f}% of the bound;"
+                  f" card just after: {card_state()}")
+        del calls
+        torch.cuda.empty_cache()
+    dw_sweep({tag: fns[tag]["moe_gemm_bwd_dw"] for tag in fns}, bf16_fps,
+             sms)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def attn_inputs(case, dtype, gen):
@@ -1593,6 +1880,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--ab"]:
+        return compare_trees(Path(sys.argv[2]))
 
     # ---- 1. the card -----------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1679,13 +1968,10 @@ def main() -> int:
                       ("jamba decode", jc_decode)):
         gemm_cases += [(f"{label} gate/up", (je, jc, jd, jf)),
                        (f"{label} down", (je, jc, jf, jd))]
-    # MoE training (slice 7): B=4 x S=2048, 160 slots an expert a row
-    c_train = TRAIN_BATCH * capacity(cfg, TRAIN_SEQ)
-    train_up, train_down = (e_pad, c_train, d, f), (e_pad, c_train, f, d)
-    # Jamba training (slice 8): B=2 x S=4096, 640 slots an expert a row
-    jc_train = JAMBA_TRAIN_BATCH * capacity(jcfg, JAMBA_TRAIN_SEQ)
-    jtrain_up, jtrain_down = (je, jc_train, jd, jf), (je, jc_train, jf, jd)
-    assert jc_train == 1280, jc_train
+    tshapes = train_shapes()
+    train_up, train_down = tshapes["train gate/up"], tshapes["train down"]
+    jtrain_up = tshapes["jamba train gate/up"]
+    jtrain_down = tshapes["jamba train down"]
     gemm_cases += [("jamba train gate/up", jtrain_up),
                    ("jamba train down", jtrain_down)]
     qcfg = get_config(QWEN3)
@@ -1696,6 +1982,14 @@ def main() -> int:
     gemm_cases.append(("ragged", (3, 100, 96, 72)))
     # d and f not multiples of 8: bf16 goes through the wrapper's padding
     gemm_cases.append(("unaligned d, f", (3, 100, 93, 71)))
+    # the persistent backward's schedule at its edges (64 x 256 output
+    # tiles, one block an SM): fewer tiles than SMs (dx 8, dw 16); 2 x
+    # SMs + 1 tiles in both dx and dw (a ragged f in dw's columns); one
+    # expert whose rows span many tiles (dx 1,024 tiles, dw 256)
+    gemm_cases += [("edge: one expert, few tiles", (1, 256, 512, 512)),
+                   ("edge: 2 x SMs + 1 tiles", (2 * sms + 1, 64, 64, 200)),
+                   ("edge: one expert, many row tiles",
+                    (1, 4096, 4096, 1024))]
     gen = torch.Generator("cuda").manual_seed(0)
 
     def operands(shape, dtype, scale=0.3):
@@ -1714,7 +2008,7 @@ def main() -> int:
             # kernel's and cuBLAS's orders part by up to 1.5e-4 (H100 80GB
             # HBM3, 700 W).
             scale = (shape[2] ** -0.25 if label.startswith(
-                ("jamba", "train", "qwen3")) else 0.3)
+                ("jamba", "train", "qwen3", "edge")) else 0.3)
             x, w = operands(shape, dtype, scale)
             got, want = moe_gemm(x, w), moe_gemm_ref(x, w)
             torch.cuda.synchronize()
@@ -1737,6 +2031,8 @@ def main() -> int:
     assert torch.equal(base[0], pert[0]) and torch.equal(base[3], pert[3])
     assert not torch.allclose(base[2], pert[2])
     print("[check] moe_gemm expert isolation: ok")
+    print(f"[check] moe_gemm bf16 forward output digest at "
+          f"{FWD_DIGEST_SHAPE}: {forward_digest(moe_gemm)}")
 
     # times at the path's shapes, bf16: each shape, then one MoE layer's
     # three calls (gate, up, down) as the kernel's line in the JSON, at the
@@ -1788,6 +2084,7 @@ def main() -> int:
     jamba_train_times = time_moe_train_layer(
         [jtrain_up, jtrain_up, jtrain_down], torch.bfloat16, gen, bf16_fps,
         mem_bps)
+    dw_sweep({"dw": moe_gemm_bwd_dw}, bf16_fps, sms)
 
     # ---- 4. flash attention vs plain, and its times ---------------------
     flash_errs = check_flash(gen)
@@ -2006,7 +2303,15 @@ def main() -> int:
                 "unit": "dx and dw of one MoE layer's three calls at the "
                         "Jamba train shapes (E=16, C=1280, d=4096, "
                         "f=14336); launches over the 6 full-width Jamba "
-                        "train steps"}} if bf16 else {}),
+                        "train steps",
+                **{g: {**times_of(jamba_train_times[g]),
+                       "device_ms": jamba_train_times[g]["device_ms"],
+                       "launches": jamba_train["counts"][
+                           f"moe_gemm_bwd_{g}"],
+                       "max_abs_err": max(bwd_errs[(lb, dtype)][i]
+                                          for lb in ("jamba train gate/up",
+                                                     "jamba train down"))}
+                   for i, g in enumerate(("dx", "dw"))}}} if bf16 else {}),
         })
     bwd_unit = ("one layer's call (dq, then dk/dv: two launches) at the "
                 "training path's shape (B=4, S=T=2048, 14:2 heads, hd 64, "

@@ -33,12 +33,14 @@ def _nvcc() -> str:
     return found
 
 
-def build(name: str, defines: tuple[str, ...] = ()) -> Path:
-    """Compile `csrc/<name>.cu` unless its library is already built; return
-    the library's path. `defines` are extra `-D` flags (a copy of the
-    library built with other compile-time constants). Raises with nvcc's
-    output if the build fails."""
-    src = CSRC / f"{name}.cu"
+def build(name: str, defines: tuple[str, ...] = (),
+          src: Path | None = None) -> Path:
+    """Compile `csrc/<name>.cu` (or `src`, another tree's copy of it)
+    unless its library is already built; return the library's path.
+    `defines` are extra `-D` flags (a copy of the library built with other
+    compile-time constants). Raises with nvcc's output if the build
+    fails."""
+    src = CSRC / f"{name}.cu" if src is None else Path(src)
     flags = (*NVCC_FLAGS, *defines)
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(flags).encode()).hexdigest()

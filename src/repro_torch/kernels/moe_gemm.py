@@ -35,7 +35,12 @@ _TMA_ALIGN = 8                  # bf16 elements in TMA's 16-byte stride unit
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(_build.build("moe_gemm")))
+    return load(_build.build("moe_gemm"))
+
+
+def load(path) -> ctypes.CDLL:
+    """A built moe_gemm library with its C entry points typed."""
+    lib = ctypes.CDLL(str(path))
     for kname in _KERNELS:
         for route in _ROUTE.values():
             fn = getattr(lib, f"{kname}_{route}")
