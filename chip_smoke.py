@@ -2,12 +2,15 @@
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
 
   python3 chip_smoke.py
-  python3 chip_smoke.py --ab PARENT   # moe_gemm against another checkout
+  python3 chip_smoke.py --ab PARENT   # moe_gemm and the selective scan
+                                      # against another checkout
 
 Run from the repository root on a machine with a Hopper card and `nvcc`.
 With `--ab PARENT` (a checkout of another commit, e.g. unpacked from `git
 archive` into a directory `.gitignore` lists) it only compares the bf16
-`moe_gemm` kernels of the two trees (`compare_trees`). With no argument,
+`moe_gemm` kernels of the two trees (`compare_trees`) and their selective
+scans, each through its own tree's wrapper (`compare_scans`). With no
+argument,
 phases, in order; any failure raises and exits non-zero (no phase catches
 its own failure):
 
@@ -21,8 +24,9 @@ its own failure):
      (registers, spills, static smem, warnings) for every kernel, the bf16
      tensor-core ones included, the flash kernels' dynamic smem
      (forward, dq and dk/dv, each in both routes), the selective scan's
-     and its backward's dynamic smem and the three scan kernels' resident
-     blocks an SM;
+     and its backward's dynamic smem (both dtypes), the three scan
+     kernels' resident blocks an SM, the backward's channels a block and
+     the steps between the states the forward keeps;
   3. `moe_gemm` and its backward kernels (dx, dw) against their plain
      PyTorch versions on the card, in bf16 (wgmma/TMA) and f32 (CUDA
      cores): the qwen2-moe serving path's two shapes, the Jamba prefill's
@@ -98,7 +102,9 @@ its own failure):
      two trees' kernels bit for bit); then the selective scan's
      backward kernel and its second pass against
      `selective_scan_bwd_ref` at every SCAN_CASES shape (the Jamba train
-     path's, B=2 S=4096, among them), in bf16 and f32, with h0 and a
+     path's, B=2 S=4096, among them) and SCAN_BWD_EDGES shape (S inside
+     one segment and one step past a segment or chunk, fewer blocks than
+     SMs, D off the channel block and odd), in bf16 and f32, with h0 and a
      dh_last cotangent and without either, B and C strided: two calls bit
      for bit, the forward that keeps the segment states bit-identical to
      the plain one; gradients through `selective_scan`'s autograd Function
@@ -152,6 +158,8 @@ from __future__ import annotations
 import ctypes
 import gc
 import hashlib
+import importlib
+import importlib.util
 import json
 import math
 import re
@@ -226,6 +234,16 @@ SCAN_CASES = {"path": (1, PREFILL_SEQ, 8192, 16),
               "B=2": (2, 1024, 8192, 16),
               "ragged S=1000 D=200": (2, 1000, 200, 16),
               "N=5": (1, 300, 72, 5)}
+# the selective-scan backward's edges (h kept every 16 steps, 64-channel
+# blocks of 2-channel pairs), held against the plain version beside
+# SCAN_CASES: S inside one segment (1, 15), one step past a segment (17)
+# and past the forward's 32-step chunk (33), S=31; fewer blocks than SMs
+# (B=1, D=200: 4 blocks); D off the 64-channel block (200, 96) and odd
+# (201: the last pair half outside D, every row's pairs unaligned)
+SCAN_BWD_EDGES = {"S=1": (1, 1, 64, 16), "S=15 D=200": (1, 15, 200, 16),
+                  "S=17": (2, 17, 64, 16), "S=31 D=96": (1, 31, 96, 16),
+                  "S=33 D=201 N=7": (2, 33, 201, 7),
+                  "B=1 D=200": (1, 100, 200, 16)}
 # (B, S, D) of a linear scan with 2,048 tiles of 64 steps, 1,024 deep in
 # time: far more than the card holds blocks at once, so look-backs wait on
 # tiles still loading and walk back over aggregates
@@ -539,11 +557,14 @@ def card_state() -> str:
         text=True).stdout.strip()
 
 
-def forward_sass(lib: Path) -> dict:
-    """cuobjdump's SASS of each instantiation of the bf16 forward kernel
-    in a built moe_gemm library, by its template argument (the mangled
-    name's anonymous namespace differs between sources); empty where the
-    toolkit has no cuobjdump."""
+def kernel_sass(lib: Path, pattern: str = r"moe_gemm_wgmma_kernelI(\w+?)E"
+                ) -> dict:
+    """cuobjdump's SASS of each kernel in a built library whose mangled
+    name `pattern` matches, keyed by the pattern's group (the template
+    arguments: the anonymous namespace differs between sources); by
+    default the bf16 moe_gemm forward's instantiations. Each line's runs
+    of blanks are collapsed: cuobjdump pads its columns to the longest
+    name in the file. Empty where the toolkit has no cuobjdump."""
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     if not tool.exists():
         return {}
@@ -553,12 +574,12 @@ def forward_sass(lib: Path) -> dict:
     for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            t = re.search(r"moe_gemm_wgmma_kernelI(\w+?)E", m.group(1))
+            t = re.search(pattern, m.group(1))
             cur = t.group(1) if t else None
             if cur:
                 funcs[cur] = []
         elif cur and line.strip():
-            funcs[cur].append(line.strip())
+            funcs[cur].append(" ".join(line.split()))
     return funcs
 
 
@@ -694,9 +715,15 @@ def compare_trees(parent: Path) -> int:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     jobs = {"parent": parent / "src/repro_torch/kernels/csrc/moe_gemm.cu",
             "change": None}
-    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+    # the selective scan through each tree's own wrapper: the parent's
+    # package, imported beside this one, builds its own ssm_scan.cu
+    parent_scan = tree_module(parent, "kernels.ssm_scan", "parent_repro_torch")
+    with ThreadPoolExecutor(max_workers=len(jobs) + 2) as pool:
+        scan_builds = [pool.submit(mod._lib) for mod in (parent_scan, sscan)]
         built = dict(zip(jobs, pool.map(
             lambda src: _build.build("moe_gemm", src=src), jobs.values())))
+        for job in scan_builds:
+            job.result()
     fns = {}
     for tag, lib in built.items():
         print(f"[build] moe_gemm ({tag}) -> {lib.name}")
@@ -705,7 +732,7 @@ def compare_trees(parent: Path) -> int:
         fns[tag] = {k: lib_fn(loaded, k) for k in
                     ("moe_gemm", "moe_gemm_bwd_dx", "moe_gemm_bwd_dw")}
     shapes = train_shapes()
-    sass = {tag: forward_sass(lib) for tag, lib in built.items()}
+    sass = {tag: kernel_sass(lib) for tag, lib in built.items()}
     print(f"[ab] bf16 forward kernel's SASS (cuobjdump), "
           f"{len(sass['change'])} instantiations: "
           + ("not compared (no cuobjdump)" if not sass["change"] else
@@ -767,10 +794,101 @@ def compare_trees(parent: Path) -> int:
         torch.cuda.empty_cache()
     dw_sweep({tag: fns[tag]["moe_gemm_bwd_dw"] for tag in fns}, bf16_fps,
              sms)
+    compare_scans(parent_scan)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def tree_module(root: Path, dotted: str, alias: str):
+    """`repro_torch.<dotted>` of the checkout at `root`, imported as the
+    package `alias` beside this tree's own (its wrappers build their
+    kernels from its own sources into its own `_build/`)."""
+    pkg = root / "src" / "repro_torch"
+    if alias not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            alias, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[alias] = module
+        spec.loader.exec_module(module)
+    return importlib.import_module(f"{alias}.{dotted}")
+
+
+def compare_scans(parent_scan) -> None:
+    """`--ab`'s selective-scan part: this tree's `ssm_scan` wrappers and
+    the parent checkout's (`parent_scan`), each launching its own build.
+    The inference forward `sel_scan_kernel<T, R, P, false>`: SASS
+    (cuobjdump) and output digest, both equal. The backward, each from its
+    own forward's states, against `selective_scan_bwd_ref` and against
+    each other at the Jamba train shape and two SCAN_CASES edge shapes (h0
+    and dh_last given). Then times in turns (parent, change, change,
+    parent; two runs) at the train shape of the backward, the forward
+    that keeps the states and the inference forward, with the card's
+    state just after each."""
+    pattern = r"sel_scan_kernelI(\w+?Lb0E)E"
+    sass = {tag: kernel_sass(mod._build.build("ssm_scan"), pattern)
+            for tag, mod in (("parent", parent_scan), ("change", sscan))}
+    print(f"[ab] selective scan's inference forward SASS (cuobjdump), "
+          f"{len(sass['change'])} instantiations: "
+          + ("not compared (no cuobjdump)" if not sass["change"] else
+             f"identical in both libraries {sass['parent'] == sass['change']}"
+             f" ({sum(map(len, sass['change'].values()))} lines)"))
+    digests = {"parent": scan_digest(parent_scan.selective_scan),
+               "change": scan_digest(selective_scan)}
+    print(f"[ab] selective scan output digest at {SCAN_CASES['path']}: "
+          + ", ".join(f"{t} {d_}" for t, d_ in digests.items()))
+    assert digests["parent"] == digests["change"], digests
+
+    gen = torch.Generator("cuda").manual_seed(11)
+    mods = {"parent": parent_scan, "change": sscan}
+    for label in ("train", "ragged S=1000 D=200", "N=5"):
+        args = sel_inputs(SCAN_CASES[label], torch.bfloat16, gen, True)
+        dy = torch.randn(args[0].shape, generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        dh = torch.randn(args[6].shape, generator=gen, device="cuda")
+        got = {tag: mod.selective_scan_bwd(*args, dy, dh,
+                                           mod._forward_states(*args)[2])
+               for tag, mod in mods.items()}
+        want = selective_scan_bwd_ref(*args, dy, dh)
+        errs = {tag: {k: grad_err(g, w)[1]
+                      for k, g, w in zip(SCAN_GRADS, got[tag], want)}
+                for tag in got}
+        diff = {k: (a.float() - b.float()).abs().max().item() for k, a, b in
+                zip(SCAN_GRADS, got["change"], got["parent"])}
+        print(f"[ab] selective_scan_bwd {label} {SCAN_CASES[label]} bf16, h0 "
+              f"and dh_last: max |kernel - plain| / max(1, |plain|) "
+              + "; ".join(f"{tag} " + ", ".join(f"{k} {e:.2e}" for k, e in
+                                                 errs[tag].items())
+                          for tag in errs)
+              + "; change vs parent max |diff| "
+              + ", ".join(f"{k} {e:.3e}" for k, e in diff.items()))
+        for tag in errs:
+            assert all(e <= SCAN_BWD_TOL[g.dtype] for e, g in
+                       zip(errs[tag].values(), got[tag])), (label, tag, errs)
+        del args, dy, dh, got, want
+        torch.cuda.empty_cache()
+
+    args = sel_inputs(SCAN_CASES["train"], torch.bfloat16, gen, False)
+    dy = torch.randn(args[0].shape, generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    h_seg = {tag: mod._forward_states(*args)[2] for tag, mod in mods.items()}
+    for what, call in (
+            ("backward (both kernels)",
+             lambda m, tag: m.selective_scan_bwd(*args, dy, None,
+                                                 h_seg[tag])),
+            ("forward keeping the states",
+             lambda m, tag: m._forward_states(*args)),
+            ("inference forward", lambda m, tag: m.selective_scan(*args))):
+        runs = [time_turns({tag: (lambda m=mod, tag=tag: call(m, tag))
+                            for tag, mod in mods.items()}) for _ in range(2)]
+        print(f"[ab] selective scan {what} {SCAN_CASES['train']} bf16, ms "
+              f"(two runs of 20 calls each in turns): " + "; ".join(
+                  ", ".join(f"{tag} {ms:.4f}" for tag, ms in t.items())
+                  + f" (change / parent {t['change'] / t['parent']:.4f})"
+                  for t in runs) + f"; card just after: {card_state()}")
+    del args, dy, h_seg
+    torch.cuda.empty_cache()
 
 
 def attn_inputs(case, dtype, gen):
@@ -1154,14 +1272,14 @@ def sel_inputs(case, dtype, gen, with_h0=True):
             rnd(b, d, n) if with_h0 else None)
 
 
-def scan_digest() -> str:
+def scan_digest(scan=selective_scan) -> str:
     """SHA-256 of the selective scan's y and h_last at the path's shape in
     bf16 with no h0, on inputs from a generator seeded 7: the bits of the
-    forward kernel as the inference path launches it, to compare two
-    trees' kernels."""
+    forward kernel as the inference path launches it (`scan`: this tree's
+    wrapper or another checkout's), to compare two trees' kernels."""
     args = sel_inputs(SCAN_CASES["path"], torch.bfloat16,
                       torch.Generator("cuda").manual_seed(7), False)
-    y, h_last = selective_scan(*args)
+    y, h_last = scan(*args)
     return hashlib.sha256(y.view(torch.int16).cpu().numpy().tobytes()
                           + h_last.cpu().numpy().tobytes()).hexdigest()
 
@@ -1381,8 +1499,9 @@ def grad_err(got, want) -> tuple[float, float]:
 
 def check_scan_bwd(gen, mem_bps, sfu_rate, f32_fps) -> dict:
     """The selective-scan backward kernel (and its second pass) against
-    `selective_scan_bwd_ref` at every SCAN_CASES shape, in bf16 and f32,
-    with h0 and a dh_last cotangent and without either, B and C strided:
+    `selective_scan_bwd_ref` at every SCAN_CASES and SCAN_BWD_EDGES shape,
+    in bf16 and f32, with h0 and a dh_last cotangent and without either,
+    B and C strided:
     each gradient within SCAN_BWD_TOL, two calls bit for bit, and the
     forward that keeps the segment states bit-identical to the plain
     launch in y and h_last. Then the gradients through `selective_scan`'s
@@ -1391,7 +1510,7 @@ def check_scan_bwd(gen, mem_bps, sfu_rate, f32_fps) -> dict:
     no dh_last). Returns the max |kernel - plain| there and the times."""
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for label, case in SCAN_CASES.items():
+        for label, case in {**SCAN_CASES, **SCAN_BWD_EDGES}.items():
             for with_h0 in (True, False):
                 args = sel_inputs(case, dtype, gen, with_h0)
                 y, h_last, h_seg = sscan._forward_states(*args)
@@ -1948,10 +2067,13 @@ def main() -> int:
           f"{slib.selective_scan_blocks_per_sm(0)}; lin_scan_kernel bf16 "
           f"{slib.ssm_scan_blocks_per_sm(1)}, f32 "
           f"{slib.ssm_scan_blocks_per_sm(0)}")
-    print(f"[build]   sel_scan_bwd_kernel: dynamic smem "
-          f"{slib.selective_scan_bwd_smem_bytes()} B; blocks an SM bf16 "
+    print(f"[build]   sel_scan_bwd_kernel: dynamic smem bf16 "
+          f"{slib.selective_scan_bwd_smem_bytes(1)} B, f32 "
+          f"{slib.selective_scan_bwd_smem_bytes(0)} B; blocks an SM bf16 "
           f"{slib.selective_scan_bwd_blocks_per_sm(1)}, f32 "
-          f"{slib.selective_scan_bwd_blocks_per_sm(0)}")
+          f"{slib.selective_scan_bwd_blocks_per_sm(0)}; "
+          f"{slib.selective_scan_bwd_block_channels()} channels a block; h "
+          f"kept every {slib.selective_scan_seg_steps()} steps")
 
     # ---- 3. kernel vs plain ---------------------------------------------
     cfg = get_config(ARCH)
@@ -2388,6 +2510,10 @@ def main() -> int:
         "name": "selective_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "kernel": "sel_scan_bwd_kernel, sel_scan_bwd_reduce_kernel",
+        "layout": {"seg_steps": slib.selective_scan_seg_steps(),
+                   "block_channels": slib.selective_scan_bwd_block_channels(),
+                   "smem_bytes": slib.selective_scan_bwd_smem_bytes(1),
+                   "blocks_per_sm": slib.selective_scan_bwd_blocks_per_sm(1)},
         "replaces": None,
         "launches": jamba_train["counts"]["selective_scan_bwd"],
         "reduce_launches":

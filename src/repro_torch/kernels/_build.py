@@ -13,6 +13,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -48,7 +49,10 @@ def build(name: str, defines: tuple[str, ...] = (),
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+    # one temporary a build: two threads of one process may build the same
+    # source (two trees whose copies are equal), each renaming its own
+    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.{threading.get_ident()}"
+                        f".tmp.so")
     cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log = proc.stdout + proc.stderr

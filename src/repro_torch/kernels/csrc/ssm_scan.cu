@@ -84,28 +84,52 @@
 //
 // Bound. It reads x, dt, dy, B, C and h_seg and writes dx, ddt, dB, dC,
 // dh0: on the Jamba train path (B=2, S=4096, D=8192, N=16, bf16) about
-// 5 x 2 B x 67 M + 134 MB of h_seg, 0.24 ms at 3.35 TB/s; and B*S*D*N =
-// 1.1 G exponentials with about 20 f32 flops each, about 0.3 ms
-// (chip_smoke.py's scan_bound). This kernel takes two exponentials a state
-// a step (the recomputed forward's, then the reverse walk's).
+// 5 x 2 B x 67 M + 268 MB of h_seg, 0.28 ms at 3.35 TB/s; and B*S*D*N =
+// 1.1 G exponentials with about 20 f32 flops each, 0.32 ms (chip_smoke.py's
+// scan_bound): the operations bind. The kernel takes two exp2 a state a
+// step (the recomputed forward's, then the reverse walk's), 0.51 ms of SFU
+// time at 1.98 GHz, and about 14 f32 operations (4 recomputing, 10
+// walking back) besides the sums across lanes.
 //
-// Design: a simple kernel, right first (no producer warp, no FMA-pipe
-// exp2). The grid is the forward's, (kCh-channel blocks, batch rows); a
-// thread owns kBR = 4 states of one channel, kBNL = 4 lanes a channel.
-// The block walks the segments last to first. For each it stages the
-// segment's x, dt, dy, B and C in shared memory as f32 (zeros past S, D
-// and N), recomputes the segment's states from the saved h_seg into a
-// shared-memory trail (h_{t-1} of each step, 64 KB), then walks the steps
-// in reverse with g in registers:
-//   * dx and ddt: the sums over n across a channel's 4 lanes by shuffles;
-//   * da_log and dD: summed over time in registers;
-//   * dB and dC: summed over the warp's 8 channels by shuffles, then over
-//     the block's 4 warps in a fixed order into a per-block partial
-//     [B, blocks, 2, S, N] in device memory.
-// A second kernel (sel_scan_bwd_reduce_kernel) sums the partials over
-// the channel blocks and da_log's and dD's over the batch, each in a
-// fixed order, and scales da_log by A. No atomics: two calls give the
-// same bits.
+// What held the first design (one channel x 4 states a thread, 4 warps
+// and 104 KB of shared memory a 32-channel block, h kept every 32 steps)
+// at 3.95 ms, 8% of the bound: 8 warps an SM, mostly waiting; 28
+// dependent shuffles a thread a step for the sums over states and
+// channels; staging loads with no prefetch between two __syncthreads a
+// segment; 268 MB of per-block partials.
+//
+// Design:
+//   * The forward keeps h every kSeg = 16 steps (h_seg, 268 MB here), so
+//     the trail of h_{t-1} a segment needs is 16 steps, 64 KB a block of
+//     kBCh = 64 channels, and two blocks fit an SM: 8 consumer warps. The
+//     trail is what bounds the resident warps: one block an SM ran 1.29x
+//     slower; h every 8 steps, 3 blocks an SM, 7% slower (PERF.md has
+//     the readings of the layouts tried).
+//   * A consumer thread owns kBC = 2 neighbouring channels x kBR = 4
+//     states: 8 independent recurrences, the sums over its 4 states and
+//     its 2 channels in registers, (dt, x, dy) as 8-byte and B, C as
+//     16-byte shared-memory broadcasts.
+//   * A producer warp stages each segment (last to first) by cp.async:
+//     f32 inputs straight into a ring of two f32 stages, bf16 ones into a
+//     raw stage that it then widens into the ring, one segment ahead of
+//     the consumers, through "full" and "empty" mbarriers. The consumers
+//     load the next segment's h_seg into registers while they walk this
+//     one.
+//   * Reductions are batched kBBatch = 4 steps (the steps a straight run,
+//     so exp2 and loads are issued ahead; the batch loop is not unrolled,
+//     which keeps the code small: unrolled it ran 1.19-1.23x slower). sx and
+//     sdt (dx, ddt) are reduce-scattered over a pair's 4 lanes, 12 shuffles
+//     a batch, lane q keeping step q; dB and dC over the warp's 8 pairs,
+//     28 shuffles, each lane keeping 4 states of one (step, dB or dC),
+//     then summed over the 4 warps in order through shared memory at the
+//     segment's end into one partial a block, [B, D/64, 2, S, N] (134 MB).
+//     40 shuffles per 32 state-steps a thread, where the first design took
+//     112.
+//   * A second kernel (sel_scan_bwd_reduce_kernel) sums the partials over
+//     the channel blocks and da_log's and dD's over the batch, each in a
+//     fixed order, and scales da_log by A.
+// No atomics: every sum runs in a fixed order and two calls give the same
+// bits.
 //
 // ---------------------------------------------------------------------
 // Linear scan: h_t = a_t * h_{t-1} + bx_t over axis 1, a and bx [B,S,D]
@@ -172,7 +196,7 @@ struct SelScanBwdArgs {
   const void* c;
   const float* d;
   const float* h_seg;     // the forward's, [B, ceil(S/kSeg), D, N]
-  const void* dy;         // [B,S,D] contiguous
+  const void* dy;         // [B,S,D], unit stride along D
   const float* dh_last;   // [B,D,N] or null (zero)
   void* dx;               // [B,S,D] contiguous
   void* ddt;              // [B,S,D] contiguous
@@ -184,7 +208,7 @@ struct SelScanBwdArgs {
   float* part_bc;         // [B, blocks, 2, S, N]: a block's dB and dC
   float* part_a;          // [B,D,N]: sum_t g dt da h_{t-1}
   float* part_d;          // [B,D]: sum_t dy x
-  long long x_sb, x_ss, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss;
+  long long x_sb, x_ss, dt_sb, dt_ss, b_sb, b_ss, c_sb, c_ss, dy_sb, dy_ss;
   int B, S, D, N;
 };
 
@@ -204,7 +228,7 @@ struct LinScanArgs {
 namespace {
 
 constexpr int kChunk = 32;       // time steps a stage (== warp size)
-constexpr int kSeg = kChunk;     // steps between the states h_seg keeps
+constexpr int kSeg = 16;         // steps between the states h_seg keeps
 constexpr int kCh = 32;          // channels a selective-scan block
 constexpr int kNP = 16;          // states, padded: N <= 16
 constexpr int kTilePitch = kCh + 8;   // f32 a row of a y tile: the 4
@@ -234,15 +258,28 @@ static_assert((kR == 2 || kR == 4 || kR == 8) && 0 <= kP && kP <= kR,
               "a split of the 16 states");
 
 static_assert(kChunk == 32, "a consumer lane writes one row of a chunk");
+static_assert(kChunk == 2 * kSeg && kSeg % kExpAhead == 0,
+              "the forward keeps h at the start and middle of a chunk");
 
-// The backward's split: kBR states a thread, kBNL lanes a channel.
+// The backward's layout: a consumer thread owns kBC neighbouring channels
+// and kBR states of each, kBNL lanes a channel pair; kBWarps consumer
+// warps and one producer warp a block of kBCh channels.
 constexpr int kBR = 4;
-constexpr int kBNL = kNP / kBR;
-constexpr int kBThreads = kCh * kBNL;        // 128
-constexpr int kBWarps = kBThreads / 32;
+constexpr int kBC = 2;
+constexpr int kBNL = kNP / kBR;                    // 4 lanes a channel pair
+constexpr int kBPairs = 32 / kBNL;                 // 8 pairs a warp
+constexpr int kBWarps = 4;
+constexpr int kBCh = kBWarps * kBPairs * kBC;      // 64 channels a block
+constexpr int kBCons = 32 * kBWarps;               // consumer threads
+constexpr int kBThreads = kBCons + 32;             // and the producer
+constexpr int kBStages = 2;                        // f32 ring of segments
+constexpr int kBBatch = 4;                         // steps a batch of sums
 constexpr int kReduceThreads = 256;
-static_assert(kBR == 4 && 32 % kBNL == 0, "float4 states, whole channels "
-              "a warp");
+static_assert(kBR == 4 && kBC == 2 && kBNL == 4 && kSeg % kBBatch == 0,
+              "float4 states, float2 channel pairs; the batch's sums of the "
+              "reverse walk are laid out for 4 lanes a pair and 4 steps");
+static_assert(kBCons == kSeg * 2 * kNP / 4,
+              "a consumer thread sums one float4 of a segment's dB and dC");
 
 // Coefficients of exp2_fma's polynomial: 2^f ~ 1 + f (c1 + f (c2 + ...)),
 // a relative minimax fit on [-1/2, 1/2] with p(0) = 1 exactly
@@ -475,6 +512,21 @@ __device__ __forceinline__ void store_piece(T* dst, const float* src,
   }
 }
 
+// The forward's h of a thread's R states (from n0, of channel d, batch
+// row bi) before segment seg, into h_seg: only the kStates instantiation
+// calls it, so the inference path's code is the same as without it.
+template <int R>
+__device__ __forceinline__ void keep_state(const SelScanArgs& p, int bi,
+                                           int seg, int d, int n0, bool dok,
+                                           const float (&h)[R]) {
+  const int n_segs = (p.S + kSeg - 1) / kSeg;
+  float* hs = p.h_seg
+              + ((static_cast<size_t>(bi) * n_segs + seg) * p.D + d) * p.N;
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (dok && n0 + r < p.N) hs[n0 + r] = h[r];
+}
+
 // Selective scan: one block per (kCh channels, batch row); NL consumer
 // warps (kCh channels x NL lanes) and one producer warp, the last.
 // kStates: also store h before every chunk into h_seg, for a backward (a
@@ -626,13 +678,7 @@ sel_scan_kernel(const SelScanArgs p) {
     }
   };
   for (int kc = 0; kc < n_chunks; ++kc) {
-    if constexpr (kStates) {            // h before chunk kc
-      float* hs = p.h_seg
-                  + ((static_cast<size_t>(bi) * n_chunks + kc) * D + d) * N;
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-        if (dok && n0 + r < N) hs[n0 + r] = h[r];
-    }
+    if constexpr (kStates) keep_state<R>(p, bi, 2 * kc, d, n0, dok, h);
     const int s = kc % kStages;
     mbar_wait(full(s), (kc / kStages) & 1);
     const unsigned char* st = smem + L::kStageOff + s * L::kStage;
@@ -646,6 +692,11 @@ sel_scan_kernel(const SelScanArgs p) {
     float part[kChunk];
 #pragma unroll
     for (int t0 = 0; t0 < kChunk; t0 += kExpAhead) {
+      // the chunk's second segment, where it lies inside S
+      if constexpr (kStates) {
+        if (t0 == kSeg && kc * kChunk + kSeg < S)
+          keep_state<R>(p, bi, 2 * kc + 1, d, n0, dok, h);
+      }
       // a sub-block's exponentials first, then its recurrences: each
       // exp2's result is used a sub-block of work after it is issued
       float da[kExpAhead][R], dtx[kExpAhead];
@@ -845,187 +896,372 @@ lin_scan_kernel(const LinScanArgs p) {
 }
 
 // Byte offsets of the backward's dynamic shared memory: the trail of
-// states, then f32 tiles of kSeg steps.
+// states; the f32 ring of segments (x, dt, dy tiles [t][channel], B and C
+// rows [t][state]); for bf16 the raw stage cp.async fills (f32 inputs land
+// in the ring itself, which has their layout); the segment's dB and dC of
+// each consumer warp; the mbarriers.
+template <typename T>
 struct SelBwdSmem {
-  static constexpr int kTrail = kSeg * kBThreads * kBR * 4;   // h_{t-1}
-  static constexpr int kTile = kSeg * kCh * 4;                // [t][channel]
-  static constexpr int kRow = kSeg * kNP * 4;                 // [t][state]
-  static constexpr int kX = kTrail, kDt = kX + kTile, kDy = kDt + kTile;
-  static constexpr int kDx = kDy + kTile, kDdt = kDx + kTile;
-  static constexpr int kB = kDdt + kTile, kC = kB + kRow;
-  static constexpr int kRed = kC + kRow;       // [t][warp][dB, dC][state]
-  static constexpr int kBytes = kRed + kSeg * kBWarps * 2 * kNP * 4;
+  static constexpr int kTrail = kSeg * kBC * kBCons * 16;     // float4 h_{t-1}
+  static constexpr int kTile = kSeg * kBCh;                   // elements
+  static constexpr int kRow = kSeg * kNP;                     // elements
+  static constexpr int kStage = (3 * kTile + 2 * kRow) * 4;   // f32
+  static constexpr int kRaw = sizeof(T) == 4 ? 0 : (3 * kTile + 2 * kRow)
+                                                   * int(sizeof(T));
+  static constexpr int kStageOff = kTrail;
+  static constexpr int kRawOff = kStageOff + kBStages * kStage;
+  static constexpr int kRedOff = kRawOff + kRaw;    // [t][warp][dB, dC][n]
+  static constexpr int kBarOff = kRedOff + kSeg * kBWarps * 2 * kNP * 4;
+  static constexpr int kBytes = kBarOff + 2 * kBStages * 8;
+  static_assert(kStage % 16 == 0 && kRaw % 16 == 0, "16-byte pieces");
 };
 
-// Selective-scan backward: one block per (kCh channels, batch row), kBNL
-// lanes of kBR states a channel; segments last to first (see the note at
-// the top).
+// One level of a reduce-scatter across the lanes that differ in bit M: of
+// v's first K values a lane keeps the half its bit M selects (the upper
+// half where it is set), adds its partner's copy of that half and leaves
+// the sums in v[0 .. K/2). Each level adds in the same grouping on every
+// call.
+template <int K, int M, int V>
+__device__ __forceinline__ void halve(float (&v)[V], int lane) {
+  static_assert(K <= V && K % 2 == 0, "halve the first K values");
+  constexpr int H = K / 2;
+  const bool upper = (lane & M) != 0;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = upper ? v[i] : v[i + H];
+    const float keep = upper ? v[i + H] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+  }
+}
+
+// Two neighbouring channels' values, out as T: one store where `pair`
+// (both inside D, their offset even), else each one inside D alone.
 template <typename T>
-__global__ void __launch_bounds__(kBThreads)
+__device__ __forceinline__ void store_pair(T* dst, float a, float b,
+                                           bool pair, bool ok0, bool ok1) {
+  if (pair) {
+    if constexpr (sizeof(T) == 4)
+      *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+    else
+      *reinterpret_cast<uint32_t*>(dst) = pack2(dst, a, b);
+  } else {
+    if (ok0) dst[0] = from_f32<T>(a);
+    if (ok1) dst[1] = from_f32<T>(b);
+  }
+}
+
+// Selective-scan backward: one block per (kBCh channels, batch row),
+// kBWarps consumer warps and one producer warp, the last; segments last to
+// first (see the note at the top).
+template <typename T>
+__global__ void __launch_bounds__(kBThreads, 2)
 sel_scan_bwd_kernel(const SelScanBwdArgs p) {
-  using L = SelBwdSmem;
+  using L = SelBwdSmem<T>;
   extern __shared__ __align__(16) unsigned char smem[];
-  float4* trail = reinterpret_cast<float4*>(smem);
-  float* xs = reinterpret_cast<float*>(smem + L::kX);
-  float* dts = reinterpret_cast<float*>(smem + L::kDt);
-  float* dys = reinterpret_cast<float*>(smem + L::kDy);
-  float* dxs = reinterpret_cast<float*>(smem + L::kDx);
-  float* ddts = reinterpret_cast<float*>(smem + L::kDdt);
-  float* bs = reinterpret_cast<float*>(smem + L::kB);
-  float* cs = reinterpret_cast<float*>(smem + L::kC);
-  float* red = reinterpret_cast<float*>(smem + L::kRed);
+  const uint32_t bars = smem_addr(smem + L::kBarOff);
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kBStages + s); };
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int ch = tid / kBNL, q = tid % kBNL, n0 = q * kBR;
-  const int bi = blockIdx.y, blk = blockIdx.x, nblk = gridDim.x;
-  const int d0 = blk * kCh, d = d0 + ch;
+  const int bi = blockIdx.y, blk = blockIdx.x;
+  const int d0 = blk * kBCh;
   const int S = p.S, D = p.D, N = p.N;
   const int nseg = (S + kSeg - 1) / kSeg;
-  const bool dok = d < D;
-  const T* xg = static_cast<const T*>(p.x) + bi * p.x_sb;
-  const T* dtg = static_cast<const T*>(p.dt) + bi * p.dt_sb;
-  const T* bg = static_cast<const T*>(p.b) + bi * p.b_sb;
-  const T* cg = static_cast<const T*>(p.c) + bi * p.c_sb;
-  const T* dyg = static_cast<const T*>(p.dy) + static_cast<size_t>(bi) * S * D;
 
-  // a2: A log2(e), for exp2; g: the gradient carried from the step after,
-  // da_{t+1} g_{t+1}, seeded with dh_last; acc: da_log's sum over time
-  float an[kBR], a2[kBR], g[kBR], acc[kBR];
-#pragma unroll
-  for (int r = 0; r < kBR; ++r) {
-    const int n = n0 + r;
-    const bool live = dok && n < N;
-    an[r] = live ? -expf(p.a_log[static_cast<size_t>(d) * N + n]) : 0.f;
-    a2[r] = an[r] * kLog2e;
-    g[r] = live && p.dh_last
-               ? p.dh_last[(static_cast<size_t>(bi) * D + d) * N + n] : 0.f;
-    acc[r] = 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < kBStages; ++s) {
+      mbar_init(full(s), 32);
+      mbar_init(empty(s), kBWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  const float dv = dok ? p.d[d] : 0.f;
-  float acc_d = 0.f;
+  __syncthreads();
 
-  for (int seg = nseg - 1; seg >= 0; --seg) {
-    const int t0 = seg * kSeg;
-    __syncthreads();                    // the last segment's tiles are read
-    for (int i = tid; i < kSeg * kCh; i += kBThreads) {
-      const int t = t0 + i / kCh, c = d0 + i % kCh;
-      const bool in = t < S && c < D;
-      xs[i] = in ? to_f32(xg[t * p.x_ss + c]) : 0.f;
-      dts[i] = in ? to_f32(dtg[t * p.dt_ss + c]) : 0.f;
-      dys[i] = in ? to_f32(dyg[static_cast<size_t>(t) * D + c]) : 0.f;
-    }
-    for (int i = tid; i < kSeg * kNP; i += kBThreads) {
-      const int t = t0 + i / kNP, n = i % kNP;
-      const bool in = t < S && n < N;
-      bs[i] = in ? to_f32(bg[t * p.b_ss + n]) : 0.f;
-      cs[i] = in ? to_f32(cg[t * p.c_ss + n]) : 0.f;
-    }
-    float h[kBR];
-    const float* hseg = p.h_seg
-        + ((static_cast<size_t>(bi) * nseg + seg) * D + d) * N;
+  if (warp == kBWarps) {                // ---------------- the producer
+    const T* xg = static_cast<const T*>(p.x) + bi * p.x_sb;
+    const T* dtg = static_cast<const T*>(p.dt) + bi * p.dt_sb;
+    const T* dyg = static_cast<const T*>(p.dy) + bi * p.dy_sb;
+    const T* bg = static_cast<const T*>(p.b) + bi * p.b_sb;
+    const T* cg = static_cast<const T*>(p.c) + bi * p.c_sb;
+    constexpr int E = 16 / sizeof(T);   // elements a 16-byte piece
+    constexpr int XP = kBCh / E;        // pieces a row of a channel tile
+    constexpr int BP = kNP / E;         // pieces a row of B or C
+    constexpr int TB = L::kTile * int(sizeof(T));   // bytes of a raw tile
+    constexpr int RB = L::kRow * int(sizeof(T));    // ... of raw rows
+    // segment seg's dt, x, dy, B and C in the raw layout at dst, zeros
+    // past S, D and N
+    auto issue = [&](int seg, unsigned char* dst) {
+      const int t0 = seg * kSeg;
 #pragma unroll
-    for (int r = 0; r < kBR; ++r)
-      h[r] = dok && n0 + r < N ? hseg[n0 + r] : 0.f;
-    __syncthreads();
-
-    // the segment's states from its first: trail[t] holds h_{t-1}
-    for (int t = 0; t < kSeg; ++t) {
-      trail[t * kBThreads + tid] = make_float4(h[0], h[1], h[2], h[3]);
-      const float dtv = dts[t * kCh + ch];
-      const float dtx = dtv * xs[t * kCh + ch];
-      const float4 b4 = *reinterpret_cast<const float4*>(bs + t * kNP + n0);
-      const float bb[kBR] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int r = 0; r < kBR; ++r)
-        h[r] = fmaf(exp2_sfu(dtv * a2[r]), h[r], dtx * bb[r]);
-    }
-
-    // the reverse walk (steps past S have dt = x = dy = B = C = 0: g passes
-    // through unchanged and adds nothing)
-    for (int t = kSeg - 1; t >= 0; --t) {
-      const float dtv = dts[t * kCh + ch], xv = xs[t * kCh + ch];
-      const float dyv = dys[t * kCh + ch], dtx = dtv * xv;
-      const float4 h4 = trail[t * kBThreads + tid];
-      const float4 b4 = *reinterpret_cast<const float4*>(bs + t * kNP + n0);
-      const float4 c4 = *reinterpret_cast<const float4*>(cs + t * kNP + n0);
-      const float hp[kBR] = {h4.x, h4.y, h4.z, h4.w};
-      const float bb[kBR] = {b4.x, b4.y, b4.z, b4.w};
-      const float cc[kBR] = {c4.x, c4.y, c4.z, c4.w};
-      float sx = 0.f, sdt = 0.f, pb[kBR], pc[kBR];
-#pragma unroll
-      for (int r = 0; r < kBR; ++r) {
-        const float da = exp2_sfu(dtv * a2[r]);
-        const float gt = fmaf(dyv, cc[r], g[r]);
-        const float gdh = gt * da * hp[r];
-        pc[r] = dyv * fmaf(da, hp[r], dtx * bb[r]);    // dy_t h_t
-        pb[r] = gt * dtx;
-        sx = fmaf(gt, bb[r], sx);
-        sdt = fmaf(gdh, an[r], sdt);
-        acc[r] = fmaf(gdh, dtv, acc[r]);
-        g[r] = da * gt;
+      for (int m = 0; m < kSeg * XP / 32; ++m) {
+        const int i = lane + 32 * m;
+        const int t = t0 + i / XP, col = d0 + (i % XP) * E;
+        const int bytes = t < S ? clamp16((D - col) * int(sizeof(T))) : 0;
+        cp_async16(smem_addr(dst + 16 * i),
+                   dtg + (bytes ? t * p.dt_ss + col : 0), bytes);
+        cp_async16(smem_addr(dst + TB + 16 * i),
+                   xg + (bytes ? t * p.x_ss + col : 0), bytes);
+        cp_async16(smem_addr(dst + 2 * TB + 16 * i),
+                   dyg + (bytes ? t * p.dy_ss + col : 0), bytes);
       }
 #pragma unroll
-      for (int w = 1; w < kBNL; w *= 2) {     // over the channel's lanes
-        sx += __shfl_xor_sync(0xffffffffu, sx, w);
-        sdt += __shfl_xor_sync(0xffffffffu, sdt, w);
-      }
-#pragma unroll
-      for (int w = kBNL; w < 32; w *= 2) {    // over the warp's channels
-#pragma unroll
-        for (int r = 0; r < kBR; ++r) {
-          pb[r] += __shfl_xor_sync(0xffffffffu, pb[r], w);
-          pc[r] += __shfl_xor_sync(0xffffffffu, pc[r], w);
+      for (int m = 0; m < (kSeg * BP + 31) / 32; ++m) {
+        const int i = lane + 32 * m;
+        if (kSeg * BP % 32 == 0 || i < kSeg * BP) {
+          const int t = t0 + i / BP, n = (i % BP) * E;
+          const int bytes = t < S ? clamp16((N - n) * int(sizeof(T))) : 0;
+          cp_async16(smem_addr(dst + 3 * TB + 16 * i),
+                     bg + (bytes ? t * p.b_ss + n : 0), bytes);
+          cp_async16(smem_addr(dst + 3 * TB + RB + 16 * i),
+                     cg + (bytes ? t * p.c_ss + n : 0), bytes);
         }
       }
-      if (lane < kBNL) {
-        float* rw = red + (t * kBWarps + warp) * 2 * kNP + n0;
-        *reinterpret_cast<float4*>(rw) = make_float4(pb[0], pb[1], pb[2],
-                                                     pb[3]);
-        *reinterpret_cast<float4*>(rw + kNP) =
-            make_float4(pc[0], pc[1], pc[2], pc[3]);
-      }
-      if (q == 0) {
-        dxs[t * kCh + ch] = fmaf(dtv, sx, dyv * dv);
-        ddts[t * kCh + ch] = fmaf(xv, sx, sdt);
-        acc_d = fmaf(dyv, xv, acc_d);
-      }
+    };
+    unsigned char* raw = smem + L::kRawOff;
+    if constexpr (sizeof(T) == 2) {
+      issue(nseg - 1, raw);
+      cp_async_commit();
     }
-    __syncthreads();
-
-    T* dxg = static_cast<T*>(p.dx) + static_cast<size_t>(bi) * S * D;
-    T* ddtg = static_cast<T*>(p.ddt) + static_cast<size_t>(bi) * S * D;
-    for (int i = tid; i < kSeg * kCh; i += kBThreads) {
-      const int t = t0 + i / kCh, c = d0 + i % kCh;
-      if (t < S && c < D) {
-        dxg[static_cast<size_t>(t) * D + c] = from_f32<T>(dxs[i]);
-        ddtg[static_cast<size_t>(t) * D + c] = from_f32<T>(ddts[i]);
-      }
-    }
-    // the block's dB and dC of the segment: the warps' sums in order
-    float* part = p.part_bc
-                  + static_cast<size_t>(bi * nblk + blk) * 2 * S * N;
-    for (int i = tid; i < 2 * kSeg * kNP; i += kBThreads) {
-      const int w = i / (kSeg * kNP), t = (i / kNP) % kSeg, n = i % kNP;
-      if (t0 + t < S && n < N) {
-        float sum = 0.f;
+    for (int i = 0; i < nseg; ++i) {
+      const int seg = nseg - 1 - i, s = i % kBStages;
+      unsigned char* st = smem + L::kStageOff + s * L::kStage;
+      if constexpr (sizeof(T) == 4) {   // straight into the ring
+        if (i >= kBStages) mbar_wait(empty(s), ((i / kBStages) + 1) & 1);
+        issue(seg, st);
+        cp_async_commit();
+        cp_async_wait<0>();
+        mbar_arrive(full(s));
+      } else {                          // the raw stage, widened
+        cp_async_wait<0>();
+        __syncwarp();                   // every lane's pieces have landed
+        if (i >= kBStages) mbar_wait(empty(s), ((i / kBStages) + 1) & 1);
+        constexpr int kPieces = L::kRaw / 16 / 32;
+        static_assert(L::kRaw % (16 * 32) == 0, "whole pieces a lane");
+        uint4 u[kPieces];
 #pragma unroll
-        for (int k = 0; k < kBWarps; ++k)
-          sum += red[((t * kBWarps + k) * 2 + w) * kNP + n];
-        part[(static_cast<size_t>(w) * S + t0 + t) * N + n] = sum;
+        for (int m = 0; m < kPieces; ++m)
+          u[m] = reinterpret_cast<const uint4*>(raw)[lane + 32 * m];
+        float4* f = reinterpret_cast<float4*>(st);
+#pragma unroll
+        for (int m = 0; m < kPieces; ++m) {
+          const int i2 = 2 * (lane + 32 * m);
+          f[i2] = make_float4(__uint_as_float(u[m].x << 16),
+                              __uint_as_float(u[m].x & 0xffff0000u),
+                              __uint_as_float(u[m].y << 16),
+                              __uint_as_float(u[m].y & 0xffff0000u));
+          f[i2 + 1] = make_float4(__uint_as_float(u[m].z << 16),
+                                  __uint_as_float(u[m].z & 0xffff0000u),
+                                  __uint_as_float(u[m].w << 16),
+                                  __uint_as_float(u[m].w & 0xffff0000u));
+        }
+        mbar_arrive(full(s));
+        __syncwarp();                   // the raw stage is read: refill it
+        if (seg > 0) issue(seg - 1, raw);
+        cp_async_commit();
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------ the consumers
+  float4* trail = reinterpret_cast<float4*>(smem);
+  float* red = reinterpret_cast<float*>(smem + L::kRedOff);
+  const int q = lane % kBNL, n0 = q * kBR;
+  const int c0 = (warp * kBPairs + lane / kBNL) * kBC;   // in the block
+  const int d = d0 + c0;
+  bool dok[kBC];
+#pragma unroll
+  for (int c = 0; c < kBC; ++c) dok[c] = d + c < D;
+
+  // an: A; a2: A log2(e), for exp2; g: the gradient carried from the step
+  // after, da_{t+1} g_{t+1}, seeded with dh_last; acc: da_log's sum over
+  // time; accd: dD's
+  float an[kBC][kBR], a2[kBC][kBR], g[kBC][kBR], acc[kBC][kBR];
+  float dv[kBC], accd[kBC];
+#pragma unroll
+  for (int c = 0; c < kBC; ++c) {
+#pragma unroll
+    for (int r = 0; r < kBR; ++r) {
+      const int n = n0 + r;
+      const bool live = dok[c] && n < N;
+      const size_t o = static_cast<size_t>(d + c) * N + n;
+      an[c][r] = live ? -expf(p.a_log[o]) : 0.f;
+      a2[c][r] = an[c][r] * kLog2e;
+      g[c][r] = live && p.dh_last
+                    ? p.dh_last[static_cast<size_t>(bi) * D * N + o] : 0.f;
+      acc[c][r] = 0.f;
+    }
+    dv[c] = dok[c] ? p.d[d + c] : 0.f;
+    accd[c] = 0.f;
+  }
+  // the states before a segment, loaded a segment ahead of their use
+  auto load_h = [&](int seg, float (&h)[kBC][kBR]) {
+#pragma unroll
+    for (int c = 0; c < kBC; ++c) {
+      const float* hs = p.h_seg
+          + ((static_cast<size_t>(bi) * nseg + seg) * D + d + c) * N + n0;
+#pragma unroll
+      for (int r = 0; r < kBR; ++r)
+        h[c][r] = dok[c] && n0 + r < N ? hs[r] : 0.f;
+    }
+  };
+  float hn[kBC][kBR];
+  load_h(nseg - 1, hn);
+  T* dxg = static_cast<T*>(p.dx) + static_cast<size_t>(bi) * S * D + d;
+  T* ddtg = static_cast<T*>(p.ddt) + static_cast<size_t>(bi) * S * D + d;
+  const bool pair = D % 2 == 0 && dok[1];   // t * D + d is even
+  float* part = p.part_bc
+                + static_cast<size_t>(bi * gridDim.x + blk) * 2 * S * N;
+
+  for (int i = 0; i < nseg; ++i) {
+    const int seg = nseg - 1 - i, s = i % kBStages, t0 = seg * kSeg;
+    float h[kBC][kBR];
+#pragma unroll
+    for (int c = 0; c < kBC; ++c)
+#pragma unroll
+      for (int r = 0; r < kBR; ++r) h[c][r] = hn[c][r];
+    if (seg > 0) load_h(seg - 1, hn);
+    mbar_wait(full(s), (i / kBStages) & 1);
+    const float* dts = reinterpret_cast<const float*>(
+        smem + L::kStageOff + s * L::kStage);
+    const float* xs = dts + L::kTile;
+    const float* dys = xs + L::kTile;
+    const float* bs = dys + L::kTile;
+    const float* cs = bs + L::kRow;
+    T* dxs = dxg + static_cast<size_t>(t0) * D;       // the segment's rows
+    T* ddts = ddtg + static_cast<size_t>(t0) * D;
+
+    // the segment's states from its first: trail[t] holds h_{t-1}
+#pragma unroll
+    for (int t = 0; t < kSeg; ++t) {
+      const float2 dt2 = load2(dts + t * kBCh + c0);
+      const float2 x2 = load2(xs + t * kBCh + c0);
+      const float4 b4 = load4(bs + t * kNP + n0);
+      const float dtv[kBC] = {dt2.x, dt2.y};
+      const float dtx[kBC] = {dt2.x * x2.x, dt2.y * x2.y};
+      const float bb[kBR] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int c = 0; c < kBC; ++c) {
+        trail[(t * kBC + c) * kBCons + tid] =
+            make_float4(h[c][0], h[c][1], h[c][2], h[c][3]);
+#pragma unroll
+        for (int r = 0; r < kBR; ++r)
+          h[c][r] = fmaf(exp2_sfu(dtv[c] * a2[c][r]), h[c][r],
+                         dtx[c] * bb[r]);
+      }
+    }
+    // the previous segment's dB and dC are summed (red is free again)
+    asm volatile("bar.sync 1, %0;" ::"n"(kBCons) : "memory");
+
+    // the reverse walk, kBBatch steps a straight run (steps past S have
+    // dt = x = dy = B = C = 0: g passes through unchanged and adds
+    // nothing); h holds h_t of the step walked
+#pragma unroll 1
+    for (int tb = kSeg - kBBatch; tb >= 0; tb -= kBBatch) {
+      // each step's sums: sx, sdt [j][type][c]; dB, dC [j][type][r]
+      float vs[kBBatch * 2 * kBC], vb[kBBatch * 2 * kBR];
+#pragma unroll
+      for (int j = kBBatch - 1; j >= 0; --j) {
+        const int t = tb + j;
+        const float2 dt2 = load2(dts + t * kBCh + c0);
+        const float2 x2 = load2(xs + t * kBCh + c0);
+        const float2 dy2 = load2(dys + t * kBCh + c0);
+        const float4 b4 = load4(bs + t * kNP + n0);
+        const float4 c4 = load4(cs + t * kNP + n0);
+        const float dtv[kBC] = {dt2.x, dt2.y}, xv[kBC] = {x2.x, x2.y};
+        const float dyv[kBC] = {dy2.x, dy2.y};
+        const float bb[kBR] = {b4.x, b4.y, b4.z, b4.w};
+        const float cc[kBR] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+        for (int c = 0; c < kBC; ++c) {
+          const float4 h4 = trail[(t * kBC + c) * kBCons + tid];
+          const float hp[kBR] = {h4.x, h4.y, h4.z, h4.w};
+          const float dtx = dtv[c] * xv[c];
+          float sx = 0.f, sdt = 0.f;
+#pragma unroll
+          for (int r = 0; r < kBR; ++r) {
+            const float da = exp2_sfu(dtv[c] * a2[c][r]);
+            const float gt = fmaf(dyv[c], cc[r], g[c][r]);
+            const float gn = gt * da;
+            const float u = gn * hp[r];             // g_t da_t h_{t-1}
+            acc[c][r] = fmaf(u, dtv[c], acc[c][r]);
+            sdt = fmaf(u, an[c][r], sdt);
+            sx = fmaf(gt, bb[r], sx);
+            float& sb = vb[(j * 2 + 0) * kBR + r];    // dB over channels
+            float& sc = vb[(j * 2 + 1) * kBR + r];    // dC
+            sb = c == 0 ? gt * dtx : fmaf(gt, dtx, sb);
+            sc = c == 0 ? dyv[c] * h[c][r] : fmaf(dyv[c], h[c][r], sc);
+            g[c][r] = gn;
+            h[c][r] = hp[r];
+          }
+          vs[(j * 2 + 0) * kBC + c] = sx;
+          vs[(j * 2 + 1) * kBC + c] = sdt;
+          accd[c] = fmaf(dyv[c], xv[c], accd[c]);
+        }
+      }
+      // sx and sdt over the pair's 4 lanes: lane q keeps step tb + q
+      halve<16, 2>(vs, lane);
+      halve<8, 1>(vs, lane);
+      // dB and dC over the warp's 8 pairs: lane bits 4, 3 pick the step,
+      // bit 2 dB or dC, q the 4 states
+      halve<32, 16>(vb, lane);
+      halve<16, 8>(vb, lane);
+      halve<8, 4>(vb, lane);
+      {
+        const int j = lane >> 3 & 3, w = lane >> 2 & 1;
+        *reinterpret_cast<float4*>(
+            red + (((tb + j) * kBWarps + warp) * 2 + w) * kNP + n0) =
+            make_float4(vb[0], vb[1], vb[2], vb[3]);
+      }
+      // dx and ddt of step tb + q, both channels
+      const int t = tb + q;
+      const float2 dt2 = load2(dts + t * kBCh + c0);
+      const float2 x2 = load2(xs + t * kBCh + c0);
+      const float2 dy2 = load2(dys + t * kBCh + c0);
+      if (t0 + t < S) {
+        store_pair<T>(dxs + t * D, fmaf(dt2.x, vs[0], dy2.x * dv[0]),
+                      fmaf(dt2.y, vs[1], dy2.y * dv[1]), pair, dok[0],
+                      dok[1]);
+        store_pair<T>(ddts + t * D, fmaf(x2.x, vs[0], vs[2]),
+                      fmaf(x2.y, vs[1], vs[3]), pair, dok[0], dok[1]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));   // this warp is done with it
+    asm volatile("bar.sync 1, %0;" ::"n"(kBCons) : "memory");
+    {                                   // the segment's dB and dC of the
+      const int t = tid / 8, w = tid / 4 & 1, n = (tid & 3) * 4;  // block:
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);   // the warps in order
+#pragma unroll
+      for (int k = 0; k < kBWarps; ++k) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            red + ((t * kBWarps + k) * 2 + w) * kNP + n);
+        sum.x += v.x; sum.y += v.y; sum.z += v.z; sum.w += v.w;
+      }
+      if (t0 + t < S) {
+        float* o = part + (static_cast<size_t>(w) * S + t0 + t) * N + n;
+        const float e[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (n + k < N) o[k] = e[k];
       }
     }
   }
 
 #pragma unroll
-  for (int r = 0; r < kBR; ++r) {
-    const int n = n0 + r;
-    if (dok && n < N) {
-      const size_t o = (static_cast<size_t>(bi) * D + d) * N + n;
-      p.dh0[o] = g[r];
-      p.part_a[o] = acc[r];
+  for (int c = 0; c < kBC; ++c) {
+#pragma unroll
+    for (int r = 0; r < kBR; ++r) {
+      const int n = n0 + r;
+      if (dok[c] && n < N) {
+        const size_t o = (static_cast<size_t>(bi) * D + d + c) * N + n;
+        p.dh0[o] = g[c][r];
+        p.part_a[o] = acc[c][r];
+      }
     }
+    if (dok[c] && q == 0) p.part_d[static_cast<size_t>(bi) * D + d + c] =
+        accd[c];
   }
-  if (dok && q == 0) p.part_d[static_cast<size_t>(bi) * D + d] = acc_d;
 }
 
 // The backward's second pass, one output element a thread: dB and dC
@@ -1037,7 +1273,7 @@ sel_scan_bwd_reduce_kernel(const SelScanBwdArgs p) {
   const long long i =
       static_cast<long long>(blockIdx.x) * kReduceThreads + threadIdx.x;
   const int B = p.B, S = p.S, D = p.D, N = p.N;
-  const int nblk = (D + kCh - 1) / kCh;
+  const int nblk = (D + kBCh - 1) / kBCh;
   const long long sn = static_cast<long long>(S) * N;
   const long long nbc = B * sn, dn = static_cast<long long>(D) * N;
   if (i < 2 * nbc) {
@@ -1108,7 +1344,7 @@ template <typename T>
 cudaError_t prepare_sel_bwd() {
   static std::atomic<bool> done[kMaxDevices];
   return once_a_device(done, [] {
-    return set_smem(sel_scan_bwd_kernel<T>, SelBwdSmem::kBytes);
+    return set_smem(sel_scan_bwd_kernel<T>, SelBwdSmem<T>::kBytes);
   });
 }
 
@@ -1133,8 +1369,8 @@ int launch_sel_bwd(const SelScanBwdArgs& a, void* stream) {
   if (a.N < 1 || a.N > kNP) return kBadStateDim;
   const cudaError_t err = prepare_sel_bwd<T>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.D + kCh - 1) / kCh, a.B);
-  sel_scan_bwd_kernel<T><<<grid, kBThreads, SelBwdSmem::kBytes,
+  const dim3 grid((a.D + kBCh - 1) / kBCh, a.B);
+  sel_scan_bwd_kernel<T><<<grid, kBThreads, SelBwdSmem<T>::kBytes,
                            static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1235,11 +1471,14 @@ extern "C" int selective_scan_blocks_per_sm(int bf16) {
               : sel_blocks_per_sm<float>();
 }
 
-// The backward's dynamic shared memory a block, and its blocks an SM (0
+// The backward's dynamic shared memory a block, its channels a block (the
+// wrapper sizes the per-block partials by them) and its blocks an SM (0
 // on error).
-extern "C" int selective_scan_bwd_smem_bytes() {
-  return SelBwdSmem::kBytes;
+extern "C" int selective_scan_bwd_smem_bytes(int bf16) {
+  return bf16 ? SelBwdSmem<__nv_bfloat16>::kBytes : SelBwdSmem<float>::kBytes;
 }
+
+extern "C" int selective_scan_bwd_block_channels() { return kBCh; }
 
 template <typename T>
 int sel_bwd_blocks_per_sm() {
@@ -1247,7 +1486,7 @@ int sel_bwd_blocks_per_sm() {
   cudaError_t err = prepare_sel_bwd<T>();
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, sel_scan_bwd_kernel<T>, kBThreads, SelBwdSmem::kBytes);
+        &n, sel_scan_bwd_kernel<T>, kBThreads, SelBwdSmem<T>::kBytes);
   return err == cudaSuccess ? n : 0;
 }
 

@@ -12,7 +12,8 @@ needs it, the call goes through `_SelectiveScan`: its forward is the same
 kernel, also keeping h before every `selective_scan_seg_steps()`-step
 segment, and its backward is `selective_scan_bwd`, the backward kernel
 (which the JAX package lacks: it differentiates its oracle) and a second
-pass that sums the per-block partials in a fixed order. On the CPU
+pass that sums its partials, one a 64-channel block, in a fixed order
+(`bwd_partials` sizes them). On the CPU
 autograd differentiates the plain version, as for `moe_gemm`.
 `ssm_scan` has no backward, here or in the JAX package: a CUDA call that
 autograd would have to differentiate raises rather than return an output
@@ -38,7 +39,6 @@ from .ref import selective_scan_bwd_ref, selective_scan_ref, ssm_scan_ref
 _DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 _MAX_BATCH = 65535              # the selective scan's grid.y
 _MAX_STATE = 16                 # states a channel (csrc/ssm_scan.cu: kNP)
-_BLOCK_CH = 32                  # channels a block (csrc/ssm_scan.cu: kCh)
 
 
 class _SelArgs(ctypes.Structure):
@@ -58,7 +58,7 @@ class _SelBwdArgs(ctypes.Structure):
                   "dh_last", "dx", "ddt", "db", "dc", "da_log", "dd", "dh0",
                   "part_bc", "part_a", "part_d")]
                 + [(f"{t}_s{s}", ctypes.c_longlong)
-                   for t in ("x", "dt", "b", "c") for s in "bs"]
+                   for t in ("x", "dt", "b", "c", "dy") for s in "bs"]
                 + [(n, ctypes.c_int) for n in ("B", "S", "D", "N")])
 
 
@@ -78,6 +78,22 @@ def _lib() -> ctypes.CDLL:
 def _seg_steps() -> int:
     """Steps between the states the forward keeps for the backward."""
     return _lib().selective_scan_seg_steps()
+
+
+@functools.cache
+def _bwd_block_channels() -> int:
+    """Channels a backward block: the partials of dB and dC are kept a
+    block."""
+    return _lib().selective_scan_bwd_block_channels()
+
+
+def bwd_partials(bsz: int, s: int, dd: int, n: int,
+                 block_ch: int) -> tuple[int, int, int]:
+    """f32 words of the backward's partials, which its second pass sums
+    in a fixed order: dB and dC of each of the ceil(D / block_ch) channel
+    blocks [B, blocks, 2, S, N], da_log's [B, D, N] and dD's [B, D] of
+    each batch row."""
+    return bsz * -(-dd // block_ch) * 2 * s * n, bsz * dd * n, bsz * dd
 
 
 @functools.cache
@@ -102,10 +118,12 @@ def load(path) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
     for name in ("ssm_scan_tile", "ssm_scan_blocks_per_sm",
                  "selective_scan_smem_bytes", "selective_scan_blocks_per_sm",
-                 "selective_scan_split", "selective_scan_bwd_blocks_per_sm"):
+                 "selective_scan_split", "selective_scan_bwd_blocks_per_sm",
+                 "selective_scan_bwd_smem_bytes"):
         getattr(lib, name).argtypes = [ctypes.c_int]
         getattr(lib, name).restype = ctypes.c_int
-    for name in ("selective_scan_seg_steps", "selective_scan_bwd_smem_bytes"):
+    for name in ("selective_scan_seg_steps",
+                 "selective_scan_bwd_block_channels"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
     lib.ssm_scan_error_string.argtypes = [ctypes.c_int]
@@ -271,11 +289,10 @@ def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor,
         raise ValueError(f"selective_scan_bwd on CUDA wants the forward's "
                          f"states h_seg {(bsz, nseg, dd, n)} f32, got "
                          f"{None if h_seg is None else tuple(h_seg.shape)}")
-    x, dt, b, c = (t if t.stride(-1) == 1 else t.contiguous()
-                   for t in (x, dt, b, c))
+    # the kernel's producer warp stages rows by 16-byte cp.async pieces
+    x, dt, b, c, dy = (aligned_rows(t) for t in (x, dt, b, c, dy))
     a_log = a_log.float().contiguous()
     d = d.float().contiguous()
-    dy = dy.contiguous()
     dh_last = None if dh_last is None else dh_last.float().contiguous()
     dev = x.device
     dx = torch.empty((bsz, s, dd), dtype=x.dtype, device=dev)
@@ -285,11 +302,8 @@ def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor,
     da_log = torch.empty((dd, n), dtype=torch.float32, device=dev)
     dd_ = torch.empty((dd,), dtype=torch.float32, device=dev)
     dh0 = torch.empty((bsz, dd, n), dtype=torch.float32, device=dev)
-    # the partials the second pass sums: dB and dC of each channel block,
-    # da_log's and dD's of each batch row
-    n_bc = bsz * -(-dd // _BLOCK_CH) * 2 * s * n
-    part = torch.empty(n_bc + bsz * dd * n + bsz * dd, dtype=torch.float32,
-                       device=dev)
+    n_bc, n_a, n_d = bwd_partials(bsz, s, dd, n, _bwd_block_channels())
+    part = torch.empty(n_bc + n_a + n_d, dtype=torch.float32, device=dev)
     base = part.data_ptr()
     args = _SelBwdArgs(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(),
                        b.data_ptr(), c.data_ptr(), d.data_ptr(),
@@ -298,10 +312,10 @@ def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor,
                        dx.data_ptr(), ddt.data_ptr(), db.data_ptr(),
                        dc.data_ptr(), da_log.data_ptr(), dd_.data_ptr(),
                        dh0.data_ptr(), base, base + 4 * n_bc,
-                       base + 4 * (n_bc + bsz * dd * n),
+                       base + 4 * (n_bc + n_a),
                        x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
                        b.stride(0), b.stride(1), c.stride(0), c.stride(1),
-                       bsz, s, dd, n)
+                       dy.stride(0), dy.stride(1), bsz, s, dd, n)
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib, suffix = _lib(), _DTYPES[x.dtype]
     _raise_on(getattr(lib, f"selective_scan_bwd_{suffix}")(

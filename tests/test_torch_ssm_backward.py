@@ -38,8 +38,9 @@ GRADS = ("dx", "ddt", "da_log", "db", "dc", "dd", "dh0")
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-# (B, S, D, N): ragged (S and D off the kernel's 32-step and 32-channel
-# tiles, N not a power of two) and S=256 (the JAX oracle's chunked remat)
+# (B, S, D, N): ragged (S and D off the kernel's 16-step segments and
+# 64-channel blocks, N not a power of two) and S=256 (the JAX oracle's
+# chunked remat)
 SHAPES = {"ragged": (2, 45, 37, 5), "S=256": (1, 256, 24, 16)}
 
 
@@ -115,9 +116,10 @@ def test_bwd_ref_matches_jax_vjp(dtype, shape, with_h0, with_dh):
         _close(name, g, np.asarray(jnp.asarray(w).astype(jnp.float32)), tol)
 
 
-@pytest.mark.parametrize("chunk", [1, 7, 32, 128])
+@pytest.mark.parametrize("chunk", [1, 7, 16, 32, 128])
 def test_bwd_ref_chunk_does_not_change_the_result(chunk):
-    """The chunk only sets which states are kept and recomputed."""
+    """The chunk only sets which states are kept and recomputed (16: the
+    steps between the states the CUDA forward keeps for its backward)."""
     v = _inputs(SHAPES["ragged"], "float32", seed=1)
     args = _torch_args(v, "float32", True)
     dy, dh = torch.from_numpy(v["dy"]), torch.from_numpy(v["dh"])
@@ -209,6 +211,17 @@ def test_bwd_wrapper_routes_cpu_to_the_plain_version_and_checks():
         selective_scan_bwd(*args, dy, dh[..., 1:])
     with pytest.raises(ValueError, match="cuda or cpu"):
         selective_scan_bwd(*(t.to("meta") for t in args), dy.to("meta"))
+
+
+@pytest.mark.parametrize("dd,blocks", [(1, 1), (63, 1), (64, 1), (65, 2),
+                                       (200, 4), (8192, 128), (8200, 129)])
+def test_bwd_partials_cover_every_channel_block(dd, blocks):
+    """The CUDA backward's scratch: dB and dC of each 64-channel block
+    (the last one ragged), da_log's and dD's of each batch row."""
+    bsz, s, n = 2, 45, 5
+    n_bc, n_a, n_d = sscan.bwd_partials(bsz, s, dd, n, 64)
+    assert n_bc == bsz * blocks * 2 * s * n
+    assert (n_a, n_d) == (bsz * dd * n, bsz * dd)
 
 
 def test_plain_forward_and_backward_agree_on_h_last():
