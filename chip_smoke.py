@@ -49,15 +49,26 @@ its own failure):
      at E=64, d=2048, f=1408): its fixed cost and main-loop rate;
   4. the flash-attention forward and backward kernels (bf16 on tensor
      cores, f32 on CUDA cores) against their plain versions (and the
-     backward against autograd through `attention_ref`) at the training
-     path's shape, the forward at the Jamba prefill's (S=4096, 32:8
-     heads, hd 128), a ragged S, MQA at head dim 128 and causal + window
-     + softcap, in bf16 and f32; two backward calls on the same inputs
-     give bit-identical dq, dk and dv; times of the kernels, the plain
-     versions and `scaled_dot_product_attention` at the path's shape
-     (forward and backward in both dtypes, and the bf16 backward's dq and
-     dk/dv kernels each alone) and of the bf16 forward at the Jamba
-     shape, beside their bounds;
+     backward against autograd through `attention_ref`) at every
+     ATTN_CASES case, each with its own causal flag: the training path's
+     shape, the forward at the Jamba prefill's (S=4096, 32:8 heads, hd
+     128), a ragged S, MQA at head dim 128, causal + window + softcap,
+     whisper-base's encoder layer (B=16, S=T=1500, 8:8, hd 64, not
+     causal) and its decoder's self-attention (B=16, S=T=448, causal),
+     a non-causal call with S=200 and a ragged T=333, and
+     gemma2-27b's local (window 4096) and global layers at S=8192 and
+     6144, 32:16, hd 128, softcap 50, in bf16 and f32 (the plain versions run a few
+     heads at a time where their f32 scores would pass 4 GiB); two
+     backward calls on the same inputs give bit-identical dq, dk and dv;
+     times of the kernels, the plain versions and
+     `scaled_dot_product_attention` (where it computes the same function:
+     no window, no softcap) at the path's shape (forward and backward in
+     both dtypes, and the bf16 backward's dq and dk/dv kernels each
+     alone), of the bf16 forward at the Jamba shape, at the whisper
+     encoder's and decoder's and at gemma2's prefill shapes, and of the
+     bf16 backward at the whisper encoder's and decoder's and gemma2's
+     train shapes (S=6144), beside their bounds (the live (query, key)
+     pairs' products);
   5. slice 1's main path: `serve()` on full-width qwen2-moe-a2.7b with
      random bf16 weights from a seeded generator, with the `moe_gemm`
      launch count set to 0 just before and read just after;
@@ -146,9 +157,42 @@ its own failure):
      more steps;
  18. tiny Jamba training in f32 on the card through `train()`, as phase
      10: the loss falls, a resume is exact;
- 19. a JSON line with the kernels' numbers (the bf16 and f32 routes of
+ 19. slice 11's main path: `make_prefill_step` on full-width gemma2-27b,
+     all 46 layers (23 local with the 4096-key window, 23 global, every
+     one softcapped; 27,226,275,840 parameters by `param_count`), random
+     bf16 weights from a seeded generator, B=1 x S=8192, with the launch
+     counts set to 0 just before and read just after (46 flash forwards
+     a call, 23 at the local layer's shape and 23 at the global's, by
+     the wrapper's count by call shape); ms per prefill, tokens/s, peak memory; then a
+     torch.profiler window over one prefill;
+ 20. the serving engine on the same weights and the traffic of phase 5:
+     no flash launch (decode takes the plain op);
+ 21. `make_train_step` on full-width gemma2-27b cut to one period (a
+     local and a global layer, 2,312,110,080 parameters), f32 AdamW, 6
+     steps of B=1 x S=6144 (at 8192 the loss's f32 logits ran out of
+     memory), with the launch counts set to 0 just before and read just
+     after (2 flash forwards and 4 backward kernels a step, half of each
+     at either layer's shape);
+     step wall, tokens/s, peak memory; a torch.profiler window over two
+     more steps;
+ 22. `train()` on full-width whisper-base, 6 steps of B=16 x S=448 over
+     1,500 zero frames, launch counts set to 0 just before and read just
+     after (12 flash forwards a step: 6 encoder layers not causal, 6
+     decoder layers causal, counted by call shape; 24 backward kernels;
+     cross-attention on the plain op); step wall, tokens/s, peak memory; then a torch.profiler
+     window over two steps (12 of each bf16 flash kernel a step);
+ 23. whisper-base decode, B=4: `fill_cross_cache` over seeded frames (6
+     encoder flash launches), then 32 greedy `decode_step`s (none); ms per
+     step; max |decode - forward| in bf16;
+ 24. tiny whisper in f32 on the card: decode after `fill_cross_cache`
+     equals the forward (through the kernels) within 1e-4, with a decoder
+     S that is not encoder_seq;
+ 25. tiny whisper training in f32 on the card through `train()`, as phase
+     10: the loss falls, a resume is exact;
+ 26. a JSON line with the kernels' numbers (the bf16 and f32 routes of
      `moe_gemm`, of its backward and of the flash forward and backward as
-     entries of their own; the selective scan's backward), then, last,
+     entries of their own, the flash entries with the whisper encoder's
+     and gemma2's shapes; the selective scan's backward), then, last,
      the result line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
@@ -171,6 +215,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 import torch
 from torch.autograd import DeviceType
@@ -214,12 +259,58 @@ QWEN3 = "qwen3-moe-235b-a22b"            # the zoo's E=128 expert shape
 TRAIN_ARCH = "qwen2-0.5b"
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 4, 2048
 BWD_KERNELS = 2                         # dq, then dk/dv, per backward call
-# (B, S, nq, nkv, hd, window, softcap), all causal with S == T
-ATTN_CASES = {"path": (4, 2048, 14, 2, 64, None, None),
-              "jamba": (1, 4096, 32, 8, 128, None, None),
-              "ragged S=200": (2, 200, 14, 2, 64, None, None),
-              "MQA 4:1 hd128": (2, 256, 4, 1, 128, None, None),
-              "window+softcap": (1, 256, 4, 2, 64, 64, 50.0)}
+
+
+class AttnCase(NamedTuple):
+    """A flash-attention call: q [B,S,nq,hd], k/v [B,T,nkv,hd] (T = S
+    unless given; a causal mask or a window needs S == T)."""
+    b: int
+    s: int
+    nq: int
+    nkv: int
+    hd: int
+    window: Optional[int]
+    softcap: Optional[float]
+    causal: bool
+    t: Optional[int] = None
+
+    @property
+    def kw(self) -> dict:
+        return dict(causal=self.causal, window=self.window,
+                    softcap=self.softcap)
+
+
+GEMMA2 = "gemma2-27b"
+WHISPER = "whisper-base"
+ATTN_CASES = {"path": AttnCase(4, 2048, 14, 2, 64, None, None, True),
+              "jamba": AttnCase(1, 4096, 32, 8, 128, None, None, True),
+              "ragged S=200": AttnCase(2, 200, 14, 2, 64, None, None, True),
+              "MQA 4:1 hd128": AttnCase(2, 256, 4, 1, 128, None, None, True),
+              "window+softcap": AttnCase(1, 256, 4, 2, 64, 64, 50.0, True),
+              # whisper-base's encoder layer at the train cell's B=16:
+              # bidirectional, S = T = 1500 frames (23 full 64-key tiles
+              # and one of 28)
+              "whisper encoder": AttnCase(16, 1500, 8, 8, 64, None, None,
+                                          False),
+              # its decoder's self-attention: causal, S = T = 448 tokens
+              # (cross-attention, S != T, takes the plain op)
+              "whisper decoder": AttnCase(16, 448, 8, 8, 64, None, None,
+                                          True),
+              # not causal, S != T and both ragged: the T edge of every
+              # q tile, and q tiles past the keys' length
+              "non-causal ragged T": AttnCase(2, 200, 4, 2, 64, None, None,
+                                              False, t=333),
+              # gemma2-27b's layers at the prefill's S=8192 and the train
+              # cell's 6144: local (window 4096) and global, both with the
+              # attention softcap
+              "gemma2 local": AttnCase(1, 8192, 32, 16, 128, 4096, 50.0,
+                                       True),
+              "gemma2 global": AttnCase(1, 8192, 32, 16, 128, None, 50.0,
+                                        True),
+              "gemma2 train local": AttnCase(1, 6144, 32, 16, 128, 4096,
+                                             50.0, True),
+              "gemma2 train global": AttnCase(1, 6144, 32, 16, 128, None,
+                                              50.0, True)}
 ATTN_FWD_ONLY = ("jamba",)               # the prefill runs no backward
 JAMBA = "jamba-v0.1-52b"
 JAMBA_REPEATS, PREFILL_SEQ = 2, 4096     # 2 of 4 periods; S cut from 32,768
@@ -227,6 +318,18 @@ JAMBA_REPEATS, PREFILL_SEQ = 2, 4096     # 2 of 4 periods; S cut from 32,768
 # B x S = 8,192 tokens a step as in the other train cells
 JAMBA_TRAIN_LAYERS, JAMBA_TRAIN_BATCH, JAMBA_TRAIN_SEQ = 2, 2, 4096
 JAMBA_TRAIN_PARAMS = 3_733_864_448       # ModelConfig.param_count of the cut
+# gemma2-27b: prefill at its 8,192-token context, all 46 layers; train one
+# period (a local and a global layer) at B=1 x 6,144: at 8,192 the loss's
+# f32 copies of the 256,000-entry logits in the backward do not fit beside
+# the weights and the f32 AdamW state on an 80 GB H100; 6,144 is still
+# past the 4,096-key window
+GEMMA2_SEQ, GEMMA2_TRAIN_SEQ = 8192, 6144
+GEMMA2_PARAMS = 27_226_275_840
+GEMMA2_TRAIN_PARAMS = 2_312_110_080
+# whisper-base: 16 x 448-token texts (its decoder context) over 1,500
+# encoder frames a train step; decode 4 streams for 32 greedy steps
+WHISPER_BATCH, WHISPER_SEQ = 16, 448
+WHISPER_DECODE_BATCH, WHISPER_DECODE_STEPS = 4, 32
 # (B, S, D, N) of the scans; "path" is the Jamba prefill's (D = 2 x 4096)
 SCAN_CASES = {"path": (1, PREFILL_SEQ, 8192, 16),
               "train": (JAMBA_TRAIN_BATCH, JAMBA_TRAIN_SEQ, 8192, 16),
@@ -340,13 +443,21 @@ def bound(shapes, itemsize: int, flops_peak: float, bytes_peak: float):
                                         else "operations")
 
 
-def attn_bound(b, s, nq, hd, itemsize, products, nbytes, flops_peak,
-               bytes_peak):
-    """Least ms for causal attention over b x nq heads of S == T = s:
-    `products` matrix products over the s(s+1)/2 live (query, key) pairs,
+def live_pairs(case: AttnCase) -> int:
+    """The (query, key) pairs the call's masks leave: all S x T without a
+    causal mask; with one (S == T) query i sees min(i + 1, window) keys."""
+    if not case.causal:
+        return case.b * case.nq * case.s * (case.t or case.s)
+    w = min(case.window or case.s, case.s)
+    per_head = w * (w + 1) // 2 + (case.s - w) * w
+    return case.b * case.nq * per_head
+
+
+def attn_bound(case: AttnCase, products, nbytes, flops_peak, bytes_peak):
+    """Least ms for attention of `case`: `products` matrix products over
+    its live (query, key) pairs (the masked-out tiles count nothing),
     2*hd flops each, at the peak rate, or `nbytes` at the memory rate."""
-    pairs = b * nq * s * (s + 1) // 2
-    t_ops = products * 2 * pairs * hd / flops_peak
+    t_ops = products * 2 * live_pairs(case) * case.hd / flops_peak
     t_bytes = nbytes / bytes_peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                         else "operations")
@@ -891,13 +1002,60 @@ def compare_scans(parent_scan) -> None:
     torch.cuda.empty_cache()
 
 
-def attn_inputs(case, dtype, gen):
-    b, s, nq, nkv, hd, _, _ = case
+def attn_inputs(case: AttnCase, dtype, gen):
+    b, s, nq, nkv, hd = case[:5]
+    t = case.t or s
     q = torch.randn((b, s, nq, hd), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((b, s, nkv, hd), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((b, s, nkv, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, t, nkv, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, t, nkv, hd), generator=gen, device="cuda").to(dtype)
     do = torch.randn((b, s, nq, hd), generator=gen, device="cuda").to(dtype)
     return q, k, v, do
+
+
+SCORES_BUDGET = 4 << 30        # bytes of f32 scores a plain call may hold
+
+
+def head_chunks(q, k) -> list:
+    """(query-head slice, kv-head slice) pairs covering every head, as few
+    as keep each chunk's f32 scores [B, kv heads, group, S, T] within
+    SCORES_BUDGET. Heads are independent, so the plain versions run chunk
+    by chunk compute the same function; one chunk for every case but
+    gemma2-27b's (8.6 GB of scores at S=8192, 32 heads)."""
+    b, s, nq, _ = q.shape
+    t, nkv = k.shape[1], k.shape[2]
+    g = nq // nkv
+    c = max(1, min(nkv, SCORES_BUDGET // (b * g * s * t * 4)))
+    return [(slice(h * g, min(h + c, nkv) * g), slice(h, min(h + c, nkv)))
+            for h in range(0, nkv, c)]
+
+
+def plain_fwd(q, k, v, **kw):
+    """`flash_attention_ref` over `head_chunks` -> (o, lse)."""
+    outs = [flash_attention_ref(q[:, :, qs], k[:, :, ks], v[:, :, ks], **kw)
+            for qs, ks in head_chunks(q, k)]
+    return (torch.cat([o for o, _ in outs], dim=2),
+            torch.cat([lse for _, lse in outs], dim=1))
+
+
+def plain_bwd(q, k, v, o, lse, do, **kw):
+    """`flash_attention_bwd_ref` over `head_chunks` -> (dq, dk, dv)."""
+    outs = [flash_attention_bwd_ref(q[:, :, qs], k[:, :, ks], v[:, :, ks],
+                                    o[:, :, qs], lse[:, qs], do[:, :, qs],
+                                    **kw)
+            for qs, ks in head_chunks(q, k)]
+    return tuple(torch.cat(g, dim=2) for g in zip(*outs))
+
+
+def autograd_grads(q, k, v, do, **kw):
+    """(dq, dk, dv) by autograd through `attention_ref`, over
+    `head_chunks`."""
+    outs = []
+    for qs, ks in head_chunks(q, k):
+        qa, ka, va = (t.detach().clone().requires_grad_()
+                      for t in (q[:, :, qs], k[:, :, ks], v[:, :, ks]))
+        outs.append(torch.autograd.grad(attention_ref(qa, ka, va, **kw),
+                                        (qa, ka, va), do[:, :, qs]))
+    return tuple(torch.cat(g, dim=2) for g in zip(*outs))
 
 
 def check_flash(gen) -> dict:
@@ -920,11 +1078,11 @@ def check_flash(gen) -> dict:
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         for label, case in ATTN_CASES.items():
-            kw = dict(causal=True, window=case[5], softcap=case[6])
+            kw = case.kw
             q, k, v, do = attn_inputs(case, dtype, gen)
             o, lse = flash_attention_fwd(q, k, v, **kw)
             torch.cuda.synchronize()
-            ro, rlse = flash_attention_ref(q, k, v, **kw)
+            ro, rlse = plain_fwd(q, k, v, **kw)
             torch.testing.assert_close(o.float(), ro.float(),
                                        rtol=tol_o[dtype], atol=tol_o[dtype])
             torch.testing.assert_close(lse, rlse, rtol=tol_lse,
@@ -932,7 +1090,7 @@ def check_flash(gen) -> dict:
             e_o = (o.float() - ro.float()).abs().max().item()
             e_lse = (lse - rlse).abs().max().item()
             if label in ATTN_FWD_ONLY:
-                print(f"[check] flash_attention {label} {case[:5]} causal "
+                print(f"[check] flash_attention {label} {case} "
                       f"{dtype}, forward only (the prefill's): max |kernel "
                       f"- plain| o {e_o:.3e} (tol {tol_o[dtype]}), lse "
                       f"{e_lse:.3e} (tol {tol_lse}); tolerances hold |diff| "
@@ -947,11 +1105,8 @@ def check_flash(gen) -> dict:
             for name, g, g2 in zip("qkv", grads, again):
                 assert torch.equal(g, g2), \
                     f"d{name} differs between two calls ({label}, {dtype})"
-            rgrads = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
-            qa, ka, va = (t.detach().clone().requires_grad_()
-                          for t in (q, k, v))
-            agrads = torch.autograd.grad(
-                attention_ref(qa, ka, va, **kw), (qa, ka, va), do)
+            rgrads = plain_bwd(q, k, v, o, lse, do, **kw)
+            agrads = autograd_grads(q, k, v, do, **kw)
             e_g = e_ag = 0.0
             for name, g, rg, ag in zip("qkv", grads, rgrads, agrads):
                 torch.testing.assert_close(g.float(), rg.float(),
@@ -963,98 +1118,108 @@ def check_flash(gen) -> dict:
                 e_g = max(e_g, (g.float() - rg.float()).abs().max().item())
                 e_ag = max(e_ag, (g.float() - ag.float()).abs().max().item())
             errs[(label, dtype)] = (e_o, e_g)
-            print(f"[check] flash_attention {label} {case[:5]} window "
-                  f"{case[5]} softcap {case[6]} {dtype}: max |kernel - "
+            print(f"[check] flash_attention {label} {case} "
+                  f"{dtype}: max |kernel - "
                   f"plain| o {e_o:.3e} (tol {tol_o[dtype]}), lse "
                   f"{e_lse:.3e} (tol {tol_lse}); dq/dk/dv vs plain "
                   f"backward {e_g:.3e} (tol {tol_g[dtype]}), vs autograd "
                   f"through attention_ref {e_ag:.3e} (tol {tol_ag[dtype]}); "
                   f"two calls bit-identical; tolerances hold |diff| <= tol "
                   f"* (1 + |plain|)")
-            del q, k, v, do, o, lse, ro, rlse, grads, again, rgrads, agrads, \
-                qa, ka, va
+            del q, k, v, do, o, lse, ro, rlse, grads, again, rgrads, agrads
             torch.cuda.empty_cache()
     return {"o": errs[("path", torch.bfloat16)][0],
             "o_f32": errs[("path", torch.float32)][0],
             "grads": errs[("path", torch.bfloat16)][1],
-            "grads_f32": errs[("path", torch.float32)][1]}
+            "grads_f32": errs[("path", torch.float32)][1],
+            **{label: {"o": errs[(label, torch.bfloat16)][0],
+                       "grads": errs[(label, torch.bfloat16)][1]}
+               for label in FWD_PATH_CASES + BWD_PATH_CASES}}
+
+
+def sdpa_fn(case: AttnCase, qs, ks, vs):
+    """`scaled_dot_product_attention` computing the same function as the
+    kernel on `case` (q, k, v as [B, heads, S, hd]), or None where no
+    single PyTorch call does: a window or a softcap."""
+    if case.window is not None or case.softcap is not None:
+        return None
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=case.causal, enable_gqa=True)
 
 
 def time_fwd(label, dtype, gen, flops_peak, mem_bps, plain_reps) -> dict:
-    """The forward at ATTN_CASES[label], causal: the kernel, the plain
-    version and SDPA (no grad), beside the bound."""
+    """The forward at ATTN_CASES[label]: the kernel, the plain version and
+    SDPA where it computes the same function (no grad), beside the
+    bound."""
     case = ATTN_CASES[label]
-    b, s, nq, _, hd, _, _ = case
     q, k, v, _ = attn_inputs(case, dtype, gen)
     qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-
-    def sdpa():
-        with torch.no_grad():
-            return torch.nn.functional.scaled_dot_product_attention(
-                qs, ks, vs, is_causal=True, enable_gqa=True)
-
-    t = {"ms": time_ms(lambda: flash_attention_fwd(q, k, v, causal=True)),
-         "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v,
-                                                         causal=True),
+    sdpa = sdpa_fn(case, qs, ks, vs)
+    t = {"ms": time_ms(lambda: flash_attention_fwd(q, k, v, **case.kw)),
+         "plain_ms": time_ms(lambda: plain_fwd(q, k, v, **case.kw),
                              *plain_reps),
-         "library_ms": time_ms(sdpa)}
+         "library_ms": None}
+    if sdpa is not None:
+        with torch.no_grad():
+            t["library_ms"] = time_ms(sdpa)
     size = q.element_size()
     t["bound_ms"], t["bound_by"] = attn_bound(
-        b, s, nq, hd, size, 2, size * (2 * q.numel() + k.numel() + v.numel())
-        + 4 * b * nq * s, flops_peak, mem_bps)
+        case, 2, size * (2 * q.numel() + k.numel() + v.numel())
+        + 4 * case.b * case.nq * case.s, flops_peak, mem_bps)
     route = ("bf16 (mma.sync)" if dtype == torch.bfloat16
              else "f32 (CUDA cores)")
-    print(f"[time] flash_attention forward {label} {case[:5]} causal "
-          f"{route}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-          f"SDPA {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
-          f"({t['bound_by']}); kernel at "
+    lib = ("none" if t["library_ms"] is None
+           else f"{t['library_ms']:.4f} ms")
+    print(f"[time] flash_attention forward {label} {case} {route}: kernel "
+          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA {lib}, "
+          f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+          f"{live_pairs(case):,} live pairs); kernel at "
           f"{100 * t['bound_ms'] / t['ms']:.2f}% of the bound")
-    del q, k, v, qs, ks, vs
+    del q, k, v, qs, ks, vs, sdpa
     torch.cuda.empty_cache()
     return t
 
 
-def time_bwd(dtype, gen, flops_peak, mem_bps, plain_reps) -> dict:
-    """The backward at the path's shape, causal: the two kernels, the plain
-    version and SDPA's backward alone (autograd.grad on a retained graph),
-    beside the bound of its 5 products; in bf16 also the dq and dk/dv
-    kernels each alone beside the bounds of their 3 and 4 products, and
-    SDPA's forward + backward."""
-    case = ATTN_CASES["path"]
-    b, s, nq, _, hd, _, _ = case
+def time_bwd(label, dtype, gen, flops_peak, mem_bps, plain_reps) -> dict:
+    """The backward at ATTN_CASES[label]: the two kernels, the plain
+    version and SDPA's backward alone (autograd.grad on a retained graph)
+    where SDPA computes the same function, beside the bound of its 5
+    products; in bf16 also the dq and dk/dv kernels each alone beside the
+    bounds of their 3 and 4 products, and SDPA's forward + backward."""
+    case = ATTN_CASES[label]
     q, k, v, do = attn_inputs(case, dtype, gen)
-    o, lse = flash_attention_fwd(q, k, v, causal=True)
+    o, lse = flash_attention_fwd(q, k, v, **case.kw)
     qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_()
                   for t in (q, k, v))
     dos = do.transpose(1, 2).contiguous()
-
-    def sdpa():
-        return torch.nn.functional.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True, enable_gqa=True)
-
-    so = sdpa()
+    sdpa = sdpa_fn(case, qs, ks, vs)
     t = {"ms": time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
-                                                   causal=True)),
-         "plain_ms": time_ms(lambda: flash_attention_bwd_ref(
-             q, k, v, o, lse, do, causal=True), *plain_reps),
-         "library_ms": time_ms(lambda: torch.autograd.grad(
-             so, (qs, ks, vs), dos, retain_graph=True))}
+                                                   **case.kw)),
+         "plain_ms": time_ms(lambda: plain_bwd(q, k, v, o, lse, do,
+                                               **case.kw), *plain_reps),
+         "library_ms": None}
+    if sdpa is not None:
+        so = sdpa()
+        t["library_ms"] = time_ms(lambda: torch.autograd.grad(
+            so, (qs, ks, vs), dos, retain_graph=True))
+        del so
     size = q.element_size()
     qb, kvb = size * q.numel(), size * (k.numel() + v.numel())
     stat = 4 * lse.numel()                   # lse, or the D scratch
     # bytes: q, k, v, o, do and lse read, dq, dk, dv written
     t["bound_ms"], t["bound_by"] = attn_bound(
-        b, s, nq, hd, size, 5, 4 * qb + 2 * kvb + stat, flops_peak, mem_bps)
+        case, 5, 4 * qb + 2 * kvb + stat, flops_peak, mem_bps)
     route = ("bf16 (mma.sync)" if dtype == torch.bfloat16
              else "f32 (CUDA cores)")
-    print(f"[time] flash_attention backward {case[:5]} causal {route}: "
+    lib = ("none" if t["library_ms"] is None
+           else f"{t['library_ms']:.4f} ms")
+    print(f"[time] flash_attention backward {label} {case} {route}: "
           f"kernels {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA's "
-          f"backward {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+          f"backward {lib}, bound {t['bound_ms']:.4f} ms "
           f"({t['bound_by']}); kernels at "
           f"{100 * t['bound_ms'] / t['ms']:.2f}% of the bound")
     if dtype == torch.bfloat16:
-        args, _alive, _ = fa._bwd_args(q, k, v, o, lse, do, causal=True,
-                                       window=None, softcap=None)
+        args, _alive, _ = fa._bwd_args(q, k, v, o, lse, do, **case.kw)
         fa._launch("flash_attention_bwd_dq", args, q)   # D for dk/dv alone
         # dq: q, k, v, o, do, lse read; dq, D written. dk/dv: q, k, v, do,
         # lse, D read; dk, dv written.
@@ -1063,8 +1228,8 @@ def time_bwd(dtype, gen, flops_peak, mem_bps, plain_reps) -> dict:
                 ("dkdv", 4, 2 * qb + 2 * kvb + 2 * stat)):
             ms = time_ms(lambda: fa._launch(f"flash_attention_bwd_{name}",
                                             args, q))
-            bms, by = attn_bound(b, s, nq, hd, size, products, nbytes,
-                                 flops_peak, mem_bps)
+            bms, by = attn_bound(case, products, nbytes, flops_peak,
+                                 mem_bps)
             t[name] = {"ms": ms, "bound_ms": bms, "bound_by": by}
             print(f"[time]   {name} kernel alone: {ms:.4f} ms, bound of its "
                   f"{products} products {bms:.4f} ms ({by}), "
@@ -1074,31 +1239,49 @@ def time_bwd(dtype, gen, flops_peak, mem_bps, plain_reps) -> dict:
               f"{t['bound_ms'] * 7 / 5:.4f} ms, the backward at "
               f"{100 * t['bound_ms'] * 7 / 5 / t['ms']:.2f}% of it")
         del args, _alive
-        t["sdpa_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
-            sdpa(), (qs, ks, vs), dos))
-    del q, k, v, do, o, lse, qs, ks, vs, dos, so
+        if sdpa is not None:
+            t["sdpa_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+                sdpa(), (qs, ks, vs), dos))
+    del q, k, v, do, o, lse, qs, ks, vs, dos, sdpa
     torch.cuda.empty_cache()
     return t
 
 
+# the flash kernels' shapes on slice 11's paths, timed in bf16: the
+# forward at the whisper-base train cell's encoder and decoder and the
+# gemma2-27b prefill's two layers, the backward at the whisper encoder's
+# and decoder's and the gemma2 train cell's two layers
+FWD_PATH_CASES = ("whisper encoder", "whisper decoder", "gemma2 local",
+                  "gemma2 global")
+BWD_PATH_CASES = ("whisper encoder", "whisper decoder", "gemma2 train local",
+                  "gemma2 train global")
+
+
 def time_flash(gen, bf16_fps, f32_fps, mem_bps) -> dict:
     """Forward and backward at the path's shape in both dtypes (kernels,
-    plain versions, SDPA), and the bf16 forward at the Jamba shape, beside
-    their bounds."""
+    plain versions, SDPA), the bf16 forward at the Jamba shape and at
+    FWD_PATH_CASES, and the bf16 backward at BWD_PATH_CASES, beside their
+    bounds."""
     out = {"forward": time_fwd("path", torch.bfloat16, gen, bf16_fps,
                                mem_bps, (20, 3)),
-           "backward": time_bwd(torch.bfloat16, gen, bf16_fps, mem_bps,
-                                (20, 3))}
+           "backward": time_bwd("path", torch.bfloat16, gen, bf16_fps,
+                                mem_bps, (20, 3))}
     fwd, bwd = out["forward"], out["backward"]
     print(f"[time] flash_attention forward+backward bf16: kernels "
           f"{fwd['ms'] + bwd['ms']:.4f} ms, SDPA "
           f"{bwd['sdpa_fwd_bwd_ms']:.4f} ms")
     out["jamba"] = time_fwd("jamba", torch.bfloat16, gen, bf16_fps, mem_bps,
                             (3, 1))
+    for label in FWD_PATH_CASES:
+        out[("forward", label)] = time_fwd(label, torch.bfloat16, gen,
+                                           bf16_fps, mem_bps, (3, 1))
+    for label in BWD_PATH_CASES:
+        out[("backward", label)] = time_bwd(label, torch.bfloat16, gen,
+                                            bf16_fps, mem_bps, (3, 1))
     out["forward_f32"] = time_fwd("path", torch.float32, gen, f32_fps,
                                   mem_bps, (5, 1))
-    out["backward_f32"] = time_bwd(torch.float32, gen, f32_fps, mem_bps,
-                                   (5, 1))
+    out["backward_f32"] = time_bwd("path", torch.float32, gen, f32_fps,
+                                   mem_bps, (5, 1))
     return out
 
 
@@ -1116,17 +1299,20 @@ KERNEL_GROUPS = (("moe_gemm backward", ("moe_gemm_dx", "moe_gemm_dw",
                  ("elementwise and copies", ("elementwise", "copy")))
 
 
-def profile_train(cfg, n_steps: int = 2) -> None:
-    """Full-width train steps: host wall per step without the profiler,
-    with and without the launcher's two idle dispatcher threads running
-    (no thread first and last), then device busy time per step by kernel
-    and by group under torch.profiler."""
+def profile_train(cfg, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+                  n_steps: int = 2) -> dict:
+    """Full-width train steps of `batch` x `seq` (an encoder-decoder's
+    over the zero frames its forward makes when given none, as `train()`
+    gives them): host wall per step without
+    the profiler, with and without the launcher's two idle dispatcher
+    threads running (no thread first and last), then device busy time per
+    step by kernel and by group under torch.profiler."""
     model = get_model(cfg, "cuda")
     params = model.init_params(torch.Generator("cuda").manual_seed(1))
     opt = init_opt_state(params)
     step_fn = make_train_step(model, TrainConfig(opt=OptConfig(
         peak_lr=1e-3, warmup_steps=20, total_steps=100)))
-    ds = SyntheticLM(cfg, DataConfig(batch=TRAIN_BATCH, seq_len=TRAIN_SEQ))
+    ds = SyntheticLM(cfg, DataConfig(batch=batch, seq_len=seq))
     batches = [{k: torch.from_numpy(v).cuda()
                 for k, v in ds.batch_at(i).items()} for i in range(3)]
     step_fn(params, opt, batches[0])                    # warm up
@@ -1156,8 +1342,8 @@ def profile_train(cfg, n_steps: int = 2) -> None:
     rows = kernel_rows(prof, n_steps)
     busy = sum(r[0] for r in rows)
     attn = sum(r[0] for r in rows if "flash_" in r[2])
-    print(f"[profile] full-width {TRAIN_ARCH} train step, B={TRAIN_BATCH} "
-          f"S={TRAIN_SEQ}: wall {wall:.3f} ms/step (no profiler, no idle "
+    print(f"[profile] full-width {cfg.name} train step, B={batch} "
+          f"S={seq}: wall {wall:.3f} ms/step (no profiler, no idle "
           f"threads); device busy {busy:.3f} ms/step in "
           f"{sum(r[1] for r in rows):.0f} kernels; idle share "
           f"{1 - busy / wall:.3f}; flash-attention kernels {attn:.3f} "
@@ -1175,12 +1361,15 @@ def profile_train(cfg, n_steps: int = 2) -> None:
         m = re.search(r"(flash_\w+?_kernel)", key)
         if m:
             flash[m.group(1)] = flash.get(m.group(1), 0.0) + count
-    n_attn = sum(b.mixer.startswith("attn") for b in cfg.pattern) \
-        * cfg.repeats
+    n_attn = forward_counts(cfg)["flash_attention"]
     print(f"[profile] flash kernels, launches/step: {flash}")
     assert flash == {"flash_fwd_mma_kernel": n_attn,
                      "flash_bwd_dq_mma_kernel": n_attn,
                      "flash_bwd_dkdv_mma_kernel": n_attn}, flash
+    del model, params, opt, step_fn, batches, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"wall_ms": wall, "busy_ms": busy, "flash_ms": attn}
 
 
 def print_groups(rows, unit: str) -> None:
@@ -1640,11 +1829,15 @@ def jamba_tiny_f32():
                                      capacity_factor=16.0)
 
 
-def jamba_counts(cfg) -> dict:
-    """Kernel launches of one full-sequence forward of `cfg`."""
+def forward_counts(cfg) -> dict:
+    """Kernel launches of one full-sequence forward of `cfg`: a flash
+    forward a self-attention layer (an encoder-decoder's encoder layers
+    too; its cross-attention takes the plain op), a selective scan a
+    Mamba layer, three grouped GEMMs a MoE layer."""
     per = lambda f: sum(map(f, cfg.pattern)) * cfg.repeats  # noqa: E731
     return {"selective_scan": per(lambda b: b.mixer == "mamba"),
-            "flash_attention": per(lambda b: b.mixer.startswith("attn")),
+            "flash_attention": per(lambda b: b.mixer.startswith("attn"))
+            + cfg.encoder_layers,
             "moe_gemm": 3 * per(lambda b: b.ffn == "moe")}
 
 
@@ -1657,18 +1850,38 @@ def read_counts() -> dict:
 def zero_counts() -> None:
     selective_scan.launches = 0
     fa.flash_attention.launches = 0
+    fa.flash_attention.by_shape.clear()
     moe_gemm.launches = 0
 
 
-def jamba_prefill_and_serve(n_calls: int = 3) -> dict:
-    """Slice 3's main path, full-width Jamba cut to JAMBA_REPEATS periods:
-    prefill (a warm-up, then `n_calls` timed calls, launch counts read
-    around all of them), a profiled prefill, then the serving engine on
-    the same weights."""
-    cfg = get_config(JAMBA).scaled(repeats=JAMBA_REPEATS)
-    per_call = jamba_counts(cfg)
-    assert per_call == {"selective_scan": 14, "flash_attention": 2,
-                        "moe_gemm": 24}, per_call
+def case_key(case: AttnCase) -> tuple:
+    """The flash wrappers' `by_shape` key of a call at `case`."""
+    return ((case.b, case.s, case.nq, case.hd), case.t or case.s,
+            case.causal, case.window, case.softcap)
+
+
+def shape_launches(by_shape: dict, want: dict) -> dict:
+    """A flash wrapper's launches by call shape, read just after a path's
+    run, at each ATTN_CASES label of `want` (label -> the launches the
+    config gives that shape). Fails unless each shape's count is the
+    config's and together they make up every launch of the run."""
+    got = {label: by_shape.get(case_key(ATTN_CASES[label]), 0)
+           for label in want}
+    assert got == want and sum(by_shape.values()) == sum(got.values()), \
+        (by_shape, want)
+    return got
+
+
+def prefill_and_serve(cfg, seq: int, per_call: dict, n_calls: int = 3
+                      ) -> dict:
+    """A prefill main path at full width: `make_prefill_step` on `cfg`,
+    random bf16 weights from a seeded generator, B=1 x `seq` (a warm-up,
+    then `n_calls` timed calls, launch counts set to 0 just before and
+    read after the first call and after all of them, `per_call` a call),
+    a profiled prefill, then the serving engine on the same weights and
+    the traffic of phase 5 (counts set to 0 just before and read just
+    after: `per_call`'s moe_gemm a step, no flash, no scan)."""
+    assert forward_counts(cfg) == per_call, forward_counts(cfg)
     torch.cuda.reset_peak_memory_stats()
     model = get_model(cfg, "cuda")
     t0 = time.perf_counter()
@@ -1678,12 +1891,12 @@ def jamba_prefill_and_serve(n_calls: int = 3) -> dict:
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
     n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
-    print(f"[prefill] {JAMBA} full width, {JAMBA_REPEATS} of "
-          f"{get_config(JAMBA).repeats} periods ({cfg.num_layers} layers), "
-          f"{n_params / 1e9:.3f} B parameters, {n_bytes / 2**30:.2f} GiB "
-          f"of weights, made in {time.perf_counter() - t0:.2f} s")
+    print(f"[prefill] {cfg.name} full width, {cfg.num_layers} layers, "
+          f"{n_params / 1e9:.3f} B parameters (ModelConfig.param_count "
+          f"{cfg.param_count():,}), {n_bytes / 2**30:.2f} GiB of weights, "
+          f"made in {time.perf_counter() - t0:.2f} s")
     prefill = make_prefill_step(model)
-    tokens = torch.randint(0, cfg.vocab_size, (1, PREFILL_SEQ),
+    tokens = torch.randint(0, cfg.vocab_size, (1, seq),
                            generator=torch.Generator("cuda").manual_seed(2),
                            device="cuda")
     batch = {"tokens": tokens}
@@ -1694,21 +1907,21 @@ def jamba_prefill_and_serve(n_calls: int = 3) -> dict:
         logits = prefill(params, batch)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        assert logits.shape == (1, PREFILL_SEQ, padded_vocab(cfg)), \
-            logits.shape
+        assert logits.shape == (1, seq, padded_vocab(cfg)), logits.shape
         assert bool(torch.isfinite(logits).all()), "non-finite logits"
         if i == 0:
             counts = read_counts()
             assert counts == per_call, (counts, per_call)
     counts = read_counts()
+    shapes = dict(fa.flash_attention.by_shape)
     peak = torch.cuda.max_memory_allocated()
     assert counts == {k: v * (1 + n_calls) for k, v in per_call.items()}, \
         counts
     ms = 1e3 * statistics.median(walls[1:])
-    print(f"[prefill] B=1 S={PREFILL_SEQ} bf16: wall "
+    print(f"[prefill] B=1 S={seq} bf16: wall "
           f"{[round(1e3 * w, 1) for w in walls]} ms (first is the warm-up); "
           f"median of {n_calls} {ms:.1f} ms, "
-          f"{PREFILL_SEQ / ms * 1e3:.0f} tokens/s; peak memory "
+          f"{seq / ms * 1e3:.0f} tokens/s; peak memory "
           f"{peak / 2**30:.2f} GiB; launches over {1 + n_calls} calls "
           f"{counts} ({per_call} a call); logits finite, last row max "
           f"|logit| {logits[0, -1].float().abs().max().item():.4f}")
@@ -1719,7 +1932,7 @@ def jamba_prefill_and_serve(n_calls: int = 3) -> dict:
         torch.cuda.synchronize()
     rows = kernel_rows(prof, 1)
     busy = sum(r[0] for r in rows)
-    print(f"[profile] full-width {JAMBA} prefill (S={PREFILL_SEQ}): wall "
+    print(f"[profile] full-width {cfg.name} prefill (S={seq}): wall "
           f"{ms:.3f} ms (no profiler); device busy {busy:.3f} ms in "
           f"{sum(r[1] for r in rows):.0f} kernels; idle share "
           f"{1 - busy / ms:.3f}")
@@ -1729,13 +1942,14 @@ def jamba_prefill_and_serve(n_calls: int = 3) -> dict:
     print_groups(rows, "ms (launches)")
     for t_ms, count, key in rows[:10]:
         print(f"[profile]   {t_ms:9.4f} ms {count:6.1f}x  {key[:90]}")
+    del prof
 
-    # ---- 13. serving on the same weights --------------------------------
+    # serving on the same weights
     zero_counts()
     out = serve_requests(model, params, REQUESTS, CLIENTS, SLOTS, MAX_NEW)
     serve_counts = read_counts()
     steps = out["engine_steps"]
-    print(f"[serve] {JAMBA} full width, {cfg.num_layers} layers, bf16: "
+    print(f"[serve] {cfg.name} full width, {cfg.num_layers} layers, bf16: "
           f"{out['requests']} requests, {out['tokens']} tokens, {steps} "
           f"engine steps, wall {out['wall_s']:.3f} s, "
           f"{out['tok_per_s']:.2f} tok/s, "
@@ -1751,7 +1965,71 @@ def jamba_prefill_and_serve(n_calls: int = 3) -> dict:
     del model, params, prefill, out
     gc.collect()
     torch.cuda.empty_cache()
-    return {"prefill_counts": counts}
+    return {"prefill_counts": counts, "prefill_shapes": shapes,
+            "serve_counts": serve_counts, "prefill_ms": ms,
+            "peak_gib": peak / 2**30, "calls": 1 + n_calls}
+
+
+def jamba_prefill_and_serve() -> dict:
+    """Slice 3's main path: full-width Jamba cut to JAMBA_REPEATS of its
+    periods, prefill at PREFILL_SEQ and serving on the same weights."""
+    cfg = get_config(JAMBA).scaled(repeats=JAMBA_REPEATS)
+    return prefill_and_serve(cfg, PREFILL_SEQ, {
+        "selective_scan": 14, "flash_attention": 2, "moe_gemm": 24})
+
+
+def gemma2_prefill_and_serve() -> dict:
+    """Slice 11's main path: full-width gemma2-27b, all 46 layers (23
+    local with the 4096-key window, 23 global, both softcapped), prefill
+    at GEMMA2_SEQ (past the window) and serving on the same weights."""
+    cfg = get_config(GEMMA2)
+    assert cfg.param_count() == GEMMA2_PARAMS, cfg.param_count()
+    assert GEMMA2_SEQ > cfg.sliding_window
+    out = prefill_and_serve(cfg, GEMMA2_SEQ, {
+        "selective_scan": 0, "flash_attention": 46, "moe_gemm": 0})
+    local, glob = mixer_layers(cfg)
+    out["prefill_shapes"] = shape_launches(out["prefill_shapes"], {
+        "gemma2 local": local * out["calls"],
+        "gemma2 global": glob * out["calls"]})
+    print(f"[prefill] {GEMMA2} flash-forward launches by shape over "
+          f"{out['calls']} prefills: {out['prefill_shapes']}")
+    return out
+
+
+def mixer_layers(cfg) -> tuple[int, int]:
+    """(local, global) attention layers of a decoder arch's config."""
+    per = lambda m: sum(b.mixer == m for b in cfg.pattern) * cfg.repeats  # noqa: E731,E501
+    return per("attn_local"), per("attn")
+
+
+def tiny_decode_check(cfg, toks, frames=None) -> tuple:
+    """Tiny f32 `cfg` on the card, weights from seed 0: decode step by step
+    over `toks` [B, S] (after `fill_cross_cache` over `frames` for an
+    encoder-decoder) equals the forward within 1e-4, and the forward
+    launches `forward_counts(cfg)`. Returns (model, params, max |diff|,
+    the forward's launches)."""
+    model = get_model(cfg, "cuda")
+    params = model.init_params(torch.Generator("cuda").manual_seed(0))
+    params.requires_grad_(False)
+    b, s = toks.shape
+    batch = {"tokens": toks}
+    if frames is not None:
+        batch["frames"] = frames
+    zero_counts()
+    with torch.inference_mode():
+        ref, _ = model.forward(params, batch)
+        counts = read_counts()
+        cache = model.init_cache(b, s)
+        if frames is not None:
+            cache = params.fill_cross_cache(cache, frames)
+        outs = []
+        for t in range(s):
+            lg, cache = model.decode_step(params, cache, toks[:, t], t)
+            outs.append(lg)
+    err = (torch.stack(outs, 1) - ref).abs().max().item()
+    assert counts == forward_counts(cfg), counts
+    assert err < 1e-4, err
+    return model, params, err, counts
 
 
 def jamba_tiny_checks() -> dict:
@@ -1759,24 +2037,9 @@ def jamba_tiny_checks() -> dict:
     engine == greedy decode; then under autograd the selective scan runs
     its Function and ssm_scan raises. Returns the kernel launches of the
     f32 forward."""
-    cfg = jamba_tiny_f32()
-    model = get_model(cfg, "cuda")
-    params = model.init_params(torch.Generator("cuda").manual_seed(0))
-    params.requires_grad_(False)
     toks = torch.randint(0, 500, (2, 8), device="cuda",
                          generator=torch.Generator("cuda").manual_seed(3))
-    zero_counts()
-    with torch.inference_mode():
-        ref, _ = model.forward(params, {"tokens": toks})
-        counts = read_counts()
-        cache = model.init_cache(2, 8)
-        outs = []
-        for t in range(8):
-            lg, cache = model.decode_step(params, cache, toks[:, t], t)
-            outs.append(lg)
-    err = (torch.stack(outs, 1) - ref).abs().max().item()
-    assert counts == jamba_counts(cfg), counts
-    assert err < 1e-4, err
+    model, params, err, counts = tiny_decode_check(jamba_tiny_f32(), toks)
     print(f"[check] tiny {JAMBA} (full 8-position pattern, f32, cuda): "
           f"decode step by step vs forward max |diff| {err:.3e} (tol "
           f"1e-4); the forward launched {counts}")
@@ -1829,21 +2092,29 @@ TRAIN_COUNTERS = (("moe_gemm", moe_gemm, "launches"),
 def zero_train_counts() -> None:
     for _, fn, attr in TRAIN_COUNTERS:
         setattr(fn, attr, 0)
+    fa.flash_attention.by_shape.clear()
+    fa.flash_attention_bwd.by_shape.clear()
 
 
 def read_train_counts() -> dict:
     return {key: getattr(fn, attr) for key, fn, attr in TRAIN_COUNTERS}
 
 
+def read_flash_shapes() -> dict:
+    """The flash wrappers' launches by call shape, forward and backward."""
+    return {"forward": dict(fa.flash_attention.by_shape),
+            "backward": dict(fa.flash_attention_bwd.by_shape)}
+
+
 def train_step_counts(cfg) -> dict:
     """Kernel launches of one train step of `cfg`: three grouped GEMMs a
     MoE layer, each with its dx and dw; the flash forward and its two
-    backward kernels an attention layer; the selective scan, its backward
-    and the backward's second pass a Mamba layer."""
-    per = lambda f: sum(map(f, cfg.pattern)) * cfg.repeats  # noqa: E731
-    moe = 3 * per(lambda b: b.ffn == "moe")
-    attn = per(lambda b: b.mixer.startswith("attn"))
-    mamba = per(lambda b: b.mixer == "mamba")
+    backward kernels a self-attention layer (`forward_counts`); the
+    selective scan, its backward and the backward's second pass a Mamba
+    layer."""
+    fwd = forward_counts(cfg)
+    moe, attn = fwd["moe_gemm"], fwd["flash_attention"]
+    mamba = fwd["selective_scan"]
     return {"moe_gemm": moe, "moe_gemm_bwd_dx": moe, "moe_gemm_bwd_dw": moe,
             "flash_attention": attn, "flash_attention_bwd": BWD_KERNELS * attn,
             "selective_scan": mamba, "selective_scan_bwd": mamba,
@@ -1878,6 +2149,7 @@ def train_cell(name: str, cfg, batch: int, seq: int, per_step: dict,
         walls.append(time.perf_counter() - t0)
         gnorms.append(float(metrics["grad_norm"]))
     counts = read_train_counts()
+    shapes = read_flash_shapes()
     peak = torch.cuda.max_memory_allocated()
     tokens = batch * seq
     wall = statistics.median(walls[1:])
@@ -1924,8 +2196,9 @@ def train_cell(name: str, cfg, batch: int, seq: int, per_step: dict,
     del model, params, opt, step_fn, batches, metrics, prof
     gc.collect()
     torch.cuda.empty_cache()
-    return {"counts": counts, "wall_ms": 1e3 * wall, "busy_ms": busy,
-            "peak_gib": peak / 2**30, "kernel_ms": kernel_ms}
+    return {"counts": counts, "shapes": shapes, "wall_ms": 1e3 * wall,
+            "busy_ms": busy, "peak_gib": peak / 2**30,
+            "kernel_ms": kernel_ms}
 
 
 MOE_KERNELS = ("moe_gemm_wgmma_kernel", "moe_gemm_dx_wgmma_kernel",
@@ -1961,6 +2234,183 @@ def jamba_train_path() -> dict:
                        "selective_scan_bwd_reduce": 2},
                       ("sel_scan_kernel", "sel_scan_bwd_kernel",
                        "sel_scan_bwd_reduce_kernel") + MOE_KERNELS)
+
+
+FLASH_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+                 "flash_bwd_dkdv_mma_kernel")
+
+
+def gemma2_train_path() -> dict:
+    """Slice 11's train path: full-width gemma2-27b cut to one period (a
+    local layer with the 4096-key window and a global one, both
+    softcapped), B=1 x GEMMA2_TRAIN_SEQ, through `train_cell`: a step
+    runs two flash forwards and their four backward kernels, nothing else
+    of the port's."""
+    cfg = get_config(GEMMA2).scaled(repeats=1)
+    assert cfg.param_count() == GEMMA2_TRAIN_PARAMS, cfg.param_count()
+    assert GEMMA2_TRAIN_SEQ > cfg.sliding_window
+    out = train_cell("gemma2-train", cfg, 1, GEMMA2_TRAIN_SEQ, {
+        "moe_gemm": 0, "moe_gemm_bwd_dx": 0, "moe_gemm_bwd_dw": 0,
+        "flash_attention": 2, "flash_attention_bwd": 4, "selective_scan": 0,
+        "selective_scan_bwd": 0, "selective_scan_bwd_reduce": 0},
+        FLASH_KERNELS)
+    local, glob = mixer_layers(cfg)
+    out["shapes"] = {which: shape_launches(out["shapes"][which], {
+        "gemma2 train local": n * local * TRAIN_STEPS,
+        "gemma2 train global": n * glob * TRAIN_STEPS})
+        for which, n in (("forward", 1), ("backward", BWD_KERNELS))}
+    print(f"[gemma2-train] flash launches by shape over {TRAIN_STEPS} "
+          f"steps: {out['shapes']}")
+    return out
+
+
+def launcher_train_path(arch: str, batch: int, seq: int) -> dict:
+    """`train()` on full-width `arch` (bf16, its two idle dispatcher
+    threads running), TRAIN_STEPS steps of `batch` x `seq` (an
+    encoder-decoder's over encoder_seq zero frames), with the launch
+    counts set to 0 just before and read just after (`train_step_counts`
+    a step); step wall, tokens/s, peak memory, the final checkpoint; then
+    `profile_train` over two steps."""
+    cfg = get_config(arch)
+    per_step = train_step_counts(cfg)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        zero_train_counts()
+        out = train(arch, tiny=False, steps=TRAIN_STEPS, batch=batch,
+                    seq=seq, ckpt_dir=ckpt_dir, log_every=1, device="cuda")
+        counts = read_train_counts()
+        shapes = read_flash_shapes()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    wall = statistics.median(out["step_s"][1:])
+    ck = out["last_ckpt"]
+    layers = (f"{cfg.encoder_layers} encoder + {cfg.num_layers} decoder "
+              f"layers over {cfg.encoder_seq} zero frames"
+              if cfg.is_encoder_decoder else f"{cfg.num_layers} layers")
+    print(f"[train] {arch} full width, {layers}, "
+          f"{cfg.param_count():,} parameters by ModelConfig.param_count, "
+          f"bf16, B={batch} S={seq}: losses "
+          f"{[round(x_, 4) for x_ in out['losses']]}; grad norms "
+          f"{[round(x_, 4) for x_ in out['grad_norms']]}")
+    print(f"[train] wall per step (host, ends in the loss's sync, two idle "
+          f"dispatcher threads running) "
+          f"{[round(1e3 * t, 1) for t in out['step_s']]} ms; steps 2.. "
+          f"median {1e3 * wall:.1f} ms, {batch * seq / wall:.0f} tok/s; "
+          f"peak memory {peak / 2**30:.2f} GiB; final checkpoint "
+          f"{ck['bytes'] / 1e9:.3f} GB written in {ck['seconds']:.2f} s; "
+          f"launches over {TRAIN_STEPS} steps {counts} ({per_step} a step)")
+    assert all(math.isfinite(x_) for x_ in out["losses"] + out["grad_norms"])
+    assert len(out["losses"]) == TRAIN_STEPS
+    assert counts == {k: v * TRAIN_STEPS for k, v in per_step.items()}, \
+        counts
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    prof = profile_train(cfg, batch, seq)
+    return {"counts": counts, "shapes": shapes, "wall_ms": 1e3 * wall,
+            "peak_gib": peak / 2**30,
+            **{f"profile_{k}": v for k, v in prof.items()}}
+
+
+def whisper_train_path() -> dict:
+    """Slice 11's encoder-decoder path: `train()` on full-width
+    whisper-base (`launcher_train_path`), with the flash launches split by
+    shape: the encoder's non-causal layers over 1500 frames and the
+    decoder's causal self-attention over WHISPER_SEQ tokens."""
+    cfg = get_config(WHISPER)
+    out = launcher_train_path(WHISPER, WHISPER_BATCH, WHISPER_SEQ)
+    out["shapes"] = {which: shape_launches(out["shapes"][which], {
+        "whisper encoder": n * cfg.encoder_layers * TRAIN_STEPS,
+        "whisper decoder": n * cfg.num_layers * TRAIN_STEPS})
+        for which, n in (("forward", 1), ("backward", BWD_KERNELS))}
+    print(f"[train] {WHISPER} flash launches by shape over {TRAIN_STEPS} "
+          f"steps: {out['shapes']}")
+    return out
+
+
+def whisper_decode() -> dict:
+    """Full-width whisper-base decode, bf16: `fill_cross_cache` over
+    seeded frames (x 0.1, as tests/test_archs.py draws them) for
+    WHISPER_DECODE_BATCH streams (the encoder's 6 flash launches), then
+    WHISPER_DECODE_STEPS greedy `decode_step`s (no flash launch), with
+    the launch counts set to 0 just before each and read just after;
+    ms per step; then the teacher-forced forward over the decoded tokens
+    and max |decode - forward| in bf16."""
+    cfg = get_config(WHISPER)
+    b, n = WHISPER_DECODE_BATCH, WHISPER_DECODE_STEPS
+    model = get_model(cfg, "cuda")
+    with torch.no_grad():
+        params = model.init_params(torch.Generator("cuda").manual_seed(0))
+    params.requires_grad_(False)
+    gen = torch.Generator("cuda").manual_seed(6)
+    frames = (torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=gen,
+                          device="cuda") * 0.1).to(cfg.torch_dtype)
+    tok = torch.randint(0, cfg.vocab_size, (b,), generator=gen,
+                        device="cuda")
+    with torch.inference_mode():
+        cache = model.init_cache(b, n)
+        params.fill_cross_cache(cache, frames)      # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        cache = params.fill_cross_cache(cache, frames)
+        torch.cuda.synchronize()
+        fill_ms = 1e3 * (time.perf_counter() - t0)
+        fill_counts = read_counts()
+        toks, outs = [tok], []
+        zero_counts()
+        t0 = time.perf_counter()
+        for t in range(n):
+            lg, cache = model.decode_step(params, cache, toks[-1], t)
+            outs.append(lg)
+            toks.append(lg.argmax(dim=-1))
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / n
+        decode_counts = read_counts()
+        ref, _ = model.forward(params, {"tokens": torch.stack(toks[:-1], 1),
+                                        "frames": frames})
+    dec = torch.stack(outs, 1)
+    err = (dec.float() - ref.float()).abs().max().item()
+    print(f"[whisper-decode] {WHISPER} full width, bf16, B={b}: "
+          f"fill_cross_cache over {cfg.encoder_seq} frames {fill_ms:.3f} ms, "
+          f"launches {fill_counts}; {n} greedy decode steps {step_ms:.3f} "
+          f"ms/step ({b * 1e3 / step_ms:.1f} tok/s), launches "
+          f"{decode_counts}; max |decode - forward| over the decoded "
+          f"tokens {err:.4e} (bf16, max |logit| "
+          f"{ref.float().abs().max().item():.4f})")
+    assert fill_counts == {"selective_scan": 0,
+                           "flash_attention": cfg.encoder_layers,
+                           "moe_gemm": 0}, fill_counts
+    assert decode_counts == {"selective_scan": 0, "flash_attention": 0,
+                             "moe_gemm": 0}, decode_counts
+    assert bool(torch.isfinite(dec).all()) and math.isfinite(err)
+    del model, params, cache, dec, ref, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"fill_ms": fill_ms, "step_ms": step_ms, "max_abs_diff": err,
+            "fill_counts": fill_counts}
+
+
+def whisper_tiny_checks() -> dict:
+    """Tiny whisper in f32 on the card: the forward (its encoder and
+    decoder self-attention through the flash kernels, f32 route) equals
+    decode step by step after `fill_cross_cache` within 1e-4. The decoder
+    S (8) is not encoder_seq (24), so cross-attention stays on the plain
+    op, as in JAX. Returns the forward's launches."""
+    cfg = tiny_config(WHISPER).scaled(dtype="float32")
+    s = 8
+    assert s != cfg.encoder_seq
+    gen = torch.Generator("cuda").manual_seed(3)
+    toks = torch.randint(0, 500, (2, s), device="cuda", generator=gen)
+    frames = torch.randn((2, cfg.encoder_seq, cfg.d_model), generator=gen,
+                         device="cuda") * 0.1
+    _, _, err, counts = tiny_decode_check(cfg, toks, frames)
+    print(f"[check] tiny {WHISPER} (f32, cuda): decode after "
+          f"fill_cross_cache vs forward max |diff| {err:.3e} (tol 1e-4); "
+          f"the forward launched {counts}")
+    return counts
 
 
 def tiny_f32_train(arch: str) -> dict:
@@ -2262,47 +2712,10 @@ def main() -> int:
     check_moe_autograd(gen)
 
     # ---- 9. slice 2's main path: full-width training --------------------
-    tcfg = get_config(TRAIN_ARCH)
-    n_attn = sum(b.mixer.startswith("attn") for b in tcfg.pattern) \
-        * tcfg.repeats
-    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
-    try:
-        torch.cuda.reset_peak_memory_stats()
-        fa.flash_attention.launches = 0
-        fa.flash_attention_bwd.launches = 0
-        tout = train(TRAIN_ARCH, tiny=False, steps=TRAIN_STEPS,
-                     batch=TRAIN_BATCH, seq=TRAIN_SEQ, ckpt_dir=ckpt_dir,
-                     log_every=1, device="cuda")
-        fwd_launches = fa.flash_attention.launches
-        bwd_launches = fa.flash_attention_bwd.launches
-        peak = torch.cuda.max_memory_allocated()
-    finally:
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    ck = tout["last_ckpt"]
-    print(f"[train] {TRAIN_ARCH} full width, {tcfg.num_layers} layers, bf16, "
-          f"B={TRAIN_BATCH} S={TRAIN_SEQ}: losses "
-          f"{[round(x_, 4) for x_ in tout['losses']]}; grad norms "
-          f"{[round(x_, 4) for x_ in tout['grad_norms']]}")
-    print(f"[train] wall per step (host, ends in the loss's sync, two idle "
-          f"dispatcher threads running) "
-          f"{[round(1e3 * t, 1) for t in tout['step_s']]} ms; steps 2.. "
-          f"median {1e3 * statistics.median(tout['step_s'][1:]):.1f} ms, "
-          f"{tokens / statistics.median(tout['step_s'][1:]):.0f} tok/s; "
-          f"peak memory {peak / 2**30:.2f} GiB; final checkpoint "
-          f"{ck['bytes'] / 1e9:.3f} GB written in {ck['seconds']:.2f} s; "
-          f"flash launches forward {fwd_launches}, backward {bwd_launches}")
-    assert all(math.isfinite(x_) for x_ in tout["losses"] + tout["grad_norms"])
-    assert len(tout["losses"]) == TRAIN_STEPS
-    assert n_attn == 24 and fwd_launches == n_attn * TRAIN_STEPS, \
-        (fwd_launches, n_attn)
-    assert bwd_launches == n_attn * TRAIN_STEPS * BWD_KERNELS, bwd_launches
-    del tout
-    gc.collect()
-    torch.cuda.empty_cache()
-    profile_train(tcfg)
-    gc.collect()
-    torch.cuda.empty_cache()
+    qwen_train = launcher_train_path(TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ)
+    fwd_launches = qwen_train["counts"]["flash_attention"]
+    bwd_launches = qwen_train["counts"]["flash_attention_bwd"]
+    assert fwd_launches == 24 * TRAIN_STEPS, fwd_launches
 
     # ---- 10. tiny training in f32 on the card: learns, resumes exactly --
     tiny_counts = tiny_f32_train(TRAIN_ARCH)
@@ -2334,7 +2747,26 @@ def main() -> int:
     # ---- 18. tiny f32 Jamba training on the card: learns, resumes -------
     jamba_f32 = tiny_f32_train(JAMBA)
 
-    # ---- 19. results -----------------------------------------------------
+    # ---- 19, 20. slice 11's main path: full-width gemma2-27b prefill,
+    # serve -----------------------------------------------------------------
+    gemma2 = gemma2_prefill_and_serve()
+
+    # ---- 21. slice 11's train path: gemma2-27b cut to one period --------
+    gemma2_train = gemma2_train_path()
+
+    # ---- 22. slice 11's encoder-decoder path: whisper-base training -----
+    whisper_train = whisper_train_path()
+    assert whisper_train["counts"]["flash_attention"] == 12 * TRAIN_STEPS
+
+    # ---- 23. whisper-base decode after fill_cross_cache ------------------
+    whisper_dec = whisper_decode()
+
+    # ---- 24, 25. tiny f32 whisper on the card: decode == forward; train()
+    # learns and resumes exactly ------------------------------------------
+    whisper_f32 = whisper_tiny_checks()
+    whisper_f32_train = tiny_f32_train(WHISPER)
+
+    # ---- 26. results -----------------------------------------------------
     # Both dtypes of moe_gemm, of its backward and of the flash forward and
     # backward count in one `launches`; each route's own count is that of
     # a run in its dtype: bf16 the main paths (phases 5, 9 and 15), f32 the
@@ -2438,31 +2870,94 @@ def main() -> int:
     bwd_unit = ("one layer's call (dq, then dk/dv: two launches) at the "
                 "training path's shape (B=4, S=T=2048, 14:2 heads, hd 64, "
                 "causal)")
+    # the flash kernels at slice 11's path shapes, bf16; launches: each
+    # shape's own count (the wrappers' `by_shape`) over its path's run
+    g_fwd = gemma2["prefill_shapes"]
+    g_bwd = gemma2_train["shapes"]["backward"]
+    w_fwd, w_bwd = (whisper_train["shapes"][w] for w in ("forward",
+                                                          "backward"))
+    path_shapes = {
+        ("forward", "whisper encoder"): (
+            w_fwd["whisper encoder"],
+            "whisper-base's encoder layer (B=16, S=T=1500, 8:8 heads, hd "
+            "64, not causal); library = SDPA (is_causal=False); launches: "
+            "the encoder's over the 6 whisper train steps"),
+        ("forward", "whisper decoder"): (
+            w_fwd["whisper decoder"],
+            "whisper-base's decoder self-attention (B=16, S=T=448, 8:8 "
+            "heads, hd 64, causal); library = SDPA (is_causal=True); "
+            "launches: the decoder's over the 6 whisper train steps"),
+        ("forward", "gemma2 local"): (
+            g_fwd["gemma2 local"],
+            "gemma2-27b's local layer at the prefill's S (B=1, S=T=8192, "
+            "32:16 heads, hd 128, causal, window 4096, softcap 50); no "
+            "PyTorch call computes softcapped attention; launches: the "
+            "local layers' over the 4 gemma2 prefills"),
+        ("forward", "gemma2 global"): (
+            g_fwd["gemma2 global"],
+            "gemma2-27b's global layer at the prefill's S (window none, "
+            "softcap 50); launches: the global layers' over the 4 gemma2 "
+            "prefills"),
+        ("backward", "whisper encoder"): (
+            w_bwd["whisper encoder"],
+            "whisper-base's encoder layer, dq then dk/dv; library = SDPA's "
+            "backward alone; launches: the encoder's over the 6 whisper "
+            "train steps"),
+        ("backward", "whisper decoder"): (
+            w_bwd["whisper decoder"],
+            "whisper-base's decoder self-attention, dq then dk/dv; library "
+            "= SDPA's backward alone (is_causal=True); launches: the "
+            "decoder's over the 6 whisper train steps"),
+        ("backward", "gemma2 train local"): (
+            g_bwd["gemma2 train local"],
+            "gemma2-27b's local layer at the train cell's S (B=1, S=T="
+            "6144, window 4096, softcap 50), dq then dk/dv; no library "
+            "call; launches: the local layer's over the 6 gemma2 train "
+            "steps"),
+        ("backward", "gemma2 train global"): (
+            g_bwd["gemma2 train global"],
+            "gemma2-27b's global layer at the train cell's S (S=T=6144, "
+            "softcap 50), dq then dk/dv; launches: the global layer's over "
+            "the 6 gemma2 train steps")}
+
+    def path_entries(which: str) -> dict:
+        err_key = "o" if which == "forward" else "grads"
+        return {label.replace(" ", "_"): {
+            **times_of(flash_times[(which, label)]), "launches": n,
+            "max_abs_err": flash_errs[label][err_key], "unit": unit}
+            for (w, label), (n, unit) in path_shapes.items() if w == which}
     for kname, kern, replaces, count, err, t, unit, extra in (
             ("flash_attention (bf16)", "flash_fwd_mma_kernel",
              "src/repro/kernels/flash_attention.py:30", fwd_launches,
              flash_errs["o"], flash_times["forward"],
              "one layer's forward at the training path's bf16 shape (B=4, "
              "S=T=2048, 14:2 heads, hd 64, causal); launches over the "
-             "train run", {"jamba": times_of(flash_times["jamba"])}),
+             "train run", {"jamba": times_of(flash_times["jamba"]),
+                           **path_entries("forward")}),
             ("flash_attention (f32)", "flash_fwd_kernel",
              "src/repro/kernels/flash_attention.py:30",
              f32_counts["flash_attention"], flash_errs["o_f32"],
              flash_times["forward_f32"],
              "one layer's forward at the training path's shape in f32; "
-             "launches: the tiny f32 Jamba forward", {}),
+             "launches: the tiny f32 Jamba forward",
+             {"whisper_tiny_f32_launches": {
+                 "forward": whisper_f32["flash_attention"],
+                 "training": whisper_f32_train["flash_attention"]}}),
             ("flash_attention_bwd (bf16)",
              "flash_bwd_dq_mma_kernel, flash_bwd_dkdv_mma_kernel", None,
              bwd_launches, flash_errs["grads"], flash_times["backward"],
              bwd_unit + " in bf16; launches over the train run; library = "
              "SDPA's backward alone",
-             {k_: flash_times["backward"][k_] for k_ in ("dq", "dkdv")}),
+             {**{k_: flash_times["backward"][k_] for k_ in ("dq", "dkdv")},
+              **path_entries("backward")}),
             ("flash_attention_bwd (f32)",
              "flash_bwd_dq_kernel, flash_bwd_dkdv_kernel", None,
              f32_train["backward"], flash_errs["grads_f32"],
              flash_times["backward_f32"],
              bwd_unit + " in f32; launches: the tiny f32 training (60 "
-             "steps); library = SDPA's backward alone, f32", {})):
+             "steps); library = SDPA's backward alone, f32",
+             {"whisper_tiny_f32_launches":
+              whisper_f32_train["flash_attention_bwd"]})):
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

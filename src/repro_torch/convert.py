@@ -1,10 +1,14 @@
 """Weight bridge: the JAX package's parameter pytree -> the port's modules.
 
-The JAX tree (as numpy arrays) is nested dicts whose ``"layers"`` entry is
-a tuple with one dict per pattern position, each leaf stacked over
-repeats. Layer i of the port is position ``i % len(pattern)`` of repeat
-``i // len(pattern)``, so leaf ``layers[pos]/a/b[r]`` becomes the port's
-``layers.{r*len(pattern)+pos}.a.b``. Layouts are kept as they are (the
+The JAX tree (as numpy arrays) is nested dicts. A decoder-only tree's
+``"layers"`` entry is a tuple with one dict per pattern position, each
+leaf stacked over repeats. Layer i of the port is position
+``i % len(pattern)`` of repeat ``i // len(pattern)``, so leaf
+``layers[pos]/a/b[r]`` becomes the port's ``layers.{r*len(pattern)+pos}.a.b``.
+An encoder-decoder tree's ``"encoder"`` and ``"decoder"`` entries are one
+dict each, every leaf stacked over layers by ``jax.vmap``
+(repro/models/encdec.py), so ``encoder/a/b[i]`` becomes
+``encoder.{i}.a.b``. Layouts are kept as they are (the
 JAX ``x @ w`` layout, w [d_in, d_out]). Every leaf must find a parameter
 and every parameter a leaf, with equal shapes; anything else raises. The
 optimizer state's `m` and `v` and a gradient tree have the params'
@@ -34,11 +38,19 @@ def _leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
         yield prefix[:-1], tree
 
 
+_LAYER_STACKS = ("encoder", "decoder")     # encdec: stacked over layers
+
+
 def jax_state_dict(tree: Dict[str, Any], n_pattern: int
                    ) -> Dict[str, torch.Tensor]:
     """Flatten the JAX params tree to the port's ``state_dict`` names."""
     out: Dict[str, torch.Tensor] = {}
     for key, sub in tree.items():
+        if key in _LAYER_STACKS:
+            for name, leaf in _leaves(sub):
+                for i in range(leaf.shape[0]):
+                    out[f"{key}.{i}.{name}"] = _to_tensor(leaf[i])
+            continue
         if key != "layers":
             for name, leaf in _leaves(sub, f"{key}."):
                 out[name] = _to_tensor(leaf)

@@ -21,7 +21,8 @@ base or strides are not 16-byte aligned.
 
 Launch counts: `flash_attention.launches` counts forward kernel launches,
 `flash_attention_bwd.launches` backward kernel launches (two per call: dq,
-then dk/dv).
+then dk/dv). Each also counts its launches by call in `by_shape`, a
+Counter keyed by `shape_key` (q's shape, T, causal, window, softcap).
 
 As in the JAX kernel, the causal mask is start-aligned (query i sees keys
 <= i); it equals the end-aligned mask of `ref.attention_ref` only when
@@ -29,6 +30,7 @@ S == T, so a call with a causal mask or a window must have S == T.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import Optional
@@ -163,6 +165,18 @@ def _launch(entry: str, args: _Args, q: torch.Tensor) -> None:
                            f" ({err})")
 
 
+def shape_key(q: torch.Tensor, k: torch.Tensor, causal: bool,
+              window: Optional[int], softcap: Optional[float]) -> tuple:
+    """The key under which `by_shape` counts a call's launches."""
+    return tuple(q.shape), k.shape[1], bool(causal), window, softcap
+
+
+def _count(fn, key: tuple) -> None:
+    """One launch of `fn`'s kernel: its total and its call's shape."""
+    fn.launches += 1
+    fn.by_shape[key] += 1
+
+
 def _device_type(q: torch.Tensor) -> str:
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
@@ -189,7 +203,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     args = _args(q, k, v, causal, window, softcap)
     args.out, args.lse = o.data_ptr(), lse.data_ptr()
     _launch("flash_attention_fwd", args, q)
-    flash_attention.launches += 1
+    _count(flash_attention, shape_key(q, k, causal, window, softcap))
     return o, lse
 
 
@@ -217,10 +231,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        window=window, softcap=softcap)
     args, _alive, grads = _bwd_args(q, k, v, o, lse, do, causal=causal,
                                     window=window, softcap=softcap)
+    key = shape_key(q, k, causal, window, softcap)
     _launch("flash_attention_bwd_dq", args, q)      # writes dsum first
-    flash_attention_bwd.launches += 1
+    _count(flash_attention_bwd, key)
     _launch("flash_attention_bwd_dkdv", args, q)
-    flash_attention_bwd.launches += 1
+    _count(flash_attention_bwd, key)
     return grads
 
 
@@ -283,3 +298,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention_bwd.launches = 0
+flash_attention.by_shape = collections.Counter()
+flash_attention_bwd.by_shape = collections.Counter()

@@ -1,13 +1,19 @@
 """Entry points the models call for each hot spot; counterpart of
 `repro/kernels/ops.py`.
 
-Routing follows the JAX package's rule. Attention calls that decode
-(`kv_len` set, or S != T) use the plain op on any device, as they do in
-JAX. A full-sequence call (S == T > 1, no `kv_len`) on CUDA goes through
-the flash-attention kernels, forward and backward
+Routing follows the JAX package's rule (repro/kernels/ops.py). Attention
+calls that decode (`kv_len` set) and cross-attention (S != T: Whisper's
+decoder, S tokens against the encoder's frames) use the plain op on any
+device, as they do in JAX. A full-sequence self-attention call (S == T >
+1, no `kv_len`, causal or not: the decoder archs' layers, Whisper's
+bidirectional encoder and its causal decoder) on CUDA goes through the
+flash-attention kernels, forward and backward
 (`flash_attention.flash_attention`); the kernel's start-aligned causal
-mask is right only because only S == T calls reach it. On the CPU every
-call is the plain op, `ref.attention_ref`, differentiated by autograd.
+mask is right only because only S == T calls reach it. The kernels would
+take a non-causal S != T call, but routing cross-attention to them would
+be a path the JAX package does not have, so it stays on the plain op. On
+the CPU every call is the plain op, `ref.attention_ref`, differentiated
+by autograd.
 `moe_gemm`, `selective_scan` and `ssm_scan` launch their kernels for CUDA
 tensors and run the plain versions for CPU tensors. `moe_gemm` and
 `selective_scan` are differentiable on both devices: on CUDA their

@@ -9,13 +9,18 @@ checkpoint flushing), so the main thread only issues device steps.
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch jamba-v0.1-52b --device cuda
 
-Attention + MLP archs (qwen2-0.5b), attention + MoE archs
-(qwen2-moe-a2.7b, qwen3-moe-235b-a22b) and the hybrid Mamba + attention +
-MoE arch (jamba-v0.1-52b) train on both devices; on the card
-(`--device cuda`, the default) through the forward and backward kernels
-of flash attention, `moe_gemm` and the selective scan. `--full` trains
-the published widths. Random weights come from a seeded
+Every arch but xlstm-125m trains on both devices: attention + MLP archs
+(qwen2-0.5b, gemma2-27b, ...), attention + MoE archs (qwen2-moe-a2.7b,
+qwen3-moe-235b-a22b), the hybrid Mamba + attention + MoE arch
+(jamba-v0.1-52b) and the encoder-decoder whisper-base, which gets zero
+frames [B, encoder_seq, d_model] as the JAX trainer gives it. On the card
+(`--device cuda`, the default) they train through the forward and
+backward kernels of flash attention, `moe_gemm` and the selective scan.
+`--full` trains the published widths. Random weights come from a seeded
 `torch.Generator`.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-base \
+      --steps 30 --batch 4 --seq 32 --device cpu
 """
 from __future__ import annotations
 
@@ -106,6 +111,10 @@ def train(arch: str, tiny: bool, steps: int, batch: int, seq: int,
             opt = tree["opt"]
             print(f"[train] resumed from step {start_step}")
 
+    # the stub audio frontend's output: zeros, as the JAX trainer feeds it
+    frames = (torch.zeros((batch, cfg.encoder_seq, cfg.d_model),
+                          dtype=cfg.torch_dtype, device=dev)
+              if cfg.is_encoder_decoder else None)
     losses, gnorms, step_s = [], [], []
     with idle_workers(dispatcher):
         try:
@@ -113,6 +122,8 @@ def train(arch: str, tiny: bool, steps: int, batch: int, seq: int,
             for step in range(start_step, steps):
                 batch_dev = {k: torch.from_numpy(v).to(dev)
                              for k, v in prefetch.get(step).items()}
+                if frames is not None:
+                    batch_dev["frames"] = frames
                 st = time.perf_counter()
                 params, opt, metrics = step_fn(params, opt, batch_dev)
                 loss = float(metrics["loss"])

@@ -1,15 +1,19 @@
 """Grouped-query attention: QKV projections with optional bias (Qwen2),
-sliding-window local attention and logit softcapping (Gemma-2), RoPE;
-counterpart of `repro/models/attention.py` for the decoder-only archs.
+sliding-window local attention and logit softcapping (Gemma-2),
+cross-attention and bidirectional self-attention (Whisper), RoPE or
+none; counterpart of `repro/models/attention.py`.
 
 The inner attention math goes through `repro_torch.kernels.ops.attention`
-with the structured causal/window/kv_len arguments of the JAX package.
+with the structured causal/window/kv_len arguments of the JAX package,
+and so routes as it does: self-attention over a whole sequence (S == T,
+causal or not) to the flash kernels on CUDA, cross-attention (K/V from
+`memory`, S != T in general) and decode to the plain op.
 Decode updates the KV cache in place (the JAX version returns a new one):
 the engine keeps one cache for its whole life.
 """
 from __future__ import annotations
 
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import torch
 from torch import nn
@@ -62,37 +66,54 @@ class Attention(nn.Module):
         shape = (b, s, self.cfg.num_kv_heads, self.cfg.resolved_head_dim)
         return k.reshape(shape), v.reshape(shape)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Full-sequence causal self-attention (attention_train). On CUDA
-        the attention goes through the flash-attention kernels, forward
-        and backward; q, k, v come out of the RoPE concat contiguous, as
-        the kernels read them through strides with a contiguous head
-        dim."""
+    def forward(self, x: torch.Tensor, *, use_rope: bool = True,
+                causal: bool = True,
+                memory: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Full-sequence attention (attention_train). `memory` [B,T,d]
+        given: cross-attention, K/V from `memory`, no mask and no RoPE.
+        `causal=False` and no `memory`: bidirectional self-attention (the
+        Whisper encoder). The window applies only to a causal local layer.
+        On CUDA a self-attention call goes through the flash-attention
+        kernels, forward and backward; q, k, v come out of the RoPE concat
+        contiguous, as the kernels read them through strides with a
+        contiguous head dim."""
         b, s, _ = x.shape
         q = self._project_q(x)
-        k, v = self._project_kv(x)
-        cos, sin = rope_cos_sin(torch.arange(s, device=x.device),
-                                self.cfg.resolved_head_dim,
-                                self.cfg.rope_theta)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        o = kops.attention(q, k, v, causal=True, window=self.window,
+        k, v = self._project_kv(x if memory is None else memory)
+        if memory is None and use_rope:
+            cos, sin = rope_cos_sin(torch.arange(s, device=x.device),
+                                    self.cfg.resolved_head_dim,
+                                    self.cfg.rope_theta)
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
+        is_causal = causal and memory is None
+        o = kops.attention(q, k, v, causal=is_causal,
+                           window=self.window if is_causal else None,
                            softcap=self.cfg.attn_softcap)
         return o.reshape(b, s, -1) @ self.wo
 
     def decode(self, x: torch.Tensor, cache: Cache,
-               pos: Union[int, torch.Tensor]) -> torch.Tensor:
+               pos: Union[int, torch.Tensor], *, use_rope: bool = True,
+               memory_kv: Optional[Cache] = None) -> torch.Tensor:
         """One-token decode. x [B,1,d]; cache k/v [B,L,nkv,hd], written in
-        place at `pos`; pos a scalar (int or 0-d tensor) or per-slot [B]."""
+        place at `pos`; pos a scalar (int or 0-d tensor) or per-slot [B].
+        `memory_kv` {"k", "v"} given: cross-attention against the
+        precomputed encoder K/V, the cache left as it is."""
         b = x.shape[0]
         q = self._project_q(x)                           # [B,1,nq,hd]
+        if memory_kv is not None:
+            o = kops.attention(q, memory_kv["k"], memory_kv["v"],
+                               softcap=self.cfg.attn_softcap)
+            return o.reshape(b, 1, -1) @ self.wo
         kn, vn = self._project_kv(x)                     # [B,1,nkv,hd]
         pos_t = torch.as_tensor(pos, device=x.device)
         pos_b = pos_t.expand(b) if pos_t.ndim == 0 else pos_t
-        cos, sin = rope_cos_sin(pos_b[:, None], self.cfg.resolved_head_dim,
-                                self.cfg.rope_theta)     # [B,1,hd/2]
-        q = apply_rope(q, cos, sin)
-        kn = apply_rope(kn, cos, sin)
+        if use_rope:
+            cos, sin = rope_cos_sin(pos_b[:, None],
+                                    self.cfg.resolved_head_dim,
+                                    self.cfg.rope_theta)  # [B,1,hd/2]
+            q = apply_rope(q, cos, sin)
+            kn = apply_rope(kn, cos, sin)
         k, v = cache["k"], cache["v"]
         # A position past the cache writes its last row, as the reference's
         # dynamic_update_slice clamps its start index, while RoPE and
@@ -111,6 +132,12 @@ class Attention(nn.Module):
         o = kops.attention(q, k, v, kv_len=pos_b + 1, window=self.window,
                            softcap=self.cfg.attn_softcap)
         return o.reshape(b, 1, -1) @ self.wo
+
+    def precompute_cross_kv(self, memory: torch.Tensor) -> Cache:
+        """This cross-attention layer's K/V [B,T,nkv,hd] over the encoder
+        output `memory` [B,T,d], for `decode(memory_kv=...)`."""
+        k, v = self._project_kv(memory)
+        return {"k": k, "v": v}
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -1,15 +1,15 @@
-"""Uniform model API; counterpart of `repro/models/registry.py` for the
-decoder-only family (encoder-decoder configs raise until `encdec` is
-ported)."""
+"""Uniform model API over the decoder-only family and the
+encoder-decoder family; counterpart of `repro/models/registry.py`."""
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List
 
 import torch
+from torch import nn
 
 from ..device import DeviceLike, resolve_device
-from . import transformer
+from . import encdec, transformer
 from .config import ModelConfig
 
 
@@ -17,7 +17,7 @@ from .config import ModelConfig
 class ModelAPI:
     cfg: ModelConfig
     device: torch.device
-    init_params: Callable[[torch.Generator], transformer.Transformer]
+    init_params: Callable[[torch.Generator], nn.Module]
     forward: Callable[..., Any]
     decode_step: Callable[..., Any]
     init_cache: Callable[[int, int], List[Dict[str, torch.Tensor]]]
@@ -26,9 +26,18 @@ class ModelAPI:
 def get_model(cfg: ModelConfig, device: DeviceLike = "cuda") -> ModelAPI:
     """The model's functions on `device` (raises if CUDA is asked for and
     absent). `init_params` takes a `torch.Generator` on that device."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError("encoder-decoder models not ported yet")
     dev = resolve_device(device)
+    if cfg.is_encoder_decoder:
+        return ModelAPI(
+            cfg=cfg, device=dev,
+            init_params=lambda gen: encdec.EncoderDecoder(cfg, dev, gen),
+            forward=lambda params, batch: params(
+                batch["tokens"], frames=batch.get("frames")),
+            decode_step=lambda params, cache, tokens, pos:
+                params.decode_step(cache, tokens, pos),
+            init_cache=lambda batch, max_len:
+                encdec.init_cache(cfg, batch, max_len, dev),
+        )
 
     def forward(params: transformer.Transformer, batch: Dict[str, Any]):
         return params(batch["tokens"], embeds=batch.get("embeds"))

@@ -94,7 +94,8 @@ class Transformer(nn.Module):
                  gen: torch.Generator):
         super().__init__()
         if cfg.is_encoder_decoder:
-            raise NotImplementedError("encoder-decoder models not ported yet")
+            raise ValueError(f"{cfg.name} is an encoder-decoder: build it "
+                             f"with models.encdec (registry.get_model does)")
         self.cfg = cfg
         self.embed = Embed(cfg, device, gen)
         self.layers = nn.ModuleList(

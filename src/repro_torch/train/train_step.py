@@ -72,7 +72,9 @@ def make_train_step(model: ModelAPI, tcfg: TrainConfig) -> Callable:
     def grad_fn(params, batch):
         names, plist = zip(*params.named_parameters())
         total, metrics = loss_fn(params, batch)
-        grads = torch.autograd.grad(total, plist)
+        # a parameter the loss does not reach (the embedding table when the
+        # batch carries `embeds`) gets a zero gradient, as under jax.grad
+        grads = torch.autograd.grad(total, plist, materialize_grads=True)
         return dict(zip(names, grads)), metrics
 
     def train_step(params: Any, opt: Dict[str, Any], batch: Batch):

@@ -20,7 +20,7 @@ from repro.kernels.flash_attention import \
     flash_attention as jax_flash_attention  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_bwd, flash_attention_fwd)
+    flash_attention, flash_attention_bwd, flash_attention_fwd, shape_key)
 
 # tests/test_kernels.py:25-32
 ATTN_SHAPES = [
@@ -163,12 +163,24 @@ def test_backward_matches_jax_grad(case):
 def test_cpu_calls_count_no_launches():
     _, (q, k, v) = _inputs((1, 32, 32, 4, 2, 16), jnp.float32,
                            torch.float32)
-    before = (flash_attention.launches, flash_attention_bwd.launches)
+    before = (flash_attention.launches, flash_attention_bwd.launches,
+              dict(flash_attention.by_shape),
+              dict(flash_attention_bwd.by_shape))
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     flash_attention(*leaves, causal=True).sum().backward()
     o, lse = flash_attention_fwd(q, k, v, causal=True)
     flash_attention_bwd(q, k, v, o, lse, torch.ones_like(o), causal=True)
-    assert (flash_attention.launches, flash_attention_bwd.launches) == before
+    assert (flash_attention.launches, flash_attention_bwd.launches,
+            dict(flash_attention.by_shape),
+            dict(flash_attention_bwd.by_shape)) == before
+
+
+def test_shape_key_names_the_call():
+    q, k = torch.empty((2, 448, 8, 64)), torch.empty((2, 1500, 8, 64))
+    assert shape_key(q, k, 1, 4096, 50.0) == ((2, 448, 8, 64), 1500, True,
+                                              4096, 50.0)
+    assert shape_key(q, q, False, None, None) != shape_key(q, q, True, None,
+                                                           None)
 
 
 def _t(*shape, dtype=torch.float32):

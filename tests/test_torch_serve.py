@@ -86,8 +86,10 @@ def test_runtime_backed_engine_not_ported():
 
 
 def test_unported_families_raise():
-    with pytest.raises(NotImplementedError):
-        get_model(tiny_config("whisper-base"), "cpu")
+    # whisper is ported as a model, but the serving launcher refuses an
+    # encoder-decoder, as the JAX launcher does (repro/launch/serve.py)
+    with pytest.raises(SystemExit, match="decoder-only"):
+        serve("whisper-base", num_requests=1, clients=1, device="cpu")
     m = get_model(tiny_config("xlstm-125m"), "cpu")
     with pytest.raises(NotImplementedError, match="lstm"):
         m.init_params(torch.Generator().manual_seed(0))
