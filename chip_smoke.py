@@ -15,14 +15,17 @@ phases, in order; any failure raises and exits non-zero (no phase catches
 its own failure):
 
   1. the card's name and power limit (nvidia-smi); TF32 off for f32;
-  2. build the `moe_gemm` (forward and backward), `flash_attention` and
-     `ssm_scan` kernels from
+  2. build the `moe_gemm` (forward and backward), `flash_attention`,
+     `ssm_scan` and `xlstm_scan` kernels from
      `src/repro_torch/kernels/csrc/` with nvcc for sm_90a, one nvcc per
      source, and a copy of `ssm_scan.cu` for each selective-scan split of
      SEL_SPLITS (phase 11 times them), all started together; print the
      build times and ptxas's report
      (registers, spills, static smem, warnings) for every kernel, the bf16
-     tensor-core ones included, the flash kernels' dynamic smem
+     tensor-core ones included (the xLSTM scans at hd 192 and 16 of their
+     16 head dims), the mLSTM's layout, dynamic smem and blocks an SM,
+     the sLSTM's cluster layout and how many clusters the card holds at
+     once, the flash kernels' dynamic smem
      (forward, dq and dk/dv, each in both routes), the selective scan's
      and its backward's dynamic smem (both dtypes), the three scan
      kernels' resident blocks an SM, the backward's channels a block and
@@ -189,11 +192,34 @@ its own failure):
      S that is not encoder_seq;
  25. tiny whisper training in f32 on the card through `train()`, as phase
      10: the loss falls, a resume is exact;
- 26. a JSON line with the kernels' numbers (the bf16 and f32 routes of
+ 26. the xLSTM scan kernels (`mlstm_scan_kernel`, `slstm_scan_kernel`,
+     which compute the lax.scan the JAX package runs: no TPU kernel)
+     against their plain versions in f32 at every XLSTM_CASES shape: the
+     prefill path's (B=8, S=32,768, H=4, hd 192), B=1, a ragged S, the
+     tiny hd 16, S=1 and hd 256 with a part-empty cluster; two calls bit
+     for bit; at the path shape the sLSTM's and its plain version's error
+     against a float64 plain run, the times (CUDA events through the
+     wrapper, and behind a device sleep), us a step, the plain version's
+     one call and the bound (f32 CUDA-core operations or bytes); a CUDA
+     operand that requires grad makes either raise;
+ 27. slice 12's main path: `make_prefill_step` on full-width xlstm-125m
+     (12 layers: 9 mLSTM, 3 sLSTM), random bf16 weights from a seeded
+     generator, B=8 x S=32,768 (the prefill_32k sequence; B cut from 32,
+     where the bf16 logits alone would take 105.5 GB), with the launch
+     counts set to 0 just before and read just after (9 mlstm_scan and 3
+     slstm_scan a call, nothing else); ms per prefill, tokens/s, peak
+     memory; a torch.profiler window over one prefill;
+ 28. the serving engine on the same weights and the traffic of phase 5:
+     no scan launch (decode takes the one-step recurrence in plain ops, as
+     in JAX);
+ 29. tiny xlstm in f32 on the card: decode step by step equals the forward
+     (both scan kernels at hd 16) within 1e-4, and the engine (four
+     requests through two slots) equals greedy decode with no scan launch;
+ 30. a JSON line with the kernels' numbers (the bf16 and f32 routes of
      `moe_gemm`, of its backward and of the flash forward and backward as
      entries of their own, the flash entries with the whisper encoder's
-     and gemma2's shapes; the selective scan's backward), then, last,
-     the result line {"ok": true, "device": {...}}.
+     and gemma2's shapes; the selective scan's backward; the two xLSTM
+     scans), then, last, the result line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
 """
@@ -235,11 +261,13 @@ from repro_torch.kernels.moe_gemm import (  # noqa: E402
     load as mg_load, moe_gemm, moe_gemm_bwd_dw, moe_gemm_bwd_dx)
 from repro_torch.kernels.ref import (  # noqa: E402
     attention_ref, flash_attention_bwd_ref, flash_attention_ref,
-    moe_gemm_bwd_ref, moe_gemm_dw_ref, moe_gemm_dx_ref, moe_gemm_ref,
-    selective_scan_bwd_ref, selective_scan_ref, ssm_scan_ref)
+    mlstm_scan_ref, moe_gemm_bwd_ref, moe_gemm_dw_ref, moe_gemm_dx_ref,
+    moe_gemm_ref, selective_scan_bwd_ref, selective_scan_ref,
+    slstm_scan_ref, ssm_scan_ref)
 from repro_torch.kernels import ssm_scan as sscan  # noqa: E402
 from repro_torch.kernels.ssm_scan import (  # noqa: E402
     selective_scan, selective_scan_bwd, ssm_scan)
+from repro_torch.kernels import xlstm_scan as xls  # noqa: E402
 from repro_torch.launch.serve import serve, serve_requests  # noqa: E402
 from repro_torch.launch.train import idle_workers, train  # noqa: E402
 from repro_torch.models.layers import padded_vocab  # noqa: E402
@@ -357,6 +385,26 @@ LIN_DEEP = (1, 65536, 512)
 # source itself defines
 SEL_SPLITS = ((2, 0), (2, 1), (4, 0), (4, 1), (4, 2), (8, 0), (8, 3))
 SCAN_SPLIT = 1000                        # carried state: steps of call 1
+# xlstm-125m prefill: the repo's prefill_32k sequence, B cut from that
+# shape's 32 to 8 (its bf16 logits alone: 105.5 GB at 32, 26.4 GB at 8)
+XLSTM = "xlstm-125m"
+XLSTM_BATCH, XLSTM_SEQ = 8, 32768
+# (B, S, H, hd) of the xLSTM scans: the prefill path's (hd 192), B=1, a
+# ragged S, the tiny config's hd 16, S=1, and hd 256 (the largest the
+# kernels take) at B=5 (a cluster's 4 batch rows, 3 of the second past B)
+XLSTM_CASES = {"path": (XLSTM_BATCH, XLSTM_SEQ, 4, 192),
+               "B=1": (1, 4096, 4, 192),
+               "ragged S=1001": (2, 1001, 4, 192),
+               "tiny hd=16": (2, 300, 4, 16),
+               "S=1": (3, 1, 4, 192),
+               "hd=256 B=5": (5, 77, 2, 256)}
+# kernel vs plain, f32 (|diff| <= tol * (1 + |plain|)): the mLSTM's C q and
+# n . q sum hd products in another order than the plain einsum, over C and
+# n kept divided by the running product of f' (relative ~1e-5 of the sum
+# of |terms| at hd 192, y up to ~20); the sLSTM's h lies
+# in (-1, 1) and its hd-term matvec and gates round as the plain version's
+# but for the sum order
+XLSTM_TOL = {"mlstm_scan": 1e-4, "slstm_scan": 1e-5}
 BACKLOG_CYCLES = 20_000_000              # ~10 ms of device sleep
 # dw's contraction C = K of the K sweep (phase 3), at the MoE train gate/up
 # shape's (E, d, f): time against 64-deep k-steps gives the main loop's
@@ -510,6 +558,9 @@ def ptxas_report(lib: Path, only: str = "") -> None:
                     params += f", states {k.group(4)}"
                 name = (f"{k.group(1)}<"
                         f"{'bf16' if k.group(2) != 'f' else 'f32'}{params}>")
+            elif t and t.group(1) in ("mlstm_scan_kernel",
+                                      "slstm_scan_kernel"):
+                name = f"{t.group(1)}<f32, hd {16 * int(t.group(2))}>"
             elif t:                  # the bf16 tensor-core kernels
                 name = (f"{t.group(1)}<bf16, "
                         f"{'warpgroups' if 'moe' in t.group(1) else 'hd'} "
@@ -1292,6 +1343,7 @@ KERNEL_GROUPS = (("moe_gemm backward", ("moe_gemm_dx", "moe_gemm_dw",
                  ("moe_gemm", ("moe_gemm",)),
                  ("selective scan backward", ("sel_scan_bwd",)),
                  ("selective scan", ("sel_scan",)),
+                 ("xLSTM scans", ("mlstm_scan", "slstm_scan")),
                  ("flash attention", ("flash_",)),
                  ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
                  ("softmax (loss)", ("SoftMax",)),
@@ -1833,25 +1885,38 @@ def forward_counts(cfg) -> dict:
     """Kernel launches of one full-sequence forward of `cfg`: a flash
     forward a self-attention layer (an encoder-decoder's encoder layers
     too; its cross-attention takes the plain op), a selective scan a
-    Mamba layer, three grouped GEMMs a MoE layer."""
+    Mamba layer, three grouped GEMMs a MoE layer, an mLSTM or sLSTM scan
+    an xLSTM layer."""
     per = lambda f: sum(map(f, cfg.pattern)) * cfg.repeats  # noqa: E731
     return {"selective_scan": per(lambda b: b.mixer == "mamba"),
             "flash_attention": per(lambda b: b.mixer.startswith("attn"))
             + cfg.encoder_layers,
-            "moe_gemm": 3 * per(lambda b: b.ffn == "moe")}
+            "moe_gemm": 3 * per(lambda b: b.ffn == "moe"),
+            "mlstm_scan": per(lambda b: b.mixer == "mlstm"),
+            "slstm_scan": per(lambda b: b.mixer == "slstm")}
+
+
+# (name, wrapper) of every counter a forward reads (read_counts)
+FORWARD_COUNTERS = (("selective_scan", selective_scan),
+                    ("flash_attention", fa.flash_attention),
+                    ("moe_gemm", moe_gemm),
+                    ("mlstm_scan", xls.mlstm_scan),
+                    ("slstm_scan", xls.slstm_scan))
 
 
 def read_counts() -> dict:
-    return {"selective_scan": selective_scan.launches,
-            "flash_attention": fa.flash_attention.launches,
-            "moe_gemm": moe_gemm.launches}
+    return {name: fn.launches for name, fn in FORWARD_COUNTERS}
+
+
+def only(**nonzero) -> dict:
+    """A `read_counts` dict: these counts, every other 0."""
+    return {name: nonzero.get(name, 0) for name, _ in FORWARD_COUNTERS}
 
 
 def zero_counts() -> None:
-    selective_scan.launches = 0
-    fa.flash_attention.launches = 0
+    for _, fn in FORWARD_COUNTERS:
+        fn.launches = 0
     fa.flash_attention.by_shape.clear()
-    moe_gemm.launches = 0
 
 
 def case_key(case: AttnCase) -> tuple:
@@ -1872,10 +1937,10 @@ def shape_launches(by_shape: dict, want: dict) -> dict:
     return got
 
 
-def prefill_and_serve(cfg, seq: int, per_call: dict, n_calls: int = 3
-                      ) -> dict:
+def prefill_and_serve(cfg, seq: int, per_call: dict, n_calls: int = 3,
+                      bsz: int = 1) -> dict:
     """A prefill main path at full width: `make_prefill_step` on `cfg`,
-    random bf16 weights from a seeded generator, B=1 x `seq` (a warm-up,
+    random bf16 weights from a seeded generator, `bsz` x `seq` (a warm-up,
     then `n_calls` timed calls, launch counts set to 0 just before and
     read after the first call and after all of them, `per_call` a call),
     a profiled prefill, then the serving engine on the same weights and
@@ -1892,23 +1957,28 @@ def prefill_and_serve(cfg, seq: int, per_call: dict, n_calls: int = 3
     n_params = sum(p.numel() for p in params.parameters())
     n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
     print(f"[prefill] {cfg.name} full width, {cfg.num_layers} layers, "
-          f"{n_params / 1e9:.3f} B parameters (ModelConfig.param_count "
+          f"{n_params:,} parameters by sum of numel (ModelConfig.param_count "
           f"{cfg.param_count():,}), {n_bytes / 2**30:.2f} GiB of weights, "
           f"made in {time.perf_counter() - t0:.2f} s")
     prefill = make_prefill_step(model)
-    tokens = torch.randint(0, cfg.vocab_size, (1, seq),
+    tokens = torch.randint(0, cfg.vocab_size, (bsz, seq),
                            generator=torch.Generator("cuda").manual_seed(2),
                            device="cuda")
     batch = {"tokens": tokens}
     zero_counts()
     walls = []
+    logits = None
     for i in range(1 + n_calls):
+        logits = None       # the last call's logits go before the next's
         t0 = time.perf_counter()
         logits = prefill(params, batch)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        assert logits.shape == (1, seq, padded_vocab(cfg)), logits.shape
-        assert bool(torch.isfinite(logits).all()), "non-finite logits"
+        assert logits.shape == (bsz, seq, padded_vocab(cfg)), logits.shape
+        # a batch row at a time: the whole check's bool copy would take
+        # half the logits' memory again
+        assert all(bool(torch.isfinite(row).all()) for row in logits), \
+            "non-finite logits"
         if i == 0:
             counts = read_counts()
             assert counts == per_call, (counts, per_call)
@@ -1918,10 +1988,10 @@ def prefill_and_serve(cfg, seq: int, per_call: dict, n_calls: int = 3
     assert counts == {k: v * (1 + n_calls) for k, v in per_call.items()}, \
         counts
     ms = 1e3 * statistics.median(walls[1:])
-    print(f"[prefill] B=1 S={seq} bf16: wall "
+    print(f"[prefill] B={bsz} S={seq} bf16: wall "
           f"{[round(1e3 * w, 1) for w in walls]} ms (first is the warm-up); "
           f"median of {n_calls} {ms:.1f} ms, "
-          f"{seq / ms * 1e3:.0f} tokens/s; peak memory "
+          f"{bsz * seq / ms * 1e3:.0f} tokens/s; peak memory "
           f"{peak / 2**30:.2f} GiB; launches over {1 + n_calls} calls "
           f"{counts} ({per_call} a call); logits finite, last row max "
           f"|logit| {logits[0, -1].float().abs().max().item():.4f}")
@@ -1932,7 +2002,7 @@ def prefill_and_serve(cfg, seq: int, per_call: dict, n_calls: int = 3
         torch.cuda.synchronize()
     rows = kernel_rows(prof, 1)
     busy = sum(r[0] for r in rows)
-    print(f"[profile] full-width {cfg.name} prefill (S={seq}): wall "
+    print(f"[profile] full-width {cfg.name} prefill (B={bsz}, S={seq}): wall "
           f"{ms:.3f} ms (no profiler); device busy {busy:.3f} ms in "
           f"{sum(r[1] for r in rows):.0f} kernels; idle share "
           f"{1 - busy / ms:.3f}")
@@ -1958,24 +2028,26 @@ def prefill_and_serve(cfg, seq: int, per_call: dict, n_calls: int = 3
           f"{serve_counts}; stats {out['stats']}")
     assert out["requests"] == REQUESTS and \
         out["tokens"] == REQUESTS * MAX_NEW, out
-    assert serve_counts == {"selective_scan": 0, "flash_attention": 0,
-                            "moe_gemm": per_call["moe_gemm"] * steps} \
+    assert serve_counts == only(moe_gemm=per_call["moe_gemm"] * steps) \
         and steps > 0, (serve_counts, steps)
     assert out["stats"]["nonfinite_steps"] == 0, out["stats"]
+    out_wall, out_tok_s = out["wall_s"], out["tok_per_s"]
     del model, params, prefill, out
     gc.collect()
     torch.cuda.empty_cache()
     return {"prefill_counts": counts, "prefill_shapes": shapes,
             "serve_counts": serve_counts, "prefill_ms": ms,
-            "peak_gib": peak / 2**30, "calls": 1 + n_calls}
+            "peak_gib": peak / 2**30, "calls": 1 + n_calls,
+            "serve_ms_per_step": 1e3 * out_wall / steps,
+            "serve_tok_per_s": out_tok_s}
 
 
 def jamba_prefill_and_serve() -> dict:
     """Slice 3's main path: full-width Jamba cut to JAMBA_REPEATS of its
     periods, prefill at PREFILL_SEQ and serving on the same weights."""
     cfg = get_config(JAMBA).scaled(repeats=JAMBA_REPEATS)
-    return prefill_and_serve(cfg, PREFILL_SEQ, {
-        "selective_scan": 14, "flash_attention": 2, "moe_gemm": 24})
+    return prefill_and_serve(cfg, PREFILL_SEQ, only(
+        selective_scan=14, flash_attention=2, moe_gemm=24))
 
 
 def gemma2_prefill_and_serve() -> dict:
@@ -1985,8 +2057,7 @@ def gemma2_prefill_and_serve() -> dict:
     cfg = get_config(GEMMA2)
     assert cfg.param_count() == GEMMA2_PARAMS, cfg.param_count()
     assert GEMMA2_SEQ > cfg.sliding_window
-    out = prefill_and_serve(cfg, GEMMA2_SEQ, {
-        "selective_scan": 0, "flash_attention": 46, "moe_gemm": 0})
+    out = prefill_and_serve(cfg, GEMMA2_SEQ, only(flash_attention=46))
     local, glob = mixer_layers(cfg)
     out["prefill_shapes"] = shape_launches(out["prefill_shapes"], {
         "gemma2 local": local * out["calls"],
@@ -2074,6 +2145,152 @@ def jamba_tiny_checks() -> dict:
     with torch.no_grad():
         ssm_scan(a, args[0])
     torch.cuda.synchronize()
+    return counts
+
+
+def xlstm_inputs(kind: str, case, gen) -> tuple:
+    """Seeded f32 operands of one scan at (B, S, H, hd), as the layers make
+    them: q (scaled by hd**-0.5), k, v, i, f (forget gates biased open, as
+    b_f = 3), or pre, w_r (N(0, 1/hd), as the init) and bias."""
+    b, s, h, hd = case
+    r = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731,E501
+    if kind == "mlstm_scan":
+        return (r(b, s, h, hd) * hd ** -0.5, r(b, s, h, hd), r(b, s, h, hd),
+                r(b, s, h), r(b, s, h) + 3.0)
+    return r(b, s, 4, h, hd), r(4, h, hd, hd) * hd ** -0.5, r(4, h, hd) * 0.1
+
+
+def xlstm_bound(kind: str, case, mem_bps: float, f32_fps: float) -> dict:
+    """Least ms for one scan at (B, S, H, hd): each input read once and y
+    written once at the memory rate, or its f32 operations at the CUDA-core
+    rate (no tensor-core form keeps the f32 recurrence), whichever is
+    longer. mLSTM (C kept scaled by the product of f'): an entry of C
+    takes one FMA a step and C q one more (4 flops), n and n . q 4 flops a
+    column. sLSTM: the recurrent
+    products, 4 hd^2 FMAs a (b, h, step), and the cell update, 31
+    operations a row (its 6 transcendentals counted as one each)."""
+    b, s, h, hd = case
+    n = b * s * h
+    if kind == "mlstm_scan":
+        nbytes = 4 * (4 * n * hd + 2 * n)               # q, k, v, y; i, f
+        flops = n * (4 * hd * hd + 4 * hd)
+    else:
+        nbytes = 4 * (5 * n * hd + 4 * h * hd * hd + 4 * h * hd)
+        flops = n * (8 * hd * hd + 31 * hd)
+    t_bytes, t_ops = nbytes / mem_bps, flops / f32_fps
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_bound_ms": 1e3 * t_bytes, "gflop": flops / 1e9}
+
+
+def check_xlstm(gen, mem_bps: float, f32_fps: float) -> dict:
+    """Both xLSTM scan kernels against their plain versions on the card, in
+    f32, at every XLSTM_CASES shape (within XLSTM_TOL), two calls bit for
+    bit; at the path shape their times (through the wrapper by CUDA events,
+    and behind a device sleep), us per step, the plain version's time (one
+    call) and the bound, and the sLSTM's and its plain version's error
+    against a float64 plain run; a CUDA operand that requires grad makes
+    either wrapper raise. Returns {kernel: the path's numbers}."""
+    out = {}
+    for kind, wrapper, ref in (("mlstm_scan", xls.mlstm_scan, mlstm_scan_ref),
+                               ("slstm_scan", xls.slstm_scan, slstm_scan_ref)):
+        tol = XLSTM_TOL[kind]
+        errs = {}
+        for label, case in XLSTM_CASES.items():
+            args = xlstm_inputs(kind, case, gen)
+            with torch.no_grad():
+                got, again = wrapper(*args), wrapper(*args)
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                want = ref(*args)
+                b.record()
+                torch.cuda.synchronize()
+            assert torch.equal(got, again), f"{kind} {label}: two calls differ"
+            torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+            errs[label] = (got - want).abs().max().item()
+            print(f"[check] {kind} {label} {case}: max |kernel - plain| "
+                  f"{errs[label]:.3e} (max |plain| "
+                  f"{want.abs().max().item():.4f}; holds |diff| <= {tol} * "
+                  f"(1 + |plain|)); two calls bit for bit")
+            if label != "path":
+                del args, got, again, want
+                continue
+            t = {"max_abs_err": errs[label], "plain_ms": a.elapsed_time(b),
+                 "library_ms": None, **xlstm_bound(kind, case, mem_bps, f32_fps)}
+            with torch.no_grad():
+                t["ms"] = time_ms(lambda: wrapper(*args), reps=5, warmup=1)
+                t["device_ms"] = time_ms(lambda: wrapper(*args), reps=5,
+                                         warmup=1, backlog=True)
+            t["us_per_step"] = 1e3 * t["ms"] / case[1]
+            if kind == "slstm_scan":
+                with torch.no_grad():
+                    w64 = ref(*(x.double() for x in args))
+                t["err_vs_f64"] = (got.double() - w64).abs().max().item()
+                t["plain_err_vs_f64"] = (want.double() - w64).abs().max().item()
+                print(f"[check] slstm_scan path: against a float64 plain run, "
+                      f"kernel {t['err_vs_f64']:.3e}, plain f32 "
+                      f"{t['plain_err_vs_f64']:.3e}")
+                del w64
+            print(f"[time] {kind} path {case} f32: kernel {t['ms']:.4f} ms "
+                  f"({t['us_per_step']:.4f} us a step; behind a device sleep "
+                  f"{t['device_ms']:.4f}), plain {t['plain_ms']:.1f} ms (one "
+                  f"call), bound {t['bound_ms']:.4f} ms ({t['bound_by']}; "
+                  f"{t['gflop']:.1f} GFLOP, bytes {t['bytes_bound_ms']:.4f}); "
+                  f"kernel at {100 * t['bound_ms'] / t['ms']:.1f}% of the "
+                  f"bound; no PyTorch call computes it")
+            out[kind] = t
+            del args, got, again, want
+            torch.cuda.empty_cache()
+        out[kind]["max_abs_err_by_case"] = errs
+        # under autograd on CUDA the wrapper raises (no backward kernel)
+        args = list(xlstm_inputs(kind, XLSTM_CASES["tiny hd=16"], gen))
+        args[0].requires_grad_()
+        try:
+            wrapper(*args)
+        except NotImplementedError as e:
+            print(f"[check] {kind} on a CUDA operand that requires grad "
+                  f"raises: {e}")
+        else:
+            raise AssertionError(f"{kind} under grad did not raise")
+    return out
+
+
+def xlstm_prefill_and_serve() -> dict:
+    """Slice 12's main path: full-width xlstm-125m (12 layers: 9 mLSTM, 3
+    sLSTM), prefill at XLSTM_BATCH x XLSTM_SEQ and serving on the same
+    weights."""
+    cfg = get_config(XLSTM)
+    return prefill_and_serve(cfg, XLSTM_SEQ, only(mlstm_scan=9, slstm_scan=3),
+                             bsz=XLSTM_BATCH)
+
+
+def xlstm_tiny_checks() -> dict:
+    """Tiny f32 xlstm on the card: decode step by step equals the forward
+    (which runs both scan kernels at hd 16) within 1e-4, and the engine
+    (two slots, four requests: a slot's states are zeroed and reused)
+    equals greedy decode. Returns the forward's launches."""
+    cfg = tiny_config(XLSTM).scaled(dtype="float32")
+    toks = torch.randint(0, 500, (2, 12), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(3))
+    model, params, err, counts = tiny_decode_check(cfg, toks)
+    print(f"[check] tiny {XLSTM} (f32, cuda): decode step by step vs "
+          f"forward max |diff| {err:.3e} (tol 1e-4); the forward launched "
+          f"{counts}")
+    prompts = [[5, 9, 2], [7, 1], [3, 3, 3, 3], [11, 4, 8, 1, 6]]
+    eng = ServeEngine(model, params, batch_slots=2, max_len=32, num_clients=1)
+    reqs = [eng.submit(Request(prompt=p, max_new_tokens=5)) for p in prompts]
+    zero_counts()
+    eng.run_until_drained()
+    assert read_counts() == only(), read_counts()
+    for p, r in zip(prompts, reqs):
+        want = greedy_decode(model, params,
+                             torch.tensor([p], device="cuda"), 5, 32)
+        assert r.output == want[0].tolist(), (p, r.output, want)
+    print(f"[check] tiny {XLSTM} engine == greedy decode for "
+          f"{len(prompts)} requests through 2 slots (f32, cuda); the engine "
+          f"launched no scan kernel")
+    del model, params, eng
     return counts
 
 
@@ -2380,11 +2597,9 @@ def whisper_decode() -> dict:
           f"{decode_counts}; max |decode - forward| over the decoded "
           f"tokens {err:.4e} (bf16, max |logit| "
           f"{ref.float().abs().max().item():.4f})")
-    assert fill_counts == {"selective_scan": 0,
-                           "flash_attention": cfg.encoder_layers,
-                           "moe_gemm": 0}, fill_counts
-    assert decode_counts == {"selective_scan": 0, "flash_attention": 0,
-                             "moe_gemm": 0}, decode_counts
+    assert fill_counts == only(flash_attention=cfg.encoder_layers), \
+        fill_counts
+    assert decode_counts == only(), decode_counts
     assert bool(torch.isfinite(dec).all()) and math.isfinite(err)
     del model, params, cache, dec, ref, outs
     gc.collect()
@@ -2481,13 +2696,19 @@ def main() -> int:
         t0 = time.time()
         return name, split, _build.build(name, defines), time.time() - t0
 
-    jobs = [("moe_gemm", None), ("flash_attention", None), ("ssm_scan", None)]
+    jobs = [("moe_gemm", None), ("flash_attention", None), ("ssm_scan", None),
+            ("xlstm_scan", None)]
     jobs += [("ssm_scan", split) for split in SEL_SPLITS]
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         built = list(pool.map(timed_build, jobs))
     split_libs = {}
     for kname, split, lib, secs in built:
-        if split is None:
+        if kname == "xlstm_scan":        # 16 head dims: the paths' two
+            print(f"[build] {kname}: {secs:.2f} s -> {lib.name}")
+            for kern in ("mlstm", "slstm"):
+                for hd in (192, 16):
+                    ptxas_report(lib, only=f"{kern}_scan_kernel<f32, hd {hd}>")
+        elif split is None:
             print(f"[build] {kname}: {secs:.2f} s -> {lib.name}")
             ptxas_report(lib)
         else:
@@ -2524,6 +2745,16 @@ def main() -> int:
           f"{slib.selective_scan_bwd_blocks_per_sm(0)}; "
           f"{slib.selective_scan_bwd_block_channels()} channels a block; h "
           f"kept every {slib.selective_scan_seg_steps()} steps")
+    xlib = xls._lib()
+    print(f"[build]   mlstm_scan_kernel: {xlib.xlstm_scan_layout(0)} warps a "
+          f"block, {xlib.xlstm_scan_layout(1)} rows of C a thread; dynamic "
+          f"smem at hd 192 {xlib.mlstm_scan_smem_bytes(192)} B, "
+          f"{xlib.mlstm_scan_blocks_per_sm(192)} blocks an SM; "
+          f"slstm_scan_kernel: clusters of {xlib.xlstm_scan_layout(2)} "
+          f"blocks, {xlib.xlstm_scan_layout(3)} batch rows a cluster, "
+          f"{xlib.slstm_scan_max_active_clusters(192, XLSTM_BATCH, 4)} "
+          f"clusters at once at hd 192 (the path needs "
+          f"{4 * -(-XLSTM_BATCH // xlib.xlstm_scan_layout(3))})")
 
     # ---- 3. kernel vs plain ---------------------------------------------
     cfg = get_config(ARCH)
@@ -2766,7 +2997,19 @@ def main() -> int:
     whisper_f32 = whisper_tiny_checks()
     whisper_f32_train = tiny_f32_train(WHISPER)
 
-    # ---- 26. results -----------------------------------------------------
+    # ---- 26. the xLSTM scan kernels vs plain, and their times -----------
+    gc.collect()
+    torch.cuda.empty_cache()
+    xlstm_times = check_xlstm(gen, mem_bps, f32_fps)
+
+    # ---- 27, 28. slice 12's main path: full-width xlstm-125m prefill,
+    # serve ---------------------------------------------------------------
+    xlstm = xlstm_prefill_and_serve()
+
+    # ---- 29. tiny f32 xlstm on the card: decode == forward, engine ------
+    xlstm_f32 = xlstm_tiny_checks()
+
+    # ---- 30. results -----------------------------------------------------
     # Both dtypes of moe_gemm, of its backward and of the flash forward and
     # backward count in one `launches`; each route's own count is that of
     # a run in its dtype: bf16 the main paths (phases 5, 9 and 15), f32 the
@@ -3026,6 +3269,34 @@ def main() -> int:
                 "call) over the 6 full-width Jamba train steps; f32: the "
                 "tiny f32 Jamba training (60 steps)",
     })
+    # the xLSTM scans: no TPU counterpart (the JAX package runs them as
+    # lax.scan bodies); launches over the xlstm prefills (phase 27)
+    for kname, kern, step in (
+            ("mlstm_scan", "mlstm_scan_kernel<hd 192>", "_mlstm_step"),
+            ("slstm_scan", "slstm_scan_kernel<hd 192>", "_slstm_step")):
+        t = xlstm_times[kname]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/xlstm_scan.cu",
+            "kernel": kern, "replaces": None,
+            "note": f"computes the lax.scan of repro/models/ssm.py:{step} "
+                    f"over the sequence (no Pallas kernel in the JAX "
+                    f"package)",
+            "launches": xlstm["prefill_counts"][kname],
+            "max_abs_err": t["max_abs_err"],
+            "max_abs_err_by_case": t["max_abs_err_by_case"],
+            **times_of(t), "device_ms": t["device_ms"],
+            "bytes_bound_ms": t["bytes_bound_ms"],
+            "us_per_step": t["us_per_step"],
+            **({"err_vs_f64": t["err_vs_f64"],
+                "plain_err_vs_f64": t["plain_err_vs_f64"]}
+               if kname == "slstm_scan" else {}),
+            "f32_tiny_forward_launches": xlstm_f32[kname],
+            "unit": f"one layer's call at the xlstm-125m prefill path's shape "
+                    f"(B={XLSTM_BATCH}, S={XLSTM_SEQ}, H=4, hd=192, f32); "
+                    f"launches over {xlstm['calls']} prefills; no PyTorch "
+                    f"call computes it (library none)",
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,8 +20,13 @@ tensors and run the plain versions for CPU tensors. `moe_gemm` and
 backwards launch their backward kernels (`moe_gemm`'s dx and dw, the
 selective scan's reverse walk and its second pass), on the CPU autograd
 differentiates the plain versions. `ssm_scan`, which no model calls, has
-no backward kernel and raises under autograd on CUDA. The JAX package's
-`REPRO_FORCE_*` switches have no counterpart: the device decides.
+no backward kernel and raises under autograd on CUDA. `mlstm_scan` and
+`slstm_scan`, xLSTM's two recurrences over a sequence (a `lax.scan` in the
+JAX package, no Pallas kernel), launch their kernels for CUDA tensors and
+run the plain versions for CPU tensors, which autograd differentiates;
+they have no backward kernels yet and raise under autograd on CUDA. The
+JAX package's `REPRO_FORCE_*` switches have no counterpart: the device
+decides.
 """
 from __future__ import annotations
 
@@ -33,8 +38,10 @@ from . import ref as _ref
 from .flash_attention import flash_attention
 from .moe_gemm import moe_gemm
 from .ssm_scan import selective_scan, ssm_scan
+from .xlstm_scan import mlstm_scan, slstm_scan
 
-__all__ = ["attention", "moe_gemm", "selective_scan", "ssm_scan"]
+__all__ = ["attention", "mlstm_scan", "moe_gemm", "selective_scan",
+           "slstm_scan", "ssm_scan"]
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

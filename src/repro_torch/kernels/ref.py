@@ -18,12 +18,18 @@ backward) does not change the result and is left out.
 backward kernel (the JAX package differentiates its oracle instead): it
 keeps the states at chunk boundaries only, as that checkpoint does, and
 walks time in reverse.
+`mlstm_step` and `slstm_step` are xLSTM's one-step recurrences
+(`repro/models/ssm.py:_mlstm_step`, `_slstm_step`), which the models'
+decode calls; `mlstm_scan_ref` and `slstm_scan_ref` loop them over time
+from a zero state and are the plain versions of the xLSTM scan kernels
+(JAX runs them as `lax.scan` bodies and has no Pallas kernel for them).
 """
 from __future__ import annotations
 
 from typing import Optional, Union
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -276,3 +282,82 @@ def moe_gemm_bwd_ref(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor
     forward's x and w and the output gradient dy [E,C,f], f32 products
     rounded once to the operands' dtype."""
     return moe_gemm_dx_ref(dy, w), moe_gemm_dw_ref(x, dy)
+
+
+def mlstm_step(carry: tuple, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor, i: torch.Tensor, f: torch.Tensor
+               ) -> tuple[tuple, torch.Tensor]:
+    """One mLSTM step (repro/models/ssm.py:_mlstm_step). carry (C
+    [B,H,hd,hd], n [B,H,hd], m [B,H]); q (pre-scaled), k, v [B,H,hd]; i, f
+    [B,H] gate pre-activations -> (carry, y [B,H,hd]). The stabiliser m
+    starts at 0; y = C q / max(|n . q|, 1)."""
+    c, n, m = carry
+    log_f = F.logsigmoid(f)
+    m_new = torch.maximum(log_f + m, i)
+    i_p = torch.exp(i - m_new)
+    f_p = torch.exp(log_f + m - m_new)
+    c = f_p[..., None, None] * c + i_p[..., None, None] * \
+        (v[..., :, None] * k[..., None, :])
+    n = f_p[..., None] * n + i_p[..., None] * k
+    num = torch.einsum("bhvk,bhk->bhv", c, q)
+    den = torch.clamp(torch.abs(torch.einsum("bhk,bhk->bh", n, q)), min=1.0)
+    return (c, n, m_new), num / den[..., None]
+
+
+def slstm_step(carry: tuple, pre: torch.Tensor, w_r: torch.Tensor,
+               bias: torch.Tensor) -> tuple[tuple, torch.Tensor]:
+    """One sLSTM step (repro/models/ssm.py:_slstm_step). carry (c, n, h, m)
+    [B,H,hd] each; pre [B,4,H,hd] the input pre-activations of the i, f,
+    z, o gates; w_r [4,H,hd,hd] block-diagonal recurrent weights; bias
+    [4,H,hd] -> (carry, h [B,H,hd])."""
+    c, n, h, m = carry
+    rec = torch.einsum("khvw,bhw->bkhv", w_r, h)
+    pre = pre + rec + bias[None]
+    it, ft, zt, ot = pre.unbind(1)
+    log_f = F.logsigmoid(ft)
+    m_new = torch.maximum(log_f + m, it)
+    i_p = torch.exp(it - m_new)
+    f_p = torch.exp(log_f + m - m_new)
+    c = f_p * c + i_p * torch.tanh(zt)
+    n = f_p * n + i_p
+    h = torch.sigmoid(ot) * c / torch.clamp(n, min=1.0)
+    return (c, n, h, m_new), h
+
+
+def _scan_dtype(t: torch.Tensor) -> torch.dtype:
+    """f32, or f64 for f64 inputs (a reference of higher precision)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+def mlstm_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   i: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """mLSTM over time from a zero state: q (pre-scaled), k, v [B,S,H,hd];
+    i, f [B,S,H] -> y [B,S,H,hd], in f32 (f64 for f64 inputs)."""
+    bsz, s, nh, hd = q.shape
+    dt = _scan_dtype(q)
+    q, k, v, i, f = (t.to(dt) for t in (q, k, v, i, f))
+    carry = (q.new_zeros((bsz, nh, hd, hd)), q.new_zeros((bsz, nh, hd)),
+             q.new_zeros((bsz, nh)))
+    ys = []
+    for t in range(s):
+        carry, y = mlstm_step(carry, q[:, t], k[:, t], v[:, t], i[:, t],
+                              f[:, t])
+        ys.append(y)
+    return torch.stack(ys, dim=1)
+
+
+def slstm_scan_ref(pre: torch.Tensor, w_r: torch.Tensor,
+                   bias: torch.Tensor) -> torch.Tensor:
+    """sLSTM over time from a zero state: pre [B,S,4,H,hd]; w_r
+    [4,H,hd,hd]; bias [4,H,hd] -> the h trail [B,S,H,hd], in f32 (f64 for
+    f64 inputs)."""
+    bsz, s, _, nh, hd = pre.shape
+    dt = _scan_dtype(pre)
+    pre, w_r, bias = (t.to(dt) for t in (pre, w_r, bias))
+    z = pre.new_zeros((bsz, nh, hd))
+    carry = (z, z, z, z)
+    ys = []
+    for t in range(s):
+        carry, h = slstm_step(carry, pre[:, t], w_r, bias)
+        ys.append(h)
+    return torch.stack(ys, dim=1)

@@ -5,6 +5,11 @@ from several client threads. Counterpart of `repro/launch/serve.py`.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \
       --full --requests 16 --clients 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m \
+      --device cpu
+
+Every decoder-only arch serves on both devices; the encoder-decoder
+whisper-base is refused, as by the JAX launcher.
 """
 from __future__ import annotations
 

@@ -9,15 +9,21 @@ checkpoint flushing), so the main thread only issues device steps.
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch jamba-v0.1-52b --device cuda
 
-Every arch but xlstm-125m trains on both devices: attention + MLP archs
-(qwen2-0.5b, gemma2-27b, ...), attention + MoE archs (qwen2-moe-a2.7b,
+Every arch trains on the CPU: attention + MLP archs (qwen2-0.5b,
+gemma2-27b, ...), attention + MoE archs (qwen2-moe-a2.7b,
 qwen3-moe-235b-a22b), the hybrid Mamba + attention + MoE arch
-(jamba-v0.1-52b) and the encoder-decoder whisper-base, which gets zero
-frames [B, encoder_seq, d_model] as the JAX trainer gives it. On the card
-(`--device cuda`, the default) they train through the forward and
-backward kernels of flash attention, `moe_gemm` and the selective scan.
-`--full` trains the published widths. Random weights come from a seeded
-`torch.Generator`.
+(jamba-v0.1-52b), xlstm-125m (autograd of the plain mLSTM and sLSTM
+scans) and the encoder-decoder whisper-base, which gets zero frames [B,
+encoder_seq, d_model] as the JAX trainer gives it. On the card
+(`--device cuda`, the default) all but xlstm-125m train through the
+forward and backward kernels of flash attention, `moe_gemm` and the
+selective scan; the xLSTM scan kernels have no backward yet, so an
+xlstm-125m train step on the card raises NotImplementedError (its
+prefill and serving run there). `--full` trains the published widths.
+Random weights come from a seeded `torch.Generator`.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \
+      --steps 30 --batch 4 --seq 32 --device cpu
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-base \
       --steps 30 --batch 4 --seq 32 --device cpu

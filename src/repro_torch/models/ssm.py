@@ -1,5 +1,6 @@
-"""State-space mixers; counterpart of `repro/models/ssm.py` for Mamba
-(Jamba's SSM layers). `Mamba.forward` is `mamba_train`, the full-sequence
+"""State-space and recurrent mixers; counterpart of `repro/models/ssm.py`:
+Mamba (Jamba's SSM layers) and xLSTM's mLSTM and sLSTM.
+`Mamba.forward` is `mamba_train`, the full-sequence
 selective scan through `kernels.ops.selective_scan`, differentiable on
 both devices (on CUDA through the scan's backward kernel, which keeps h
 only at segment boundaries and never [B,S,D,N], as the JAX version's
@@ -13,10 +14,23 @@ dt * x in the activation dtype, so the two agree exactly only in f32.
 The decode state is batch-first, ``{"h": [B,di,N] f32, "conv": [B,K-1,di]}``,
 and is updated in place, like the attention KV cache: the engine keeps
 one cache for its whole life and zeroes a slot's lanes on admission.
-xLSTM's mLSTM and sLSTM mixers are not ported yet.
+
+`MLSTM.forward` and `SLSTM.forward` are `mlstm_train` and `slstm_train`:
+the projections in the model dtype (the gates' `w_i`, `w_f` in f32), then
+the recurrence over the whole sequence in f32 through `kernels.ops`
+(`mlstm_scan`, `slstm_scan`: the kernels on CUDA, the plain versions,
+differentiable, on the CPU). JAX wraps its `lax.scan` in a chunked
+`jax.checkpoint` (`chunked_scan`, chunk 128), which saves memory in the
+backward and does not change a forward result. Their `decode` is
+`mlstm_decode` / `slstm_decode`, one step of `kernels.ref.mlstm_step` /
+`slstm_step` in plain ops, as in the JAX package. Their states are
+batch-first, all f32 and zero at the start (JAX's initial m is 0 too):
+``{"c": [B,H,hd,hd], "n": [B,H,hd], "m": [B,H]}`` and ``{"c", "n", "h",
+"m": [B,H,hd]}``.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Union
 
@@ -25,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops as kops
+from ..kernels.ref import mlstm_step, slstm_step
 from .config import ModelConfig
 from .layers import const_param, normal_param
 
@@ -126,3 +141,112 @@ def init_mamba_state(cfg: ModelConfig, batch: int,
                              dtype=torch.float32, device=device),
             "conv": torch.zeros((batch, cfg.ssm_d_conv - 1, di),
                                 dtype=cfg.torch_dtype, device=device)}
+
+
+class MLSTM(nn.Module):
+    """xLSTM's mLSTM mixer: q, k, v projections per head and scalar input
+    and forget gates -> the matrix-memory recurrence -> out_proj."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device,
+                 gen: torch.Generator):
+        super().__init__()
+        d, h, hd = cfg.d_model, cfg.num_heads, cfg.resolved_head_dim
+        dt = cfg.torch_dtype
+        s = (1.0 / d) ** 0.5
+        self.h, self.hd = h, hd
+        self.wq = normal_param((d, h * hd), s, dt, device, gen)
+        self.wk = normal_param((d, h * hd), s, dt, device, gen)
+        self.wv = normal_param((d, h * hd), s, dt, device, gen)
+        # the gates stay f32 whatever the model dtype, as in the JAX init
+        self.w_i = normal_param((d, h), s, torch.float32, device, gen)
+        self.w_f = normal_param((d, h), s, torch.float32, device, gen)
+        self.b_i = const_param((h,), 0.0, torch.float32, device)
+        self.b_f = const_param((h,), 3.0, torch.float32, device)  # open
+        self.out_proj = normal_param((h * hd, d), s, dt, device, gen)
+
+    def _inputs(self, x: torch.Tensor):
+        """x [..., d] -> q (scaled), k, v [..., H, hd] and i, f [..., H],
+        all f32: the products in x's dtype, cast, then q scaled; the
+        gates' products in f32."""
+        shape = x.shape[:-1] + (self.h, self.hd)
+        q = (x @ self.wq).reshape(shape).float() * self.hd ** -0.5
+        k = (x @ self.wk).reshape(shape).float()
+        v = (x @ self.wv).reshape(shape).float()
+        xf = x.float()
+        return q, k, v, xf @ self.w_i + self.b_i, xf @ self.w_f + self.b_f
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """mlstm_train: x [B,S,d] -> [B,S,d]."""
+        b, s, _ = x.shape
+        y = kops.mlstm_scan(*self._inputs(x))
+        return y.reshape(b, s, self.h * self.hd).to(x.dtype) @ self.out_proj
+
+    def decode(self, x: torch.Tensor, state: State,
+               pos: Union[int, torch.Tensor, None] = None) -> torch.Tensor:
+        """mlstm_decode: x [B,1,d] -> [B,1,d]; `state` updated in place;
+        `pos` unused (as in `Mamba.decode`)."""
+        carry = (state["c"], state["n"], state["m"])
+        (c, n, m), y = mlstm_step(carry, *self._inputs(x[:, 0]))
+        for key, new in zip(("c", "n", "m"), (c, n, m)):
+            state[key].copy_(new)
+        y = y.reshape(x.shape[0], self.h * self.hd).to(x.dtype)
+        return (y @ self.out_proj)[:, None]
+
+
+class SLSTM(nn.Module):
+    """xLSTM's sLSTM mixer: the i, f, z, o gates' input projections, then
+    the scalar-memory recurrence with block-diagonal recurrent weights per
+    head -> out_proj."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device,
+                 gen: torch.Generator):
+        super().__init__()
+        d, h, hd = cfg.d_model, cfg.num_heads, cfg.resolved_head_dim
+        dt = cfg.torch_dtype
+        s = (1.0 / d) ** 0.5
+        self.h, self.hd = h, hd
+        self.w_x = normal_param((d, 4 * h * hd), s, dt, device, gen)
+        # recurrent weights and bias stay f32, as in the JAX init
+        self.w_r = normal_param((4, h, hd, hd), hd ** -0.5, torch.float32,
+                                device, gen)
+        self.bias = const_param((4, h, hd), 0.0, torch.float32, device)
+        self.out_proj = normal_param((h * hd, d), s, dt, device, gen)
+
+    def _pre(self, x: torch.Tensor) -> torch.Tensor:
+        """x [..., d] -> the gates' input pre-activations [..., 4, H, hd]
+        f32 (the product in x's dtype, then cast)."""
+        return (x @ self.w_x).reshape(x.shape[:-1] + (4, self.h, self.hd)) \
+            .float()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """slstm_train: x [B,S,d] -> [B,S,d]."""
+        b, s, _ = x.shape
+        y = kops.slstm_scan(self._pre(x), self.w_r, self.bias)
+        return y.reshape(b, s, self.h * self.hd).to(x.dtype) @ self.out_proj
+
+    def decode(self, x: torch.Tensor, state: State,
+               pos: Union[int, torch.Tensor, None] = None) -> torch.Tensor:
+        """slstm_decode: x [B,1,d] -> [B,1,d]; `state` updated in place;
+        `pos` unused."""
+        keys = ("c", "n", "h", "m")
+        carry, y = slstm_step(tuple(state[k] for k in keys),
+                              self._pre(x[:, 0]), self.w_r, self.bias)
+        for key, new in zip(keys, carry):
+            state[key].copy_(new)
+        y = y.reshape(x.shape[0], self.h * self.hd).to(x.dtype)
+        return (y @ self.out_proj)[:, None]
+
+
+def init_mlstm_state(cfg: ModelConfig, batch: int,
+                     device: torch.device) -> State:
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    z = functools.partial(torch.zeros, dtype=torch.float32, device=device)
+    return {"c": z((batch, h, hd, hd)), "n": z((batch, h, hd)),
+            "m": z((batch, h))}
+
+
+def init_slstm_state(cfg: ModelConfig, batch: int,
+                     device: torch.device) -> State:
+    shape = (batch, cfg.num_heads, cfg.resolved_head_dim)
+    return {k: torch.zeros(shape, dtype=torch.float32, device=device)
+            for k in ("c", "n", "h", "m")}

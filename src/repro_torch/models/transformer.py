@@ -1,6 +1,7 @@
 """Pattern-based decoder-only LM; counterpart of
-`repro/models/transformer.py` for blocks with attention, local-attention
-or Mamba mixers and MLP or MoE FFNs (the dense, MoE and hybrid families).
+`repro/models/transformer.py` for blocks with attention, local-attention,
+Mamba, mLSTM or sLSTM mixers and MLP, MoE or no FFNs (the dense, MoE,
+hybrid and xLSTM families).
 
 Layers are `cfg.pattern` repeated `cfg.repeats` times, as in the JAX
 package, but each layer is its own `Block` in an `nn.ModuleList`:
@@ -9,8 +10,7 @@ layer i is pattern position `i % len(pattern)` of repeat
 repeats for `lax.scan`; here that would mean one 8.9 GB expert tensor
 per projection for qwen2-moe-a2.7b, so nothing is stacked.
 The cache is one entry per layer: a KV cache for an attention layer, a
-Mamba state for a Mamba layer. xLSTM's mixers are not ported yet and
-raise.
+recurrent state for a Mamba, mLSTM or sLSTM layer.
 """
 from __future__ import annotations
 
@@ -23,14 +23,19 @@ from .attention import Attention, Cache, init_kv_cache
 from .config import BlockSpec, ModelConfig
 from .layers import MLP, Embed, Norm
 from .moe import MoE
-from .ssm import Mamba, init_mamba_state
+from .ssm import (MLSTM, SLSTM, Mamba, init_mamba_state, init_mlstm_state,
+                  init_slstm_state)
 
-_MIXERS = ("attn", "attn_local", "mamba")
+# mixer kind -> (module, its decode state's init; None: a KV cache)
+_MIXERS = {"attn": (None, None), "attn_local": (None, None),
+           "mamba": (Mamba, init_mamba_state),
+           "mlstm": (MLSTM, init_mlstm_state),
+           "slstm": (SLSTM, init_slstm_state)}
 
 
 def _check_mixer(bspec: BlockSpec) -> None:
     if bspec.mixer not in _MIXERS:
-        raise NotImplementedError(f"{bspec.mixer} mixer not ported yet")
+        raise ValueError(f"unknown mixer {bspec.mixer!r}")
 
 
 class Block(nn.Module):
@@ -41,8 +46,9 @@ class Block(nn.Module):
         self.cfg = cfg
         self.ffn_kind = bspec.ffn
         self.norm_mixer = Norm(cfg, device)
-        if bspec.mixer == "mamba":
-            self.mixer = Mamba(cfg, device, gen)
+        recurrent = _MIXERS[bspec.mixer][0]
+        if recurrent is not None:
+            self.mixer = recurrent(cfg, device, gen)
         else:
             self.mixer = Attention(cfg, device, gen,
                                    local=bspec.mixer == "attn_local")
@@ -109,9 +115,11 @@ class Transformer(nn.Module):
         """tokens [B,S] (or `embeds` [B,S,d] from a modality frontend, used
         in place of the embedding lookup) -> (logits [B,S,V], MoE aux
         loss). Differentiable
-        on both devices for every mixer the port has: on CUDA through the
+        on both devices for every mixer but xLSTM's: on CUDA through the
         backward kernels of flash attention, `moe_gemm` and the selective
-        scan. The prefill (`train_step.make_prefill_step`)
+        scan; the mLSTM and sLSTM scans have no backward kernel yet and
+        raise under autograd on CUDA (on the CPU autograd differentiates
+        their plain versions). The prefill (`train_step.make_prefill_step`)
         is this forward under inference mode, as in the JAX package, where
         the prefill_32k cell lowers the same forward. The JAX forward
         rematerialises each period in the backward (`@jax.checkpoint`,
@@ -139,10 +147,13 @@ class Transformer(nn.Module):
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: torch.device) -> List[Cache]:
     """One entry per layer, by its pattern position: a KV cache
-    [B, max_len, nkv, hd] for attention, a Mamba state for Mamba."""
+    [B, max_len, nkv, hd] for attention, the mixer's zero state for Mamba,
+    mLSTM and sLSTM."""
     for bspec in cfg.pattern:
         _check_mixer(bspec)
-    return [init_mamba_state(cfg, batch, device)
-            if cfg.pattern[i % len(cfg.pattern)].mixer == "mamba"
-            else init_kv_cache(cfg, batch, max_len, device)
-            for i in range(cfg.num_layers)]
+    out = []
+    for i in range(cfg.num_layers):
+        init = _MIXERS[cfg.pattern[i % len(cfg.pattern)].mixer][1]
+        out.append(init_kv_cache(cfg, batch, max_len, device) if init is None
+                   else init(cfg, batch, device))
+    return out

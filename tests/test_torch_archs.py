@@ -14,8 +14,9 @@ pattern[:4], which has no attention layer). chameleon-34b's forward and
 gradients take `embeds` (its vision frontend feeds them), which is what
 sets its cases apart from minitron-4b's: the tiny configs of the two are
 the same model. Decode takes tokens in both packages, so its case runs
-on tokens. xlstm-125m and the encoder-decoder whisper-base are not here
-(tests/test_torch_encdec.py holds whisper).
+on tokens. xlstm-125m runs its mLSTM and sLSTM layers through the plain
+scans (tests/test_torch_xlstm.py holds its mixers). The encoder-decoder
+whisper-base is not here (tests/test_torch_encdec.py holds it).
 """
 import functools
 
@@ -45,7 +46,8 @@ from repro_torch.train.train_step import (TrainConfig,  # noqa: E402
 DECODER_ARCHS = sorted(
     name for name, cfg in JAX_ARCHS.items()
     if not cfg.is_encoder_decoder
-    and all(b.mixer in ("attn", "attn_local", "mamba") for b in cfg.pattern))
+    and all(b.mixer in ("attn", "attn_local", "mamba", "mlstm", "slstm")
+            for b in cfg.pattern))
 JAMBA = "jamba-v0.1-52b"
 EMBEDS_ARCHS = ("chameleon-34b",)        # frontend="vision" feeds embeds
 B, S = 2, 40
@@ -57,7 +59,8 @@ _TCFG = TrainConfig(opt=OptConfig(peak_lr=1e-3, warmup_steps=2,
 def test_every_decoder_arch_is_held():
     assert DECODER_ARCHS == ["chameleon-34b", "gemma2-27b", JAMBA,
                              "minitron-4b", "qwen2-0.5b", "qwen2-72b",
-                             "qwen2-moe-a2.7b", "qwen3-moe-235b-a22b"]
+                             "qwen2-moe-a2.7b", "qwen3-moe-235b-a22b",
+                             "xlstm-125m"]
     assert S > tiny_config("gemma2-27b").sliding_window
 
 

@@ -90,8 +90,3 @@ def test_unported_families_raise():
     # encoder-decoder, as the JAX launcher does (repro/launch/serve.py)
     with pytest.raises(SystemExit, match="decoder-only"):
         serve("whisper-base", num_requests=1, clients=1, device="cpu")
-    m = get_model(tiny_config("xlstm-125m"), "cpu")
-    with pytest.raises(NotImplementedError, match="lstm"):
-        m.init_params(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="lstm"):
-        m.init_cache(1, 8)
