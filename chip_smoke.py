@@ -16,16 +16,17 @@ its own failure):
 
   1. the card's name and power limit (nvidia-smi); TF32 off for f32;
   2. build the `moe_gemm` (forward and backward), `flash_attention`,
-     `ssm_scan` and `xlstm_scan` kernels from
+     `ssm_scan`, `xlstm_scan` and `xlstm_scan_bwd` kernels from
      `src/repro_torch/kernels/csrc/` with nvcc for sm_90a, one nvcc per
      source, and a copy of `ssm_scan.cu` for each selective-scan split of
      SEL_SPLITS (phase 11 times them), all started together; print the
      build times and ptxas's report
      (registers, spills, static smem, warnings) for every kernel, the bf16
-     tensor-core ones included (the xLSTM scans at hd 192 and 16 of their
-     16 head dims), the mLSTM's layout, dynamic smem and blocks an SM,
-     the sLSTM's cluster layout and how many clusters the card holds at
-     once, the flash kernels' dynamic smem
+     tensor-core ones included (the xLSTM scans and their backwards at hd
+     192 and 16 of their 16 head dims), the mLSTM's layout, dynamic smem
+     and blocks an SM, its backward's, the sLSTM's cluster layout and how
+     many clusters the card holds at once, its backward's, the flash
+     kernels' dynamic smem
      (forward, dq and dk/dv, each in both routes), the selective scan's
      and its backward's dynamic smem (both dtypes), the three scan
      kernels' resident blocks an SM, the backward's channels a block and
@@ -200,8 +201,18 @@ its own failure):
      for bit; at the path shape the sLSTM's and its plain version's error
      against a float64 plain run, the times (CUDA events through the
      wrapper, and behind a device sleep), us a step, the plain version's
-     one call and the bound (f32 CUDA-core operations or bytes); a CUDA
-     operand that requires grad makes either raise;
+     one call and the bound (f32 CUDA-core operations or bytes); then the
+     backward kernels (the mLSTM's prep, two passes and reduce; the
+     sLSTM's reverse walk, after the trail-keeping forward, held against
+     `slstm_scan_trails_ref`) against `mlstm_scan_bwd_ref` and
+     `slstm_scan_bwd_ref` at every XLSTM_BWD_CASES shape (XLSTM_CASES,
+     the path's S=32,768 at B=1, and the train cell's 8 x 2048), a dy of
+     seeded noise, two calls bit for bit, the share of steps past each
+     clamp (|n . q| > 1, n > 1); through the autograd Functions against
+     autograd of the plain scans at small shapes; at S=32,768 each
+     kernel's and the plain f32 version's error against a float64 plain
+     backward; at the train shape the times (CUDA events, and behind a
+     device sleep), us a step, the bound and the plain version's one call;
  27. slice 12's main path: `make_prefill_step` on full-width xlstm-125m
      (12 layers: 9 mLSTM, 3 sLSTM), random bf16 weights from a seeded
      generator, B=8 x S=32,768 (the prefill_32k sequence; B cut from 32,
@@ -215,11 +226,22 @@ its own failure):
  29. tiny xlstm in f32 on the card: decode step by step equals the forward
      (both scan kernels at hd 16) within 1e-4, and the engine (four
      requests through two slots) equals greedy decode with no scan launch;
- 30. a JSON line with the kernels' numbers (the bf16 and f32 routes of
+ 30. slice 13's main path: `make_train_step` on full-width xlstm-125m (12
+     layers, 9 mLSTM + 3 sLSTM), random bf16 weights from a seeded
+     generator, f32 AdamW, 6 steps of B=8 x S=2048 (the training context
+     of arXiv:2405.04517), with the launch counts set to 0 just before and
+     read just after: a step runs 9 `mlstm_scan` and each of its three
+     backward kernels 9 times, 3 trail-keeping `slstm_scan` and 3 of its
+     backward, and no other kernel of the port; step wall, tokens/s, peak
+     memory, then a torch.profiler window over two more steps;
+ 31. tiny xlstm training in f32 on the card through `train()`: the loss
+     falls, a resume is exact, and the launches are 60 steps' worth;
+ 32. a JSON line with the kernels' numbers (the bf16 and f32 routes of
      `moe_gemm`, of its backward and of the flash forward and backward as
      entries of their own, the flash entries with the whisper encoder's
      and gemma2's shapes; the selective scan's backward; the two xLSTM
-     scans), then, last, the result line {"ok": true, "device": {...}}.
+     scans and their backwards), then, last, the result line {"ok": true,
+     "device": {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
 """
@@ -261,9 +283,10 @@ from repro_torch.kernels.moe_gemm import (  # noqa: E402
     load as mg_load, moe_gemm, moe_gemm_bwd_dw, moe_gemm_bwd_dx)
 from repro_torch.kernels.ref import (  # noqa: E402
     attention_ref, flash_attention_bwd_ref, flash_attention_ref,
-    mlstm_scan_ref, moe_gemm_bwd_ref, moe_gemm_dw_ref, moe_gemm_dx_ref,
-    moe_gemm_ref, selective_scan_bwd_ref, selective_scan_ref,
-    slstm_scan_ref, ssm_scan_ref)
+    mlstm_scan_bwd_ref, mlstm_scan_ref, moe_gemm_bwd_ref, moe_gemm_dw_ref,
+    moe_gemm_dx_ref, moe_gemm_ref, selective_scan_bwd_ref,
+    selective_scan_ref, slstm_scan_bwd_ref, slstm_scan_ref,
+    slstm_scan_trails_ref, ssm_scan_ref)
 from repro_torch.kernels import ssm_scan as sscan  # noqa: E402
 from repro_torch.kernels.ssm_scan import (  # noqa: E402
     selective_scan, selective_scan_bwd, ssm_scan)
@@ -405,6 +428,22 @@ XLSTM_CASES = {"path": (XLSTM_BATCH, XLSTM_SEQ, 4, 192),
 # in (-1, 1) and its hd-term matvec and gates round as the plain version's
 # but for the sum order
 XLSTM_TOL = {"mlstm_scan": 1e-4, "slstm_scan": 1e-5}
+# xlstm-125m training: the training context of arXiv:2405.04517 (2,048
+# tokens), B=8 (the sLSTM backward then runs 8 clusters, one wave)
+XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ = 8, 2048
+# (B, S, H, hd) of the backward checks: XLSTM_CASES with the path's S at
+# B=1 (the plain backward walks S four times in Python), and the train
+# cell's shape
+XLSTM_BWD_CASES = {**XLSTM_CASES, "path": (1, XLSTM_SEQ, 4, 192),
+                   "train": (XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, 4, 192)}
+# backward kernel vs plain, f32: max |diff| <= tol * max |plain| over each
+# gradient (sums over hd, the bands and time in other orders; the gates'
+# gradients sum q . dq - k . dk over the rest of the sequence)
+XLSTM_BWD_TOL = 1e-4
+# at S=32,768 a kernel's error against a float64 plain backward may be at
+# most this many times the plain f32 version's (the same f32 arithmetic,
+# summed in other orders)
+XLSTM_F64_FACTOR = 2.0
 BACKLOG_CYCLES = 20_000_000              # ~10 ms of device sleep
 # dw's contraction C = K of the K sweep (phase 3), at the MoE train gate/up
 # shape's (E, d, f): time against 64-deep k-steps gives the main loop's
@@ -534,16 +573,17 @@ def scan_bound(nbytes, exps, flops, mem_bps, sfu_rate, f32_fps) -> dict:
             "sfu_only_bound_ms": max(t_bytes, t_sfu_only) * 1e3}
 
 
-def ptxas_report(lib: Path, only: str = "") -> None:
+def ptxas_report(lib: Path, only="") -> None:
     """ptxas's registers, spills and static smem for each kernel entry
-    (those whose name starts with `only`)."""
+    (those whose name starts with `only`, a string or a tuple of them)."""
     name = "?"
     for line in lib.with_suffix(".log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             k = re.search(r"([a-z_]+_kernel)I(13__nv_bfloat16|f)"
                           r"((?:Li\d+E)*)(?:Lb(\d)E)?E", m.group(1))
-            t = re.search(r"([a-z_]+_kernel)ILi(\d+)EE", m.group(1))
+            t = re.search(r"([a-z_]+_kernel)ILi(\d+)E(?:Lb(\d)E)?E",
+                          m.group(1))
             b = re.search(r"(moe_gemm_bwd_kernel)ILb(\d)ELb\dEE", m.group(1))
             if b:                    # the f32 backward: <1, 1> is dw
                 name = (f"{b.group(1)}<f32, "
@@ -559,8 +599,13 @@ def ptxas_report(lib: Path, only: str = "") -> None:
                 name = (f"{k.group(1)}<"
                         f"{'bf16' if k.group(2) != 'f' else 'f32'}{params}>")
             elif t and t.group(1) in ("mlstm_scan_kernel",
-                                      "slstm_scan_kernel"):
-                name = f"{t.group(1)}<f32, hd {16 * int(t.group(2))}>"
+                                      "slstm_scan_kernel",
+                                      "mlstm_bwd_kernel",
+                                      "slstm_scan_bwd_kernel"):
+                trails = ("" if t.group(3) is None else
+                          ", trails" if t.group(3) == "1" else ", no trails")
+                name = (f"{t.group(1)}<f32, hd {16 * int(t.group(2))}"
+                        f"{trails}>")
             elif t:                  # the bf16 tensor-core kernels
                 name = (f"{t.group(1)}<bf16, "
                         f"{'warpgroups' if 'moe' in t.group(1) else 'hd'} "
@@ -1343,6 +1388,7 @@ KERNEL_GROUPS = (("moe_gemm backward", ("moe_gemm_dx", "moe_gemm_dw",
                  ("moe_gemm", ("moe_gemm",)),
                  ("selective scan backward", ("sel_scan_bwd",)),
                  ("selective scan", ("sel_scan",)),
+                 ("xLSTM backward", ("mlstm_bwd", "slstm_scan_bwd")),
                  ("xLSTM scans", ("mlstm_scan", "slstm_scan")),
                  ("flash attention", ("flash_",)),
                  ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "xmma")),
@@ -2189,8 +2235,7 @@ def check_xlstm(gen, mem_bps: float, f32_fps: float) -> dict:
     bit; at the path shape their times (through the wrapper by CUDA events,
     and behind a device sleep), us per step, the plain version's time (one
     call) and the bound, and the sLSTM's and its plain version's error
-    against a float64 plain run; a CUDA operand that requires grad makes
-    either wrapper raise. Returns {kernel: the path's numbers}."""
+    against a float64 plain run. Returns {kernel: the path's numbers}."""
     out = {}
     for kind, wrapper, ref in (("mlstm_scan", xls.mlstm_scan, mlstm_scan_ref),
                                ("slstm_scan", xls.slstm_scan, slstm_scan_ref)):
@@ -2243,16 +2288,226 @@ def check_xlstm(gen, mem_bps: float, f32_fps: float) -> dict:
             del args, got, again, want
             torch.cuda.empty_cache()
         out[kind]["max_abs_err_by_case"] = errs
-        # under autograd on CUDA the wrapper raises (no backward kernel)
-        args = list(xlstm_inputs(kind, XLSTM_CASES["tiny hd=16"], gen))
-        args[0].requires_grad_()
-        try:
-            wrapper(*args)
-        except NotImplementedError as e:
-            print(f"[check] {kind} on a CUDA operand that requires grad "
-                  f"raises: {e}")
-        else:
-            raise AssertionError(f"{kind} under grad did not raise")
+    return out
+
+
+def xlstm_bwd_bound(kind: str, case, mem_bps: float, f32_fps: float) -> dict:
+    """Least ms for one backward at (B, S, H, hd), as `xlstm_bound`. mLSTM
+    (three kernels): reads q, k, v, y, dy, i, f, writes dq, dk, dv, di,
+    df; pass A takes 2 FMAs an entry of C a step, pass B 3, and the n
+    chains, n . q, dy . y and the bands' sums about 10 flops a column.
+    sLSTM (the kernel): reads the p trail, c, n, m, dy and W, writes
+    dpre; the transposed products, 4 hd^2 FMAs a (b, h, step), and the
+    cell's backward, about 60 operations a row (its transcendentals
+    counted as one each)."""
+    b, s, h, hd = case
+    n = b * s * h
+    if kind == "mlstm_scan_bwd":
+        nbytes = 4 * (8 * n * hd + 4 * n)
+        flops = n * (10 * hd * hd + 10 * hd)
+    else:
+        nbytes = 4 * (12 * n * hd + 4 * h * hd * hd)
+        flops = n * (8 * hd * hd + 60 * hd)
+    t_bytes, t_ops = nbytes / mem_bps, flops / f32_fps
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_bound_ms": 1e3 * t_bytes, "gflop": flops / 1e9}
+
+
+def mlstm_branches(q, k, v, i, f) -> tuple[torch.Tensor, ...]:
+    """Which side of each branch point the mLSTM's forward takes at each
+    step, walked in plain ops in the inputs' dtype: |n . q| > 1 (the clamp
+    passes its gradient), log_sigmoid(f) + m > i (the max takes the forget
+    arm) and log_sigmoid(f) + m == i (a tie, whose gradient autograd
+    splits half to each arm), bool [B,S,H] each."""
+    lf = torch.nn.functional.logsigmoid(f)
+    m = torch.zeros_like(i[:, 0])
+    n = torch.zeros_like(q[:, 0])
+    past, arm, tie = [], [], []
+    for t in range(q.shape[1]):
+        mf = lf[:, t] + m
+        arm.append(mf > i[:, t])
+        tie.append(mf == i[:, t])
+        m = torch.maximum(mf, i[:, t])
+        n = torch.exp(mf - m)[..., None] * n + \
+            torch.exp(i[:, t] - m)[..., None] * k[:, t]
+        past.append((n * q[:, t]).sum(-1).abs() > 1)
+    return torch.stack(past, 1), torch.stack(arm, 1), torch.stack(tie, 1)
+
+
+def grads_rel_errs(got, want) -> list:
+    """max |got - want| / max |want| of each gradient."""
+    return [((g.double() - w.double()).abs().max()
+             / w.double().abs().max().clamp_min(1e-30)).item()
+            for g, w in zip(got, want)]
+
+
+def grads_rel_err(got, want) -> float:
+    """The largest of `grads_rel_errs`."""
+    return max(grads_rel_errs(got, want))
+
+
+def check_xlstm_bwd(gen, mem_bps: float, f32_fps: float) -> dict:
+    """Both xLSTM backwards on the card against their plain versions, in
+    f32, at every XLSTM_BWD_CASES shape with a dy of seeded noise (within
+    XLSTM_BWD_TOL of each gradient's largest magnitude), two calls bit for
+    bit; the sLSTM's trail-keeping forward against
+    `slstm_scan_trails_ref` and its y bit for bit against the inference
+    kernel's; the shares of steps past each clamp and on each arm of the
+    max; at the path's S=32,768 (B=1) each kernel's and the plain f32
+    version's error against a float64 plain backward; through the
+    autograd Functions against autograd of the plain scans at the small
+    shapes; at the train shape the times (the mLSTM's three kernels
+    through the wrapper, the sLSTM's kernel alone and with the weight
+    products; CUDA events, and behind a device sleep), us a step, the
+    plain version's one call and the bound. Returns {kernel: the train
+    shape's numbers}."""
+    out = {}
+    for kind in ("mlstm_scan_bwd", "slstm_scan_bwd"):
+        fwd = kind[:-4]
+        errs = {}
+        for label, case in XLSTM_BWD_CASES.items():
+            args = xlstm_inputs(fwd, case, gen)
+            dy = torch.randn(case, generator=gen, device="cuda")
+            with torch.no_grad():
+                if kind == "mlstm_scan_bwd":
+                    y = xls.mlstm_scan(*args)
+                    kernel = lambda: xls.mlstm_scan_bwd(*args, y, dy)  # noqa: E731,E501
+                    plain = lambda: mlstm_scan_bwd_ref(*args, y, dy)  # noqa: E731,E501
+                    past_t, arm_t, tie_t = mlstm_branches(*args)
+                    past = past_t.double().mean().item()
+                    arm = arm_t.double().mean().item()
+                    clamp = f"|n . q| > 1 at {past:.4f} of steps"
+                else:
+                    trails = xls._slstm_fwd(*args, trails=True)
+                    want_tr = slstm_scan_trails_ref(*args)
+                    assert torch.equal(trails[0], xls.slstm_scan(*args))
+                    for got_t, want_t in zip(trails, want_tr):
+                        torch.testing.assert_close(
+                            got_t, want_t, rtol=XLSTM_TOL[fwd],
+                            atol=XLSTM_TOL[fwd])
+                    kernel = lambda: xls.slstm_scan_bwd(  # noqa: E731
+                        args[1], dy, trails)
+                    plain = lambda: slstm_scan_bwd_ref(  # noqa: E731
+                        *args, dy, trails)
+                    n_tr, p_tr, m_tr = trails[3], trails[1], trails[4]
+                    m_prev = torch.cat([torch.zeros_like(m_tr[:, :1]),
+                                        m_tr[:, :-1]], 1)
+                    past = (n_tr > 1).double().mean().item()
+                    arm = (torch.nn.functional.logsigmoid(p_tr[:, :, 1])
+                           + m_prev > p_tr[:, :, 0]).double().mean().item()
+                    clamp = (f"n > 1 at {past:.4f} of steps (n == 1 at "
+                             f"{(n_tr == 1).double().mean().item():.4f}); "
+                             f"trails within {XLSTM_TOL[fwd]} of "
+                             f"slstm_scan_trails_ref, y bit for bit the "
+                             f"inference kernel's")
+                got, again = kernel(), kernel()
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                want = plain()
+                b.record()
+                torch.cuda.synchronize()
+            assert all(torch.equal(g, h) for g, h in zip(got, again)), \
+                f"{kind} {label}: two calls differ"
+            errs[label] = grads_rel_err(got, want)
+            assert errs[label] <= XLSTM_BWD_TOL, (kind, label, errs[label])
+            print(f"[check] {kind} {label} {case}: max |kernel - plain| / "
+                  f"max |plain| over the gradients {errs[label]:.3e} (tol "
+                  f"{XLSTM_BWD_TOL}); two calls bit for bit; {clamp}; "
+                  f"forget arm of the max at {arm:.4f}")
+            if label in ("path", "train"):   # against float64
+                with torch.no_grad():
+                    a64 = [x.double() for x in args]
+                    if kind == "mlstm_scan_bwd":
+                        w64 = mlstm_scan_bwd_ref(*a64, mlstm_scan_ref(*a64),
+                                                 dy.double())
+                        # steps where f32 and float64 take different sides
+                        # of a branch point, where the gradient jumps
+                        past64, arm64, tie64 = mlstm_branches(*a64)
+                        flips = (f"; the f32 and float64 forwards part at "
+                                 f"{int((past64 != past_t).sum())} clamp "
+                                 f"and {int((arm64 != arm_t).sum())} max "
+                                 f"steps of {past_t.numel()}, and the max "
+                                 f"ties at {int(tie_t.sum())} steps in f32 "
+                                 f"(at {tie_t.nonzero().tolist()[:4]}), "
+                                 f"{int(tie64.sum())} in float64")
+                    else:
+                        w64 = slstm_scan_bwd_ref(*a64, dy.double())
+                        flips = ""
+                e_k, e_p = grads_rel_errs(got, w64), grads_rel_errs(want, w64)
+                print(f"[check] {kind} {label} S={case[1]}: against a float64 "
+                      f"plain backward, kernel {max(e_k):.3e}, plain f32 "
+                      f"{max(e_p):.3e} (max |diff| / max |f64|; by gradient "
+                      f"kernel {[f'{e:.2e}' for e in e_k]}, plain "
+                      f"{[f'{e:.2e}' for e in e_p]}){flips}"
+                      + (f"; at most {XLSTM_F64_FACTOR} x the plain"
+                         if label == "path" else ""))
+                if label == "path":
+                    assert max(e_k) <= XLSTM_F64_FACTOR * max(e_p), (e_k, e_p)
+                key = "" if label == "path" else "train_"
+                out.setdefault(kind, {}).update({
+                    f"{key}err_vs_f64": max(e_k),
+                    f"{key}plain_err_vs_f64": max(e_p),
+                    f"{key}err_vs_f64_by_grad": e_k,
+                    f"{key}plain_err_vs_f64_by_grad": e_p})
+                del a64, w64
+            if label == "train":
+                t = {"max_abs_err": max((g - w).abs().max().item()
+                                        for g, w in zip(got, want)),
+                     "plain_ms": a.elapsed_time(b), "library_ms": None,
+                     **xlstm_bwd_bound(kind, case, mem_bps, f32_fps)}
+                with torch.no_grad():
+                    if kind == "slstm_scan_bwd":
+                        alone = lambda: xls._slstm_bwd(  # noqa: E731
+                            args[1], dy, trails[1:])
+                        t["with_weight_products_ms"] = time_ms(kernel, reps=5,
+                                                               warmup=1)
+                    else:
+                        alone = kernel
+                    t["ms"] = time_ms(alone, reps=5, warmup=1)
+                    t["device_ms"] = time_ms(alone, reps=5, warmup=1,
+                                             backlog=True)
+                t["us_per_step"] = 1e3 * t["ms"] / case[1]
+                print(f"[time] {kind} train {case} f32: kernel"
+                      f"{'s' if kind == 'mlstm_scan_bwd' else ''} "
+                      f"{t['ms']:.4f} ms ({t['us_per_step']:.4f} us a step; "
+                      f"behind a device sleep {t['device_ms']:.4f}"
+                      + (f"; with the weight products "
+                         f"{t['with_weight_products_ms']:.4f}"
+                         if kind == "slstm_scan_bwd" else "")
+                      + f"), plain {t['plain_ms']:.1f} ms (one call), bound "
+                      f"{t['bound_ms']:.4f} ms ({t['bound_by']}; "
+                      f"{t['gflop']:.1f} GFLOP, bytes "
+                      f"{t['bytes_bound_ms']:.4f}); kernel at "
+                      f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound; "
+                      f"no PyTorch call computes it")
+                out.setdefault(kind, {}).update(t)
+            del args, dy, got, again, want
+            torch.cuda.empty_cache()
+        out[kind]["max_rel_err_by_case"] = errs
+        # through the autograd Function against autograd of the plain scan
+        wrapper, ref = ((xls.mlstm_scan, mlstm_scan_ref)
+                        if kind == "mlstm_scan_bwd"
+                        else (xls.slstm_scan, slstm_scan_ref))
+        node = ("_MlstmScanBackward" if kind == "mlstm_scan_bwd"
+                else "_SlstmScanBackward")
+        for label in ("tiny hd=16", "S=1", "hd=256 B=5"):
+            case = XLSTM_CASES[label]
+            args = xlstm_inputs(fwd, case, gen)
+            dy = torch.randn(case, generator=gen, device="cuda")
+            leaves = [x.clone().requires_grad_() for x in args]
+            y = wrapper(*leaves)
+            assert type(y.grad_fn).__name__ == node, type(y.grad_fn)
+            got = torch.autograd.grad(y, leaves, dy)
+            leaves = [x.clone().requires_grad_() for x in args]
+            want = torch.autograd.grad(ref(*leaves), leaves, dy)
+            err = grads_rel_err(got, want)
+            assert err <= XLSTM_BWD_TOL, (kind, label, err)
+            print(f"[check] {fwd} {label} {case} under autograd: grad_fn "
+                  f"{node}; gradients vs autograd of {ref.__name__} "
+                  f"{err:.3e} (max |diff| / max |plain|, tol "
+                  f"{XLSTM_BWD_TOL})")
     return out
 
 
@@ -2263,6 +2518,25 @@ def xlstm_prefill_and_serve() -> dict:
     cfg = get_config(XLSTM)
     return prefill_and_serve(cfg, XLSTM_SEQ, only(mlstm_scan=9, slstm_scan=3),
                              bsz=XLSTM_BATCH)
+
+
+XLSTM_KERNELS = ("mlstm_scan_kernel", "mlstm_bwd_prep_kernel",
+                 "mlstm_bwd_kernel", "mlstm_bwd_reduce_kernel",
+                 "slstm_scan_kernel", "slstm_scan_bwd_kernel")
+
+
+def xlstm_train_path() -> dict:
+    """Slice 13's main path: full-width xlstm-125m (12 layers: 9 mLSTM, 3
+    sLSTM), XLSTM_TRAIN_BATCH x XLSTM_TRAIN_SEQ, through `train_cell`: a
+    step runs each mLSTM layer's scan and its three backward kernels, each
+    sLSTM layer's trail-keeping scan and its backward, and no other kernel
+    of the port."""
+    cfg = get_config(XLSTM)
+    return train_cell("xlstm-train", cfg, XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ,
+                      train_only(mlstm_scan=9, mlstm_scan_bwd_prep=9,
+                                 mlstm_scan_bwd=9, mlstm_scan_bwd_reduce=9,
+                                 slstm_scan=3, slstm_scan_trails=3,
+                                 slstm_scan_bwd=3), XLSTM_KERNELS)
 
 
 def xlstm_tiny_checks() -> dict:
@@ -2303,7 +2577,21 @@ TRAIN_COUNTERS = (("moe_gemm", moe_gemm, "launches"),
                   ("selective_scan", selective_scan, "launches"),
                   ("selective_scan_bwd", selective_scan_bwd, "launches"),
                   ("selective_scan_bwd_reduce", selective_scan_bwd,
-                   "reduce_launches"))
+                   "reduce_launches"),
+                  ("mlstm_scan", xls.mlstm_scan, "launches"),
+                  ("mlstm_scan_bwd_prep", xls.mlstm_scan_bwd,
+                   "prep_launches"),
+                  ("mlstm_scan_bwd", xls.mlstm_scan_bwd, "launches"),
+                  ("mlstm_scan_bwd_reduce", xls.mlstm_scan_bwd,
+                   "reduce_launches"),
+                  ("slstm_scan", xls.slstm_scan, "launches"),
+                  ("slstm_scan_trails", xls.slstm_scan, "trail_launches"),
+                  ("slstm_scan_bwd", xls.slstm_scan_bwd, "launches"))
+
+
+def train_only(**nonzero) -> dict:
+    """A `read_train_counts` dict: these counts, every other 0."""
+    return {key: nonzero.get(key, 0) for key, _, _ in TRAIN_COUNTERS}
 
 
 def zero_train_counts() -> None:
@@ -2328,14 +2616,19 @@ def train_step_counts(cfg) -> dict:
     MoE layer, each with its dx and dw; the flash forward and its two
     backward kernels a self-attention layer (`forward_counts`); the
     selective scan, its backward and the backward's second pass a Mamba
-    layer."""
+    layer; the mLSTM scan and its three backward kernels an mLSTM layer;
+    the trail-keeping sLSTM scan and its backward an sLSTM layer."""
     fwd = forward_counts(cfg)
     moe, attn = fwd["moe_gemm"], fwd["flash_attention"]
-    mamba = fwd["selective_scan"]
+    mamba, mlstm, slstm = (fwd["selective_scan"], fwd["mlstm_scan"],
+                           fwd["slstm_scan"])
     return {"moe_gemm": moe, "moe_gemm_bwd_dx": moe, "moe_gemm_bwd_dw": moe,
             "flash_attention": attn, "flash_attention_bwd": BWD_KERNELS * attn,
             "selective_scan": mamba, "selective_scan_bwd": mamba,
-            "selective_scan_bwd_reduce": mamba}
+            "selective_scan_bwd_reduce": mamba, "mlstm_scan": mlstm,
+            "mlstm_scan_bwd_prep": mlstm, "mlstm_scan_bwd": mlstm,
+            "mlstm_scan_bwd_reduce": mlstm, "slstm_scan": slstm,
+            "slstm_scan_trails": slstm, "slstm_scan_bwd": slstm}
 
 
 def train_cell(name: str, cfg, batch: int, seq: int, per_step: dict,
@@ -2427,11 +2720,9 @@ def moe_train_path() -> dict:
     MOE_TRAIN_REPEATS of its 24 layers, TRAIN_BATCH x TRAIN_SEQ, through
     `train_cell`."""
     cfg = get_config(ARCH).scaled(repeats=MOE_TRAIN_REPEATS)
-    return train_cell("moe-train", cfg, TRAIN_BATCH, TRAIN_SEQ, {
-        "moe_gemm": 12, "moe_gemm_bwd_dx": 12, "moe_gemm_bwd_dw": 12,
-        "flash_attention": 4, "flash_attention_bwd": 8, "selective_scan": 0,
-        "selective_scan_bwd": 0, "selective_scan_bwd_reduce": 0},
-        MOE_KERNELS)
+    return train_cell("moe-train", cfg, TRAIN_BATCH, TRAIN_SEQ, train_only(
+        moe_gemm=12, moe_gemm_bwd_dx=12, moe_gemm_bwd_dw=12,
+        flash_attention=4, flash_attention_bwd=8), MOE_KERNELS)
 
 
 def jamba_train_path() -> dict:
@@ -2444,11 +2735,10 @@ def jamba_train_path() -> dict:
     cfg = full.scaled(pattern=full.pattern[:JAMBA_TRAIN_LAYERS], repeats=1)
     assert cfg.param_count() == JAMBA_TRAIN_PARAMS, cfg.param_count()
     return train_cell("jamba-train", cfg, JAMBA_TRAIN_BATCH, JAMBA_TRAIN_SEQ,
-                      {"moe_gemm": 3, "moe_gemm_bwd_dx": 3,
-                       "moe_gemm_bwd_dw": 3, "flash_attention": 0,
-                       "flash_attention_bwd": 0, "selective_scan": 2,
-                       "selective_scan_bwd": 2,
-                       "selective_scan_bwd_reduce": 2},
+                      train_only(moe_gemm=3, moe_gemm_bwd_dx=3,
+                                 moe_gemm_bwd_dw=3, selective_scan=2,
+                                 selective_scan_bwd=2,
+                                 selective_scan_bwd_reduce=2),
                       ("sel_scan_kernel", "sel_scan_bwd_kernel",
                        "sel_scan_bwd_reduce_kernel") + MOE_KERNELS)
 
@@ -2466,11 +2756,9 @@ def gemma2_train_path() -> dict:
     cfg = get_config(GEMMA2).scaled(repeats=1)
     assert cfg.param_count() == GEMMA2_TRAIN_PARAMS, cfg.param_count()
     assert GEMMA2_TRAIN_SEQ > cfg.sliding_window
-    out = train_cell("gemma2-train", cfg, 1, GEMMA2_TRAIN_SEQ, {
-        "moe_gemm": 0, "moe_gemm_bwd_dx": 0, "moe_gemm_bwd_dw": 0,
-        "flash_attention": 2, "flash_attention_bwd": 4, "selective_scan": 0,
-        "selective_scan_bwd": 0, "selective_scan_bwd_reduce": 0},
-        FLASH_KERNELS)
+    out = train_cell("gemma2-train", cfg, 1, GEMMA2_TRAIN_SEQ,
+                     train_only(flash_attention=2, flash_attention_bwd=4),
+                     FLASH_KERNELS)
     local, glob = mixer_layers(cfg)
     out["shapes"] = {which: shape_launches(out["shapes"][which], {
         "gemma2 train local": n * local * TRAIN_STEPS,
@@ -2697,17 +2985,24 @@ def main() -> int:
         return name, split, _build.build(name, defines), time.time() - t0
 
     jobs = [("moe_gemm", None), ("flash_attention", None), ("ssm_scan", None),
-            ("xlstm_scan", None)]
+            ("xlstm_scan", None), ("xlstm_scan_bwd", None)]
     jobs += [("ssm_scan", split) for split in SEL_SPLITS]
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         built = list(pool.map(timed_build, jobs))
     split_libs = {}
     for kname, split, lib, secs in built:
-        if kname == "xlstm_scan":        # 16 head dims: the paths' two
+        if kname.startswith("xlstm_scan"):   # 16 head dims: the paths' two
             print(f"[build] {kname}: {secs:.2f} s -> {lib.name}")
-            for kern in ("mlstm", "slstm"):
+            kerns = (("mlstm_scan_kernel", "slstm_scan_kernel")
+                     if kname == "xlstm_scan" else
+                     ("mlstm_bwd_kernel", "slstm_scan_bwd_kernel"))
+            for kern in kerns:
                 for hd in (192, 16):
-                    ptxas_report(lib, only=f"{kern}_scan_kernel<f32, hd {hd}>")
+                    ptxas_report(lib, only=(f"{kern}<f32, hd {hd}>",
+                                            f"{kern}<f32, hd {hd},"))
+            if kname == "xlstm_scan_bwd":
+                ptxas_report(lib, only="mlstm_bwd_prep_kernel")
+                ptxas_report(lib, only="mlstm_bwd_reduce_kernel")
         elif split is None:
             print(f"[build] {kname}: {secs:.2f} s -> {lib.name}")
             ptxas_report(lib)
@@ -2755,6 +3050,14 @@ def main() -> int:
           f"{xlib.slstm_scan_max_active_clusters(192, XLSTM_BATCH, 4)} "
           f"clusters at once at hd 192 (the path needs "
           f"{4 * -(-XLSTM_BATCH // xlib.xlstm_scan_layout(3))})")
+    blib = xls._bwd_lib()
+    print(f"[build]   mlstm_bwd_kernel: dynamic smem at hd 192 "
+          f"{blib.mlstm_bwd_smem_bytes(192)} B, "
+          f"{blib.mlstm_bwd_blocks_per_sm(192)} blocks an SM; "
+          f"slstm_scan_bwd_kernel: "
+          f"{blib.slstm_bwd_max_active_clusters(192, XLSTM_TRAIN_BATCH, 4)}"
+          f" clusters at once at hd 192 (the train cell needs "
+          f"{4 * -(-XLSTM_TRAIN_BATCH // xlib.xlstm_scan_layout(3))})")
 
     # ---- 3. kernel vs plain ---------------------------------------------
     cfg = get_config(ARCH)
@@ -3001,6 +3304,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     xlstm_times = check_xlstm(gen, mem_bps, f32_fps)
+    # the backward checks draw from a generator of their own, so that
+    # their inputs do not depend on what the phases before them drew
+    xlstm_times.update(check_xlstm_bwd(torch.Generator("cuda").manual_seed(0),
+                                       mem_bps, f32_fps))
 
     # ---- 27, 28. slice 12's main path: full-width xlstm-125m prefill,
     # serve ---------------------------------------------------------------
@@ -3009,7 +3316,15 @@ def main() -> int:
     # ---- 29. tiny f32 xlstm on the card: decode == forward, engine ------
     xlstm_f32 = xlstm_tiny_checks()
 
-    # ---- 30. results -----------------------------------------------------
+    # ---- 30. slice 13's main path: full-width xlstm-125m training --------
+    gc.collect()
+    torch.cuda.empty_cache()
+    xlstm_train = xlstm_train_path()
+
+    # ---- 31. tiny f32 xlstm training on the card: learns, resumes -------
+    xlstm_f32_train = tiny_f32_train(XLSTM)
+
+    # ---- 32. results -----------------------------------------------------
     # Both dtypes of moe_gemm, of its backward and of the flash forward and
     # backward count in one `launches`; each route's own count is that of
     # a run in its dtype: bf16 the main paths (phases 5, 9 and 15), f32 the
@@ -3270,7 +3585,9 @@ def main() -> int:
                 "tiny f32 Jamba training (60 steps)",
     })
     # the xLSTM scans: no TPU counterpart (the JAX package runs them as
-    # lax.scan bodies); launches over the xlstm prefills (phase 27)
+    # lax.scan bodies); launches over the xlstm prefills (phase 27), and
+    # over the xlstm train steps (phase 30) and the tiny f32 training
+    # (phase 31)
     for kname, kern, step in (
             ("mlstm_scan", "mlstm_scan_kernel<hd 192>", "_mlstm_step"),
             ("slstm_scan", "slstm_scan_kernel<hd 192>", "_slstm_step")):
@@ -3292,10 +3609,55 @@ def main() -> int:
                 "plain_err_vs_f64": t["plain_err_vs_f64"]}
                if kname == "slstm_scan" else {}),
             "f32_tiny_forward_launches": xlstm_f32[kname],
+            "train_launches": xlstm_train["counts"][kname],
+            "f32_tiny_train_launches": xlstm_f32_train[kname],
+            **({"trail_launches": {
+                "train": xlstm_train["counts"]["slstm_scan_trails"],
+                "f32_tiny_train": xlstm_f32_train["slstm_scan_trails"]}}
+               if kname == "slstm_scan" else {}),
             "unit": f"one layer's call at the xlstm-125m prefill path's shape "
                     f"(B={XLSTM_BATCH}, S={XLSTM_SEQ}, H=4, hd=192, f32); "
                     f"launches over {xlstm['calls']} prefills; no PyTorch "
                     f"call computes it (library none)",
+        })
+    # their backwards: no TPU counterpart (the JAX package differentiates
+    # the lax.scan); launches over the 6 xlstm train steps (phase 30)
+    for kname, kern, step, launches in (
+            ("mlstm_scan_bwd", "mlstm_bwd_prep_kernel, mlstm_bwd_kernel<hd "
+             "192>, mlstm_bwd_reduce_kernel", "_mlstm_step",
+             {k_: xlstm_train["counts"][k_] for k_ in (
+                 "mlstm_scan_bwd_prep", "mlstm_scan_bwd",
+                 "mlstm_scan_bwd_reduce")}),
+            ("slstm_scan_bwd", "slstm_scan_bwd_kernel<hd 192>", "_slstm_step",
+             {"slstm_scan_bwd": xlstm_train["counts"]["slstm_scan_bwd"]})):
+        t = xlstm_times[kname]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/xlstm_scan_bwd.cu",
+            "kernel": kern, "replaces": None,
+            "note": f"computes jax.grad of the lax.scan of "
+                    f"repro/models/ssm.py:{step} (no Pallas kernel in the "
+                    f"JAX package)",
+            "launches": launches[kname], "launches_by_kernel": launches,
+            "max_abs_err": t["max_abs_err"],
+            "max_rel_err_by_case": t["max_rel_err_by_case"],
+            **{k_: t[k_] for k_ in t if "err_vs_f64" in k_},
+            **times_of(t), "device_ms": t["device_ms"],
+            "bytes_bound_ms": t["bytes_bound_ms"],
+            "us_per_step": t["us_per_step"],
+            **({"with_weight_products_ms": t["with_weight_products_ms"]}
+               if kname == "slstm_scan_bwd" else {}),
+            "f32_tiny_train_launches": {
+                k_: xlstm_f32_train[k_] for k_ in launches},
+            "unit": f"one layer's backward at the xlstm-125m train path's "
+                    f"shape (B={XLSTM_TRAIN_BATCH}, S={XLSTM_TRAIN_SEQ}, "
+                    f"H=4, hd=192, f32)"
+                    + ("; its three kernels through the wrapper"
+                       if kname == "mlstm_scan_bwd" else
+                       "; the kernel alone (dW and dbias are an f32 einsum "
+                       "outside it)")
+                    + f"; launches over the {TRAIN_STEPS} xlstm train steps; "
+                    f"no PyTorch call computes it (library none)",
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -94,6 +94,13 @@
 // x is loaded kSAhead steps ahead into registers. The cell update rounds
 // as the plain version does (no contraction into FMAs); the matvec's
 // order is fixed, so two calls give the same bits.
+//
+// Under autograd the wrapper launches slstm_scan_kernel<D16, true>, which
+// also keeps the trails its backward (csrc/xlstm_scan_bwd.cu) reads: each
+// step's full pre-activations x + W h + bias [B,S,4,H,hd] and c, n, m
+// after it [B,S,H,hd] (plain version: ref.slstm_scan_trails_ref). The
+// mLSTM's backward needs no trail: mlstm_scan_kernel is the same on both
+// paths.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -118,6 +125,11 @@ struct SlstmScanArgs {
   const float* w_r;
   const float* bias;
   float* y;
+  // the trails (all null, or all set: then the <D16, true> kernel runs)
+  float* p_trail;
+  float* c_trail;
+  float* n_trail;
+  float* m_trail;
   int B, S, H, hd;
 };
 
@@ -470,7 +482,7 @@ int mlstm_smem_t() {
 template <int D16>
 constexpr int kSThreads = 32 * 2 * D16;    // a warp a row: hd / 8 rows
 
-template <int D16>
+template <int D16, bool kTrail>
 __global__ void __launch_bounds__(kSThreads<D16>, 1)
     slstm_scan_kernel(const SlstmScanArgs a) {
   constexpr int HD = 16 * D16;
@@ -611,6 +623,18 @@ __global__ void __launch_bounds__(kSThreads<D16>, 1)
           m = m_new;
           hloc[cr][cb] = hn;
           if (cvalid) yp[t * ystep] = hn;
+          if (kTrail && cvalid) {
+            // trails at the offsets of y: [b][t][h][r]; p [b][t][g][h][r]
+            const long long off = yp - a.y + t * ystep;
+            const long long poff = off + (off / ystep) * 3 * ystep;
+            a.p_trail[poff] = pi;
+            a.p_trail[poff + ystep] = pf;
+            a.p_trail[poff + 2 * ystep] = pz;
+            a.p_trail[poff + 3 * ystep] = po;
+            a.c_trail[off] = c;
+            a.n_trail[off] = n;
+            a.m_trail[off] = m_new;
+          }
         }
         // the block's rows of h_t, RB x kSBatch floats, to every block of
         // the cluster, into buffer (t + 1) & 1 (nobody reads the last
@@ -653,7 +677,10 @@ template <int D16>
 int launch_slstm(const SlstmScanArgs& a, cudaStream_t s) {
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = slstm_config<D16>(a.B, a.H, s, &attr);
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, slstm_scan_kernel<D16>, a);
+  const cudaError_t err =
+      a.c_trail != nullptr
+          ? cudaLaunchKernelEx(&cfg, slstm_scan_kernel<D16, true>, a)
+          : cudaLaunchKernelEx(&cfg, slstm_scan_kernel<D16, false>, a);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -664,8 +691,8 @@ int slstm_max_clusters_t(int batch, int heads) {
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
       slstm_config<D16>(batch, heads, nullptr, &attr);
-  const cudaError_t err =
-      cudaOccupancyMaxActiveClusters(&n, slstm_scan_kernel<D16>, &cfg);
+  const cudaError_t err = cudaOccupancyMaxActiveClusters(
+      &n, slstm_scan_kernel<D16, false>, &cfg);
   return err == cudaSuccess ? n : 0;
 }
 

@@ -23,8 +23,9 @@ differentiates the plain versions. `ssm_scan`, which no model calls, has
 no backward kernel and raises under autograd on CUDA. `mlstm_scan` and
 `slstm_scan`, xLSTM's two recurrences over a sequence (a `lax.scan` in the
 JAX package, no Pallas kernel), launch their kernels for CUDA tensors and
-run the plain versions for CPU tensors, which autograd differentiates;
-they have no backward kernels yet and raise under autograd on CUDA. The
+run the plain versions for CPU tensors, which autograd differentiates; on
+CUDA under autograd their backwards launch the xLSTM backward kernels
+(`xlstm_scan.mlstm_scan_bwd`, `slstm_scan_bwd`). The
 JAX package's `REPRO_FORCE_*` switches have no counterpart: the device
 decides.
 """

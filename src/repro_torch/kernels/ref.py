@@ -23,6 +23,13 @@ walks time in reverse.
 decode calls; `mlstm_scan_ref` and `slstm_scan_ref` loop them over time
 from a zero state and are the plain versions of the xLSTM scan kernels
 (JAX runs them as `lax.scan` bodies and has no Pallas kernel for them).
+`slstm_scan_trails_ref` is the plain version of the sLSTM kernel that
+also keeps the trails its backward reads. `mlstm_scan_bwd_ref` and
+`slstm_scan_bwd_ref` are the plain versions of the xLSTM backward
+kernels (JAX differentiates the `lax.scan`): reverse walks split into
+the kernels' passes, in plain tensor ops; `slstm_grad_weights` is the
+recurrent weights' and bias's gradient, a plain product outside any
+kernel on both devices.
 """
 from __future__ import annotations
 
@@ -361,3 +368,184 @@ def slstm_scan_ref(pre: torch.Tensor, w_r: torch.Tensor,
         carry, h = slstm_step(carry, pre[:, t], w_r, bias)
         ys.append(h)
     return torch.stack(ys, dim=1)
+
+
+def mlstm_scan_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       i: torch.Tensor, f: torch.Tensor, y: torch.Tensor,
+                       dy: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Plain mLSTM backward: the gradients (dq, dk, dv, di, df) of
+    `mlstm_scan_ref(q, k, v, i, f)` for the output gradient dy, given its
+    output y; f32 (f64 for f64 inputs). Ties split as autograd splits them:
+    a max's gradient half to each side, a clamp's whole to its input.
+
+    In the passes the backward kernels take (csrc/xlstm_scan_bwd.cu):
+      prep, forward: the m chain, f' and i' and which arm each max took;
+        n from zero, den_t = max(|n_t . q_t|, 1) and
+        g_t = -(dy_t . y_t) / den_t sign(n_t . q_t) [|n_t . q_t| >= 1]
+      A, forward: C from zero, dq_t = C_t^T dy_t / den_t + g_t n_t
+      B, reverse: dC_t = f'_{t+1} dC_{t+1} + (dy_t / den_t) q_t^T,
+        dn_t = f'_{t+1} dn_{t+1} + g_t q_t,
+        dk_t = i'_t (dC_t^T v_t + dn_t), dv_t = i'_t dC_t k_t
+      gates, reverse: with log f' and log i' as the variables, their
+        gradients are a_t = sum_{u>=t} (q_u . dq_u - k_u . dk_u) and
+        b_t = k_t . dk_t (no C needed); M, the gradient of m_t from the
+        steps after t, then gives
+        dlog_sigmoid(f_t) = a_t + sel_t (M - a_t - b_t),
+        di_t = b_t + (1 - sel_t) (M - a_t - b_t), and M becomes
+        dlog_sigmoid(f_t) for step t - 1 (sel_t: 1 where the max took
+        log_sigmoid(f_t) + m_{t-1}, 0 where it took i_t, 1/2 at a tie).
+    """
+    bsz, s, nh, hd = q.shape
+    dt = _scan_dtype(q)
+    q, k, v, i, f, y, dy = (t.to(dt) for t in (q, k, v, i, f, y, dy))
+    # prep
+    lf = F.logsigmoid(f)
+    fp, ip, sel, den, g = (torch.empty_like(i) for _ in range(5))
+    m = q.new_zeros((bsz, nh))
+    n = q.new_zeros((bsz, nh, hd))
+    for t in range(s):
+        mf = lf[:, t] + m
+        m_new = torch.maximum(mf, i[:, t])
+        fp[:, t] = torch.exp(mf - m_new)
+        ip[:, t] = torch.exp(i[:, t] - m_new)
+        sel[:, t] = torch.where(mf > i[:, t], 1.0,
+                                torch.where(mf < i[:, t], 0.0, 0.5))
+        m = m_new
+        n = fp[:, t, :, None] * n + ip[:, t, :, None] * k[:, t]
+        dot = (n * q[:, t]).sum(-1)
+        den[:, t] = torch.clamp(dot.abs(), min=1.0)
+        g[:, t] = -(dy[:, t] * y[:, t]).sum(-1) / den[:, t] * \
+            torch.sign(dot) * (dot.abs() >= 1.0)
+    dnum = dy / den[..., None]
+    # pass A
+    dq = torch.empty_like(q)
+    c = q.new_zeros((bsz, nh, hd, hd))
+    n = q.new_zeros((bsz, nh, hd))
+    for t in range(s):
+        c = fp[:, t, :, None, None] * c + ip[:, t, :, None, None] * \
+            (v[:, t, :, :, None] * k[:, t, :, None, :])
+        n = fp[:, t, :, None] * n + ip[:, t, :, None] * k[:, t]
+        dq[:, t] = torch.einsum("bhvk,bhv->bhk", c, dnum[:, t]) + \
+            g[:, t, :, None] * n
+    # pass B
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dc = q.new_zeros((bsz, nh, hd, hd))
+    dn = q.new_zeros((bsz, nh, hd))
+    for t in reversed(range(s)):
+        if t + 1 < s:
+            dc = fp[:, t + 1, :, None, None] * dc
+            dn = fp[:, t + 1, :, None] * dn
+        dc = dc + dnum[:, t, :, :, None] * q[:, t, :, None, :]
+        dn = dn + g[:, t, :, None] * q[:, t]
+        dk[:, t] = ip[:, t, :, None] * (
+            torch.einsum("bhvk,bhv->bhk", dc, v[:, t]) + dn)
+        dv[:, t] = ip[:, t, :, None] * torch.einsum("bhvk,bhk->bhv", dc,
+                                                    k[:, t])
+    # gates
+    kdk = (k * dk).sum(-1)                                  # [B,S,H]
+    a = ((q * dq).sum(-1) - kdk).flip(1).cumsum(1).flip(1)
+    di, df = torch.empty_like(i), torch.empty_like(f)
+    after = q.new_zeros((bsz, nh))                          # M
+    for t in reversed(range(s)):
+        rest = after - a[:, t] - kdk[:, t]
+        dlf = a[:, t] + sel[:, t] * rest
+        di[:, t] = kdk[:, t] + (1.0 - sel[:, t]) * rest
+        df[:, t] = dlf * torch.sigmoid(-f[:, t])
+        after = dlf
+    return dq, dk, dv, di, df
+
+
+def slstm_scan_trails_ref(pre: torch.Tensor, w_r: torch.Tensor,
+                          bias: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """`slstm_scan_ref` keeping what its backward reads: (the h trail
+    [B,S,H,hd], the gates' full pre-activations x + W h + bias
+    [B,S,4,H,hd], and c, n, m after each step [B,S,H,hd]); f32 (f64 for f64
+    inputs)."""
+    bsz, s, _, nh, hd = pre.shape
+    dt = _scan_dtype(pre)
+    pre, w_r, bias = (t.to(dt) for t in (pre, w_r, bias))
+    z = pre.new_zeros((bsz, nh, hd))
+    carry = (z, z, z, z)
+    p = torch.empty_like(pre)
+    hs, cs, ns, ms = (pre.new_empty((bsz, s, nh, hd)) for _ in range(4))
+    for t in range(s):
+        p[:, t] = pre[:, t] + torch.einsum("khvw,bhw->bkhv", w_r,
+                                           carry[2]) + bias[None]
+        carry, hs[:, t] = slstm_step(carry, pre[:, t], w_r, bias)
+        cs[:, t], ns[:, t], _, ms[:, t] = carry
+    return hs, p, cs, ns, ms
+
+
+def slstm_scan_dpre_ref(w_r: torch.Tensor, dy: torch.Tensor,
+                        trails: tuple) -> torch.Tensor:
+    """The sLSTM's reverse walk (the backward kernel's plain version):
+    the gradient of the gates' pre-activations dpre [B,S,4,H,hd] for the
+    output gradient dy [B,S,H,hd], from the trails of
+    `slstm_scan_trails_ref` (p, c, n, m; the h trail is not read). Each
+    step recomputes its cell from p and the previous c, n, m as the
+    forward does, then
+      dh_t = dy_t + sum_g W_g^T dp_{g,t+1}
+    back through h = sigmoid(o) c / max(n, 1), the c, n and m chains and
+    the gates. dpre is also the gradient of x, and of the bias summed."""
+    p, cs, ns, ms = trails
+    bsz, s, _, nh, hd = p.shape
+    dt = _scan_dtype(p)
+    p, cs, ns, ms, w_r, dy = (t.to(dt) for t in (p, cs, ns, ms, w_r, dy))
+    z = p.new_zeros((bsz, nh, hd))
+    dc, dn, dm, rec = z, z, z, z
+    dpre = torch.empty_like(p)
+    for t in reversed(range(s)):
+        pi, pf, pz, po = p[:, t].unbind(1)
+        c0, n0, m0 = (cs[:, t - 1], ns[:, t - 1], ms[:, t - 1]) if t \
+            else (z, z, z)
+        mf = F.logsigmoid(pf) + m0
+        m_new = torch.maximum(mf, pi)
+        i_p = torch.exp(pi - m_new)
+        f_p = torch.exp(mf - m_new)
+        tz = torch.tanh(pz)
+        c = f_p * c0 + i_p * tz
+        n = f_p * n0 + i_p
+        sig = torch.sigmoid(po)
+        nc = torch.clamp(n, min=1.0)
+        dh = dy[:, t] + rec
+        dc = dc + dh * sig / nc
+        dn = dn - torch.where(n >= 1.0, dh * sig * c / (nc * nc), 0.0)
+        dpo = dh * c / nc * sig * (1.0 - sig)
+        dfp = dc * c0 + dn * n0
+        dip = dc * tz + dn
+        dpz = dc * i_p * (1.0 - tz * tz)
+        rest = dm - dip * i_p - dfp * f_p
+        sel = torch.where(mf > pi, 1.0, torch.where(mf < pi, 0.0, 0.5))
+        dmf = dfp * f_p + sel * rest
+        dpi = dip * i_p + (1.0 - sel) * rest
+        dpf = dmf * torch.sigmoid(-pf)
+        dc, dn, dm = dc * f_p, dn * f_p, dmf
+        dp = torch.stack([dpi, dpf, dpz, dpo], dim=1)         # [B,4,H,hd]
+        dpre[:, t] = dp
+        rec = torch.einsum("khvw,bkhv->bhw", w_r, dp)
+    return dpre
+
+
+def slstm_grad_weights(dpre: torch.Tensor, h: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The recurrent weights' and bias's gradients from dpre [B,S,4,H,hd]
+    and the h trail [B,S,H,hd]: dW_g = sum_{b,t} dp_{g,t} h_{t-1}^T (h_{-1}
+    = 0) and dbias = sum_{b,t} dp_t, in dpre's dtype."""
+    h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+    return (torch.einsum("bskhv,bshw->khvw", dpre, h_prev.to(dpre.dtype)),
+            dpre.sum((0, 1)))
+
+
+def slstm_scan_bwd_ref(pre: torch.Tensor, w_r: torch.Tensor,
+                       bias: torch.Tensor, dy: torch.Tensor,
+                       trails: Optional[tuple] = None
+                       ) -> tuple[torch.Tensor, ...]:
+    """Plain sLSTM backward: the gradients (dpre, dw_r, dbias) of
+    `slstm_scan_ref(pre, w_r, bias)` for the output gradient dy, f32 (f64
+    for f64 inputs). `trails`: those of `slstm_scan_trails_ref` (h, p, c,
+    n, m), recomputed when None. A max's gradient splits half to each side
+    at a tie, a clamp's goes whole to its input, as autograd's."""
+    if trails is None:
+        trails = slstm_scan_trails_ref(pre, w_r, bias)
+    dpre = slstm_scan_dpre_ref(w_r, dy, trails[1:])
+    return (dpre, *slstm_grad_weights(dpre, trails[0]))

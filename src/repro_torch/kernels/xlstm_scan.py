@@ -2,21 +2,31 @@
 
 The JAX package has no Pallas kernel here: it runs both recurrences as
 `lax.scan` bodies (`repro/models/ssm.py:_mlstm_step`, `_slstm_step`),
-which XLA compiles into one device loop. For CUDA tensors `mlstm_scan` and
-`slstm_scan` launch the hand-written Hopper kernels in
-`csrc/xlstm_scan.cu` (its note gives the bounds and the designs); for CPU
-tensors they compute the plain versions, `ref.mlstm_scan_ref` and
-`ref.slstm_scan_ref`, which autograd differentiates. Nothing sends a CUDA
-tensor to a plain version.
+which XLA compiles into one device loop, and differentiates with
+`jax.grad`. For CUDA tensors `mlstm_scan` and `slstm_scan` launch the
+hand-written Hopper kernels in `csrc/xlstm_scan.cu`, and under autograd
+go through `_MlstmScan` and `_SlstmScan`, whose backwards launch those in
+`csrc/xlstm_scan_bwd.cu` (`mlstm_scan_bwd`, `slstm_scan_bwd`; the notes in
+the sources give the bounds and the designs). For CPU tensors they
+compute the plain versions, `ref.mlstm_scan_ref` and `ref.slstm_scan_ref`,
+which autograd differentiates, and the backward wrappers
+`ref.mlstm_scan_bwd_ref` and `ref.slstm_scan_dpre_ref` (with the weight
+products, `ref.slstm_scan_bwd_ref`). Nothing sends a CUDA tensor to a
+plain version.
 
-Both kernels take f32 in and out (the JAX mixers cast to f32 before the
-scan) and a head dim that is a multiple of 16 up to 256. They have no
-backward kernels yet (xLSTM training on the card is the next slice of the
-port): a CUDA call that autograd would have to differentiate raises
-rather than return an output no gradient reaches.
+The kernels take f32 in and out (the JAX mixers cast to f32 before the
+scan) and a head dim that is a multiple of 16 up to 256. Under autograd
+the mLSTM's forward is the inference kernel, its output saved beside its
+inputs (the backward recomputes C from zero); the sLSTM's keeps the
+trails its backward reads (`slstm_scan_kernel<hd/16, true>`). The sLSTM's
+recurrent weights' and bias's gradients are plain products over the
+backward kernel's output (`ref.slstm_grad_weights`: f32 `einsum`, no
+kernel), as the JAX package leaves them to XLA.
 
-Launch counts: `mlstm_scan.launches` and `slstm_scan.launches`, one a
-call each.
+Launch counts, one a call each: `mlstm_scan.launches`,
+`slstm_scan.launches` (of which `slstm_scan.trail_launches` kept the
+trails), `mlstm_scan_bwd.prep_launches`, `.launches` (the two passes) and
+`.reduce_launches`, `slstm_scan_bwd.launches`.
 """
 from __future__ import annotations
 
@@ -26,14 +36,11 @@ import functools
 import torch
 
 from . import _build
-from .ref import mlstm_scan_ref, slstm_scan_ref
+from .ref import (mlstm_scan_bwd_ref, mlstm_scan_ref, slstm_grad_weights,
+                  slstm_scan_dpre_ref, slstm_scan_ref)
 from .ssm_scan import _needs_grad, _on_cuda
 
 MAX_HEAD_DIM = 256              # and a multiple of 16 (csrc/xlstm_scan.cu)
-_NO_BACKWARD = ("{} has no backward kernel yet (xLSTM training on the card "
-                "is the next slice of the port): call it under "
-                "torch.no_grad() or torch.inference_mode(), or train on the "
-                "CPU")
 
 
 class _MlstmArgs(ctypes.Structure):
@@ -44,13 +51,35 @@ class _MlstmArgs(ctypes.Structure):
 
 class _SlstmArgs(ctypes.Structure):
     """Mirror of `SlstmScanArgs` in csrc/xlstm_scan.cu."""
-    _fields_ = ([(n, ctypes.c_void_p) for n in ("pre", "w_r", "bias", "y")]
+    _fields_ = ([(n, ctypes.c_void_p) for n in
+                 ("pre", "w_r", "bias", "y", "p_trail", "c_trail", "n_trail",
+                  "m_trail")]
+                + [(n, ctypes.c_int) for n in ("B", "S", "H", "hd")])
+
+
+class _MlstmBwdArgs(ctypes.Structure):
+    """Mirror of `MlstmBwdArgs` in csrc/xlstm_scan_bwd.cu."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in
+                 ("q", "k", "v", "i", "f", "y", "dy", "dq", "dk", "dv", "di",
+                  "df", "fp", "ip", "sel", "den", "g", "pq", "pk", "dv_part")]
+                + [(n, ctypes.c_int) for n in ("B", "S", "H", "hd")])
+
+
+class _SlstmBwdArgs(ctypes.Structure):
+    """Mirror of `SlstmBwdArgs` in csrc/xlstm_scan_bwd.cu."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in
+                 ("w_r", "p", "c", "n", "m", "dy", "dpre")]
                 + [(n, ctypes.c_int) for n in ("B", "S", "H", "hd")])
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     return load(_build.build("xlstm_scan"))
+
+
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    return load_bwd(_build.build("xlstm_scan_bwd"))
 
 
 def load(path) -> ctypes.CDLL:
@@ -71,11 +100,28 @@ def load(path) -> ctypes.CDLL:
     return lib
 
 
-def _raise_on(err: int, name: str) -> None:
+def load_bwd(path) -> ctypes.CDLL:
+    """A built xlstm_scan_bwd library with its C entry points typed."""
+    lib = ctypes.CDLL(str(path))
+    for name in ("mlstm_bwd_prep_f32", "mlstm_bwd_f32", "mlstm_bwd_reduce_f32"):
+        getattr(lib, name).argtypes = [ctypes.POINTER(_MlstmBwdArgs),
+                                       ctypes.c_void_p]
+    lib.slstm_scan_bwd_f32.argtypes = [ctypes.POINTER(_SlstmBwdArgs),
+                                       ctypes.c_void_p]
+    for name, nargs in (("mlstm_bwd_blocks_per_sm", 1),
+                        ("mlstm_bwd_smem_bytes", 1),
+                        ("slstm_bwd_max_active_clusters", 3)):
+        getattr(lib, name).argtypes = [ctypes.c_int] * nargs
+    lib.xlstm_scan_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.xlstm_scan_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_on(err: int, name: str, lib=None) -> None:
     if err:
-        raise RuntimeError(f"{name} launch failed: "
-                           f"{_lib().xlstm_scan_error_string(err).decode()} "
-                           f"({err})")
+        text = (_lib().xlstm_scan_error_string(err) if lib is None
+                else lib.xlstm_scan_bwd_error_string(err)).decode()
+        raise RuntimeError(f"{name} launch failed: {text} ({err})")
 
 
 def _check_head_dim(name: str, hd: int) -> None:
@@ -97,30 +143,41 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _check_mlstm(name: str, q, k, v, i, f, *more) -> None:
+    """The mLSTM's operand checks; `more` ([B,S,H,hd] each: y, dy) too."""
+    if q.dim() != 4 or any(t.shape != q.shape for t in (k, v, *more)):
+        raise ValueError(f"{name} wants q, k, v{', y, dy' if more else ''} "
+                         f"[B,S,H,hd], got "
+                         f"{[tuple(t.shape) for t in (q, k, v, *more)]}")
+    if i.shape != q.shape[:3] or f.shape != q.shape[:3]:
+        raise ValueError(f"{name} wants i, f {tuple(q.shape[:3])}, got "
+                         f"{tuple(i.shape)}, {tuple(f.shape)}")
+    if min(q.shape) == 0:
+        raise ValueError(f"{name} takes non-empty dims, got "
+                         f"{tuple(q.shape)}")
+    _check_f32(name, [q, k, v, i, f, *more])
+    _check_head_dim(name, q.shape[3])
+
+
 def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                i: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
     """The mLSTM recurrence over S from a zero state: q (pre-scaled by
     hd**-0.5), k, v [B,S,H,hd]; i, f [B,S,H] gate pre-activations, all f32
-    -> y [B,S,H,hd] f32 (`ref.mlstm_step` at each step)."""
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"mlstm_scan wants q, k, v [B,S,H,hd], got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    if i.shape != q.shape[:3] or f.shape != q.shape[:3]:
-        raise ValueError(f"mlstm_scan wants i, f {tuple(q.shape[:3])}, got "
-                         f"{tuple(i.shape)}, {tuple(f.shape)}")
-    if min(q.shape) == 0:
-        raise ValueError(f"mlstm_scan takes non-empty dims, got "
-                         f"{tuple(q.shape)}")
+    -> y [B,S,H,hd] f32 (`ref.mlstm_step` at each step). Differentiable on
+    both devices (on CUDA through `_MlstmScan`)."""
     ops = [q, k, v, i, f]
-    _check_f32("mlstm_scan", ops)
-    _check_head_dim("mlstm_scan", q.shape[3])
+    _check_mlstm("mlstm_scan", *ops)
     if not _on_cuda("mlstm_scan", ops):
         return mlstm_scan_ref(q, k, v, i, f)
     if _needs_grad(ops):
-        raise NotImplementedError(_NO_BACKWARD.format("mlstm_scan"))
+        return _MlstmScan.apply(q, k, v, i, f)
+    return _mlstm_fwd(q, k, v, i, f)
+
+
+def _mlstm_fwd(q, k, v, i, f) -> torch.Tensor:
+    """Launch mlstm_scan_kernel on checked CUDA operands -> y."""
     bsz, s, nh, hd = q.shape
-    q, k, v, i, f = (_aligned(t) for t in ops)
+    q, k, v, i, f = (_aligned(t) for t in (q, k, v, i, f))
     y = torch.empty((bsz, s, nh, hd), dtype=torch.float32, device=q.device)
     args = _MlstmArgs(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       i.data_ptr(), f.data_ptr(), y.data_ptr(),
@@ -132,12 +189,70 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y
 
 
+class _MlstmScan(torch.autograd.Function):
+    """The inference kernel, saving its operands and y; the backward
+    kernels (`mlstm_scan_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, i, f):
+        y = _mlstm_fwd(q, k, v, i, f)
+        ctx.save_for_backward(q, k, v, i, f, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        return mlstm_scan_bwd(*ctx.saved_tensors, dy)
+
+
+def mlstm_scan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   i: torch.Tensor, f: torch.Tensor, y: torch.Tensor,
+                   dy: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The gradients (dq, dk, dv, di, df) of `mlstm_scan(q, k, v, i, f)`
+    for the output gradient dy, given its output y; all f32. CUDA: the
+    three backward kernels; CPU: `ref.mlstm_scan_bwd_ref`."""
+    ops = [q, k, v, i, f, y, dy]
+    _check_mlstm("mlstm_scan_bwd", q, k, v, i, f, y, dy)
+    if not _on_cuda("mlstm_scan_bwd", ops):
+        return mlstm_scan_bwd_ref(*ops)
+    return _mlstm_bwd(*ops)
+
+
+def _mlstm_bwd(q, k, v, i, f, y, dy) -> tuple[torch.Tensor, ...]:
+    """Launch the mLSTM's backward kernels on checked CUDA operands: the
+    prep (m chain, n . q, den, g), the two passes (dq; dk and the bands'
+    dv parts), the reduce (dv; di, df)."""
+    bsz, s, nh, hd = q.shape
+    ops = [_aligned(t) for t in (q, k, v, i, f, y, dy)]
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa: E731
+                                     device=q.device)
+    grads = [new(bsz, s, nh, hd) for _ in range(3)] + \
+        [new(bsz, s, nh) for _ in range(2)]
+    scratch = [new(bsz, s, nh) for _ in range(5)] + \
+        [new(hd // 16, bsz, s, nh) for _ in range(2)] + \
+        [new(hd // 16, bsz, s, nh, hd)]
+    args = _MlstmBwdArgs(*(t.data_ptr() for t in ops + grads + scratch),
+                         bsz, s, nh, hd)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    lib = _bwd_lib()
+    _raise_on(lib.mlstm_bwd_prep_f32(ctypes.byref(args), stream),
+              "mlstm_bwd_prep", lib)
+    mlstm_scan_bwd.prep_launches += 1
+    _raise_on(lib.mlstm_bwd_f32(ctypes.byref(args), stream), "mlstm_bwd",
+              lib)
+    mlstm_scan_bwd.launches += 1
+    _raise_on(lib.mlstm_bwd_reduce_f32(ctypes.byref(args), stream),
+              "mlstm_bwd_reduce", lib)
+    mlstm_scan_bwd.reduce_launches += 1
+    return tuple(grads)
+
+
 def slstm_scan(pre: torch.Tensor, w_r: torch.Tensor,
                bias: torch.Tensor) -> torch.Tensor:
     """The sLSTM recurrence over S from a zero state: pre [B,S,4,H,hd] the
     i, f, z, o gates' input pre-activations, w_r [4,H,hd,hd], bias
     [4,H,hd], all f32 -> the h trail [B,S,H,hd] f32 (`ref.slstm_step` at
-    each step)."""
+    each step). Differentiable on both devices (on CUDA through
+    `_SlstmScan`)."""
     if pre.dim() != 5 or pre.shape[2] != 4:
         raise ValueError(f"slstm_scan wants pre [B,S,4,H,hd], got "
                          f"{tuple(pre.shape)}")
@@ -156,17 +271,93 @@ def slstm_scan(pre: torch.Tensor, w_r: torch.Tensor,
     if not _on_cuda("slstm_scan", ops):
         return slstm_scan_ref(pre, w_r, bias)
     if _needs_grad(ops):
-        raise NotImplementedError(_NO_BACKWARD.format("slstm_scan"))
-    pre, w_r, bias = (_aligned(t) for t in ops)
-    y = torch.empty((bsz, s, nh, hd), dtype=torch.float32, device=pre.device)
+        return _SlstmScan.apply(pre, w_r, bias)
+    return _slstm_fwd(pre, w_r, bias, trails=False)
+
+
+def _slstm_fwd(pre, w_r, bias, trails: bool):
+    """Launch slstm_scan_kernel on checked CUDA operands -> y, or with
+    `trails` (y, p, c, n, m) as `ref.slstm_scan_trails_ref` gives them."""
+    bsz, s, _, nh, hd = pre.shape
+    pre, w_r, bias = (_aligned(t) for t in (pre, w_r, bias))
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa: E731
+                                     device=pre.device)
+    y = new(bsz, s, nh, hd)
+    kept = ([new(bsz, s, 4, nh, hd)] + [new(bsz, s, nh, hd) for _ in range(3)]
+            if trails else [])
     args = _SlstmArgs(pre.data_ptr(), w_r.data_ptr(), bias.data_ptr(),
-                      y.data_ptr(), bsz, s, nh, hd)
+                      y.data_ptr(), *(t.data_ptr() for t in kept),
+                      *([None] * (4 - len(kept))), bsz, s, nh, hd)
     stream = torch.cuda.current_stream(pre.device).cuda_stream
     _raise_on(_lib().slstm_scan_f32(ctypes.byref(args), stream),
               "slstm_scan")
     slstm_scan.launches += 1
-    return y
+    if not trails:
+        return y
+    slstm_scan.trail_launches += 1
+    return (y, *kept)
+
+
+class _SlstmScan(torch.autograd.Function):
+    """The trail-keeping forward kernel, saving w_r and the trails; the
+    backward kernel and the plain weight products (`slstm_scan_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, pre, w_r, bias):
+        y, *trails = _slstm_fwd(pre, w_r, bias, trails=True)
+        ctx.save_for_backward(w_r, y, *trails)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        w_r, *trails = ctx.saved_tensors
+        return slstm_scan_bwd(w_r, dy, trails)
+
+
+def slstm_scan_bwd(w_r: torch.Tensor, dy: torch.Tensor, trails: tuple
+                   ) -> tuple[torch.Tensor, ...]:
+    """The gradients (dpre, dw_r, dbias) of `slstm_scan(pre, w_r, bias)`
+    for the output gradient dy, all f32, from the trails (y, p, c, n, m)
+    of the trail-keeping forward (`_slstm_fwd(..., trails=True)` on CUDA,
+    `ref.slstm_scan_trails_ref` on the CPU): dpre by the backward kernel
+    (CUDA) or `ref.slstm_scan_dpre_ref` (CPU), then dW and dbias by
+    `ref.slstm_grad_weights` (together `ref.slstm_scan_bwd_ref`)."""
+    y, p = trails[:2]
+    if p.dim() != 5 or dy.shape != y.shape or \
+            y.shape != p.shape[:2] + p.shape[3:]:
+        raise ValueError(f"slstm_scan_bwd wants dy and y [B,S,H,hd] and p "
+                         f"[B,S,4,H,hd], got {tuple(dy.shape)}, "
+                         f"{tuple(y.shape)}, {tuple(p.shape)}")
+    ops = [w_r, dy, *trails]
+    _check_f32("slstm_scan_bwd", ops)
+    _check_head_dim("slstm_scan_bwd", p.shape[4])
+    walk = _slstm_bwd if _on_cuda("slstm_scan_bwd", ops) \
+        else slstm_scan_dpre_ref
+    dpre = walk(w_r, dy, trails[1:])
+    return (dpre, *slstm_grad_weights(dpre, y))
+
+
+def _slstm_bwd(w_r, dy, trails) -> torch.Tensor:
+    """Launch slstm_scan_bwd_kernel on CUDA operands: the trails (p, c, n,
+    m) -> dpre [B,S,4,H,hd]."""
+    p = trails[0]
+    bsz, s, _, nh, hd = p.shape
+    w_r, dy, *trails = (_aligned(t) for t in (w_r, dy, *trails))
+    dpre = torch.empty_like(p)
+    args = _SlstmBwdArgs(w_r.data_ptr(), *(t.data_ptr() for t in trails),
+                         dy.data_ptr(), dpre.data_ptr(), bsz, s, nh, hd)
+    stream = torch.cuda.current_stream(dy.device).cuda_stream
+    lib = _bwd_lib()
+    _raise_on(lib.slstm_scan_bwd_f32(ctypes.byref(args), stream),
+              "slstm_scan_bwd", lib)
+    slstm_scan_bwd.launches += 1
+    return dpre
 
 
 mlstm_scan.launches = 0
 slstm_scan.launches = 0
+slstm_scan.trail_launches = 0
+mlstm_scan_bwd.prep_launches = 0
+mlstm_scan_bwd.launches = 0
+mlstm_scan_bwd.reduce_launches = 0
+slstm_scan_bwd.launches = 0

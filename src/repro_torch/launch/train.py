@@ -8,6 +8,8 @@ checkpoint flushing), so the main thread only issues device steps.
       --arch qwen2-moe-a2.7b --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch jamba-v0.1-52b --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \\
+      --steps 30 --batch 4 --seq 32 --device cuda
 
 Every arch trains on the CPU: attention + MLP archs (qwen2-0.5b,
 gemma2-27b, ...), attention + MoE archs (qwen2-moe-a2.7b,
@@ -15,11 +17,9 @@ qwen3-moe-235b-a22b), the hybrid Mamba + attention + MoE arch
 (jamba-v0.1-52b), xlstm-125m (autograd of the plain mLSTM and sLSTM
 scans) and the encoder-decoder whisper-base, which gets zero frames [B,
 encoder_seq, d_model] as the JAX trainer gives it. On the card
-(`--device cuda`, the default) all but xlstm-125m train through the
-forward and backward kernels of flash attention, `moe_gemm` and the
-selective scan; the xLSTM scan kernels have no backward yet, so an
-xlstm-125m train step on the card raises NotImplementedError (its
-prefill and serving run there). `--full` trains the published widths.
+(`--device cuda`, the default) every arch trains through the forward and
+backward kernels of flash attention, `moe_gemm`, the selective scan and
+xLSTM's mLSTM and sLSTM scans. `--full` trains the published widths.
 Random weights come from a seeded `torch.Generator`.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-125m \

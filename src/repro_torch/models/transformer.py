@@ -115,11 +115,10 @@ class Transformer(nn.Module):
         """tokens [B,S] (or `embeds` [B,S,d] from a modality frontend, used
         in place of the embedding lookup) -> (logits [B,S,V], MoE aux
         loss). Differentiable
-        on both devices for every mixer but xLSTM's: on CUDA through the
-        backward kernels of flash attention, `moe_gemm` and the selective
-        scan; the mLSTM and sLSTM scans have no backward kernel yet and
-        raise under autograd on CUDA (on the CPU autograd differentiates
-        their plain versions). The prefill (`train_step.make_prefill_step`)
+        on both devices for every mixer: on CUDA through the backward
+        kernels of flash attention, `moe_gemm`, the selective scan and the
+        mLSTM and sLSTM scans (on the CPU autograd differentiates their
+        plain versions). The prefill (`train_step.make_prefill_step`)
         is this forward under inference mode, as in the JAX package, where
         the prefill_32k cell lowers the same forward. The JAX forward
         rematerialises each period in the backward (`@jax.checkpoint`,

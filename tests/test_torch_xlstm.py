@@ -33,7 +33,9 @@ from repro_torch.configs import tiny_config  # noqa: E402
 from repro_torch.convert import jax_state_dict, load_jax_params  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import xlstm_scan  # noqa: E402
-from repro_torch.kernels.ref import mlstm_scan_ref, slstm_scan_ref  # noqa: E402,E501
+from repro_torch.kernels.ref import (  # noqa: E402
+    mlstm_scan_bwd_ref, mlstm_scan_ref, slstm_scan_dpre_ref, slstm_scan_ref,
+    slstm_scan_trails_ref)
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
@@ -219,9 +221,10 @@ def test_ops_scan_on_cpu_is_the_plain_version(kind):
 def test_scan_wrappers_check_their_inputs(monkeypatch):
     """A head dim off the kernels' (a multiple of 16 up to 256), a dtype
     other than f32 or a shape mismatch raises on any device; on CUDA
-    operands under autograd the wrappers raise rather than return an
-    output no gradient reaches (the device check is stubbed here: the
-    raise comes before any launch)."""
+    operands under autograd the wrappers return the output of their
+    autograd Functions, whose backwards launch the backward kernels (the
+    device check is stubbed here and the launchers are their plain
+    versions; tests/test_torch_xlstm_backward.py holds the gradients)."""
     q, k, v, i, f = (torch.from_numpy(t) for t in _scan_inputs("mlstm"))
     pre, w_r, bias = (torch.from_numpy(t) for t in _scan_inputs("slstm"))
     with pytest.raises(ValueError, match="multiple of 16"):
@@ -238,10 +241,22 @@ def test_scan_wrappers_check_their_inputs(monkeypatch):
     with pytest.raises(ValueError, match="w_r"):
         ops.slstm_scan(pre, w_r[:, :1], bias)
     monkeypatch.setattr(xlstm_scan, "_on_cuda", lambda name, ts: True)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ops.mlstm_scan(q.requires_grad_(), k, v, i, f)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ops.slstm_scan(pre, w_r.requires_grad_(), bias)
+    monkeypatch.setattr(xlstm_scan, "_mlstm_fwd", mlstm_scan_ref)
+    monkeypatch.setattr(xlstm_scan, "_mlstm_bwd", mlstm_scan_bwd_ref)
+    monkeypatch.setattr(
+        xlstm_scan, "_slstm_fwd",
+        lambda pre, w_r, bias, trails: (slstm_scan_trails_ref(pre, w_r, bias)
+                                        if trails else
+                                        slstm_scan_ref(pre, w_r, bias)))
+    monkeypatch.setattr(xlstm_scan, "_slstm_bwd", slstm_scan_dpre_ref)
+    y = ops.mlstm_scan(q.requires_grad_(), k, v, i, f)
+    assert type(y.grad_fn).__name__ == "_MlstmScanBackward"
+    y.sum().backward()
+    assert q.grad is not None and bool(torch.isfinite(q.grad).all())
+    y = ops.slstm_scan(pre, w_r.requires_grad_(), bias)
+    assert type(y.grad_fn).__name__ == "_SlstmScanBackward"
+    y.sum().backward()
+    assert w_r.grad is not None and bool(torch.isfinite(w_r.grad).all())
 
 
 def _run_engine(engine_cls, request_cls, model, params):
