@@ -2,15 +2,16 @@
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
 
   python3 chip_smoke.py
-  python3 chip_smoke.py --ab PARENT   # moe_gemm and the selective scan
-                                      # against another checkout
+  python3 chip_smoke.py --ab PARENT   # moe_gemm, the selective scan and
+                                      # the xLSTM scans against another
+                                      # checkout
 
 Run from the repository root on a machine with a Hopper card and `nvcc`.
 With `--ab PARENT` (a checkout of another commit, e.g. unpacked from `git
 archive` into a directory `.gitignore` lists) it only compares the bf16
-`moe_gemm` kernels of the two trees (`compare_trees`) and their selective
-scans, each through its own tree's wrapper (`compare_scans`). With no
-argument,
+`moe_gemm` kernels of the two trees (`compare_trees`), their selective
+scans (`compare_scans`) and their xLSTM forward scans (`compare_xlstm`),
+each scan through its own tree's wrapper. With no argument,
 phases, in order; any failure raises and exits non-zero (no phase catches
 its own failure):
 
@@ -193,15 +194,20 @@ its own failure):
      S that is not encoder_seq;
  25. tiny whisper training in f32 on the card through `train()`, as phase
      10: the loss falls, a resume is exact;
- 26. the xLSTM scan kernels (`mlstm_scan_kernel`, `slstm_scan_kernel`,
-     which compute the lax.scan the JAX package runs: no TPU kernel)
-     against their plain versions in f32 at every XLSTM_CASES shape: the
-     prefill path's (B=8, S=32,768, H=4, hd 192), B=1, a ragged S, the
-     tiny hd 16, S=1 and hd 256 with a part-empty cluster; two calls bit
-     for bit; at the path shape the sLSTM's and its plain version's error
-     against a float64 plain run, the times (CUDA events through the
-     wrapper, and behind a device sleep), us a step, the plain version's
-     one call and the bound (f32 CUDA-core operations or bytes); then the
+ 26. the xLSTM scan kernels (the mLSTM's chunkwise pair
+     `mlstm_scan_state_kernel` and `mlstm_scan_out_kernel`, and
+     `slstm_scan_kernel`, which compute the lax.scan the JAX package runs:
+     no TPU kernel) against their plain versions in f32 at every
+     XLSTM_CASES shape: the prefill path's (B=8, S=32,768, H=4, hd 192),
+     B=1, a ragged S, the tiny hd 16, S=1 and hd 256 with a part-empty
+     cluster; two calls bit for bit; at the path shape each kernel's error
+     against a float64 plain run, at most XLSTM_F64_FACTOR times its plain
+     f32 version's, the times (CUDA events through the wrapper, and behind
+     a device sleep), us a step, the plain version's one call and the
+     bound (f32 CUDA-core operations or bytes; the mLSTM's also that of
+     the chunkwise form's own work), the mLSTM's two kernels each alone
+     behind the sleep and its chunkwise mirror (several PyTorch calls);
+     the times again at the train shape 8 x 2048; then the
      backward kernels (the mLSTM's prep, two passes and reduce; the
      sLSTM's reverse walk, after the trail-keeping forward, held against
      `slstm_scan_trails_ref`) against `mlstm_scan_bwd_ref` and
@@ -283,7 +289,8 @@ from repro_torch.kernels.moe_gemm import (  # noqa: E402
     load as mg_load, moe_gemm, moe_gemm_bwd_dw, moe_gemm_bwd_dx)
 from repro_torch.kernels.ref import (  # noqa: E402
     attention_ref, flash_attention_bwd_ref, flash_attention_ref,
-    mlstm_scan_bwd_ref, mlstm_scan_ref, moe_gemm_bwd_ref, moe_gemm_dw_ref,
+    mlstm_scan_bwd_ref, mlstm_scan_chunkwise_ref, mlstm_scan_ref,
+    moe_gemm_bwd_ref, moe_gemm_dw_ref,
     moe_gemm_dx_ref, moe_gemm_ref, selective_scan_bwd_ref,
     selective_scan_ref, slstm_scan_bwd_ref, slstm_scan_ref,
     slstm_scan_trails_ref, ssm_scan_ref)
@@ -421,12 +428,12 @@ XLSTM_CASES = {"path": (XLSTM_BATCH, XLSTM_SEQ, 4, 192),
                "tiny hd=16": (2, 300, 4, 16),
                "S=1": (3, 1, 4, 192),
                "hd=256 B=5": (5, 77, 2, 256)}
-# kernel vs plain, f32 (|diff| <= tol * (1 + |plain|)): the mLSTM's C q and
-# n . q sum hd products in another order than the plain einsum, over C and
-# n kept divided by the running product of f' (relative ~1e-5 of the sum
-# of |terms| at hd 192, y up to ~20); the sLSTM's h lies
-# in (-1, 1) and its hd-term matvec and gates round as the plain version's
-# but for the sum order
+# kernel vs plain, f32 (|diff| <= tol * (1 + |plain|)): the mLSTM's
+# chunkwise form sums the step form's terms in another order (C q_t and
+# the chunk's own terms as q k^T weighted, relative ~1e-5 of the sum of
+# |terms| at hd 192, y up to ~20); the sLSTM's h lies in (-1, 1), its
+# hd-term matvec rounds as the plain version's but for the sum order, its
+# gates through the cell's short forms (a few ulps)
 XLSTM_TOL = {"mlstm_scan": 1e-4, "slstm_scan": 1e-5}
 # xlstm-125m training: the training context of arXiv:2405.04517 (2,048
 # tokens), B=8 (the sLSTM backward then runs 8 clusters, one wave)
@@ -440,9 +447,9 @@ XLSTM_BWD_CASES = {**XLSTM_CASES, "path": (1, XLSTM_SEQ, 4, 192),
 # gradient (sums over hd, the bands and time in other orders; the gates'
 # gradients sum q . dq - k . dk over the rest of the sequence)
 XLSTM_BWD_TOL = 1e-4
-# at S=32,768 a kernel's error against a float64 plain backward may be at
-# most this many times the plain f32 version's (the same f32 arithmetic,
-# summed in other orders)
+# at S=32,768 a kernel's error against a float64 plain run (of the forward
+# or the backward) may be at most this many times the plain f32 version's
+# (the same f32 arithmetic, summed in other orders)
 XLSTM_F64_FACTOR = 2.0
 BACKLOG_CYCLES = 20_000_000              # ~10 ms of device sleep
 # dw's contraction C = K of the K sweep (phase 3), at the MoE train gate/up
@@ -598,7 +605,7 @@ def ptxas_report(lib: Path, only="") -> None:
                     params += f", states {k.group(4)}"
                 name = (f"{k.group(1)}<"
                         f"{'bf16' if k.group(2) != 'f' else 'f32'}{params}>")
-            elif t and t.group(1) in ("mlstm_scan_kernel",
+            elif t and t.group(1) in ("mlstm_scan_out_kernel",
                                       "slstm_scan_kernel",
                                       "mlstm_bwd_kernel",
                                       "slstm_scan_bwd_kernel"):
@@ -912,7 +919,7 @@ def compare_trees(parent: Path) -> int:
     against the parent's; times in turns (parent, change, change, parent)
     of the forward, dx and dw of one layer at the MoE and Jamba train
     shapes, beside `torch.bmm` on the same operands and their bound, and
-    of the dw K sweep."""
+    of the dw K sweep; then the scans (`compare_scans`, `compare_xlstm`)."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout
@@ -1002,6 +1009,8 @@ def compare_trees(parent: Path) -> int:
     dw_sweep({tag: fns[tag]["moe_gemm_bwd_dw"] for tag in fns}, bf16_fps,
              sms)
     compare_scans(parent_scan)
+    compare_xlstm(tree_module(parent, "kernels.xlstm_scan",
+                              "parent_repro_torch"))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -1096,6 +1105,48 @@ def compare_scans(parent_scan) -> None:
                   for t in runs) + f"; card just after: {card_state()}")
     del args, dy, h_seg
     torch.cuda.empty_cache()
+
+
+def compare_xlstm(parent_xls) -> None:
+    """`--ab`'s xLSTM part: this tree's forward scans and the parent
+    checkout's (`parent_xls`), each through its own tree's wrapper and
+    build. At the train shape each against the plain version and the two
+    against each other; then times in turns (parent, change, change,
+    parent; two runs) at the train and path shapes, with the card's state
+    just after each."""
+    gen = torch.Generator("cuda").manual_seed(13)
+    mods = {"parent": parent_xls, "change": xls}
+    for kind, ref in (("mlstm_scan", mlstm_scan_ref),
+                      ("slstm_scan", slstm_scan_ref)):
+        for label, case in (("train", XLSTM_BWD_CASES["train"]),
+                            ("path", XLSTM_CASES["path"])):
+            args = xlstm_inputs(kind, case, gen)
+            with torch.no_grad():
+                if label == "train":
+                    got = {tag: getattr(m, kind)(*args)
+                           for tag, m in mods.items()}
+                    want = ref(*args)
+                    print(f"[ab] {kind} {label} {case} f32: max |kernel - "
+                          f"plain| " + ", ".join(
+                              f"{tag} {(g - want).abs().max().item():.3e}"
+                              for tag, g in got.items())
+                          + f"; change vs parent max |diff| "
+                          f"{(got['change'] - got['parent']).abs().max():.3e}")
+                    del got, want
+                runs = [time_turns(
+                    {tag: (lambda m=m: getattr(m, kind)(*args))
+                     for tag, m in mods.items()},
+                    reps=6 if label == "path" else 20) for _ in range(2)]
+            print(f"[ab] {kind} {label} {case} f32, ms (two runs of "
+                  f"{6 if label == 'path' else 20} calls each in turns): "
+                  + "; ".join(", ".join(f"{tag} {ms:.4f}"
+                                        for tag, ms in t.items())
+                              + f" (change / parent "
+                              f"{t['change'] / t['parent']:.4f})"
+                              for t in runs)
+                  + f"; card just after: {card_state()}")
+            del args
+            torch.cuda.empty_cache()
 
 
 def attn_inputs(case: AttnCase, dtype, gen):
@@ -2206,15 +2257,19 @@ def xlstm_inputs(kind: str, case, gen) -> tuple:
     return r(b, s, 4, h, hd), r(4, h, hd, hd) * hd ** -0.5, r(4, h, hd) * 0.1
 
 
-def xlstm_bound(kind: str, case, mem_bps: float, f32_fps: float) -> dict:
+def xlstm_bound(kind: str, case, mem_bps: float, f32_fps: float,
+                chunk: int = 0) -> dict:
     """Least ms for one scan at (B, S, H, hd): each input read once and y
     written once at the memory rate, or its f32 operations at the CUDA-core
     rate (no tensor-core form keeps the f32 recurrence), whichever is
-    longer. mLSTM (C kept scaled by the product of f'): an entry of C
-    takes one FMA a step and C q one more (4 flops), n and n . q 4 flops a
-    column. sLSTM: the recurrent
-    products, 4 hd^2 FMAs a (b, h, step), and the cell update, 31
-    operations a row (its 6 transcendentals counted as one each)."""
+    longer. mLSTM, the step form's work: an entry of C takes one FMA a
+    step and C q one more (4 flops), n and n . q 4 flops a column. sLSTM:
+    the recurrent products, 4 hd^2 FMAs a (b, h, step), and the cell
+    update, 31 operations a row (its 6 transcendentals counted as one
+    each). With `chunk` (mLSTM) also the bound of the work the chunkwise
+    kernels do (`chunk_*`): the step form's plus, a chunk, q k^T and P v
+    over its causal pairs (4 hd flops a pair), and the bytes of the chunk
+    states written by one pass and read by the other."""
     b, s, h, hd = case
     n = b * s * h
     if kind == "mlstm_scan":
@@ -2224,19 +2279,55 @@ def xlstm_bound(kind: str, case, mem_bps: float, f32_fps: float) -> dict:
         nbytes = 4 * (5 * n * hd + 4 * h * hd * hd + 4 * h * hd)
         flops = n * (8 * hd * hd + 31 * hd)
     t_bytes, t_ops = nbytes / mem_bps, flops / f32_fps
-    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes_bound_ms": 1e3 * t_bytes, "gflop": flops / 1e9}
+    out = {"bound_ms": 1e3 * max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes_bound_ms": 1e3 * t_bytes, "gflop": flops / 1e9}
+    if chunk:
+        nch = -(-s // chunk)
+        pairs = b * h * sum(L_ * (L_ + 1) // 2 for L_ in
+                            [chunk] * (s // chunk) + [s % chunk] * (s % chunk > 0))
+        c_flops = flops + 4 * hd * pairs
+        c_bytes = nbytes + 2 * 4 * b * h * nch * (hd * hd + hd + 1)
+        tb, to = c_bytes / mem_bps, c_flops / f32_fps
+        out.update({"chunk_bound_ms": 1e3 * max(tb, to),
+                    "chunk_bound_by": "bytes" if tb >= to else "operations",
+                    "chunk_gflop": c_flops / 1e9,
+                    "chunk_bytes_bound_ms": 1e3 * tb})
+    return out
+
+
+def mlstm_passes(args) -> dict:
+    """The mLSTM's two kernels of one call on `args`, each alone through
+    its C entry point, on one call's scratch (the closures keep it)."""
+    cargs, y, kept = xls._mlstm_args(*args, xls.mlstm_chunk())
+    lib = xls._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(entry):
+        def fn():
+            err = getattr(lib, entry)(ctypes.byref(cargs), stream)
+            assert err == 0, lib.xlstm_scan_error_string(err).decode()
+            return y, kept
+        return fn
+    return {"states": run("mlstm_scan_state_f32"),
+            "outputs": run("mlstm_scan_out_f32")}
 
 
 def check_xlstm(gen, mem_bps: float, f32_fps: float) -> dict:
-    """Both xLSTM scan kernels against their plain versions on the card, in
-    f32, at every XLSTM_CASES shape (within XLSTM_TOL), two calls bit for
-    bit; at the path shape their times (through the wrapper by CUDA events,
-    and behind a device sleep), us per step, the plain version's time (one
-    call) and the bound, and the sLSTM's and its plain version's error
-    against a float64 plain run. Returns {kernel: the path's numbers}."""
+    """Both xLSTM scans' kernels against their plain versions on the card,
+    in f32, at every XLSTM_CASES shape (within XLSTM_TOL), two calls bit
+    for bit. At the path shape: each kernel's and its plain f32 version's
+    error against a float64 plain run (the kernel's at most
+    XLSTM_F64_FACTOR times the plain version's); the times (through the
+    wrapper by CUDA events, and behind a device sleep), us per step, the
+    plain version's time (one call) and the bound (the mLSTM's also that
+    of the chunkwise form's own work); the mLSTM's two kernels each alone
+    behind the sleep, and its chunkwise mirror (several PyTorch calls).
+    At the train shape the times again. Returns {kernel: the path's
+    numbers}."""
     out = {}
+    chunk = xls.mlstm_chunk()
+    train = XLSTM_BWD_CASES["train"]
     for kind, wrapper, ref in (("mlstm_scan", xls.mlstm_scan, mlstm_scan_ref),
                                ("slstm_scan", xls.slstm_scan, slstm_scan_ref)):
         tol = XLSTM_TOL[kind]
@@ -2262,32 +2353,66 @@ def check_xlstm(gen, mem_bps: float, f32_fps: float) -> dict:
                 del args, got, again, want
                 continue
             t = {"max_abs_err": errs[label], "plain_ms": a.elapsed_time(b),
-                 "library_ms": None, **xlstm_bound(kind, case, mem_bps, f32_fps)}
+                 "library_ms": None,
+                 **xlstm_bound(kind, case, mem_bps, f32_fps,
+                               chunk if kind == "mlstm_scan" else 0)}
+            with torch.no_grad():
+                w64 = ref(*(x.double() for x in args))
+            t["err_vs_f64"] = (got.double() - w64).abs().max().item()
+            t["plain_err_vs_f64"] = (want.double() - w64).abs().max().item()
+            del w64
+            print(f"[check] {kind} path: against a float64 plain run, kernel "
+                  f"{t['err_vs_f64']:.3e}, plain f32 "
+                  f"{t['plain_err_vs_f64']:.3e} (holds kernel <= "
+                  f"{XLSTM_F64_FACTOR} x plain)")
+            assert t["err_vs_f64"] <= XLSTM_F64_FACTOR * t["plain_err_vs_f64"], \
+                (kind, t["err_vs_f64"], t["plain_err_vs_f64"])
             with torch.no_grad():
                 t["ms"] = time_ms(lambda: wrapper(*args), reps=5, warmup=1)
                 t["device_ms"] = time_ms(lambda: wrapper(*args), reps=5,
                                          warmup=1, backlog=True)
+                if kind == "mlstm_scan":
+                    for name, fn in mlstm_passes(args).items():
+                        t[f"{name}_device_ms"] = time_ms(fn, reps=5, warmup=1,
+                                                         backlog=True)
+                    t["mirror_ms"] = time_ms(
+                        lambda: mlstm_scan_chunkwise_ref(*args, chunk), reps=3,
+                        warmup=1)
             t["us_per_step"] = 1e3 * t["ms"] / case[1]
-            if kind == "slstm_scan":
-                with torch.no_grad():
-                    w64 = ref(*(x.double() for x in args))
-                t["err_vs_f64"] = (got.double() - w64).abs().max().item()
-                t["plain_err_vs_f64"] = (want.double() - w64).abs().max().item()
-                print(f"[check] slstm_scan path: against a float64 plain run, "
-                      f"kernel {t['err_vs_f64']:.3e}, plain f32 "
-                      f"{t['plain_err_vs_f64']:.3e}")
-                del w64
             print(f"[time] {kind} path {case} f32: kernel {t['ms']:.4f} ms "
                   f"({t['us_per_step']:.4f} us a step; behind a device sleep "
                   f"{t['device_ms']:.4f}), plain {t['plain_ms']:.1f} ms (one "
                   f"call), bound {t['bound_ms']:.4f} ms ({t['bound_by']}; "
                   f"{t['gflop']:.1f} GFLOP, bytes {t['bytes_bound_ms']:.4f}); "
                   f"kernel at {100 * t['bound_ms'] / t['ms']:.1f}% of the "
-                  f"bound; no PyTorch call computes it")
+                  f"bound; no PyTorch call computes it"
+                  + (f"; chunks of {chunk}: states kernel "
+                     f"{t['states_device_ms']:.4f} ms, outputs kernel "
+                     f"{t['outputs_device_ms']:.4f} ms (each alone behind a "
+                     f"sleep); the chunkwise form's own bound "
+                     f"{t['chunk_bound_ms']:.4f} ms ({t['chunk_bound_by']}; "
+                     f"{t['chunk_gflop']:.1f} GFLOP, bytes with the chunk "
+                     f"states {t['chunk_bytes_bound_ms']:.4f}); its plain "
+                     f"mirror (several PyTorch calls, "
+                     f"ref.mlstm_scan_chunkwise_ref) {t['mirror_ms']:.2f} ms"
+                     if kind == "mlstm_scan" else ""))
             out[kind] = t
             del args, got, again, want
             torch.cuda.empty_cache()
         out[kind]["max_abs_err_by_case"] = errs
+        args = xlstm_inputs(kind, train, gen)
+        t = out[kind]
+        with torch.no_grad():
+            t["train_ms"] = time_ms(lambda: wrapper(*args))
+            t["train_device_ms"] = time_ms(lambda: wrapper(*args),
+                                           backlog=True)
+        t["train_bound"] = xlstm_bound(kind, train, mem_bps, f32_fps,
+                                       chunk if kind == "mlstm_scan" else 0)
+        print(f"[time] {kind} train {train} f32: kernel {t['train_ms']:.4f} "
+              f"ms ({1e3 * t['train_ms'] / train[1]:.4f} us a step; behind "
+              f"a device sleep {t['train_device_ms']:.4f}), bound "
+              f"{t['train_bound']['bound_ms']:.4f} ms")
+        del args
     return out
 
 
@@ -2520,9 +2645,10 @@ def xlstm_prefill_and_serve() -> dict:
                              bsz=XLSTM_BATCH)
 
 
-XLSTM_KERNELS = ("mlstm_scan_kernel", "mlstm_bwd_prep_kernel",
-                 "mlstm_bwd_kernel", "mlstm_bwd_reduce_kernel",
-                 "slstm_scan_kernel", "slstm_scan_bwd_kernel")
+XLSTM_KERNELS = ("mlstm_scan_state_kernel", "mlstm_scan_out_kernel",
+                 "mlstm_bwd_prep_kernel", "mlstm_bwd_kernel",
+                 "mlstm_bwd_reduce_kernel", "slstm_scan_kernel",
+                 "slstm_scan_bwd_kernel")
 
 
 def xlstm_train_path() -> dict:
@@ -2993,14 +3119,16 @@ def main() -> int:
     for kname, split, lib, secs in built:
         if kname.startswith("xlstm_scan"):   # 16 head dims: the paths' two
             print(f"[build] {kname}: {secs:.2f} s -> {lib.name}")
-            kerns = (("mlstm_scan_kernel", "slstm_scan_kernel")
+            kerns = (("mlstm_scan_out_kernel", "slstm_scan_kernel")
                      if kname == "xlstm_scan" else
                      ("mlstm_bwd_kernel", "slstm_scan_bwd_kernel"))
             for kern in kerns:
                 for hd in (192, 16):
                     ptxas_report(lib, only=(f"{kern}<f32, hd {hd}>",
                                             f"{kern}<f32, hd {hd},"))
-            if kname == "xlstm_scan_bwd":
+            if kname == "xlstm_scan":
+                ptxas_report(lib, only="mlstm_scan_state_kernel")
+            else:
                 ptxas_report(lib, only="mlstm_bwd_prep_kernel")
                 ptxas_report(lib, only="mlstm_bwd_reduce_kernel")
         elif split is None:
@@ -3041,10 +3169,13 @@ def main() -> int:
           f"{slib.selective_scan_bwd_block_channels()} channels a block; h "
           f"kept every {slib.selective_scan_seg_steps()} steps")
     xlib = xls._lib()
-    print(f"[build]   mlstm_scan_kernel: {xlib.xlstm_scan_layout(0)} warps a "
-          f"block, {xlib.xlstm_scan_layout(1)} rows of C a thread; dynamic "
-          f"smem at hd 192 {xlib.mlstm_scan_smem_bytes(192)} B, "
-          f"{xlib.mlstm_scan_blocks_per_sm(192)} blocks an SM; "
+    print(f"[build]   mlstm_scan_state_kernel and mlstm_scan_out_kernel: "
+          f"chunks of {xlib.xlstm_scan_layout(0)} steps; states in C tiles "
+          f"of {xlib.xlstm_scan_layout(1)} x {xlib.xlstm_scan_layout(1)}, "
+          f"dynamic smem {xlib.mlstm_scan_smem_bytes(192, 0)} B, "
+          f"{xlib.mlstm_scan_blocks_per_sm(192, 0)} blocks an SM; outputs at "
+          f"hd 192 {xlib.mlstm_scan_smem_bytes(192, 1)} B, "
+          f"{xlib.mlstm_scan_blocks_per_sm(192, 1)} blocks an SM; "
           f"slstm_scan_kernel: clusters of {xlib.xlstm_scan_layout(2)} "
           f"blocks, {xlib.xlstm_scan_layout(3)} batch rows a cluster, "
           f"{xlib.slstm_scan_max_active_clusters(192, XLSTM_BATCH, 4)} "
@@ -3589,7 +3720,8 @@ def main() -> int:
     # over the xlstm train steps (phase 30) and the tiny f32 training
     # (phase 31)
     for kname, kern, step in (
-            ("mlstm_scan", "mlstm_scan_kernel<hd 192>", "_mlstm_step"),
+            ("mlstm_scan", "mlstm_scan_state_kernel + mlstm_scan_out_kernel"
+             "<hd 192>", "_mlstm_step"),
             ("slstm_scan", "slstm_scan_kernel<hd 192>", "_slstm_step")):
         t = xlstm_times[kname]
         kernels.append({
@@ -3605,9 +3737,14 @@ def main() -> int:
             **times_of(t), "device_ms": t["device_ms"],
             "bytes_bound_ms": t["bytes_bound_ms"],
             "us_per_step": t["us_per_step"],
-            **({"err_vs_f64": t["err_vs_f64"],
-                "plain_err_vs_f64": t["plain_err_vs_f64"]}
-               if kname == "slstm_scan" else {}),
+            "err_vs_f64": t["err_vs_f64"],
+            "plain_err_vs_f64": t["plain_err_vs_f64"],
+            **{k_: t[k_] for k_ in (
+                "states_device_ms", "outputs_device_ms", "mirror_ms",
+                "chunk_bound_ms", "chunk_bound_by") if k_ in t},
+            "train_ms": t["train_ms"],
+            "train_device_ms": t["train_device_ms"],
+            "train_bound_ms": t["train_bound"]["bound_ms"],
             "f32_tiny_forward_launches": xlstm_f32[kname],
             "train_launches": xlstm_train["counts"][kname],
             "f32_tiny_train_launches": xlstm_f32_train[kname],
@@ -3617,8 +3754,12 @@ def main() -> int:
                if kname == "slstm_scan" else {}),
             "unit": f"one layer's call at the xlstm-125m prefill path's shape "
                     f"(B={XLSTM_BATCH}, S={XLSTM_SEQ}, H=4, hd=192, f32); "
-                    f"launches over {xlstm['calls']} prefills; no PyTorch "
-                    f"call computes it (library none)",
+                    f"launches over {xlstm['calls']} prefills"
+                    + (" (a launch of each of its two kernels a call)"
+                       if kname == "mlstm_scan" else "")
+                    + "; no PyTorch call computes it (library none"
+                    + ("; mirror_ms: the chunkwise form in several PyTorch "
+                       "calls)" if kname == "mlstm_scan" else ")"),
         })
     # their backwards: no TPU counterpart (the JAX package differentiates
     # the lax.scan); launches over the 6 xlstm train steps (phase 30)

@@ -9,7 +9,8 @@
 // step functions they loop, which the models' decode calls). Wrapper,
 // checks and launch counts: repro_torch/kernels/xlstm_scan.py. Inputs and
 // outputs are f32 and contiguous; the head dim hd is a multiple of 16 up
-// to 256 (one instantiation of each kernel for each hd / 16).
+// to 256 (the sLSTM kernel and the mLSTM's outputs kernel instantiated
+// for each hd / 16).
 //
 // ---------------------------------------------------------------------
 // mLSTM, for each batch row b and head h, from C = 0, n = 0, m = 0:
@@ -21,35 +22,50 @@
 //
 // Bound. On the xlstm-125m prefill path (B=8, S=32,768, H=4, hd=192) a
 // call reads q, k, v, i, f and writes y, 3.23 GB: 0.96 ms at 3.35 TB/s.
-// Its operations, with C kept scaled as below: each entry of C takes one
-// FMA a step and C q one more (4 flops), and n and n . q 4 flops a
-// column: 156 GFLOP, 2.32 ms at 67 f32 TFLOP/s. It is bound by
-// operations, on the CUDA cores (the f32 recurrence has no tensor-core
-// form that keeps its rounding).
+// The step form's operations, an FMA an entry of C a step for its update
+// and one for C q (4 flops), and n and n . q 4 flops a column: 156 GFLOP,
+// 2.32 ms at 67 f32 TFLOP/s. Bound by operations, on the CUDA cores (a
+// single TF32 pass on the tensor cores misses the 1e-4 tolerance at hd
+// 192). The chunkwise form below does that work plus, a chunk, q k^T and
+// P v over its L (L + 1) / 2 causal pairs (4 hd flops a pair: 182 GFLOP
+// in all at L = 64, 2.71 ms), and writes and reads the chunk states (8.07
+// GB in all, 2.41 ms).
 //
-// Design. Only the scalar chain m is serial across steps in a way that
-// stops parallel work: every entry of C then needs one FMA a step of its
-// own, and the reductions C q and n . q feed y but not the next step. So
-// a block owns a band of kMBand = 16 rows of C of one (b, h) in registers
-// and walks all of time itself; the grid is (hd / 16 bands, B * H), 384
-// blocks of kMWarps = 4 warps at the path shape. A half-warp holds
-// kMRowsT = 2 rows of C by all hd columns (hd / 16 a lane: contiguous, as
-// 16-byte loads of q and k, where hd / 16 is a multiple of 4), so C q is a
-// 4-shuffle reduction; every block keeps all of n itself (hd values, one
-// more FMA a column), so n . q is one too and no block waits for another.
-// q, k, the band's v and i, f come by 16-byte cp.async in chunks of
-// kMChunk steps into two stages; warp 0 walks the chunk's m chain (a
-// shuffle-fed serial max) and leaves the step's coefficients in shared
-// memory. C and n are held divided by F, the running product of f': a
-// step is then C += (i' / F) v k^T, one FMA an entry where f' C + i' v k^T
-// took two, and y = F (C q) / max(|F (n . q)|, 1). Where F would fall
-// below kMFloor, that step folds F into C and n (the plain recurrence's
-// step), so C stays within 2^30 of its true scale. The step loop is
-// unrolled by two, so one step's reductions overlap the next step's
-// products; the outputs' divisions and stores are one pass a chunk.
-// Fixed orders throughout: two calls give the same bits. (Two or one
-// warps a block with 4 or 8 rows a thread, and chunks of 20 steps, which
-// hold 3 blocks an SM, were no faster on an H100 SXM.)
+// Design: the chunkwise form. Only the scalar chain m is serial; over a
+// chunk of L steps from the state (C, n, m) before it, with b_t the
+// chunk-local inclusive sum of log_sigmoid(f) and c_s = i_s - b_s, the
+// step recurrence unrolls exactly into
+//   M_t = max(m, max_{s<=t} c_s)           (the chain's m_t is b_t + M_t)
+//   D_ts = exp(c_s - M_t) (s <= t),  e_t = exp(m - M_t)   (both <= 1)
+//   y_t = (e_t C q_t + sum_s D_ts (k_s . q_t) v_s)
+//         / max(|e_t n . q_t + sum_s D_ts (k_s . q_t)|, 1)
+// and the state after it is C' = e C + sum_s w_s v_s k_s^T (likewise n),
+// w_s = D_{L-1,s}, e = e_{L-1}, m' = b_{L-1} + M_{L-1}. b, c and M are
+// taken in double: a sum of L log forget gates can reach -500 (gates
+// nearly shut), where an f32 ulp would move D by 3e-5 (plain version:
+// ref.mlstm_scan_chunkwise_ref, ref.mlstm_chunk_states_ref). Two kernels,
+// one launch each a call:
+//   * mlstm_scan_state_kernel, grid (C tiles, B*H): a block keeps a
+//     kMTile x kMTile tile of C in registers (6 x 6 entries a thread of
+//     256) and walks the chunks in order: it stores the state before each
+//     chunk into scratch (C^T, n, m: 2.42 GB at the path shape), then adds
+//     the chunk as one register-tiled product [96 x L] x [L x 96] of V's
+//     rows scaled by w and K, L FMAs an entry. K and V come by cp.async
+//     two chunks ahead (four stages); warp 0 forms the next chunk's
+//     weights while the block walks this one, so a chunk costs two block
+//     barriers. At hd 192 4 tiles x 32 (b, h) = 128 blocks, one an SM.
+//     (PERF.md has the clock-stamped split of a chunk, xlstm_stamps.py.)
+//   * mlstm_scan_out_kernel<hd / 16>, grid (chunk, B*H): fully parallel
+//     (16,384 blocks at the path shape, two an SM). A thread takes L / 16
+//     steps t by hd / 16 columns of y. Over slices of 32 columns of k it
+//     forms q k^T (each slice's sums apart, then added: a 192-term f32
+//     chain lost a factor of two against float64) and q C^T together, then
+//     P = D o (q k^T), its row sums, n . q and e_t q_t C^T, then adds P v,
+//     each warp stopping at its last step's causal column.
+// L = 64: at 128 the states' scratch halves but the causal pairs double,
+// and the outputs kernel holds one block an SM (slower at both shapes,
+// PERF.md).
+// Fixed orders, no atomics: two calls give the same bits.
 //
 // ---------------------------------------------------------------------
 // sLSTM, for each batch row b, head h and row v, from c = n = h = m = 0:
@@ -84,26 +100,36 @@
 //     butterfly) and writes x + rec + bias of each (gate, batch row) to
 //     shared memory;
 //   * after one block barrier, 96 threads (a row and batch row each) do
-//     the cell update (in every lane of every warp its issue cost bound
-//     the step), store y and stage the block's h rows;
+//     the cell update, store y and stage the block's h rows;
 //   * those threads send the rows to every block of the cluster as 16-byte
 //     st.async pieces into the other of two h buffers, each counted as
 //     transaction bytes on the receiving block's mbarrier, so the step
 //     ends without a cluster barrier (one a step, whose release also
 //     waits on the prefetch loads, costs more than the step's work).
-// x is loaded kSAhead steps ahead into registers. The cell update rounds
-// as the plain version does (no contraction into FMAs); the matvec's
-// order is fixed, so two calls give the same bits.
+// Clock stamps of one step (xlstm_stamps.py, PERF.md) put the matvec
+// and the butterfly, issue-bound in 24 warps, and the cell update's
+// dependent chain in 3 warps first. The cell update takes short forms
+// (fast_*: ex2.approx, rcp.approx and one Newton step, a log1p series)
+// in place of the accurate expf, log1pf, tanhf and IEEE divisions. Tried
+// and slower (PERF.md): the cell update in 4 lanes of every warp with no
+// block barrier (its issue in 24 warps outweighs the barrier); a barrier
+// for each source block's rows, the matvec taking each as it lands;
+// clusters of 16 blocks (the card holds 7, so the path's 8 take two
+// waves).
+// x is loaded kSAhead steps ahead into registers. The cell update's sums
+// and products round as the plain version's (no contraction into FMAs);
+// the matvec's order is fixed, so two calls give the same bits.
 //
 // Under autograd the wrapper launches slstm_scan_kernel<D16, true>, which
 // also keeps the trails its backward (csrc/xlstm_scan_bwd.cu) reads: each
 // step's full pre-activations x + W h + bias [B,S,4,H,hd] and c, n, m
 // after it [B,S,H,hd] (plain version: ref.slstm_scan_trails_ref). The
-// mLSTM's backward needs no trail: mlstm_scan_kernel is the same on both
+// mLSTM's backward needs no trail: its two kernels are the same on both
 // paths.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 #include <cstdint>
 
@@ -117,6 +143,11 @@ struct MlstmScanArgs {
   const float* i;
   const float* f;
   float* y;
+  // scratch: the state before each chunk, C^T [B*H][N][hd][hd] ([k][v]),
+  // n [B*H][N][hd], m [B*H][N] (N = ceil(S / kMChunk))
+  float* c_st;
+  float* n_st;
+  float* m_st;
   int B, S, H, hd;
 };
 
@@ -138,14 +169,11 @@ namespace {
 constexpr int kBadHeadDim = 1000;   // hd not a multiple of 16 in 16..256
 constexpr int kBadGrid = 1001;      // B * H (mLSTM) or B (sLSTM) too large
 
-constexpr int kMWarps = 4;
-constexpr int kMThreads = 32 * kMWarps;
-constexpr int kMBand = 16;                        // rows of C a block
-constexpr int kMRowsT = kMBand / (2 * kMWarps);   // rows of C a thread: 2
-constexpr int kMChunk = 16;                       // steps a stage
-// C and n are kept divided by F, the product of f' since they were last
-// rescaled; a step whose F would fall below this folds F into them
-constexpr float kMFloor = 0x1p-30f;
+constexpr int kMChunk = 64;                // L: steps a chunk
+constexpr int kMPer = kMChunk / 32;        // a lane's steps in the gate terms
+constexpr int kMThreads = 256;
+constexpr int kMTile = 96;                 // the states' C tile, square
+constexpr int kMTileT = kMTile / 16;       // its rows (and columns) a thread
 
 constexpr int kSCluster = 8;               // blocks of one head, batch group
 constexpr int kSBatch = 4;                 // batch rows a cluster
@@ -168,18 +196,19 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                "l"(src), "r"(bytes) : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          int bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst),
-               "l"(src), "r"(bytes) : "memory");
-}
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;" ::: "memory");
+// Barrier `id` among the first `count` threads of the block.
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// Wait until at most `N` of this thread's cp.async groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -227,258 +256,635 @@ __device__ __forceinline__ void st_async4(uint32_t addr, float a, float b,
       "r"(bar) : "memory");
 }
 
-// Barrier `id` among the first `count` threads of the block.
-__device__ __forceinline__ void named_barrier(int id, int count) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+// ------------------------------------------------------------------ mLSTM
+// The gate terms of one chunk, in double, in one warp: lane l takes its
+// steps kMPer l + j (j < kMPer) from iv, fv (the i and f pre-activations;
+// steps >= nt are past S). Leaves c_j = i - b (-inf past S), b the
+// chunk-local inclusive sum of log_sigmoid(f), and returns b at the
+// chunk's last step (the same on every lane).
+__device__ __forceinline__ double m_gate_terms(const float (&iv)[kMPer],
+                                               const float (&fv)[kMPer],
+                                               int nt, int lane,
+                                               double (&c)[kMPer]) {
+  double loc[kMPer];
+  double run = 0.0;
+#pragma unroll
+  for (int j = 0; j < kMPer; ++j) {
+    if (kMPer * lane + j < nt) run += static_cast<double>(log_sigmoid(fv[j]));
+    loc[j] = run;
+  }
+  double incl = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double u = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += u;
+  }
+  double excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = 0.0;
+#pragma unroll
+  for (int j = 0; j < kMPer; ++j)
+    c[j] = kMPer * lane + j < nt ? static_cast<double>(iv[j]) - (excl + loc[j])
+                                 : -CUDART_INF;
+  return __shfl_sync(0xffffffffu, excl + loc[kMPer - 1], 31);
 }
 
-// ------------------------------------------------------------------ mLSTM
-// Shared memory of an mLSTM block, in floats: two stages of
-// q, k [kMChunk][HD], v [kMChunk][kMBand] (the band's rows), i, f
-// [kMChunk]; then, a step of the chunk being walked, the factor that C
-// and n are rescaled by before it (1 but where F is folded in), the
-// coefficient i' / F of v k^T and F itself; then the chunk's outputs:
-// F (C q) a row [kMChunk][kMBand] and max(|F (n . q)|, 1).
-template <int D16>
-struct MSmem {
-  static constexpr int HD = 16 * D16;
-  static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kMChunk * HD;
-  static constexpr int kV = kK + kMChunk * HD;
-  static constexpr int kI = kV + kMChunk * kMBand;
-  static constexpr int kF = kI + kMChunk;
-  static constexpr int kStage = kF + kMChunk;     // a multiple of 4 floats
-  static constexpr int kRs = 2 * kStage;
-  static constexpr int kA = kRs + kMChunk;
-  static constexpr int kFs = kA + kMChunk;
-  static constexpr int kNum = kFs + kMChunk;
-  static constexpr int kDen = kNum + kMChunk * kMBand;
-  static constexpr int kBytes = (kDen + kMChunk) * 4;
+// A lane's steps' i and f of the chunk at step t0 of (b, h); 0 past S.
+__device__ __forceinline__ void m_gate_load(const MlstmScanArgs& a, int b,
+                                            int h, int t0, int lane,
+                                            float (&iv)[kMPer],
+                                            float (&fv)[kMPer]) {
+#pragma unroll
+  for (int j = 0; j < kMPer; ++j) {
+    const int t = t0 + kMPer * lane + j;
+    const long long off = (static_cast<long long>(b) * a.S + t) * a.H + h;
+    iv[j] = t < a.S ? a.i[off] : 0.f;
+    fv[j] = t < a.S ? a.f[off] : 0.f;
+  }
+}
+
+// Shared memory of mlstm_scan_state_kernel, in floats: kStages stages of
+// the chunk's K and V columns of the tile [kMChunk][kMTile]; two buffers
+// of a chunk's weights w [kMChunk], e and m'.
+struct MState {
+  static constexpr int kK = 0;
+  static constexpr int kV = kMChunk * kMTile;
+  static constexpr int kStage = 2 * kMChunk * kMTile;
+  static constexpr int kStages = 4;
+  static constexpr int kWBuf = kMChunk + 4;       // w, then e and m'
+  static constexpr int kW = kStages * kStage;
+  static constexpr int kBytes = (kW + 2 * kWBuf) * 4;
 };
 
-// The chunk of steps [t0, t0 + kMChunk) of (b, h) into stage `st`,
-// zero-filled past S.
-template <int D16>
-__device__ __forceinline__ void m_load(const MlstmScanArgs& a, float* st,
-                                       int b, int h, int band, int t0) {
-  using L = MSmem<D16>;
-  constexpr int HD = L::HD;
-  constexpr int kRow4 = HD / 4;
-  for (int p = threadIdx.x; p < kMChunk * kRow4; p += kMThreads) {
-    const int s = p / kRow4, c4 = p % kRow4, t = t0 + s;
-    const bool ok = t < a.S;
-    const long long off =
-        ok ? ((static_cast<long long>(b) * a.S + t) * a.H + h) * HD + 4 * c4
-           : 0;
-    cp_async16(smem_addr(st + L::kQ + s * HD + 4 * c4), a.q + off,
-               ok ? 16 : 0);
-    cp_async16(smem_addr(st + L::kK + s * HD + 4 * c4), a.k + off,
-               ok ? 16 : 0);
-  }
-  for (int p = threadIdx.x; p < kMChunk * kMBand / 4; p += kMThreads) {
-    const int s = p / (kMBand / 4), c4 = p % (kMBand / 4), t = t0 + s;
-    const bool ok = t < a.S;
-    const long long off =
-        ok ? ((static_cast<long long>(b) * a.S + t) * a.H + h) * HD
-                 + band * kMBand + 4 * c4
-           : 0;
-    cp_async16(smem_addr(st + L::kV + s * kMBand + 4 * c4), a.v + off,
-               ok ? 16 : 0);
-  }
-  for (int s = threadIdx.x; s < kMChunk; s += kMThreads) {
-    const int t = t0 + s;
-    const bool ok = t < a.S;
-    const long long off =
-        ok ? (static_cast<long long>(b) * a.S + t) * a.H + h : 0;
-    cp_async4(smem_addr(st + L::kI + s), a.i + off, ok ? 4 : 0);
-    cp_async4(smem_addr(st + L::kF + s), a.f + off, ok ? 4 : 0);
+// The K and V columns [k0, k0 + kMTile) and [v0, ...) of chunk j's steps
+// [s0, s1) into stage `st`, zero past hd.
+__device__ __forceinline__ void ms_load(const MlstmScanArgs& a, float* st,
+                                        int b, int h, int j, int k0, int v0,
+                                        int s0 = 0, int s1 = kMChunk) {
+  constexpr int kRow4 = kMTile / 4;
+  const long long base =
+      (static_cast<long long>(b) * a.S + j * kMChunk) * a.H * a.hd
+      + static_cast<long long>(h) * a.hd;
+  const long long rowstep = static_cast<long long>(a.H) * a.hd;
+  for (int p = s0 * kRow4 + threadIdx.x; p < s1 * kRow4; p += kMThreads) {
+    const int s = p / kRow4, c4 = 4 * (p % kRow4);
+    const long long row = base + s * rowstep;
+    const bool kok = k0 + c4 < a.hd, vok = v0 + c4 < a.hd;
+    cp_async16(smem_addr(st + MState::kK + s * kMTile + c4),
+               a.k + (kok ? row + k0 + c4 : 0), kok ? 16 : 0);
+    cp_async16(smem_addr(st + MState::kV + s * kMTile + c4),
+               a.v + (vok ? row + v0 + c4 : 0), vok ? 16 : 0);
   }
 }
 
-// The D16 columns of a step's q or k row that lane l16 holds: contiguous
-// (as 16-byte loads) when D16 is a multiple of 4, else every 16th.
-template <int D16>
-__device__ __forceinline__ void m_cols(const float* row, int l16,
-                                       float (&out)[D16]) {
-  if constexpr (D16 % 4 == 0) {
-    const float4* r4 = reinterpret_cast<const float4*>(row + l16 * D16);
+// Warp 0: a whole chunk's weights w_s = exp(c_s - M), e = exp(m - M) and
+// m' = b_last + M, M = max(m, max_s c_s), into wb (w [kMChunk], e, m'),
+// from its gates (iv, fv) and m, the m before it. Returns m'.
+__device__ __forceinline__ float ms_gates(const float (&iv)[kMPer],
+                                          const float (&fv)[kMPer],
+                                          float m, int lane, float* wb) {
+  double c[kMPer];
+  const double blast = m_gate_terms(iv, fv, kMChunk, lane, c);
+  double cmax = c[0];
 #pragma unroll
-    for (int j = 0; j < D16 / 4; ++j) {
-      const float4 v = r4[j];
-      out[4 * j] = v.x;
-      out[4 * j + 1] = v.y;
-      out[4 * j + 2] = v.z;
-      out[4 * j + 3] = v.w;
+  for (int q = 1; q < kMPer; ++q) cmax = fmax(cmax, c[q]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    cmax = fmax(cmax, __shfl_xor_sync(0xffffffffu, cmax, o));
+  const double big = fmax(static_cast<double>(m), cmax);
+#pragma unroll
+  for (int q = 0; q < kMPer; ++q)
+    wb[kMPer * lane + q] = expf(static_cast<float>(c[q] - big));
+  const float m_new = static_cast<float>(blast + big);
+  if (lane == 0) {
+    wb[kMChunk] = expf(static_cast<float>(m - big));
+    wb[kMChunk + 1] = m_new;
+  }
+  return m_new;
+}
+
+// The first pass: the state before every chunk. Block (tile, b h) keeps
+// the tile C[v0 + .., k0 + ..] in registers, kMTileT x kMTileT a thread
+// (rows v = v0 + 2 tx + 32 jv + dv, columns k = k0 + 2 ty + 32 jk + dk),
+// and walks the chunks in order: stores C (as C^T: [k][v]), and for tile
+// row 0 n, then C = e C + sum_s (w_s v_s) k_s^T. Only chunks 0 .. N-2 are
+// walked (no chunk follows the last), and they are whole. Warp 0 forms a
+// chunk's weights while the block walks the chunk before it, and K and V
+// come two chunks ahead, so a chunk takes two block barriers.
+__global__ void __launch_bounds__(kMThreads, 1)
+mlstm_scan_state_kernel(const MlstmScanArgs a) {
+  constexpr int kStages = MState::kStages;
+  extern __shared__ float4 smem_f4[];
+  float* sm = reinterpret_cast<float*>(smem_f4);
+  const int hd = a.hd;
+  const int ntile = (hd + kMTile - 1) / kMTile;
+  const int k0 = (blockIdx.x % ntile) * kMTile;
+  const int v0 = (blockIdx.x / ntile) * kMTile;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int nch = (a.S + kMChunk - 1) / kMChunk;
+  const long long hd2 = static_cast<long long>(hd) * hd;
+  float* cst = a.c_st + static_cast<long long>(bh) * nch * hd2;
+  float* nst = a.n_st + static_cast<long long>(bh) * nch * hd;
+  float* mst = a.m_st + static_cast<long long>(bh) * nch;
+  const bool nrow = v0 == 0 && threadIdx.x < kMTile && k0 + threadIdx.x < hd;
+
+  float acc[kMTileT][kMTileT];               // [k][v]
+#pragma unroll
+  for (int r = 0; r < kMTileT; ++r)
+#pragma unroll
+    for (int q = 0; q < kMTileT; ++q) acc[r][q] = 0.f;
+  float n_k = 0.f;                           // n[k0 + threadIdx.x] (nrow)
+  float m_start = 0.f;                       // m before the chunk
+  // K and V come kAhead chunks ahead (the last chunk is never walked)
+  constexpr int kAhead = 2;
+  static_assert(kStages > kAhead + 1, "a stage read two chunks ago");
+  for (int j = 0; j < kAhead; ++j) {
+    if (j + 1 < nch) ms_load(a, sm + j * MState::kStage, b, h, j, k0, v0);
+    cp_async_commit();
+  }
+  // warp 0: the i, f of the chunk after the one whose weights it last
+  // formed, and that chunk's m'
+  float iv[kMPer], fv[kMPer], m_w = 0.f;
+  if (warp == 0 && nch > 1) {
+    m_gate_load(a, b, h, 0, lane, iv, fv);
+    m_w = ms_gates(iv, fv, 0.f, lane, sm + MState::kW);
+    m_gate_load(a, b, h, kMChunk, lane, iv, fv);
+  }
+  for (int j = 0;; ++j) {
+    // the state before chunk j
+    float* cj = cst + j * hd2;
+#pragma unroll
+    for (int jk = 0; jk < kMTileT / 2; ++jk)
+#pragma unroll
+      for (int dk = 0; dk < 2; ++dk) {
+        const int k = k0 + 2 * ty + 32 * jk + dk;
+#pragma unroll
+        for (int jv = 0; jv < kMTileT / 2; ++jv) {
+          const int v = v0 + 2 * tx + 32 * jv;
+          if (k < hd && v < hd)
+            *reinterpret_cast<float2*>(cj + static_cast<long long>(k) * hd
+                                       + v) =
+                make_float2(acc[2 * jk + dk][2 * jv],
+                            acc[2 * jk + dk][2 * jv + 1]);
+        }
+      }
+    if (nrow) nst[static_cast<long long>(j) * hd + k0 + threadIdx.x] = n_k;
+    if (blockIdx.x == 0 && threadIdx.x == 0) mst[j] = m_start;
+    if (j + 1 >= nch) break;
+    // into the stage chunk j - 2 used: every thread is past it
+    if (j + kAhead + 1 < nch)
+      ms_load(a, sm + ((j + kAhead) % kStages) * MState::kStage, b, h,
+              j + kAhead, k0, v0);
+    cp_async_commit();
+    cp_async_wait<kAhead>();
+    __syncthreads();            // chunk j's K, V and weights
+    float* st = sm + (j % kStages) * MState::kStage;
+    const float* wb = sm + MState::kW + (j & 1) * MState::kWBuf;
+    const float e = wb[kMChunk];
+    m_start = wb[kMChunk + 1];
+    // V's rows scaled by their weights, in place
+    for (int p = threadIdx.x; p < kMChunk * kMTile / 4; p += kMThreads) {
+      float4* x = reinterpret_cast<float4*>(st + MState::kV) + p;
+      const float w = wb[p / (kMTile / 4)];
+      float4 y = *x;
+      y.x *= w;
+      y.y *= w;
+      y.z *= w;
+      y.w *= w;
+      *x = y;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kMTileT; ++r)
+#pragma unroll
+      for (int q = 0; q < kMTileT; ++q) acc[r][q] *= e;
+    const float* sk = st + MState::kK + 2 * ty;
+    const float* sv = st + MState::kV + 2 * tx;
+#pragma unroll 4
+    for (int s = 0; s < kMChunk; ++s) {
+      float av[kMTileT], kv[kMTileT];
+#pragma unroll
+      for (int q = 0; q < kMTileT / 2; ++q) {
+        const float2 x = *reinterpret_cast<const float2*>(sv + s * kMTile
+                                                          + 32 * q);
+        const float2 y = *reinterpret_cast<const float2*>(sk + s * kMTile
+                                                          + 32 * q);
+        av[2 * q] = x.x;
+        av[2 * q + 1] = x.y;
+        kv[2 * q] = y.x;
+        kv[2 * q + 1] = y.y;
+      }
+#pragma unroll
+      for (int r = 0; r < kMTileT; ++r)
+#pragma unroll
+        for (int q = 0; q < kMTileT; ++q)
+          acc[r][q] = fmaf(kv[r], av[q], acc[r][q]);
+    }
+    if (nrow) {
+      n_k *= e;
+      for (int s = 0; s < kMChunk; ++s)
+        n_k = fmaf(wb[s], st[MState::kK + s * kMTile + threadIdx.x], n_k);
+    }
+    if (warp == 0 && j + 2 < nch) {          // chunk j + 1's weights
+      m_w = ms_gates(iv, fv, m_w, lane,
+                     sm + MState::kW + ((j + 1) & 1) * MState::kWBuf);
+      m_gate_load(a, b, h, (j + 2) * kMChunk, lane, iv, fv);
+    }
+  }
+}
+
+// Shared memory of mlstm_scan_out_kernel<D16>, in floats: two stages of a
+// slice of the contraction (q and k [L][KS + 4] and C^T's rows [KS][HD],
+// or v's rows [KS][HD]); the running q k^T, then P [L][L + 4]; n [HD];
+// e, n . q and sum_s P [L]; c and M [L] in double.
+template <int D16>
+struct MOut {
+  static constexpr int HD = 16 * D16;
+  static constexpr int KS = D16 % 2 == 0 ? 32 : 16;
+  static constexpr int kStages = 2;
+  static constexpr int kRow = KS + 4;
+  static constexpr int kTR = kMChunk / 16;   // steps a thread, rows and columns
+  static constexpr int kQ = 0;
+  static constexpr int kK = kMChunk * kRow;
+  static constexpr int kC = 2 * kMChunk * kRow;
+  static constexpr int kStage = kC + KS * HD;
+  static constexpr int kPRow = kMChunk + 4;
+  static constexpr int kP = kStages * kStage;
+  static constexpr int kN = kP + kMChunk * kPRow;
+  static constexpr int kE = kN + HD;
+  static constexpr int kQn = kE + kMChunk;
+  static constexpr int kRs = kQn + kMChunk;
+  static constexpr int kGc = kRs + kMChunk;
+  static constexpr int kBig = kGc + 2 * kMChunk;
+  static constexpr int kBytes = (kBig + 2 * kMChunk) * 4;
+  // slices: q k^T and q C^T together (G1), then P v (G3)
+  static constexpr int G1 = HD / KS, G3 = kMChunk / KS, G = G1 + G3;
+};
+
+// The columns of a row of HD floats that thread tx takes: 4 tx + 64 q4 + d
+// (16-byte loads) when D16 is a multiple of 4, else tx + 16 q.
+template <int D16>
+__device__ __forceinline__ void m_vcols(const float* row, int tx,
+                                        float (&out)[D16]) {
+  if constexpr (D16 % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < D16 / 4; ++q) {
+      const float4 x = *reinterpret_cast<const float4*>(row + 4 * tx + 64 * q);
+      out[4 * q] = x.x;
+      out[4 * q + 1] = x.y;
+      out[4 * q + 2] = x.z;
+      out[4 * q + 3] = x.w;
     }
   } else {
 #pragma unroll
-    for (int j = 0; j < D16; ++j) out[j] = row[16 * j + l16];
+    for (int q = 0; q < D16; ++q) out[q] = row[tx + 16 * q];
   }
 }
 
+__device__ __forceinline__ float f4_at(const float4& x, int d) {
+  return d == 0 ? x.x : d == 1 ? x.y : d == 2 ? x.z : x.w;
+}
+
+// Slice g of chunk j's contraction into stage `st` (zero past S).
 template <int D16>
-__global__ void __launch_bounds__(kMThreads)
-mlstm_scan_kernel(const MlstmScanArgs a) {
-  using L = MSmem<D16>;
-  constexpr int HD = L::HD;
+__device__ __forceinline__ void mo_load(const MlstmScanArgs& a, float* st,
+                                        const float* cj, int g, int b, int h,
+                                        int t0, int nt) {
+  using L = MOut<D16>;
+  constexpr int HD = L::HD, KS = L::KS;
+  const long long base =
+      (static_cast<long long>(b) * a.S + t0) * a.H * HD
+      + static_cast<long long>(h) * HD;
+  const long long rowstep = static_cast<long long>(a.H) * HD;
+  if (g < L::G1) {
+    const int kk0 = g * KS;
+    for (int p = threadIdx.x; p < kMChunk * KS / 4; p += kMThreads) {
+      const int t = p / (KS / 4), c4 = 4 * (p % (KS / 4));
+      const bool ok = t < nt;
+      const long long off = ok ? base + t * rowstep + kk0 + c4 : 0;
+      cp_async16(smem_addr(st + L::kQ + t * L::kRow + c4), a.q + off,
+                 ok ? 16 : 0);
+      cp_async16(smem_addr(st + L::kK + t * L::kRow + c4), a.k + off,
+                 ok ? 16 : 0);
+    }
+    for (int p = threadIdx.x; p < KS * HD / 4; p += kMThreads)
+      cp_async16(smem_addr(st + L::kC + 4 * p), cj + kk0 * HD + 4 * p, 16);
+  } else {
+    const int s0 = (g - L::G1) * KS;
+    for (int p = threadIdx.x; p < KS * HD / 4; p += kMThreads) {
+      const int s = p / (HD / 4), c4 = 4 * (p % (HD / 4));
+      const bool ok = s0 + s < nt;
+      cp_async16(smem_addr(st + s * HD + c4),
+                 a.v + (ok ? base + (s0 + s) * rowstep + c4 : 0),
+                 ok ? 16 : 0);
+    }
+  }
+}
+
+// The second pass: the outputs of chunk blockIdx.x of (b, h) = blockIdx.y
+// from the state before it. Thread (ty, tx) takes steps t = kTR ty + i
+// (i < kTR) and, in q k^T, s = tx + 16 q; in the outputs the columns of
+// m_vcols. The contraction streams through two stages: over k, q k^T
+// (each slice's sums added to the running ones in shared memory) and
+// q C^T together, then P = D o (q k^T), its row sums, n . q and e (q C^T);
+// then P v, each warp stopping at its last row's s.
+template <int D16>
+__global__ void __launch_bounds__(kMThreads, 2)
+mlstm_scan_out_kernel(const MlstmScanArgs a) {
+  using L = MOut<D16>;
+  constexpr int HD = L::HD, KS = L::KS, kTR = L::kTR;
+  constexpr int kParts = kMThreads / kMChunk;  // threads an n . q_t
   extern __shared__ float4 smem_f4[];
   float* sm = reinterpret_cast<float*>(smem_f4);
-  const int band = blockIdx.x;
-  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
+  double* c_s = reinterpret_cast<double*>(sm + L::kGc);
+  double* big_s = reinterpret_cast<double*>(sm + L::kBig);
+  const int j = blockIdx.x, nch = gridDim.x;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int t0 = j * kMChunk, nt = min(kMChunk, a.S - t0);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int l16 = lane & 15;
-  const int rloc = (warp * 2 + (lane >> 4)) * kMRowsT;   // row in the band
-  float c[kMRowsT][D16], n[D16];
-#pragma unroll
-  for (int jj = 0; jj < D16; ++jj) {
-    n[jj] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kMRowsT; ++j) c[j][jj] = 0.f;
-  }
-  float m_run = 0.f, f_run = 1.f;        // warp 0: the stabiliser m, F
-  float* yb = a.y + (static_cast<long long>(b) * a.S * a.H + h) * HD
-              + band * kMBand;
-  const long long ystep = static_cast<long long>(a.H) * HD;
-  const int chunks = (a.S + kMChunk - 1) / kMChunk;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const long long sj = static_cast<long long>(bh) * nch + j;
+  const float* cj = a.c_st + sj * HD * HD;
 
-  m_load<D16>(a, sm, b, h, band, 0);
-  cp_async_commit();
-  for (int ci = 0; ci < chunks; ++ci) {
-    const int t0 = ci * kMChunk;
-    if (ci + 1 < chunks)
-      m_load<D16>(a, sm + ((ci + 1) & 1) * L::kStage, b, h, band,
-                  t0 + kMChunk);
-    cp_async_commit();                   // empty past the last chunk
-    cp_async_wait1();
-    __syncthreads();
-    const float* st = sm + (ci & 1) * L::kStage;
-    const int nt = min(kMChunk, a.S - t0);
-    if (warp == 0) {
-      // the chunk's m chain, in step order, as the plain version takes it
-      const float iv = lane < kMChunk ? st[L::kI + lane] : 0.f;
-      const float lf = log_sigmoid(lane < kMChunk ? st[L::kF + lane] : 0.f);
-      float m_prev = 0.f, m_new = 0.f;
+  for (int g = 0; g < L::kStages - 1; ++g) {
+    if (g < L::G) mo_load<D16>(a, sm + g * L::kStage, cj, g, b, h, t0, nt);
+    cp_async_commit();
+  }
+  for (int e = threadIdx.x; e < HD; e += kMThreads)
+    sm[L::kN + e] = a.n_st[sj * HD + e];
+  if (warp == 0) {
+    // c_s, M_t = max(m, max_{s<=t} c_s) and e_t = exp(m - M_t)
+    float iv[kMPer], fv[kMPer];
+    m_gate_load(a, b, h, t0, lane, iv, fv);
+    double c[kMPer], loc[kMPer];
+    m_gate_terms(iv, fv, nt, lane, c);
+    double run = -CUDART_INF;
 #pragma unroll
-      for (int t = 0; t < kMChunk; ++t) {
-        const float lft = __shfl_sync(0xffffffffu, lf, t);
-        const float it = __shfl_sync(0xffffffffu, iv, t);
-        const float mp = m_run;
-        if (t < nt) m_run = fmaxf(lft + m_run, it);
-        if (lane == t) {
-          m_prev = mp;
-          m_new = m_run;
-        }
-      }
-      const float fp = expf(lf + m_prev - m_new);
-      const float ip = expf(iv - m_new);
-      // F, and where it would fall below kMFloor fold it into C and n
-      // (that step is then the plain recurrence's: C = f' C + i' v k^T)
-      float rs = 1.f, f_t = 1.f;
-#pragma unroll
-      for (int t = 0; t < kMChunk; ++t) {
-        const float fpt = __shfl_sync(0xffffffffu, fp, t);
-        const float cand = f_run * fpt;
-        const bool fold = cand < kMFloor;
-        if (lane == t) {
-          rs = fold ? cand : 1.f;
-          f_t = fold ? 1.f : cand;
-        }
-        if (t < nt) f_run = fold ? 1.f : cand;
-      }
-      if (lane < kMChunk) {
-        sm[L::kRs + lane] = rs;
-        sm[L::kA + lane] = ip / f_t;
-        sm[L::kFs + lane] = f_t;
-      }
+    for (int q = 0; q < kMPer; ++q) {
+      run = fmax(run, c[q]);
+      loc[q] = run;
     }
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const double u = __shfl_up_sync(0xffffffffu, run, o);
+      if (lane >= o) run = fmax(run, u);
+    }
+    double before = __shfl_up_sync(0xffffffffu, run, 1);
+    const double mp = a.m_st[sj];
+    if (lane == 0) before = mp;
+    before = fmax(before, mp);
+#pragma unroll
+    for (int q = 0; q < kMPer; ++q) {
+      const int s = kMPer * lane + q;
+      const double big = fmax(before, loc[q]);
+      c_s[s] = c[q];
+      big_s[s] = big;
+      sm[L::kE + s] = expf(static_cast<float>(mp - big));
+    }
+  }
+
+  float acc[kTR][D16], qn = 0.f;
+#pragma unroll
+  for (int i = 0; i < kTR; ++i)
+#pragma unroll
+    for (int q = 0; q < D16; ++q) acc[i][q] = 0.f;
+  const int tmax = 2 * kTR * (warp + 1) - 1;   // the warp's last step
+  const int qmax = tmax / 16;                  // its last s = tx + 16 q
+  const int qt = threadIdx.x / kParts, qp = threadIdx.x % kParts;
+  float* pt = sm + L::kP + kTR * ty * L::kPRow + tx;   // P[kTR ty][tx]
+  for (int g = 0; g < L::G; ++g) {
+    const int gn = g + L::kStages - 1;       // into the stage slice g - 1 used
+    if (gn < L::G)
+      mo_load<D16>(a, sm + (gn % L::kStages) * L::kStage, cj, gn, b, h, t0,
+                   nt);
+    cp_async_commit();
+    cp_async_wait<L::kStages - 1>();
     __syncthreads();
+    const float* st = sm + (g % L::kStages) * L::kStage;
+    if (g < L::G1) {                          // q k^T and q C^T
+      float sp[kTR][kTR];
+#pragma unroll
+      for (int i = 0; i < kTR; ++i)
+#pragma unroll
+        for (int q = 0; q < kTR; ++q) sp[i][q] = 0.f;
 #pragma unroll 2
-    for (int tt = 0; tt < nt; ++tt) {
-      const float rs = sm[L::kRs + tt], at = sm[L::kA + tt];
-      if (rs != 1.f) {                   // the same for the whole block
+      for (int kk = 0; kk < KS; kk += 4) {
+        float4 qa[kTR];
 #pragma unroll
-        for (int jj = 0; jj < D16; ++jj) {
-          n[jj] *= rs;
+        for (int i = 0; i < kTR; ++i)
+          qa[i] = *reinterpret_cast<const float4*>(
+              st + L::kQ + (kTR * ty + i) * L::kRow + kk);
 #pragma unroll
-          for (int j = 0; j < kMRowsT; ++j) c[j][jj] *= rs;
+        for (int q = 0; q < kTR; ++q) {
+          if (q > qmax) break;
+          const float4 kb = *reinterpret_cast<const float4*>(
+              st + L::kK + (tx + 16 * q) * L::kRow + kk);
+#pragma unroll
+          for (int i = 0; i < kTR; ++i) {
+            float x = fmaf(qa[i].x, kb.x, sp[i][q]);
+            x = fmaf(qa[i].y, kb.y, x);
+            x = fmaf(qa[i].z, kb.z, x);
+            sp[i][q] = fmaf(qa[i].w, kb.w, x);
+          }
+        }
+#pragma unroll
+        for (int d = 0; d < 4; ++d) {
+          float bv[D16];
+          m_vcols<D16>(st + L::kC + (kk + d) * HD, tx, bv);
+#pragma unroll
+          for (int i = 0; i < kTR; ++i) {
+            const float x = f4_at(qa[i], d);
+#pragma unroll
+            for (int q = 0; q < D16; ++q) acc[i][q] = fmaf(x, bv[q], acc[i][q]);
+          }
         }
       }
-      float kk[D16], qq[D16];
-      m_cols<D16>(st + L::kK + tt * HD, l16, kk);
-      m_cols<D16>(st + L::kQ + tt * HD, l16, qq);
-      float av[kMRowsT], num[kMRowsT];
+      // the slice's sums of q k^T onto the running ones (this thread's own
+      // entries of P: no barrier)
 #pragma unroll
-      for (int j = 0; j < kMRowsT; ++j) {
-        av[j] = at * st[L::kV + tt * kMBand + rloc + j];
-        num[j] = 0.f;
+      for (int i = 0; i < kTR; ++i)
+#pragma unroll
+        for (int q = 0; q < kTR; ++q)
+          if (q <= qmax) {
+            float* x = pt + i * L::kPRow + 16 * q;
+            *x = g == 0 ? sp[i][q] : *x + sp[i][q];
+          }
+      for (int kq = qp; kq < KS; kq += kParts)
+        qn = fmaf(st[L::kQ + qt * L::kRow + kq], sm[L::kN + g * KS + kq], qn);
+      if (g == L::G1 - 1) {
+        // P = D o (q k^T) and its row sums; n . q; e_t (q_t C^T)
+#pragma unroll
+        for (int i = 0; i < kTR; ++i) {
+          const int t = kTR * ty + i;
+          float rs = 0.f;
+#pragma unroll
+          for (int q = 0; q < kTR; ++q) {
+            const int s = tx + 16 * q;
+            float* x = pt + i * L::kPRow + 16 * q;
+            const float p =
+                q <= qmax && s <= t
+                    ? *x * expf(static_cast<float>(c_s[s] - big_s[t]))
+                    : 0.f;
+            *x = p;
+            rs += p;
+          }
+#pragma unroll
+          for (int o = 1; o < 16; o <<= 1)
+            rs += __shfl_xor_sync(0xffffffffu, rs, o);
+          if (tx == 0) sm[L::kRs + t] = rs;
+          const float e = sm[L::kE + t];
+#pragma unroll
+          for (int q = 0; q < D16; ++q) acc[i][q] *= e;
+        }
+#pragma unroll
+        for (int o = 1; o < kParts; o <<= 1)
+          qn += __shfl_xor_sync(0xffffffffu, qn, o);
+        if (qp == 0) sm[L::kQn + qt] = qn;
       }
-      float dn = 0.f;
+    } else {                                  // P v
+      const int s0 = (g - L::G1) * KS;
+      const int smax = min(KS, tmax + 1 - s0);
+      for (int ss = 0; ss < smax; ss += 4) {
+        float4 pa[kTR];
 #pragma unroll
-      for (int jj = 0; jj < D16; ++jj) {
-        n[jj] = fmaf(at, kk[jj], n[jj]);
-        dn = fmaf(n[jj], qq[jj], dn);
+        for (int i = 0; i < kTR; ++i)
+          pa[i] = *reinterpret_cast<const float4*>(
+              sm + L::kP + (kTR * ty + i) * L::kPRow + s0 + ss);
 #pragma unroll
-        for (int j = 0; j < kMRowsT; ++j) {
-          c[j][jj] = fmaf(av[j], kk[jj], c[j][jj]);
-          num[j] = fmaf(c[j][jj], qq[jj], num[j]);
+        for (int d = 0; d < 4; ++d) {
+          float bv[D16];
+          m_vcols<D16>(st + (ss + d) * HD, tx, bv);
+#pragma unroll
+          for (int i = 0; i < kTR; ++i) {
+            const float x = f4_at(pa[i], d);
+#pragma unroll
+            for (int q = 0; q < D16; ++q) acc[i][q] = fmaf(x, bv[q], acc[i][q]);
+          }
         }
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) {
-        dn += __shfl_xor_sync(0xffffffffu, dn, off);
-#pragma unroll
-        for (int j = 0; j < kMRowsT; ++j)
-          num[j] += __shfl_xor_sync(0xffffffffu, num[j], off);
-      }
-      const float ft = sm[L::kFs + tt];
-      if (l16 < kMRowsT) {
-        float out = num[0];
-#pragma unroll
-        for (int j = 1; j < kMRowsT; ++j)
-          if (l16 == j) out = num[j];
-        sm[L::kNum + tt * kMBand + rloc + l16] = ft * out;
-      }
-      if (threadIdx.x == 0) sm[L::kDen + tt] = fmaxf(fabsf(ft * dn), 1.f);
     }
-    __syncthreads();                     // the stage and the outputs
-    // y of the chunk: a row of the band's 16 floats a step
-    for (int e = threadIdx.x; e < nt * kMBand; e += kMThreads)
-      yb[(t0 + e / kMBand) * ystep + e % kMBand] =
-          sm[L::kNum + e] / sm[L::kDen + e / kMBand];
+    __syncthreads();                          // stage g's is free
+  }
+  // y = num / max(|den|, 1), den = e (n . q) + sum_s P
+#pragma unroll
+  for (int i = 0; i < kTR; ++i) {
+    const int t = kTR * ty + i;
+    if (t >= nt) continue;
+    const float den = fmaxf(
+        fabsf(sm[L::kE + t] * sm[L::kQn + t] + sm[L::kRs + t]), 1.f);
+    float* yr = a.y + ((static_cast<long long>(b) * a.S + t0 + t) * a.H + h)
+                          * HD;
+    if constexpr (D16 % 4 == 0) {
+#pragma unroll
+      for (int q = 0; q < D16 / 4; ++q)
+        *reinterpret_cast<float4*>(yr + 4 * tx + 64 * q) =
+            make_float4(acc[i][4 * q] / den, acc[i][4 * q + 1] / den,
+                        acc[i][4 * q + 2] / den, acc[i][4 * q + 3] / den);
+    } else {
+#pragma unroll
+      for (int q = 0; q < D16; ++q) yr[tx + 16 * q] = acc[i][q] / den;
+    }
   }
 }
 
-template <int D16>
-int launch_mlstm(const MlstmScanArgs& a, cudaStream_t s) {
-  using L = MSmem<D16>;
+int launch_mlstm_state(const MlstmScanArgs& a, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(
-      mlstm_scan_kernel<D16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L::kBytes);
+      mlstm_scan_state_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      MState::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  mlstm_scan_kernel<D16><<<dim3(D16, a.B * a.H), kMThreads, L::kBytes, s>>>(
-      a);
+  const int ntile = (a.hd + kMTile - 1) / kMTile;
+  mlstm_scan_state_kernel<<<dim3(ntile * ntile, a.B * a.H), kMThreads,
+                            MState::kBytes, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D16>
-int mlstm_blocks_per_sm_t() {
-  using L = MSmem<D16>;
+int launch_mlstm_out(const MlstmScanArgs& a, cudaStream_t s) {
+  using L = MOut<D16>;
+  cudaError_t err = cudaFuncSetAttribute(
+      mlstm_scan_out_kernel<D16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nch = (a.S + kMChunk - 1) / kMChunk;
+  mlstm_scan_out_kernel<D16><<<dim3(nch, a.B * a.H), kMThreads, L::kBytes,
+                               s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D16>
+int mlstm_out_blocks_per_sm_t() {
+  using L = MOut<D16>;
   int n = 0;
   cudaError_t err = cudaFuncSetAttribute(
-      mlstm_scan_kernel<D16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mlstm_scan_out_kernel<D16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       L::kBytes);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, mlstm_scan_kernel<D16>, kMThreads, L::kBytes);
+        &n, mlstm_scan_out_kernel<D16>, kMThreads, L::kBytes);
   return err == cudaSuccess ? n : 0;
 }
 
 template <int D16>
-int mlstm_smem_t() {
-  return MSmem<D16>::kBytes;
+int mlstm_out_smem_t() {
+  return MOut<D16>::kBytes;
 }
 
 // ------------------------------------------------------------------ sLSTM
+// The cell update's short forms, in place of the accurate expf, log1pf,
+// tanhf and IEEE divisions: e^x as ex2.approx of x log2(e), 1 / x by
+// rcp.approx and one Newton step, and log1p by a series that keeps its
+// relative accuracy down to e = 0.
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// 1 / x for finite x in [1, 2^127]
+__device__ __forceinline__ float fast_rcp(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return fmaf(fmaf(-x, r, 1.f), r, r);
+}
+
+__device__ __forceinline__ float fast_exp(float x) {
+  return ex2_approx(x * kLog2e);
+}
+
+// log(1 + e) for e in [0, 1]: 2 atanh(s), s = e / (2 + e) <= 1/3, by its
+// series to s^15 (the next term is below 2^-25 of the sum)
+__device__ __forceinline__ float fast_log1p(float e) {
+  const float s = e * fast_rcp(2.f + e);
+  const float w = s * s;
+  float p = 1.f / 15.f;
+  p = fmaf(p, w, 1.f / 13.f);
+  p = fmaf(p, w, 1.f / 11.f);
+  p = fmaf(p, w, 1.f / 9.f);
+  p = fmaf(p, w, 1.f / 7.f);
+  p = fmaf(p, w, 1.f / 5.f);
+  p = fmaf(p, w, 1.f / 3.f);
+  p = fmaf(p, w, 1.f);
+  return 2.f * s * p;
+}
+
+__device__ __forceinline__ float fast_log_sigmoid(float x) {
+  return fminf(x, 0.f) - fast_log1p(fast_exp(-fabsf(x)));
+}
+
+// tanh z = 1 - 2 / (1 + e^{2z}), e^{2z} capped at 2^126
+__device__ __forceinline__ float fast_tanh(float z) {
+  return 1.f - 2.f * fast_rcp(1.f + ex2_approx(fminf(2.f * kLog2e * z,
+                                                      126.f)));
+}
+
+// 1 / (1 + e^{-x}), e^{-x} capped at 2^126
+__device__ __forceinline__ float fast_sigmoid(float x) {
+  return fast_rcp(1.f + ex2_approx(fminf(-kLog2e * x, 126.f)));
+}
+
 template <int D16>
 constexpr int kSThreads = 32 * 2 * D16;    // a warp a row: hd / 8 rows
 
@@ -611,15 +1017,16 @@ __global__ void __launch_bounds__(kSThreads<D16>, 1)
         if (cell) {
           const float pi = pre_s[cb][0][cr], pf = pre_s[cb][1][cr];
           const float pz = pre_s[cb][2][cr], po = pre_s[cb][3][cr];
-          const float lf = log_sigmoid(pf);
+          const float lf = fast_log_sigmoid(pf);
           const float mf = __fadd_rn(lf, m);
           const float m_new = fmaxf(mf, pi);
-          const float ip = expf(__fsub_rn(pi, m_new));
-          const float fp = expf(__fsub_rn(mf, m_new));
-          c = __fadd_rn(__fmul_rn(fp, c), __fmul_rn(ip, tanhf(pz)));
+          const float ip = fast_exp(__fsub_rn(pi, m_new));
+          const float fp = fast_exp(__fsub_rn(mf, m_new));
+          c = __fadd_rn(__fmul_rn(fp, c), __fmul_rn(ip, fast_tanh(pz)));
           n = __fadd_rn(__fmul_rn(fp, n), ip);
-          const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-po)));
-          const float hn = __fdiv_rn(__fmul_rn(sig, c), fmaxf(n, 1.f));
+          const float sig = fast_sigmoid(po);
+          const float hn =
+              __fmul_rn(__fmul_rn(sig, c), fast_rcp(fmaxf(n, 1.f)));
           m = m_new;
           hloc[cr][cb] = hn;
           if (cvalid) yp[t * ystep] = hn;
@@ -724,12 +1131,26 @@ bool good_hd(int hd) { return hd % 16 == 0 && hd >= 16 && hd <= 256; }
 // Plain C entry points for ctypes. A launch returns cudaGetLastError()
 // after it (0 = cudaSuccess), kBadHeadDim or kBadGrid; it is asynchronous
 // on `stream`.
-extern "C" int mlstm_scan_f32(const MlstmScanArgs* a, void* stream) {
+// The mLSTM: the states pass, then the outputs pass (mlstm_scan_f32), or
+// either alone (to time them apart). The scratch buffers of the args hold
+// ceil(S / kMChunk) chunks (xlstm_scan_layout(0)).
+extern "C" int mlstm_scan_state_f32(const MlstmScanArgs* a, void* stream) {
+  if (!good_hd(a->hd)) return kBadHeadDim;
+  if (static_cast<long long>(a->B) * a->H > kMaxGridYZ) return kBadGrid;
+  return launch_mlstm_state(*a, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int mlstm_scan_out_f32(const MlstmScanArgs* a, void* stream) {
   const int hd = a->hd;
   if (!good_hd(hd)) return kBadHeadDim;
   if (static_cast<long long>(a->B) * a->H > kMaxGridYZ) return kBadGrid;
-  XLSTM_HD_CASES(launch_mlstm, *a, static_cast<cudaStream_t>(stream))
+  XLSTM_HD_CASES(launch_mlstm_out, *a, static_cast<cudaStream_t>(stream))
   return kBadHeadDim;
+}
+
+extern "C" int mlstm_scan_f32(const MlstmScanArgs* a, void* stream) {
+  const int err = mlstm_scan_state_f32(a, stream);
+  return err ? err : mlstm_scan_out_f32(a, stream);
 }
 
 extern "C" int slstm_scan_f32(const SlstmScanArgs* a, void* stream) {
@@ -741,17 +1162,29 @@ extern "C" int slstm_scan_f32(const SlstmScanArgs* a, void* stream) {
   return kBadHeadDim;
 }
 
-// mLSTM blocks an SM holds at once, and its dynamic shared memory a block
-// in bytes, at head dim hd (0 on error).
-extern "C" int mlstm_scan_blocks_per_sm(int hd) {
+// Blocks an SM holds at once of the mLSTM's states pass (which 0) or
+// outputs pass (1), and their dynamic shared memory a block in bytes, at
+// head dim hd (0 on error).
+extern "C" int mlstm_scan_blocks_per_sm(int hd, int which) {
   if (!good_hd(hd)) return 0;
-  XLSTM_HD_CASES(mlstm_blocks_per_sm_t)
+  if (which == 0) {
+    int n = 0;
+    cudaError_t err = cudaFuncSetAttribute(
+        mlstm_scan_state_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        MState::kBytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, mlstm_scan_state_kernel, kMThreads, MState::kBytes);
+    return err == cudaSuccess ? n : 0;
+  }
+  XLSTM_HD_CASES(mlstm_out_blocks_per_sm_t)
   return 0;
 }
 
-extern "C" int mlstm_scan_smem_bytes(int hd) {
+extern "C" int mlstm_scan_smem_bytes(int hd, int which) {
   if (!good_hd(hd)) return 0;
-  XLSTM_HD_CASES(mlstm_smem_t)
+  if (which == 0) return MState::kBytes;
+  XLSTM_HD_CASES(mlstm_out_smem_t)
   return 0;
 }
 
@@ -763,11 +1196,11 @@ extern "C" int slstm_scan_max_active_clusters(int hd, int batch, int heads) {
   return 0;
 }
 
-// The layouts built: which 0 gives the mLSTM's warps a block, 1 its rows
-// of C a thread, 2 the sLSTM's blocks a cluster, 3 its batch rows a
-// cluster.
+// The layouts built: which 0 gives the mLSTM's chunk length, 1 the side
+// of its states pass's C tile, 2 the sLSTM's blocks a cluster, 3 its batch
+// rows a cluster.
 extern "C" int xlstm_scan_layout(int which) {
-  const int v[4] = {kMWarps, kMRowsT, kSCluster, kSBatch};
+  const int v[4] = {kMChunk, kMTile, kSCluster, kSBatch};
   return which >= 0 && which < 4 ? v[which] : 0;
 }
 

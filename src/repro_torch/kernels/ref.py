@@ -353,6 +353,94 @@ def mlstm_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.stack(ys, dim=1)
 
 
+def _mlstm_chunks(t: torch.Tensor, chunk: int, fill: float = 0.0
+                  ) -> torch.Tensor:
+    """[B,S,H,...] -> [B,H,N,chunk,...]: S cut into N chunks of `chunk`
+    steps, the last padded with `fill`."""
+    bsz, s, nh = t.shape[:3]
+    nch = -(-s // chunk)
+    pad = t.new_full((bsz, nch * chunk - s, *t.shape[2:]), fill)
+    t = torch.cat([t, pad], dim=1).reshape(bsz, nch, chunk, *t.shape[2:])
+    return t.movedim(3, 1)
+
+
+def _mlstm_chunk_gates(i: torch.Tensor, f: torch.Tensor, chunk: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunkwise mLSTM's gate terms, in float64 (a chunk-local sum of
+    up to `chunk` log forget gates keeps its small differences there): b
+    [B,H,N,L] the chunk-local inclusive cumulative sum of log_sigmoid(f),
+    and c = i - b, -inf at the steps past S. log_sigmoid itself is taken
+    in the inputs' dtype, as the step does."""
+    lf = _mlstm_chunks(F.logsigmoid(f.to(_scan_dtype(f))), chunk).double()
+    b = lf.cumsum(-1)
+    i = _mlstm_chunks(i.double(), chunk, float("-inf"))
+    return b, i - b
+
+
+def mlstm_chunk_states_ref(k: torch.Tensor, v: torch.Tensor, i: torch.Tensor,
+                           f: torch.Tensor, chunk: int
+                           ) -> tuple[torch.Tensor, ...]:
+    """The chunkwise mLSTM's first pass (csrc/xlstm_scan.cu,
+    mlstm_scan_state_kernel): the stabilised state before each chunk's
+    first step, k, v [B,S,H,hd]; i, f [B,S,H] -> C [B,H,N,hd,hd] (v row,
+    k column), n [B,H,N,hd], m [B,H,N] (chunk 0's: zeros), N = ceil(S /
+    chunk); f32 (f64 for f64 inputs). For a chunk with state (C, n, m),
+    M = max(m, max_s c_s) over its steps, C' = e C + sum_s w_s v_s k_s^T
+    and n' = e n + sum_s w_s k_s with w_s = exp(c_s - M), e = exp(m - M)
+    (both <= 1), and m' = b_last + M rounded to the working dtype."""
+    bsz, s, nh, hd = k.shape
+    dt = _scan_dtype(k)
+    kc, vc = (_mlstm_chunks(t.to(dt), chunk) for t in (k, v))
+    b, c = _mlstm_chunk_gates(i, f, chunk)
+    nch = b.shape[2]
+    cs = [k.new_zeros((bsz, nh, hd, hd), dtype=dt)]
+    ns = [k.new_zeros((bsz, nh, hd), dtype=dt)]
+    ms = [k.new_zeros((bsz, nh), dtype=dt)]
+    for j in range(nch - 1):
+        big = torch.maximum(ms[-1].double(), c[:, :, j].amax(-1))
+        w = torch.exp((c[:, :, j] - big[..., None]).to(dt))
+        e = torch.exp((ms[-1].double() - big).to(dt))
+        wv = w[..., None] * vc[:, :, j]
+        cs.append(e[..., None, None] * cs[-1]
+                  + torch.einsum("bhsv,bhsk->bhvk", wv, kc[:, :, j]))
+        ns.append(e[..., None] * ns[-1]
+                  + torch.einsum("bhs,bhsk->bhk", w, kc[:, :, j]))
+        ms.append((b[:, :, j, -1] + big).to(dt))
+    return torch.stack(cs, 2), torch.stack(ns, 2), torch.stack(ms, 2)
+
+
+def mlstm_scan_chunkwise_ref(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, i: torch.Tensor,
+                             f: torch.Tensor, chunk: int) -> torch.Tensor:
+    """mLSTM over time from a zero state in the chunkwise form the kernels
+    take (csrc/xlstm_scan.cu): the chunk-start states
+    (`mlstm_chunk_states_ref`), then every chunk's outputs at once, as
+    mlstm_scan_out_kernel forms them. For step t of a chunk with state (C,
+    n, m): M_t = max(m, max_{s<=t} c_s), D_ts = exp(c_s - M_t) (s <= t),
+    e_t = exp(m - M_t); num_t = e_t C q_t + sum_s D_ts (k_s . q_t) v_s,
+    den_t = e_t n . q_t + sum_s D_ts (k_s . q_t), y_t = num_t /
+    max(|den_t|, 1). Equals `mlstm_scan_ref` up to rounding (its m_t is
+    b_t + M_t). Same arguments as `mlstm_scan_ref`, plus the chunk length;
+    f32 (f64 for f64 inputs)."""
+    bsz, s, nh, hd = q.shape
+    dt = _scan_dtype(q)
+    cst, nst, mst = mlstm_chunk_states_ref(k, v, i, f, chunk)
+    qc, kc, vc = (_mlstm_chunks(t.to(dt), chunk) for t in (q, k, v))
+    _, c = _mlstm_chunk_gates(i, f, chunk)
+    big = torch.maximum(mst.double()[..., None], c.cummax(-1).values)
+    causal = torch.ones(chunk, chunk, dtype=torch.bool,
+                        device=q.device).tril()
+    d = torch.where(causal, torch.exp((c[..., None, :] - big[..., None])
+                                      .to(dt)), 0.0)
+    e = torch.exp((mst.double()[..., None] - big).to(dt))
+    p = torch.einsum("bhntk,bhnsk->bhnts", qc, kc) * d
+    den = e * torch.einsum("bhntk,bhnk->bhnt", qc, nst) + p.sum(-1)
+    num = e[..., None] * torch.einsum("bhntk,bhnvk->bhntv", qc, cst) + \
+        torch.einsum("bhnts,bhnsv->bhntv", p, vc)
+    y = num / torch.clamp(den.abs(), min=1.0)[..., None]
+    return y.movedim(1, 3).reshape(bsz, -1, nh, hd)[:, :s]
+
+
 def slstm_scan_ref(pre: torch.Tensor, w_r: torch.Tensor,
                    bias: torch.Tensor) -> torch.Tensor:
     """sLSTM over time from a zero state: pre [B,S,4,H,hd]; w_r

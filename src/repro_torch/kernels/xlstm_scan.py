@@ -15,17 +15,23 @@ products, `ref.slstm_scan_bwd_ref`). Nothing sends a CUDA tensor to a
 plain version.
 
 The kernels take f32 in and out (the JAX mixers cast to f32 before the
-scan) and a head dim that is a multiple of 16 up to 256. Under autograd
-the mLSTM's forward is the inference kernel, its output saved beside its
-inputs (the backward recomputes C from zero); the sLSTM's keeps the
-trails its backward reads (`slstm_scan_kernel<hd/16, true>`). The sLSTM's
-recurrent weights' and bias's gradients are plain products over the
-backward kernel's output (`ref.slstm_grad_weights`: f32 `einsum`, no
-kernel), as the JAX package leaves them to XLA.
+scan) and a head dim that is a multiple of 16 up to 256. The mLSTM is
+the chunkwise form in two kernels (`ref.mlstm_scan_chunkwise_ref` is its
+plain mirror): `mlstm_scan_state_kernel` walks the chunks of
+`mlstm_chunk()` steps and leaves the state before each in scratch that
+the wrapper allocates (C^T, n, m: [B*H, N, hd, hd], [B*H, N, hd],
+[B*H, N]), then `mlstm_scan_out_kernel` forms every chunk's outputs at
+once. Under autograd the mLSTM's forward is the same, its output saved
+beside its inputs (the backward recomputes C from zero); the sLSTM's
+keeps the trails its backward reads (`slstm_scan_kernel<hd/16, true>`).
+The sLSTM's recurrent weights' and bias's gradients are plain products
+over the backward kernel's output (`ref.slstm_grad_weights`: f32
+`einsum`, no kernel), as the JAX package leaves them to XLA.
 
-Launch counts, one a call each: `mlstm_scan.launches`,
-`slstm_scan.launches` (of which `slstm_scan.trail_launches` kept the
-trails), `mlstm_scan_bwd.prep_launches`, `.launches` (the two passes) and
+Launch counts, one a call each: `mlstm_scan.launches` (a launch of each
+of its two kernels), `slstm_scan.launches` (of which
+`slstm_scan.trail_launches` kept the trails),
+`mlstm_scan_bwd.prep_launches`, `.launches` (the two passes) and
 `.reduce_launches`, `slstm_scan_bwd.launches`.
 """
 from __future__ import annotations
@@ -45,7 +51,8 @@ MAX_HEAD_DIM = 256              # and a multiple of 16 (csrc/xlstm_scan.cu)
 
 class _MlstmArgs(ctypes.Structure):
     """Mirror of `MlstmScanArgs` in csrc/xlstm_scan.cu."""
-    _fields_ = ([(n, ctypes.c_void_p) for n in ("q", "k", "v", "i", "f", "y")]
+    _fields_ = ([(n, ctypes.c_void_p) for n in
+                 ("q", "k", "v", "i", "f", "y", "c_st", "n_st", "m_st")]
                 + [(n, ctypes.c_int) for n in ("B", "S", "H", "hd")])
 
 
@@ -85,13 +92,15 @@ def _bwd_lib() -> ctypes.CDLL:
 def load(path) -> ctypes.CDLL:
     """A built xlstm_scan library with its C entry points typed."""
     lib = ctypes.CDLL(str(path))
-    lib.mlstm_scan_f32.argtypes = [ctypes.POINTER(_MlstmArgs),
-                                   ctypes.c_void_p]
+    for name in ("mlstm_scan_f32", "mlstm_scan_state_f32",
+                 "mlstm_scan_out_f32"):
+        getattr(lib, name).argtypes = [ctypes.POINTER(_MlstmArgs),
+                                       ctypes.c_void_p]
     lib.slstm_scan_f32.argtypes = [ctypes.POINTER(_SlstmArgs),
                                    ctypes.c_void_p]
     # the rest take ints and return an int (ctypes' default restype)
-    for name, nargs in (("mlstm_scan_blocks_per_sm", 1),
-                        ("mlstm_scan_smem_bytes", 1),
+    for name, nargs in (("mlstm_scan_blocks_per_sm", 2),
+                        ("mlstm_scan_smem_bytes", 2),
                         ("slstm_scan_max_active_clusters", 3),
                         ("xlstm_scan_layout", 1)):
         getattr(lib, name).argtypes = [ctypes.c_int] * nargs
@@ -174,18 +183,38 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _mlstm_fwd(q, k, v, i, f)
 
 
-def _mlstm_fwd(q, k, v, i, f) -> torch.Tensor:
-    """Launch mlstm_scan_kernel on checked CUDA operands -> y."""
+def mlstm_chunk() -> int:
+    """The chunk length L the mLSTM kernels were built for."""
+    return _lib().xlstm_scan_layout(0)
+
+
+def _mlstm_args(q, k, v, i, f, chunk: int) -> tuple:
+    """The C arguments of one mLSTM call on checked CUDA operands, chunks
+    of `chunk` steps: (args, y, kept), `kept` the operands and the scratch
+    the args point at (the state before each chunk: C^T, n, m), to be kept
+    alive until the launches are queued."""
     bsz, s, nh, hd = q.shape
-    q, k, v, i, f = (_aligned(t) for t in (q, k, v, i, f))
-    y = torch.empty((bsz, s, nh, hd), dtype=torch.float32, device=q.device)
-    args = _MlstmArgs(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      i.data_ptr(), f.data_ptr(), y.data_ptr(),
+    ops = [_aligned(t) for t in (q, k, v, i, f)]
+    nch = -(-s // chunk)
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa: E731
+                                     device=q.device)
+    y = new(bsz, s, nh, hd)
+    scratch = [new(bsz * nh, nch, hd, hd), new(bsz * nh, nch, hd),
+               new(bsz * nh, nch)]
+    args = _MlstmArgs(*(t.data_ptr() for t in ops + [y] + scratch),
                       bsz, s, nh, hd)
+    return args, y, ops + scratch
+
+
+def _mlstm_fwd(q, k, v, i, f) -> torch.Tensor:
+    """Launch mlstm_scan_state_kernel, then mlstm_scan_out_kernel, on
+    checked CUDA operands -> y."""
+    args, y, kept = _mlstm_args(q, k, v, i, f, mlstm_chunk())
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _raise_on(_lib().mlstm_scan_f32(ctypes.byref(args), stream),
               "mlstm_scan")
     mlstm_scan.launches += 1
+    del kept
     return y
 
 

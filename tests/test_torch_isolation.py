@@ -1,5 +1,6 @@
-"""The port stands alone: no module of `repro_torch`, nor `chip_smoke.py`,
-imports JAX or the JAX package, statically or at import time."""
+"""The port stands alone: no module of `repro_torch`, nor `chip_smoke.py`
+or `xlstm_stamps.py`, imports JAX or the JAX package, statically or at
+import time."""
 import ast
 import os
 import pathlib
@@ -12,7 +13,8 @@ pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                      ROOT / "xlstm_stamps.py"]
 
 
 def _modules():
