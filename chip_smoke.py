@@ -2,16 +2,17 @@
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
 
   python3 chip_smoke.py
-  python3 chip_smoke.py --ab PARENT   # moe_gemm, the selective scan and
-                                      # the xLSTM scans against another
-                                      # checkout
+  python3 chip_smoke.py --ab PARENT   # moe_gemm, the selective scan,
+                                      # the xLSTM scans and their
+                                      # backwards against another checkout
 
 Run from the repository root on a machine with a Hopper card and `nvcc`.
 With `--ab PARENT` (a checkout of another commit, e.g. unpacked from `git
 archive` into a directory `.gitignore` lists) it only compares the bf16
 `moe_gemm` kernels of the two trees (`compare_trees`), their selective
-scans (`compare_scans`) and their xLSTM forward scans (`compare_xlstm`),
-each scan through its own tree's wrapper. With no argument,
+scans (`compare_scans`), their xLSTM forward scans (`compare_xlstm`) and
+the xLSTM backwards (`compare_xlstm_bwd`), each through its own tree's
+wrapper. With no argument,
 phases, in order; any failure raises and exits non-zero (no phase catches
 its own failure):
 
@@ -25,7 +26,8 @@ its own failure):
      (registers, spills, static smem, warnings) for every kernel, the bf16
      tensor-core ones included (the xLSTM scans and their backwards at hd
      192 and 16 of their 16 head dims), the mLSTM's layout, dynamic smem
-     and blocks an SM, its backward's, the sLSTM's cluster layout and how
+     and blocks an SM, its backward's (the states pass's and the chunk
+     kernel's), the sLSTM's cluster layout and how
      many clusters the card holds at once, its backward's, the flash
      kernels' dynamic smem
      (forward, dq and dk/dv, each in both routes), the selective scan's
@@ -208,17 +210,23 @@ its own failure):
      the chunkwise form's own work), the mLSTM's two kernels each alone
      behind the sleep and its chunkwise mirror (several PyTorch calls);
      the times again at the train shape 8 x 2048; then the
-     backward kernels (the mLSTM's prep, two passes and reduce; the
+     backward kernels (the mLSTM's four in the chunkwise form, prep,
+     states, chunks and gates, on the chunk states and den' its keeping
+     forward left, whose y is the inference kernels' bit for bit; the
      sLSTM's reverse walk, after the trail-keeping forward, held against
-     `slstm_scan_trails_ref`) against `mlstm_scan_bwd_ref` and
-     `slstm_scan_bwd_ref` at every XLSTM_BWD_CASES shape (XLSTM_CASES,
-     the path's S=32,768 at B=1, and the train cell's 8 x 2048), a dy of
-     seeded noise, two calls bit for bit, the share of steps past each
-     clamp (|n . q| > 1, n > 1); through the autograd Functions against
-     autograd of the plain scans at small shapes; at S=32,768 each
-     kernel's and the plain f32 version's error against a float64 plain
-     backward; at the train shape the times (CUDA events, and behind a
-     device sleep), us a step, the bound and the plain version's one call;
+     `slstm_scan_trails_ref`) against their plain mirrors
+     (`mlstm_scan_bwd_chunkwise_ref`, `slstm_scan_dpre_affine_ref`) and
+     the step forms `mlstm_scan_bwd_ref` and `slstm_scan_bwd_ref` at
+     every XLSTM_BWD_CASES shape (XLSTM_CASES, the path's S=32,768 at
+     B=1, and the train cell's 8 x 2048), a dy of seeded noise, two calls
+     bit for bit, the share of steps past each clamp (|n . q| > 1, n >
+     1); through the autograd Functions against autograd of the plain
+     scans at small shapes; at S=32,768 each kernel's, its mirror's and
+     the step form's error against a float64 plain backward; at the train
+     shape the times (CUDA events, and behind a device sleep; the
+     mLSTM's four kernels each alone behind the sleep), us a step, the
+     bounds (the mLSTM's also its chunkwise work's), the plain version's
+     and the mirror's one call;
  27. slice 12's main path: `make_prefill_step` on full-width xlstm-125m
      (12 layers: 9 mLSTM, 3 sLSTM), random bf16 weights from a seeded
      generator, B=8 x S=32,768 (the prefill_32k sequence; B cut from 32,
@@ -236,7 +244,7 @@ its own failure):
      layers, 9 mLSTM + 3 sLSTM), random bf16 weights from a seeded
      generator, f32 AdamW, 6 steps of B=8 x S=2048 (the training context
      of arXiv:2405.04517), with the launch counts set to 0 just before and
-     read just after: a step runs 9 `mlstm_scan` and each of its three
+     read just after: a step runs 9 `mlstm_scan` and each of its four
      backward kernels 9 times, 3 trail-keeping `slstm_scan` and 3 of its
      backward, and no other kernel of the port; step wall, tokens/s, peak
      memory, then a torch.profiler window over two more steps;
@@ -258,6 +266,7 @@ import gc
 import hashlib
 import importlib
 import importlib.util
+import inspect
 import json
 import math
 import re
@@ -289,11 +298,11 @@ from repro_torch.kernels.moe_gemm import (  # noqa: E402
     load as mg_load, moe_gemm, moe_gemm_bwd_dw, moe_gemm_bwd_dx)
 from repro_torch.kernels.ref import (  # noqa: E402
     attention_ref, flash_attention_bwd_ref, flash_attention_ref,
-    mlstm_scan_bwd_ref, mlstm_scan_chunkwise_ref, mlstm_scan_ref,
-    moe_gemm_bwd_ref, moe_gemm_dw_ref,
-    moe_gemm_dx_ref, moe_gemm_ref, selective_scan_bwd_ref,
-    selective_scan_ref, slstm_scan_bwd_ref, slstm_scan_ref,
-    slstm_scan_trails_ref, ssm_scan_ref)
+    mlstm_scan_bwd_chunkwise_ref, mlstm_scan_bwd_ref,
+    mlstm_scan_chunkwise_ref, mlstm_scan_ref, moe_gemm_bwd_ref,
+    moe_gemm_dw_ref, moe_gemm_dx_ref, moe_gemm_ref, selective_scan_bwd_ref,
+    selective_scan_ref, slstm_scan_bwd_ref, slstm_scan_dpre_affine_ref,
+    slstm_scan_dpre_ref, slstm_scan_ref, slstm_scan_trails_ref, ssm_scan_ref)
 from repro_torch.kernels import ssm_scan as sscan  # noqa: E402
 from repro_torch.kernels.ssm_scan import (  # noqa: E402
     selective_scan, selective_scan_bwd, ssm_scan)
@@ -607,7 +616,7 @@ def ptxas_report(lib: Path, only="") -> None:
                         f"{'bf16' if k.group(2) != 'f' else 'f32'}{params}>")
             elif t and t.group(1) in ("mlstm_scan_out_kernel",
                                       "slstm_scan_kernel",
-                                      "mlstm_bwd_kernel",
+                                      "mlstm_bwd_chunk_kernel",
                                       "slstm_scan_bwd_kernel"):
                 trails = ("" if t.group(3) is None else
                           ", trails" if t.group(3) == "1" else ", no trails")
@@ -919,7 +928,8 @@ def compare_trees(parent: Path) -> int:
     against the parent's; times in turns (parent, change, change, parent)
     of the forward, dx and dw of one layer at the MoE and Jamba train
     shapes, beside `torch.bmm` on the same operands and their bound, and
-    of the dw K sweep; then the scans (`compare_scans`, `compare_xlstm`)."""
+    of the dw K sweep; then the scans (`compare_scans`, `compare_xlstm`)
+    and the xLSTM backwards (`compare_xlstm_bwd`)."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout
@@ -1009,8 +1019,10 @@ def compare_trees(parent: Path) -> int:
     dw_sweep({tag: fns[tag]["moe_gemm_bwd_dw"] for tag in fns}, bf16_fps,
              sms)
     compare_scans(parent_scan)
-    compare_xlstm(tree_module(parent, "kernels.xlstm_scan",
-                              "parent_repro_torch"))
+    parent_xls = tree_module(parent, "kernels.xlstm_scan",
+                             "parent_repro_torch")
+    compare_xlstm(parent_xls)
+    compare_xlstm_bwd(parent_xls)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -1147,6 +1159,60 @@ def compare_xlstm(parent_xls) -> None:
                   + f"; card just after: {card_state()}")
             del args
             torch.cuda.empty_cache()
+
+
+def mlstm_bwd_call(mod, args, y, dy):
+    """One mLSTM backward through tree `mod`'s wrapper: on the chunk states
+    its own keeping forward leaves, where its backward reads them, or, for
+    a tree whose backward takes none, on the operands alone."""
+    if "states" in inspect.signature(mod.mlstm_scan_bwd).parameters:
+        _, states = mod._mlstm_fwd(*args, keep=True)
+        return lambda: mod.mlstm_scan_bwd(*args, y, dy, states)
+    return lambda: mod.mlstm_scan_bwd(*args, y, dy)
+
+
+def compare_xlstm_bwd(parent_xls) -> None:
+    """`--ab`'s xLSTM backward part: this tree's two backwards and the
+    parent checkout's, each through its own tree's wrapper and build, at
+    the train shape on one forward's y and trails: each against the plain
+    version (`mlstm_scan_bwd_ref`; `slstm_scan_dpre_ref`, the sLSTM
+    kernel's dpre) and the two against each other; then times in turns
+    (parent, change, change, parent; two runs of 20 calls), with the
+    card's state just after each."""
+    gen = torch.Generator("cuda").manual_seed(17)
+    mods = {"parent": parent_xls, "change": xls}
+    case = XLSTM_BWD_CASES["train"]
+    for kind in ("mlstm_scan_bwd", "slstm_scan_bwd"):
+        args = xlstm_inputs(kind[:-4], case, gen)
+        dy = torch.randn(case, generator=gen, device="cuda")
+        with torch.no_grad():
+            if kind == "mlstm_scan_bwd":
+                y = xls.mlstm_scan(*args)
+                calls = {tag: mlstm_bwd_call(m, args, y, dy)
+                         for tag, m in mods.items()}
+                want = mlstm_scan_bwd_ref(*args, y, dy)
+            else:
+                trails = xls._slstm_fwd(*args, trails=True)
+                calls = {tag: (lambda m=m: (m._slstm_bwd(args[1], dy,
+                                                         trails[1:]),))
+                         for tag, m in mods.items()}
+                want = (slstm_scan_dpre_ref(args[1], dy, trails[1:]),)
+            got = {tag: fn() for tag, fn in calls.items()}
+            print(f"[ab] {kind} train {case} f32: max |kernel - plain| / "
+                  f"max |plain| " + ", ".join(
+                      f"{tag} {grads_rel_err(g, want):.3e}"
+                      for tag, g in got.items())
+                  + f"; change vs parent "
+                  f"{grads_rel_err(got['change'], got['parent']):.3e}")
+            del got, want
+            runs = [time_turns(calls) for _ in range(2)]
+        print(f"[ab] {kind} train {case} f32, ms (two runs of 20 calls each "
+              f"in turns): " + "; ".join(
+                  ", ".join(f"{tag} {ms:.4f}" for tag, ms in t.items())
+                  + f" (change / parent {t['change'] / t['parent']:.4f})"
+                  for t in runs) + f"; card just after: {card_state()}")
+        del args, dy, calls
+        torch.cuda.empty_cache()
 
 
 def attn_inputs(case: AttnCase, dtype, gen):
@@ -2313,6 +2379,23 @@ def mlstm_passes(args) -> dict:
             "outputs": run("mlstm_scan_out_f32")}
 
 
+def mlstm_bwd_passes(args, y, dy, states) -> dict:
+    """The mLSTM backward's four kernels of one call on `args`, each alone
+    through its C entry point, on one call's operands and scratch (the
+    closures keep them; each kernel reads what those before it left)."""
+    cargs, grads, kept = xls._mlstm_bwd_args(*args, y, dy, states)
+    lib = xls._bwd_lib()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(entry):
+        def fn():
+            err = getattr(lib, entry)(ctypes.byref(cargs), stream)
+            assert err == 0, lib.xlstm_scan_bwd_error_string(err).decode()
+            return grads, kept
+        return fn
+    return {entry[10:-4]: run(entry) for entry in xls.MLSTM_BWD_ENTRIES}
+
+
 def check_xlstm(gen, mem_bps: float, f32_fps: float) -> dict:
     """Both xLSTM scans' kernels against their plain versions on the card,
     in f32, at every XLSTM_CASES shape (within XLSTM_TOL), two calls bit
@@ -2416,14 +2499,22 @@ def check_xlstm(gen, mem_bps: float, f32_fps: float) -> dict:
     return out
 
 
-def xlstm_bwd_bound(kind: str, case, mem_bps: float, f32_fps: float) -> dict:
-    """Least ms for one backward at (B, S, H, hd), as `xlstm_bound`. mLSTM
-    (three kernels): reads q, k, v, y, dy, i, f, writes dq, dk, dv, di,
-    df; pass A takes 2 FMAs an entry of C a step, pass B 3, and the n
-    chains, n . q, dy . y and the bands' sums about 10 flops a column.
-    sLSTM (the kernel): reads the p trail, c, n, m, dy and W, writes
-    dpre; the transposed products, 4 hd^2 FMAs a (b, h, step), and the
-    cell's backward, about 60 operations a row (its transcendentals
+def xlstm_bwd_bound(kind: str, case, mem_bps: float, f32_fps: float,
+                    chunk: int = 0) -> dict:
+    """Least ms for one backward at (B, S, H, hd), as `xlstm_bound`. mLSTM:
+    reads q, k, v, y, dy, i, f, writes dq, dk, dv, di, df; the step form's
+    work, 10 hd^2 + 10 hd flops a (b, s, h) (2 FMAs an entry of C a step
+    forward, 3 in reverse, the n chains and the sums). With `chunk` also
+    the bound of the work the chunkwise kernels do (`chunk_*`): a chunk 4
+    L hd^2 FMAs (the reverse walk, C^T dnum, dC^T v, dC k) and 5 causal
+    products of L (L + 1) / 2 pairs by hd (dy v^T, q k^T, A k, A^T q, P^T
+    dnum); its bytes add den' read, the chunk states read, and the state
+    gradients written and read. Both forms compute the function, so
+    `bound_ms` (and `bound_by`, `gflop`, `bytes_bound_ms`) is the smaller
+    of the two; `step_*` keeps the step form's and `chunk_*` the chunkwise
+    form's. sLSTM (the kernel): reads the p trail, c, n, m, dy and W,
+    writes dpre; the transposed products, 4 hd^2 FMAs a (b, h, step), and
+    the cell's backward, about 60 operations a row (its transcendentals
     counted as one each)."""
     b, s, h, hd = case
     n = b * s * h
@@ -2434,9 +2525,27 @@ def xlstm_bwd_bound(kind: str, case, mem_bps: float, f32_fps: float) -> dict:
         nbytes = 4 * (12 * n * hd + 4 * h * hd * hd)
         flops = n * (8 * hd * hd + 60 * hd)
     t_bytes, t_ops = nbytes / mem_bps, flops / f32_fps
-    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes_bound_ms": 1e3 * t_bytes, "gflop": flops / 1e9}
+    out = {"bound_ms": 1e3 * max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes_bound_ms": 1e3 * t_bytes, "gflop": flops / 1e9}
+    if chunk:
+        nch = -(-s // chunk)
+        lens = [chunk] * (s // chunk) + [s % chunk] * (s % chunk > 0)
+        pairs = sum(L_ * (L_ + 1) // 2 for L_ in lens)
+        c_flops = 2 * b * h * (4 * nch * chunk * hd * hd + 5 * pairs * hd)
+        c_bytes = nbytes + 4 * n + 4 * b * h * nch * (
+            (hd * hd + hd + 1) + 2 * (hd * hd + hd))
+        tb, to = c_bytes / mem_bps, c_flops / f32_fps
+        out.update({"chunk_bound_ms": 1e3 * max(tb, to),
+                    "chunk_bound_by": "bytes" if tb >= to else "operations",
+                    "chunk_gflop": c_flops / 1e9,
+                    "chunk_bytes_bound_ms": 1e3 * tb})
+        out.update({f"step_{k_}": out[k_] for k_ in (
+            "bound_ms", "bound_by", "gflop", "bytes_bound_ms")})
+        if out["chunk_bound_ms"] < out["bound_ms"]:
+            out.update({k_: out[f"chunk_{k_}"] for k_ in (
+                "bound_ms", "bound_by", "gflop", "bytes_bound_ms")})
+    return out
 
 
 def mlstm_branches(q, k, v, i, f) -> tuple[torch.Tensor, ...]:
@@ -2476,18 +2585,26 @@ def check_xlstm_bwd(gen, mem_bps: float, f32_fps: float) -> dict:
     """Both xLSTM backwards on the card against their plain versions, in
     f32, at every XLSTM_BWD_CASES shape with a dy of seeded noise (within
     XLSTM_BWD_TOL of each gradient's largest magnitude), two calls bit for
-    bit; the sLSTM's trail-keeping forward against
-    `slstm_scan_trails_ref` and its y bit for bit against the inference
-    kernel's; the shares of steps past each clamp and on each arm of the
-    max; at the path's S=32,768 (B=1) each kernel's and the plain f32
-    version's error against a float64 plain backward; through the
+    bit: the mLSTM's four kernels, on the chunk states and den' that its
+    keeping forward left (that forward's y bit for bit the inference
+    kernels'), against their plain mirror `mlstm_scan_bwd_chunkwise_ref`
+    and the step form `mlstm_scan_bwd_ref`; the sLSTM's kernel after the
+    trail-keeping forward (held against `slstm_scan_trails_ref`, its y bit
+    for bit the inference kernel's), its dpre against its mirror
+    `slstm_scan_dpre_affine_ref` and, with the weight products, against
+    `slstm_scan_bwd_ref`; the shares of steps past each clamp and on each
+    arm of the max; at the path's S=32,768 (B=1) each kernel's and the
+    plain f32 versions' error against a float64 plain backward (the
+    kernel's at most XLSTM_F64_FACTOR times the step form's); through the
     autograd Functions against autograd of the plain scans at the small
-    shapes; at the train shape the times (the mLSTM's three kernels
-    through the wrapper, the sLSTM's kernel alone and with the weight
-    products; CUDA events, and behind a device sleep), us a step, the
-    plain version's one call and the bound. Returns {kernel: the train
+    shapes; at the train shape the times (the mLSTM's four kernels through
+    the wrapper and each alone behind a device sleep; the sLSTM's kernel
+    alone and with the weight products; CUDA events, and behind a device
+    sleep), us a step, the plain versions' one call each and the bounds
+    (the mLSTM's also its chunkwise work's). Returns {kernel: the train
     shape's numbers}."""
     out = {}
+    chunk = xls.mlstm_chunk()
     for kind in ("mlstm_scan_bwd", "slstm_scan_bwd"):
         fwd = kind[:-4]
         errs = {}
@@ -2496,13 +2613,19 @@ def check_xlstm_bwd(gen, mem_bps: float, f32_fps: float) -> dict:
             dy = torch.randn(case, generator=gen, device="cuda")
             with torch.no_grad():
                 if kind == "mlstm_scan_bwd":
-                    y = xls.mlstm_scan(*args)
-                    kernel = lambda: xls.mlstm_scan_bwd(*args, y, dy)  # noqa: E731,E501
+                    y, states = xls._mlstm_fwd(*args, keep=True)
+                    assert torch.equal(y, xls.mlstm_scan(*args))
+                    kernel = lambda: xls.mlstm_scan_bwd(  # noqa: E731
+                        *args, y, dy, states)
                     plain = lambda: mlstm_scan_bwd_ref(*args, y, dy)  # noqa: E731,E501
+                    mirror = lambda: mlstm_scan_bwd_chunkwise_ref(  # noqa: E731
+                        *args, y, dy, chunk)
                     past_t, arm_t, tie_t = mlstm_branches(*args)
                     past = past_t.double().mean().item()
                     arm = arm_t.double().mean().item()
-                    clamp = f"|n . q| > 1 at {past:.4f} of steps"
+                    clamp = (f"|n . q| > 1 at {past:.4f} of steps; the "
+                             f"keeping forward's y bit for bit the "
+                             f"inference kernels'")
                 else:
                     trails = xls._slstm_fwd(*args, trails=True)
                     want_tr = slstm_scan_trails_ref(*args)
@@ -2515,6 +2638,8 @@ def check_xlstm_bwd(gen, mem_bps: float, f32_fps: float) -> dict:
                         args[1], dy, trails)
                     plain = lambda: slstm_scan_bwd_ref(  # noqa: E731
                         *args, dy, trails)
+                    mirror = lambda: (slstm_scan_dpre_affine_ref(  # noqa: E731
+                        args[1], dy, trails[1:]),)
                     n_tr, p_tr, m_tr = trails[3], trails[1], trails[4]
                     m_prev = torch.cat([torch.zeros_like(m_tr[:, :1]),
                                         m_tr[:, :-1]], 1)
@@ -2532,14 +2657,18 @@ def check_xlstm_bwd(gen, mem_bps: float, f32_fps: float) -> dict:
                 a.record()
                 want = plain()
                 b.record()
+                mir = mirror()
                 torch.cuda.synchronize()
             assert all(torch.equal(g, h) for g, h in zip(got, again)), \
                 f"{kind} {label}: two calls differ"
             errs[label] = grads_rel_err(got, want)
+            err_m = grads_rel_err(got[:len(mir)], mir)
             assert errs[label] <= XLSTM_BWD_TOL, (kind, label, errs[label])
+            assert err_m <= XLSTM_BWD_TOL, (kind, label, err_m)
             print(f"[check] {kind} {label} {case}: max |kernel - plain| / "
-                  f"max |plain| over the gradients {errs[label]:.3e} (tol "
-                  f"{XLSTM_BWD_TOL}); two calls bit for bit; {clamp}; "
+                  f"max |plain| over the gradients {errs[label]:.3e}, "
+                  f"against its plain mirror {err_m:.3e} "
+                  f"(tol {XLSTM_BWD_TOL}); two calls bit for bit; {clamp}; "
                   f"forget arm of the max at {arm:.4f}")
             if label in ("path", "train"):   # against float64
                 with torch.no_grad():
@@ -2561,11 +2690,14 @@ def check_xlstm_bwd(gen, mem_bps: float, f32_fps: float) -> dict:
                         w64 = slstm_scan_bwd_ref(*a64, dy.double())
                         flips = ""
                 e_k, e_p = grads_rel_errs(got, w64), grads_rel_errs(want, w64)
+                e_m = grads_rel_errs(mir, w64[:len(mir)])
                 print(f"[check] {kind} {label} S={case[1]}: against a float64 "
                       f"plain backward, kernel {max(e_k):.3e}, plain f32 "
-                      f"{max(e_p):.3e} (max |diff| / max |f64|; by gradient "
-                      f"kernel {[f'{e:.2e}' for e in e_k]}, plain "
-                      f"{[f'{e:.2e}' for e in e_p]}){flips}"
+                      f"{max(e_p):.3e}, its mirror in f32 {max(e_m):.3e} "
+                      f"(max |diff| / max |f64|; by gradient kernel "
+                      f"{[f'{e:.2e}' for e in e_k]}, plain "
+                      f"{[f'{e:.2e}' for e in e_p]}, mirror "
+                      f"{[f'{e:.2e}' for e in e_m]}){flips}"
                       + (f"; at most {XLSTM_F64_FACTOR} x the plain"
                          if label == "path" else ""))
                 if label == "path":
@@ -2574,14 +2706,18 @@ def check_xlstm_bwd(gen, mem_bps: float, f32_fps: float) -> dict:
                 out.setdefault(kind, {}).update({
                     f"{key}err_vs_f64": max(e_k),
                     f"{key}plain_err_vs_f64": max(e_p),
+                    f"{key}mirror_err_vs_f64": max(e_m),
                     f"{key}err_vs_f64_by_grad": e_k,
                     f"{key}plain_err_vs_f64_by_grad": e_p})
                 del a64, w64
             if label == "train":
                 t = {"max_abs_err": max((g - w).abs().max().item()
                                         for g, w in zip(got, want)),
+                     "mirror_max_rel_err": err_m,
                      "plain_ms": a.elapsed_time(b), "library_ms": None,
-                     **xlstm_bwd_bound(kind, case, mem_bps, f32_fps)}
+                     **xlstm_bwd_bound(kind, case, mem_bps, f32_fps,
+                                       chunk if kind == "mlstm_scan_bwd"
+                                       else 0)}
                 with torch.no_grad():
                     if kind == "slstm_scan_bwd":
                         alone = lambda: xls._slstm_bwd(  # noqa: E731
@@ -2590,9 +2726,14 @@ def check_xlstm_bwd(gen, mem_bps: float, f32_fps: float) -> dict:
                                                                warmup=1)
                     else:
                         alone = kernel
+                        for name, fn in mlstm_bwd_passes(args, y, dy,
+                                                         states).items():
+                            t[f"{name}_device_ms"] = time_ms(
+                                fn, reps=5, warmup=1, backlog=True)
                     t["ms"] = time_ms(alone, reps=5, warmup=1)
                     t["device_ms"] = time_ms(alone, reps=5, warmup=1,
                                              backlog=True)
+                    t["mirror_ms"] = time_ms(mirror, reps=2, warmup=1)
                 t["us_per_step"] = 1e3 * t["ms"] / case[1]
                 print(f"[time] {kind} train {case} f32: kernel"
                       f"{'s' if kind == 'mlstm_scan_bwd' else ''} "
@@ -2600,15 +2741,31 @@ def check_xlstm_bwd(gen, mem_bps: float, f32_fps: float) -> dict:
                       f"behind a device sleep {t['device_ms']:.4f}"
                       + (f"; with the weight products "
                          f"{t['with_weight_products_ms']:.4f}"
-                         if kind == "slstm_scan_bwd" else "")
-                      + f"), plain {t['plain_ms']:.1f} ms (one call), bound "
+                         if kind == "slstm_scan_bwd" else
+                         "; alone behind a sleep " + ", ".join(
+                             f"{k_} {t[k_ + '_device_ms']:.4f}"
+                             for k_ in ("prep", "state", "chunk", "gate")))
+                      + f"), plain {t['plain_ms']:.1f} ms (one call), its "
+                      f"mirror {t['mirror_ms']:.1f} ms, bound "
                       f"{t['bound_ms']:.4f} ms ({t['bound_by']}; "
                       f"{t['gflop']:.1f} GFLOP, bytes "
                       f"{t['bytes_bound_ms']:.4f}); kernel at "
-                      f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound; "
-                      f"no PyTorch call computes it")
+                      f"{100 * t['bound_ms'] / t['ms']:.1f}% of the bound"
+                      + (f" (the smaller of: the step form's "
+                         f"{t['step_bound_ms']:.4f} ms ({t['step_bound_by']}; "
+                         f"{t['step_gflop']:.1f} GFLOP, bytes "
+                         f"{t['step_bytes_bound_ms']:.4f}), kernels at "
+                         f"{100 * t['step_bound_ms'] / t['ms']:.1f}% of it; "
+                         f"the chunkwise form's own "
+                         f"{t['chunk_bound_ms']:.4f} ms "
+                         f"({t['chunk_bound_by']}; {t['chunk_gflop']:.1f} "
+                         f"GFLOP, bytes {t['chunk_bytes_bound_ms']:.4f}), "
+                         f"kernels at "
+                         f"{100 * t['chunk_bound_ms'] / t['ms']:.1f}% of it)"
+                         if kind == "mlstm_scan_bwd" else "")
+                      + "; no PyTorch call computes it")
                 out.setdefault(kind, {}).update(t)
-            del args, dy, got, again, want
+            del args, dy, got, again, want, mir
             torch.cuda.empty_cache()
         out[kind]["max_rel_err_by_case"] = errs
         # through the autograd Function against autograd of the plain scan
@@ -2646,9 +2803,9 @@ def xlstm_prefill_and_serve() -> dict:
 
 
 XLSTM_KERNELS = ("mlstm_scan_state_kernel", "mlstm_scan_out_kernel",
-                 "mlstm_bwd_prep_kernel", "mlstm_bwd_kernel",
-                 "mlstm_bwd_reduce_kernel", "slstm_scan_kernel",
-                 "slstm_scan_bwd_kernel")
+                 "mlstm_bwd_prep_kernel", "mlstm_bwd_state_kernel",
+                 "mlstm_bwd_chunk_kernel", "mlstm_bwd_gate_kernel",
+                 "slstm_scan_kernel", "slstm_scan_bwd_kernel")
 
 
 def xlstm_train_path() -> dict:
@@ -2660,7 +2817,8 @@ def xlstm_train_path() -> dict:
     cfg = get_config(XLSTM)
     return train_cell("xlstm-train", cfg, XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ,
                       train_only(mlstm_scan=9, mlstm_scan_bwd_prep=9,
-                                 mlstm_scan_bwd=9, mlstm_scan_bwd_reduce=9,
+                                 mlstm_scan_bwd_state=9, mlstm_scan_bwd=9,
+                                 mlstm_scan_bwd_gate=9,
                                  slstm_scan=3, slstm_scan_trails=3,
                                  slstm_scan_bwd=3), XLSTM_KERNELS)
 
@@ -2707,9 +2865,11 @@ TRAIN_COUNTERS = (("moe_gemm", moe_gemm, "launches"),
                   ("mlstm_scan", xls.mlstm_scan, "launches"),
                   ("mlstm_scan_bwd_prep", xls.mlstm_scan_bwd,
                    "prep_launches"),
+                  ("mlstm_scan_bwd_state", xls.mlstm_scan_bwd,
+                   "state_launches"),
                   ("mlstm_scan_bwd", xls.mlstm_scan_bwd, "launches"),
-                  ("mlstm_scan_bwd_reduce", xls.mlstm_scan_bwd,
-                   "reduce_launches"),
+                  ("mlstm_scan_bwd_gate", xls.mlstm_scan_bwd,
+                   "gate_launches"),
                   ("slstm_scan", xls.slstm_scan, "launches"),
                   ("slstm_scan_trails", xls.slstm_scan, "trail_launches"),
                   ("slstm_scan_bwd", xls.slstm_scan_bwd, "launches"))
@@ -2742,7 +2902,7 @@ def train_step_counts(cfg) -> dict:
     MoE layer, each with its dx and dw; the flash forward and its two
     backward kernels a self-attention layer (`forward_counts`); the
     selective scan, its backward and the backward's second pass a Mamba
-    layer; the mLSTM scan and its three backward kernels an mLSTM layer;
+    layer; the mLSTM scan and its four backward kernels an mLSTM layer;
     the trail-keeping sLSTM scan and its backward an sLSTM layer."""
     fwd = forward_counts(cfg)
     moe, attn = fwd["moe_gemm"], fwd["flash_attention"]
@@ -2752,8 +2912,9 @@ def train_step_counts(cfg) -> dict:
             "flash_attention": attn, "flash_attention_bwd": BWD_KERNELS * attn,
             "selective_scan": mamba, "selective_scan_bwd": mamba,
             "selective_scan_bwd_reduce": mamba, "mlstm_scan": mlstm,
-            "mlstm_scan_bwd_prep": mlstm, "mlstm_scan_bwd": mlstm,
-            "mlstm_scan_bwd_reduce": mlstm, "slstm_scan": slstm,
+            "mlstm_scan_bwd_prep": mlstm, "mlstm_scan_bwd_state": mlstm,
+            "mlstm_scan_bwd": mlstm, "mlstm_scan_bwd_gate": mlstm,
+            "slstm_scan": slstm,
             "slstm_scan_trails": slstm, "slstm_scan_bwd": slstm}
 
 
@@ -3121,7 +3282,7 @@ def main() -> int:
             print(f"[build] {kname}: {secs:.2f} s -> {lib.name}")
             kerns = (("mlstm_scan_out_kernel", "slstm_scan_kernel")
                      if kname == "xlstm_scan" else
-                     ("mlstm_bwd_kernel", "slstm_scan_bwd_kernel"))
+                     ("mlstm_bwd_chunk_kernel", "slstm_scan_bwd_kernel"))
             for kern in kerns:
                 for hd in (192, 16):
                     ptxas_report(lib, only=(f"{kern}<f32, hd {hd}>",
@@ -3129,8 +3290,9 @@ def main() -> int:
             if kname == "xlstm_scan":
                 ptxas_report(lib, only="mlstm_scan_state_kernel")
             else:
-                ptxas_report(lib, only="mlstm_bwd_prep_kernel")
-                ptxas_report(lib, only="mlstm_bwd_reduce_kernel")
+                ptxas_report(lib, only=("mlstm_bwd_prep_kernel",
+                                        "mlstm_bwd_state_kernel",
+                                        "mlstm_bwd_gate_kernel"))
         elif split is None:
             print(f"[build] {kname}: {secs:.2f} s -> {lib.name}")
             ptxas_report(lib)
@@ -3182,8 +3344,10 @@ def main() -> int:
           f"clusters at once at hd 192 (the path needs "
           f"{4 * -(-XLSTM_BATCH // xlib.xlstm_scan_layout(3))})")
     blib = xls._bwd_lib()
-    print(f"[build]   mlstm_bwd_kernel: dynamic smem at hd 192 "
-          f"{blib.mlstm_bwd_smem_bytes(192)} B, "
+    print(f"[build]   mlstm_bwd_state_kernel: dynamic smem "
+          f"{blib.mlstm_bwd_smem_bytes(192, 0)} B (one block an SM); "
+          f"mlstm_bwd_chunk_kernel: dynamic smem at hd 192 "
+          f"{blib.mlstm_bwd_smem_bytes(192, 1)} B, "
           f"{blib.mlstm_bwd_blocks_per_sm(192)} blocks an SM; "
           f"slstm_scan_bwd_kernel: "
           f"{blib.slstm_bwd_max_active_clusters(192, XLSTM_TRAIN_BATCH, 4)}"
@@ -3764,11 +3928,13 @@ def main() -> int:
     # their backwards: no TPU counterpart (the JAX package differentiates
     # the lax.scan); launches over the 6 xlstm train steps (phase 30)
     for kname, kern, step, launches in (
-            ("mlstm_scan_bwd", "mlstm_bwd_prep_kernel, mlstm_bwd_kernel<hd "
-             "192>, mlstm_bwd_reduce_kernel", "_mlstm_step",
+            ("mlstm_scan_bwd", "mlstm_bwd_prep_kernel, "
+             "mlstm_bwd_state_kernel, mlstm_bwd_chunk_kernel<hd 192>, "
+             "mlstm_bwd_gate_kernel",
+             "_mlstm_step",
              {k_: xlstm_train["counts"][k_] for k_ in (
-                 "mlstm_scan_bwd_prep", "mlstm_scan_bwd",
-                 "mlstm_scan_bwd_reduce")}),
+                 "mlstm_scan_bwd_prep", "mlstm_scan_bwd_state",
+                 "mlstm_scan_bwd", "mlstm_scan_bwd_gate")}),
             ("slstm_scan_bwd", "slstm_scan_bwd_kernel<hd 192>", "_slstm_step",
              {"slstm_scan_bwd": xlstm_train["counts"]["slstm_scan_bwd"]})):
         t = xlstm_times[kname]
@@ -3788,12 +3954,22 @@ def main() -> int:
             "us_per_step": t["us_per_step"],
             **({"with_weight_products_ms": t["with_weight_products_ms"]}
                if kname == "slstm_scan_bwd" else {}),
+            **{k_: t[k_] for k_ in (
+                "prep_device_ms", "state_device_ms", "chunk_device_ms",
+                "gate_device_ms", "step_bound_ms", "step_bound_by",
+                "step_bytes_bound_ms", "chunk_bound_ms", "chunk_bound_by",
+                "chunk_bytes_bound_ms") if k_ in t},
+            "mirror_ms": t["mirror_ms"],
+            "mirror_max_rel_err": t["mirror_max_rel_err"],
             "f32_tiny_train_launches": {
                 k_: xlstm_f32_train[k_] for k_ in launches},
             "unit": f"one layer's backward at the xlstm-125m train path's "
                     f"shape (B={XLSTM_TRAIN_BATCH}, S={XLSTM_TRAIN_SEQ}, "
                     f"H=4, hd=192, f32)"
-                    + ("; its three kernels through the wrapper"
+                    + ("; its four kernels through the wrapper (each alone "
+                       "behind a sleep: *_device_ms); bound_ms the smaller "
+                       "of step_bound_ms (the step form's work) and "
+                       "chunk_bound_ms (the chunkwise kernels')"
                        if kname == "mlstm_scan_bwd" else
                        "; the kernel alone (dW and dbias are an f32 einsum "
                        "outside it)")

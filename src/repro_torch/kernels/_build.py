@@ -2,15 +2,17 @@
 with a plain C interface, loaded with `ctypes`.
 
 A library is built at first use into `_build/` beside this file (listed
-in `.gitignore`) and is named by a hash of its source and flags, so an
-edited source is rebuilt and an unchanged one is reused. nvcc's output,
-with ptxas's register and shared-memory report, is kept beside the
-library as `<name>-<hash>.log`.
+in `.gitignore`) and is named by a hash of its source, the local headers
+it includes (`#include "name"`, found beside it) and its flags, so an
+edited source or header is rebuilt and an unchanged one is reused.
+nvcc's output, with ptxas's register and shared-memory report, is kept
+beside the library as `<name>-<hash>.log`.
 """
 from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -34,6 +36,13 @@ def _nvcc() -> str:
     return found
 
 
+def _local_headers(src: Path) -> bytes:
+    """The bytes of the headers `src` includes by `#include "name"`, which
+    nvcc finds beside it."""
+    names = re.findall(r'^\s*#include\s+"([^"]+)"', src.read_text(), re.M)
+    return b"".join((src.parent / n).read_bytes() for n in names)
+
+
 def build(name: str, defines: tuple[str, ...] = (),
           src: Path | None = None) -> Path:
     """Compile `csrc/<name>.cu` (or `src`, another tree's copy of it)
@@ -43,7 +52,7 @@ def build(name: str, defines: tuple[str, ...] = (),
     fails."""
     src = CSRC / f"{name}.cu" if src is None else Path(src)
     flags = (*NVCC_FLAGS, *defines)
-    digest = hashlib.sha256(src.read_bytes()
+    digest = hashlib.sha256(src.read_bytes() + _local_headers(src)
                             + " ".join(flags).encode()).hexdigest()
     lib = BUILD_DIR / f"{name}-{digest[:16]}.so"
     if lib.exists():

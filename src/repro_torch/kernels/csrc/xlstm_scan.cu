@@ -124,14 +124,17 @@
 // also keeps the trails its backward (csrc/xlstm_scan_bwd.cu) reads: each
 // step's full pre-activations x + W h + bias [B,S,4,H,hd] and c, n, m
 // after it [B,S,H,hd] (plain version: ref.slstm_scan_trails_ref). The
-// mLSTM's backward needs no trail: its two kernels are the same on both
-// paths.
+// mLSTM's kernels are the same on both paths; under autograd the outputs
+// kernel also keeps den'_t (the signed denominator before its clamp,
+// [B,S,H]) and the wrapper keeps the chunk states, for the backward.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include <cstdint>
+
+#include "xlstm_fast.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -148,6 +151,9 @@ struct MlstmScanArgs {
   float* c_st;
   float* n_st;
   float* m_st;
+  // under autograd: den'_t = e_t n . q_t + sum_s D_ts k_s . q_t [B,S,H],
+  // the signed denominator before the clamp, for the backward (else null)
+  float* den;
   int B, S, H, hd;
 };
 
@@ -771,8 +777,10 @@ mlstm_scan_out_kernel(const MlstmScanArgs a) {
   for (int i = 0; i < kTR; ++i) {
     const int t = kTR * ty + i;
     if (t >= nt) continue;
-    const float den = fmaxf(
-        fabsf(sm[L::kE + t] * sm[L::kQn + t] + sm[L::kRs + t]), 1.f);
+    const float dp = sm[L::kE + t] * sm[L::kQn + t] + sm[L::kRs + t];
+    const float den = fmaxf(fabsf(dp), 1.f);
+    if (a.den != nullptr && tx == 0)
+      a.den[(static_cast<long long>(b) * a.S + t0 + t) * a.H + h] = dp;
     float* yr = a.y + ((static_cast<long long>(b) * a.S + t0 + t) * a.H + h)
                           * HD;
     if constexpr (D16 % 4 == 0) {
@@ -831,59 +839,7 @@ int mlstm_out_smem_t() {
 }
 
 // ------------------------------------------------------------------ sLSTM
-// The cell update's short forms, in place of the accurate expf, log1pf,
-// tanhf and IEEE divisions: e^x as ex2.approx of x log2(e), 1 / x by
-// rcp.approx and one Newton step, and log1p by a series that keeps its
-// relative accuracy down to e = 0.
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float ex2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// 1 / x for finite x in [1, 2^127]
-__device__ __forceinline__ float fast_rcp(float x) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
-  return fmaf(fmaf(-x, r, 1.f), r, r);
-}
-
-__device__ __forceinline__ float fast_exp(float x) {
-  return ex2_approx(x * kLog2e);
-}
-
-// log(1 + e) for e in [0, 1]: 2 atanh(s), s = e / (2 + e) <= 1/3, by its
-// series to s^15 (the next term is below 2^-25 of the sum)
-__device__ __forceinline__ float fast_log1p(float e) {
-  const float s = e * fast_rcp(2.f + e);
-  const float w = s * s;
-  float p = 1.f / 15.f;
-  p = fmaf(p, w, 1.f / 13.f);
-  p = fmaf(p, w, 1.f / 11.f);
-  p = fmaf(p, w, 1.f / 9.f);
-  p = fmaf(p, w, 1.f / 7.f);
-  p = fmaf(p, w, 1.f / 5.f);
-  p = fmaf(p, w, 1.f / 3.f);
-  p = fmaf(p, w, 1.f);
-  return 2.f * s * p;
-}
-
-__device__ __forceinline__ float fast_log_sigmoid(float x) {
-  return fminf(x, 0.f) - fast_log1p(fast_exp(-fabsf(x)));
-}
-
-// tanh z = 1 - 2 / (1 + e^{2z}), e^{2z} capped at 2^126
-__device__ __forceinline__ float fast_tanh(float z) {
-  return 1.f - 2.f * fast_rcp(1.f + ex2_approx(fminf(2.f * kLog2e * z,
-                                                      126.f)));
-}
-
-// 1 / (1 + e^{-x}), e^{-x} capped at 2^126
-__device__ __forceinline__ float fast_sigmoid(float x) {
-  return fast_rcp(1.f + ex2_approx(fminf(-kLog2e * x, 126.f)));
-}
+// The cell update's short forms (fast_*) are in xlstm_fast.cuh.
 
 template <int D16>
 constexpr int kSThreads = 32 * 2 * D16;    // a warp a row: hd / 8 rows

@@ -1,57 +1,70 @@
 // The backward of xLSTM's two recurrences (csrc/xlstm_scan.cu), for
-// Hopper: the mLSTM's in three kernels, the sLSTM's in one.
+// Hopper: the mLSTM's in the chunkwise form in four kernels, the sLSTM's
+// reverse walk in one.
 //
 // No TPU kernel is replaced: the JAX package differentiates its lax.scan
 // bodies (repro/models/ssm.py:_mlstm_step and _slstm_step inside
 // chunked_scan) with jax.grad. Plain versions, which split the work into
-// the same passes: repro_torch/kernels/ref.py: mlstm_scan_bwd_ref and
-// slstm_scan_dpre_ref. Wrapper, autograd Functions, checks and launch
-// counts: repro_torch/kernels/xlstm_scan.py. Inputs and outputs are f32
-// and contiguous; hd is a multiple of 16 up to 256.
+// the same passes: repro_torch/kernels/ref.py: mlstm_scan_bwd_chunkwise_ref
+// and slstm_scan_dpre_affine_ref. Wrapper, autograd Functions, checks and
+// launch counts: repro_torch/kernels/xlstm_scan.py. Inputs and outputs
+// are f32 and contiguous; hd is a multiple of 16 up to 256.
 //
 // ---------------------------------------------------------------------
-// mLSTM (forward: C = f' C + i' v k^T, n = f' n + i' k, y = C q / den,
-// den = max(|n . q|, 1); see xlstm_scan.cu). With log f' and log i' taken
-// as the variables, the gates need no C: their gradients are
-//   a_t = sum_{u>=t} (q_u . dq_u - k_u . dk_u)   and   b_t = k_t . dk_t,
-// and the stabiliser chain m_t = max(log_sigmoid(f_t) + m_{t-1}, i_t)
-// carries them to i and f as a scalar reverse walk. The passes:
-//   mlstm_bwd_prep_kernel, a block a (b, h), forward: the m chain, f',
-//     i' and which arm each max took; n from zero, n . q and dy . y, then
-//     den_t and g_t = -(dy_t . y_t) / den_t sign(n . q) [|n . q| >= 1];
-//   mlstm_bwd_kernel, a block a (16-column band of C, (b, h)):
-//     A, forward: C from zero, dq_t = C_t^T dy_t / den_t + g_t n_t (sums
-//       over C's rows: local to a column band);
-//     B, reverse: dC_t = f'_{t+1} dC_{t+1} + (dy_t / den_t) q_t^T and
-//       dn_t = f'_{t+1} dn_{t+1} + g_t q_t; dk_t = i'_t (dC_t^T v_t + dn_t)
-//       (local) and the band's part of dv_t = i'_t dC_t k_t (a sum over
-//       C's columns, which no band holds whole), and each band's part of
-//       q . dq and k . dk;
-//   mlstm_bwd_reduce_kernel: dv as the sum of the bands' parts in band
-//     order, and, a warp a (b, h), the gates' reverse walk over the
-//     bands' sums (an affine scan over a warp's 32 steps a chunk).
-// No state is saved by the forward: pass A recomputes C from zero.
+// mLSTM, in the forward's notation (xlstm_scan.cu): chunks of L = 64
+// steps, each with the state (C, n, m) before it, which the forward keeps
+// for its backward (C^T, n, m in scratch, and den'_t = e_t n . q_t +
+// sum_s D_ts k_s . q_t, the signed denominator that produced y_t, so that
+// den_t = max(|den'_t|, 1) here is the forward's own); b, c = i - b and
+// M_t = max(m, max_{s<=t} c_s) in double, D_ts = exp(c_s - M_t),
+// e_t = exp(m - M_t), w_s = D_{L-1,s}, e = e_{L-1}. With dnum_t = dy_t /
+// den_t and g_t = -(dy_t . y_t) / den_t sign(den'_t) [|den'_t| >= 1]:
+//   dC_k = e dC_{k+1} + sum_t e_t dnum_t q_t^T,  dn_k likewise with g_t
+//   dq_t = e_t (C_k^T dnum_t + g_t n_k) + sum_{s<=t} A_ts k_s
+//   dk_s = sum_{t>=s} A_ts q_t + w_s (dC_{k+1}^T v_s + dn_{k+1})
+//   dv_s = sum_{t>=s} P_ts dnum_t + w_s dC_{k+1} k_s
+// with A_ts = D_ts (v_s . dnum_t + g_t), P_ts = D_ts (k_s . q_t). With
+// log f' and log i' as the variables the gates need no C: their gradients
+// are a_t = sum_{u>=t} (q_u . dq_u - k_u . dk_u) and b_t = k_t . dk_t, and
+// the step form's f32 stabiliser chain m_t = max(log_sigmoid(f_t) +
+// m_{t-1}, i_t) carries them to i and f as a scalar reverse walk (at an
+// exact tie its gradient splits half to each arm, as autograd's). Four
+// kernels, one launch each a call, in order on one stream:
+//   * mlstm_bwd_prep_kernel: a warp a (b, h) walks the m chain (lanes =
+//     steps) and keeps which arm each max took; a warp a (b, h, chunk)
+//     forms e_t (the states pass reads them); a warp four (b, t, h) rows
+//     takes dy . y and g;
+//   * mlstm_bwd_state_kernel, grid (dC tiles, B*H): the forward's states
+//     pass mirrored: a block keeps a kMTile x kMTile tile of dC^T in
+//     registers and walks the chunks in reverse, storing the state
+//     gradient after each chunk in scratch (dC^T, dn: 151 MB at the train
+//     shape) and adding the chunk as one register-tiled [96 x L] x [L x 96]
+//     product of q and dy's rows scaled by e_t / den_t; q, dy and the
+//     chunk's e, den', g come by cp.async two chunks ahead;
+//   * mlstm_bwd_chunk_kernel<hd / 16>, grid (chunk, B*H), chunk-parallel:
+//     over 32-column slices of hd (two cp.async stages) it forms dy v^T
+//     and q k^T (each slice's sums added apart), then A and P in shared
+//     memory; then dq, dk and dv one after the other, each a 64 x hd tile
+//     in registers (a thread 4 steps x hd / 16 columns): the state's part
+//     over slices of C^T or dC^T (dq, dk: C^T's columns as rows of a
+//     dot-product form, their 16-byte pieces swizzled so that 8 lanes'
+//     rows fall in 8 bank groups; dv: dC^T's rows as the forward's q C^T),
+//     then the chunk's part over its steps (A k, A^T q, P^T dnum); writes
+//     dq, dk, dv and q . dq, k . dk a step (each thread's columns summed,
+//     then the 16 threads of a row by a fixed butterfly);
+//   * mlstm_bwd_gate_kernel: a warp a (b, h) walks the gates in reverse,
+//     32 steps a round (an affine suffix scan over the warp's lanes).
 //
 // Bound. At the xlstm-125m train shape (B=8, S=2048, H=4, hd=192; 65,536
-// (b, s, h) and 36,864 entries of C) pass A takes 2 FMAs an entry of C a
-// step, pass B 3: 24.3 GFLOP with the n chains and sums, 0.36 ms at 67
-// f32 TFLOP/s; the bytes the function must move (q, k, v, y, dy, i, f
-// read, dq, dk, dv, di, df written) 0.40 GB, 0.12 ms at 3.35 TB/s. This
-// design also writes and reads the bands' dv parts, 1.2 GB more (0.36
-// ms), so its own traffic passes the operations' time.
-//
-// Design of mlstm_bwd_kernel. A block (4 warps) holds its band's 16
-// columns of C by all hd rows in registers: a thread 2 columns (lane & 7)
-// by hd / 16 rows (rows rslot + 16 j, rslot = 4 warp + lane / 8). The
-// column sums (dq, dk) are 2 shuffles and a per-warp partial in shared
-// memory a step; dv's 16-column sums a padded transposing butterfly over
-// the 8 lanes of a row. C and n are kept divided by F, the running product
-// of f' (pass A), and dC and dn by P, the reverse product (pass B), folded
-// in where it would fall below kMFloor, as the forward does: one FMA an
-// entry a step. q, k (the band), v, dy (whole rows) and the prep's
-// scalars come by cp.async in chunks of kBChunk steps into two stages;
-// the outputs are written once a chunk. Fixed orders throughout: two
-// calls give the same bits.
+// (b, s, h), 1,024 chunks) the chunkwise form's work is 4 L hd^2 FMAs a
+// chunk (the reverse walk, C^T dnum, dC^T v, dC k) and 5 causal L^2 hd
+// products (dy v^T, q k^T, A k, A^T q, P^T dnum): 23.4 GFLOP, 0.35 ms at
+// 67 f32 TFLOP/s; its bytes (q, k, v, y, dy, i, f, den', the chunk states
+// and their gradients read, dq, dk, dv, di, df and dC written) 0.86 GB,
+// 0.26 ms. The step form's own work, 24.3 GFLOP (0.36 ms), is more, so
+// this form's is the function's bound. f32 on the CUDA cores: a single TF32 pass misses the
+// 1e-4 tolerance at hd 192. Fixed orders, no atomics: two calls give the
+// same bits.
 //
 // ---------------------------------------------------------------------
 // sLSTM (forward: pre_g = x_g + W_g h_{t-1} + bias_g; the cell; see
@@ -59,37 +72,58 @@
 // pre-activations at step t:
 //   dh_t = dy_t + sum_g W_g^T dp_{g,t+1}
 // then back through h = sigmoid(o) c / max(n, 1), the c, n and m chains
-// (dc, dn, dm carried a row) and the gates, recomputing each step's cell
-// from the forward's trails (p, and c, n, m of the step before) with the
-// forward's own rounding. dp is the kernel's output, dpre; dW = sum dp
-// h_{t-1}^T and dbias = sum dp are plain products outside the kernel.
+// (dc, dn, dm carried a row) and the gates. Given the step's trails (p_t;
+// c, n, m of t - 1 and of t, the forward's own values) the cell's backward
+// is affine in (dh, dc, dn, dm):
+//   X = dc + a1 dh, Y = dn + a2 dh, dm' = g1 X + g2 Y + sel dm,
+//   dp_i = dm - dm', dp_f = sigmoid(-p_f) dm', dp_z = bz X, dp_o = a3 dh,
+//   dc' = f' X, dn' = f' Y
+// (a1 = sig / nc, a2 = -[n >= 1] sig c / nc^2, a3 = c sig (1 - sig) / nc,
+// bz = i' (1 - tanh^2 z), g1 = (1 - sel) f' c_{t-1} - sel i' tanh z, g2 =
+// (1 - sel) f' n_{t-1} - sel i', nc = max(n, 1)). The coefficients come
+// from the trails, with the forward's short forms (fast_* of
+// xlstm_fast.cuh, which both files include: the forward's own f', i',
+// tanh z and sigmoid o), before the step's wait; the serial
+// step keeps the dozen operations above. dp is the kernel's output, dpre;
+// dW = sum dp h_{t-1}^T and dbias = sum dp are plain products outside the
+// kernel.
 //
 // Bound. At the train shape the transposed products are 4 hd^2 FMAs a
 // (b, h, step) and the cell about 60 operations a row: 20.1 GFLOP, 0.30
 // ms at 67 f32 TFLOP/s; the bytes (the p trail, c, n, m, dy and W read,
 // dpre written) 0.61 GB, 0.18 ms.
 //
-// Design of slstm_scan_bwd_kernel: the forward's, transposed. A cluster
-// of kSCluster = 8 blocks takes one head and kSBatch = 4 batch rows;
-// block j owns rows [j hd/8, (j+1) hd/8) of the cell and keeps the column
-// slice W_g[:, j hd/8 ...] of all four gates in registers, a warp two
-// output rows w (lane l holds W_g[v, w] for v = 32 jj + l). A step:
-//   * 8 hd/16 threads (a row and batch row each) do the cell's backward
-//     with dh = dy + the recurrent sum of the step before, store dpre and
-//     stage the block's dp (4 gates x its rows x 4 batch rows);
-//   * they send it to every block of the cluster as 16-byte st.async
-//     pieces into the other of two buffers, counted on that block's
-//     mbarrier (4 times the forward's h a step);
-//   * every warp waits for the buffer, then sums W_g^T dp over v and the
-//     four gates for its two rows, 8 sums reduced by a transposing
-//     butterfly, into shared memory for the next step's cells.
-// The trails are loaded kSAhead steps ahead into registers; the matvec's
-// order is fixed, so two calls give the same bits.
+// Design of slstm_scan_bwd_kernel: the forward's cluster of kSCluster = 8
+// blocks a head and kSBatch = 4 batch rows, and the forward's row slice
+// of W: block j owns rows [j hd/8, (j+1) hd/8) of the cell and keeps
+// W_g[rows_j, all w] of the four gates in registers, so its dp stays
+// local. A step:
+//   * 8 hd/16 threads (a row and batch row each) form the step's
+//     coefficients, wait on this block's mbarrier for the 8 partial
+//     recurrent sums of their rows, add them in rank order, run the chain
+//     and stage dp (4 gates x its rows x 4 batch rows, two buffers);
+//   * after one block barrier, every warp forms the block's partial sums
+//     sum_{g, v in rows_j} W_g[v, w] dp_g[v] for 16 of the hd columns w
+//     (a lane 4 w by hd/16 of the block's (gate, row) terms, reduced over
+//     the warp's 8 term groups by a transposing butterfly), and each lane
+//     sends its two sums to the block that owns w, an 8-byte st.async into
+//     the other of two buffers counted on that block's mbarrier: 3 KB a
+//     step a block at hd 192, the forward's h exchange.
+// The trails are loaded kSAhead steps ahead into registers, the loads
+// placed after the chain (placed before it, they held it about 300
+// clocks: clock stamps, xlstm_stamps.py, PERF.md). Tried and slower:
+// helper threads that load the trails, form the next step's coefficients
+// and store dpre off the cells' warps (the matvec after them stretched).
+// The matvec's order is fixed and the receiver adds the sources in rank
+// order, so two calls give the same bits.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 #include <cstdint>
+
+#include "xlstm_fast.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -102,21 +136,27 @@ struct MlstmBwdArgs {
   const float* f;
   const float* y;
   const float* dy;
+  // the forward's scratch: the state before each chunk, C^T
+  // [B*H][N][hd][hd] ([k][v]), n [B*H][N][hd], m [B*H][N]; den' [B,S,H]
+  const float* c_st;
+  const float* n_st;
+  const float* m_st;
+  const float* den;
   float* dq;
   float* dk;
   float* dv;
   float* di;
   float* df;
-  // scratch, [B,S,H] each: f', i', the max's arm, den, g
-  float* fp;
-  float* ip;
-  float* sel;
-  float* den;
+  // scratch [B,S,H] each: g, the max's arm, e_t, q . dq, k . dk
   float* g;
-  // scratch: the bands' q . dq and k . dk [hd/16][B,S,H], dv [hd/16][B,S,H,hd]
-  float* pq;
-  float* pk;
-  float* dv_part;
+  float* sel;
+  float* ew;
+  float* qdq;
+  float* kdk;
+  // scratch: the state gradient after each chunk, dC^T [B*H][N][hd][hd],
+  // dn [B*H][N][hd]
+  float* dc_st;
+  float* dn_st;
   int B, S, H, hd;
 };
 
@@ -136,18 +176,21 @@ namespace {
 constexpr int kBadHeadDim = 1000;   // hd not a multiple of 16 in 16..256
 constexpr int kBadGrid = 1001;      // B * H (mLSTM) or B (sLSTM) too large
 
-constexpr int kBWarps = 4;
-constexpr int kBThreads = 32 * kBWarps;
-constexpr int kBBand = 16;                        // columns of C a block
-constexpr int kBChunk = 16;                       // steps a stage
-constexpr float kMFloor = 0x1p-30f;               // as xlstm_scan.cu
-constexpr int kPChunk = 32;                       // prep, gates: steps a warp
-constexpr int kRThreads = 256;                    // the reduce kernel's block
+constexpr int kMChunk = 64;                // L: steps a chunk (xlstm_scan.cu)
+constexpr int kMPer = kMChunk / 32;        // a lane's steps in the gate terms
+constexpr int kMThreads = 256;
+constexpr int kMTile = 96;                 // the states pass's dC tile
+constexpr int kMTileT = kMTile / 16;       // its rows (and columns) a thread
+constexpr int kPChunk = 32;                // the m chain, gates: steps a warp
+constexpr int kGRows = 4;                  // rows a warp of dy . y
+constexpr int kWarps = kMThreads / 32;
 
 constexpr int kSCluster = 8;
 constexpr int kSBatch = 4;
 constexpr int kSAhead = 4;
 constexpr int kMaxGridYZ = 65535;
+
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
 __device__ __forceinline__ float log_sigmoid(float x) {
   return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
@@ -157,6 +200,8 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// 16 (or 4) bytes from global to shared memory: the first `bytes` from
+// src, zeros after them.
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
@@ -173,8 +218,9 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;" ::: "memory");
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -207,16 +253,12 @@ __device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
   return out;
 }
 
-__device__ __forceinline__ void st_async4(uint32_t addr, float a, float b,
-                                          float c, float d, uint32_t bar) {
+// Two floats into another block's shared memory, 8 bytes on its `bar`.
+__device__ __forceinline__ void st_async2(uint32_t addr, float a, float b,
+                                          uint32_t bar) {
   asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
-      "{%1, %2, %3, %4}, [%5];" ::"r"(addr), "f"(a), "f"(b), "f"(c), "f"(d),
-      "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void named_barrier(int id, int count) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], "
+      "{%1, %2}, [%3];" ::"r"(addr), "f"(a), "f"(b), "r"(bar) : "memory");
 }
 
 // The share of a max's gradient that goes to its first operand, as autograd
@@ -225,492 +267,811 @@ __device__ __forceinline__ float first_arm(float a, float b) {
   return a > b ? 1.f : (a < b ? 0.f : 0.5f);
 }
 
-// --------------------------------------------------------------- mLSTM prep
-// A block a (b, h), 32 ceil(hd / 32) threads, thread c a column of n;
-// chunks of kPChunk steps: every thread first loads its column of the
-// chunk's k, q, dy and y into registers (all in flight at once: a load a
-// step waited on each), warp 0 walks the chunk's m chain (lanes = steps),
-// then every thread its column of n, each step's n . q and dy . y summed
-// by warp shuffles and, across warps, in shared memory.
-__global__ void __launch_bounds__(256)
-mlstm_bwd_prep_kernel(const MlstmBwdArgs a) {
-  __shared__ float fp_s[kPChunk], ip_s[kPChunk];
-  __shared__ float red_nq[kPChunk][8], red_dy[kPChunk][8];
-  const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  const int c = threadIdx.x;
-  const bool col = c < a.hd;
-  const long long row0 = static_cast<long long>(b) * a.S * a.H + h;  // t = 0
-  float m_run = 0.f, n = 0.f;
-  for (int t0 = 0; t0 < a.S; t0 += kPChunk) {
-    const int nt = min(kPChunk, a.S - t0);
-    float kr[kPChunk], qr[kPChunk], dr[kPChunk], yr[kPChunk];
+__device__ __forceinline__ float f4_at(const float4& x, int d) {
+  return d == 0 ? x.x : d == 1 ? x.y : d == 2 ? x.z : x.w;
+}
+
+// ------------------------------------------------------------- mLSTM gates
+// The chunk's gate terms as the forward forms them (xlstm_scan.cu), in one
+// warp: lane l takes steps kMPer l + q of the chunk at step t0 (nt of them
+// before S); c_q = i - b (-inf past S) and big_q = M_t, both in double, from
+// m, the m before the chunk. Returns M_{L-1} (the same on every lane).
+__device__ __forceinline__ double m_chunk_terms(const MlstmBwdArgs& a, int b,
+                                                int h, int t0, int nt,
+                                                double m, int lane,
+                                                double (&c)[kMPer],
+                                                double (&big)[kMPer]) {
+  double loc[kMPer], lf[kMPer];
+  double run = 0.0;
 #pragma unroll
-    for (int u = 0; u < kPChunk; ++u) {
-      const bool ok = col && u < nt;
-      const long long e =
-          ok ? (row0 + static_cast<long long>(t0 + u) * a.H) * a.hd + c : 0;
-      kr[u] = ok ? a.k[e] : 0.f;
-      qr[u] = ok ? a.q[e] : 0.f;
-      dr[u] = ok ? a.dy[e] : 0.f;
-      yr[u] = ok ? a.y[e] : 0.f;
-    }
-    if (warp == 0) {
-      const int t = t0 + lane;
+  for (int q = 0; q < kMPer; ++q) {
+    const int s = kMPer * lane + q;
+    const long long off = (static_cast<long long>(b) * a.S + t0 + s) * a.H
+                          + h;
+    const float fv = s < nt ? a.f[off] : 0.f;
+    if (s < nt) run += static_cast<double>(log_sigmoid(fv));
+    lf[q] = run;
+    c[q] = s < nt ? static_cast<double>(a.i[off]) : -CUDART_INF;
+  }
+  double incl = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double u = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += u;
+  }
+  double excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = 0.0;
+  double mx = -CUDART_INF;
+#pragma unroll
+  for (int q = 0; q < kMPer; ++q) {
+    if (kMPer * lane + q < nt) c[q] -= excl + lf[q];
+    mx = fmax(mx, c[q]);
+    loc[q] = mx;
+  }
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const double u = __shfl_up_sync(0xffffffffu, mx, o);
+    if (lane >= o) mx = fmax(mx, u);
+  }
+  double before = __shfl_up_sync(0xffffffffu, mx, 1);
+  if (lane == 0) before = m;
+  before = fmax(before, m);
+#pragma unroll
+  for (int q = 0; q < kMPer; ++q) big[q] = fmax(before, loc[q]);
+  return __shfl_sync(0xffffffffu, big[kMPer - 1], 31);
+}
+
+// --------------------------------------------------------------- mLSTM prep
+// Blocks [0, chain_blocks): a warp a (b, h) walks the step form's m chain,
+// 32 steps a round (lanes = steps), and keeps sel_t, the share of the max's
+// gradient that goes to its forget arm. Blocks [chain_blocks, chain_blocks
+// + ew_blocks): a warp a (b, h, chunk) writes e_t. The rest: a warp
+// kGRows (b, t, h) rows' dy . y, then g.
+__global__ void __launch_bounds__(kMThreads)
+mlstm_bwd_prep_kernel(const MlstmBwdArgs a, int chain_blocks,
+                      int ew_blocks) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int blk = blockIdx.x;
+  if (blk < chain_blocks) {
+    const int bh = blk * kWarps + warp;
+    if (bh >= a.B * a.H) return;
+    const int b = bh / a.H, h = bh % a.H;
+    const long long row0 = static_cast<long long>(b) * a.S * a.H + h;
+    // a round's i and f, loaded a round ahead
+    auto gates = [&](int t0, float& iv, float& fv) {
+      const bool ok = t0 + lane < a.S;
+      const long long s = row0 + static_cast<long long>(t0 + lane) * a.H;
+      iv = ok ? a.i[s] : 0.f;
+      fv = ok ? a.f[s] : 0.f;
+    };
+    float m_run = 0.f, iv_n, fv_n;
+    gates(0, iv_n, fv_n);
+    for (int t0 = 0; t0 < a.S; t0 += kPChunk) {
+      const int nt = min(kPChunk, a.S - t0);
       const bool ok = lane < nt;
-      const long long s = row0 + static_cast<long long>(t) * a.H;
-      const float iv = ok ? a.i[s] : 0.f;
-      const float lf = log_sigmoid(ok ? a.f[s] : 0.f);
-      float m_prev = 0.f, m_new = 0.f;
+      const long long s = row0 + static_cast<long long>(t0 + lane) * a.H;
+      const float iv = iv_n, lf = log_sigmoid(fv_n);
+      gates(t0 + kPChunk, iv_n, fv_n);
+      float m_prev = 0.f;
 #pragma unroll
       for (int u = 0; u < kPChunk; ++u) {
         const float lfu = __shfl_sync(0xffffffffu, lf, u);
         const float iu = __shfl_sync(0xffffffffu, iv, u);
         const float mp = m_run;
         if (u < nt) m_run = fmaxf(lfu + m_run, iu);
-        if (lane == u) {
-          m_prev = mp;
-          m_new = m_run;
-        }
+        if (lane == u) m_prev = mp;
       }
-      const float mf = lf + m_prev;
-      const float fpv = expf(mf - m_new);
-      const float ipv = expf(iv - m_new);
-      fp_s[lane] = fpv;
-      ip_s[lane] = ipv;
-      if (ok) {
-        a.fp[s] = fpv;
-        a.ip[s] = ipv;
-        a.sel[s] = first_arm(mf, iv);
-      }
+      if (ok) a.sel[s] = first_arm(lf + m_prev, iv);
     }
-    __syncthreads();
-#pragma unroll
-    for (int u = 0; u < kPChunk; ++u) {
-      if (u < nt)
-        n = __fadd_rn(__fmul_rn(fp_s[u], n), __fmul_rn(ip_s[u], kr[u]));
-      float nq = n * qr[u], dyy = dr[u] * yr[u];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        nq += __shfl_xor_sync(0xffffffffu, nq, off);
-        dyy += __shfl_xor_sync(0xffffffffu, dyy, off);
-      }
-      if (lane == 0) {
-        red_nq[u][warp] = nq;
-        red_dy[u][warp] = dyy;
-      }
-    }
-    __syncthreads();
-    if (warp == 0 && lane < nt) {
-      float dot = 0.f, dyy = 0.f;
-      for (int w = 0; w < nwarps; ++w) {
-        dot += red_nq[lane][w];
-        dyy += red_dy[lane][w];
-      }
-      const float den = fmaxf(fabsf(dot), 1.f);
-      const float gv = fabsf(dot) >= 1.f ? (dot > 0.f ? -dyy : dyy) / den
-                                         : 0.f;
-      const long long s = row0 + static_cast<long long>(t0 + lane) * a.H;
-      a.den[s] = den;
-      a.g[s] = gv;
-    }
-    __syncthreads();
-  }
-}
-
-// ---------------------------------------------------------------- mLSTM A, B
-// Shared memory of an mlstm_bwd_kernel block, in floats: two stages of
-// q, k [kBChunk][kBBand] (the band's columns), v, dy [kBChunk][HD] and the
-// prep's f', i', den, g [kBChunk]; then, a step of the chunk being walked,
-// the factor C (or dC) is rescaled by before it, the step's coefficient of
-// its outer product, F (or P) and g / P; then the chunk's per-warp column
-// sums [kBChunk][kBWarps][kBBand], warp 0's n (or dn) [kBChunk][kBBand]
-// and the band's dv parts [kBChunk][HD].
-template <int D16>
-struct BSmem {
-  static constexpr int HD = 16 * D16;
-  static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kBChunk * kBBand;
-  static constexpr int kV = kK + kBChunk * kBBand;
-  static constexpr int kDy = kV + kBChunk * HD;
-  static constexpr int kFp = kDy + kBChunk * HD;
-  static constexpr int kIp = kFp + kBChunk;
-  static constexpr int kDen = kIp + kBChunk;
-  static constexpr int kG = kDen + kBChunk;
-  static constexpr int kStage = kG + kBChunk;      // a multiple of 4 floats
-  static constexpr int kRs = 2 * kStage;
-  static constexpr int kCoef = kRs + kBChunk;
-  static constexpr int kScale = kCoef + kBChunk;
-  static constexpr int kGc = kScale + kBChunk;
-  static constexpr int kPart = kGc + kBChunk;
-  static constexpr int kN = kPart + kBChunk * kBWarps * kBBand;
-  static constexpr int kDvp = kN + kBChunk * kBBand;
-  static constexpr int kBytes = (kDvp + kBChunk * HD) * 4;
-};
-
-// The chunk of steps [t0, t0 + kBChunk) of (b, h) into stage `st`,
-// zero-filled past S.
-template <int D16>
-__device__ __forceinline__ void b_load(const MlstmBwdArgs& a, float* st,
-                                       int b, int h, int band, int t0) {
-  using L = BSmem<D16>;
-  constexpr int HD = L::HD;
-  for (int p = threadIdx.x; p < kBChunk * (HD / 4); p += kBThreads) {
-    const int s = p / (HD / 4), c4 = p % (HD / 4), t = t0 + s;
-    const bool ok = t < a.S;
-    const long long off =
-        ok ? ((static_cast<long long>(b) * a.S + t) * a.H + h) * HD + 4 * c4
-           : 0;
-    cp_async16(smem_addr(st + L::kV + s * HD + 4 * c4), a.v + off,
-               ok ? 16 : 0);
-    cp_async16(smem_addr(st + L::kDy + s * HD + 4 * c4), a.dy + off,
-               ok ? 16 : 0);
-  }
-  for (int p = threadIdx.x; p < kBChunk * kBBand / 4; p += kBThreads) {
-    const int s = p / (kBBand / 4), c4 = p % (kBBand / 4), t = t0 + s;
-    const bool ok = t < a.S;
-    const long long off =
-        ok ? ((static_cast<long long>(b) * a.S + t) * a.H + h) * HD
-                 + band * kBBand + 4 * c4
-           : 0;
-    cp_async16(smem_addr(st + L::kQ + s * kBBand + 4 * c4), a.q + off,
-               ok ? 16 : 0);
-    cp_async16(smem_addr(st + L::kK + s * kBBand + 4 * c4), a.k + off,
-               ok ? 16 : 0);
-  }
-  for (int s = threadIdx.x; s < kBChunk; s += kBThreads) {
-    const int t = t0 + s;
-    const bool ok = t < a.S;
-    const long long off =
-        ok ? (static_cast<long long>(b) * a.S + t) * a.H + h : 0;
-    cp_async4(smem_addr(st + L::kFp + s), a.fp + off, ok ? 4 : 0);
-    cp_async4(smem_addr(st + L::kIp + s), a.ip + off, ok ? 4 : 0);
-    cp_async4(smem_addr(st + L::kDen + s), a.den + off, ok ? 4 : 0);
-    cp_async4(smem_addr(st + L::kG + s), a.g + off, ok ? 4 : 0);
-  }
-}
-
-// A column pair's sums over the warp's 4 row groups (lane bits 3, 4).
-__device__ __forceinline__ void sum_row_groups(float& x0, float& x1) {
-#pragma unroll
-  for (int off = 8; off <= 16; off <<= 1) {
-    x0 += __shfl_xor_sync(0xffffffffu, x0, off);
-    x1 += __shfl_xor_sync(0xffffffffu, x1, off);
-  }
-}
-
-// The chunk's per-step outputs over the band's 16 columns: e = (step,
-// column), 16 steps x 16 columns over the block's 128 threads in two
-// rounds; `out(tt, col)` computes, stores and returns the output, whose
-// product with `with` [tt][col] is summed over the 16 columns (a
-// half-warp) into `part` [t].
-template <class Out>
-__device__ __forceinline__ void band_outputs(int nt, const float* with,
-                                             float* part, long long pstep,
-                                             Out out) {
-#pragma unroll
-  for (int e0 = 0; e0 < kBChunk * kBBand; e0 += kBThreads) {
-    const int e = e0 + threadIdx.x, tt = e / kBBand, cc = e % kBBand;
-    const bool ok = tt < nt;
-    float x = ok ? out(tt, cc) * with[tt * kBBand + cc] : 0.f;
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      x += __shfl_xor_sync(0xffffffffu, x, off);
-    if (ok && cc == 0) part[tt * pstep] = x;
-  }
-}
-
-template <int D16>
-__global__ void __launch_bounds__(kBThreads)
-mlstm_bwd_kernel(const MlstmBwdArgs a) {
-  using L = BSmem<D16>;
-  constexpr int HD = L::HD;
-  constexpr int V8 = (D16 + 7) / 8 * 8;        // dv values a thread, padded
-  extern __shared__ float4 smem_f4[];
-  float* sm = reinterpret_cast<float*>(smem_f4);
-  const int band = blockIdx.x;
-  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int cp2 = lane & 7;                    // columns 2 cp2, 2 cp2 + 1
-  const int rslot = warp * 4 + (lane >> 3);    // rows rslot + 16 j
-  const int chunks = (a.S + kBChunk - 1) / kBChunk;
-  const long long bsh0 = static_cast<long long>(b) * a.S * a.H + h;
-  const long long tstep = a.H;                 // (b, t, h) per step
-  const long long pstride = static_cast<long long>(a.B) * a.S * a.H;
-  float c[D16][2];
-  float n0 = 0.f, n1 = 0.f;
-#pragma unroll
-  for (int j = 0; j < D16; ++j) c[j][0] = c[j][1] = 0.f;
-
-  // ---- pass A, forward: C, n (divided by F) and dq
-  float f_run = 1.f;                           // warp 0: F
-  b_load<D16>(a, sm, b, h, band, 0);
-  cp_async_commit();
-  for (int ci = 0; ci < chunks; ++ci) {
-    const int t0 = ci * kBChunk;
-    if (ci + 1 < chunks)
-      b_load<D16>(a, sm + ((ci + 1) & 1) * L::kStage, b, h, band,
-                  t0 + kBChunk);
-    cp_async_commit();
-    cp_async_wait1();
-    __syncthreads();
-    const float* st = sm + (ci & 1) * L::kStage;
-    const int nt = min(kBChunk, a.S - t0);
-    if (warp == 0) {
-      const float fp = lane < kBChunk ? st[L::kFp + lane] : 1.f;
-      float rs = 1.f, f_t = 1.f;
-#pragma unroll
-      for (int u = 0; u < kBChunk; ++u) {
-        const float cand = f_run * __shfl_sync(0xffffffffu, fp, u);
-        const bool fold = cand < kMFloor;
-        if (lane == u) {
-          rs = fold ? cand : 1.f;
-          f_t = fold ? 1.f : cand;
-        }
-        if (u < nt) f_run = fold ? 1.f : cand;
-      }
-      if (lane < kBChunk) {
-        sm[L::kRs + lane] = rs;
-        sm[L::kCoef + lane] = st[L::kIp + lane] / f_t;
-        sm[L::kScale + lane] = f_t;
-      }
-    }
-    __syncthreads();
-    for (int tt = 0; tt < nt; ++tt) {
-      const float rs = sm[L::kRs + tt], at = sm[L::kCoef + tt];
-      if (rs != 1.f) {                         // the same for the whole block
-        n0 *= rs;
-        n1 *= rs;
-#pragma unroll
-        for (int j = 0; j < D16; ++j) {
-          c[j][0] *= rs;
-          c[j][1] *= rs;
-        }
-      }
-      const float2 kk =
-          *reinterpret_cast<const float2*>(st + L::kK + tt * kBBand + 2 * cp2);
-      float acc0 = 0.f, acc1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < D16; ++j) {
-        const int r = rslot + 16 * j;
-        const float av = at * st[L::kV + tt * HD + r];
-        const float dyv = st[L::kDy + tt * HD + r];
-        c[j][0] = fmaf(av, kk.x, c[j][0]);
-        c[j][1] = fmaf(av, kk.y, c[j][1]);
-        acc0 = fmaf(c[j][0], dyv, acc0);
-        acc1 = fmaf(c[j][1], dyv, acc1);
-      }
-      n0 = fmaf(at, kk.x, n0);
-      n1 = fmaf(at, kk.y, n1);
-      sum_row_groups(acc0, acc1);
-      if (lane < 8) {
-        float* part = sm + L::kPart + (tt * kBWarps + warp) * kBBand;
-        part[2 * cp2] = acc0;
-        part[2 * cp2 + 1] = acc1;
-        if (warp == 0) {
-          sm[L::kN + tt * kBBand + 2 * cp2] = n0;
-          sm[L::kN + tt * kBBand + 2 * cp2 + 1] = n1;
-        }
-      }
-    }
-    __syncthreads();
-    // dq_t = F (C^T dy / den + g n): its band, and the band's q . dq
-    band_outputs(
-        nt, st + L::kQ, a.pq + band * pstride + bsh0 + t0 * tstep, tstep,
-        [&](int tt, int cc) {
-          const float* part = sm + L::kPart + tt * kBWarps * kBBand + cc;
-          float sum = part[0];
-#pragma unroll
-          for (int w = 1; w < kBWarps; ++w) sum += part[w * kBBand];
-          const float dq = sm[L::kScale + tt]
-              * (sum / st[L::kDen + tt]
-                 + st[L::kG + tt] * sm[L::kN + tt * kBBand + cc]);
-          a.dq[(bsh0 + (t0 + tt) * tstep) * HD + band * kBBand + cc] = dq;
-          return dq;
-        });
-    __syncthreads();                           // the stage, before reuse
-  }
-
-  // ---- pass B, reverse: dC, dn (divided by P), dk and dv's parts
-#pragma unroll
-  for (int j = 0; j < D16; ++j) c[j][0] = c[j][1] = 0.f;
-  n0 = n1 = 0.f;
-  float p_run = 1.f, fp_next = 1.f;            // warp 0: P, f' of the step after
-  b_load<D16>(a, sm, b, h, band, (chunks - 1) * kBChunk);
-  cp_async_commit();
-  for (int ci = chunks - 1, it = 0; ci >= 0; --ci, ++it) {
-    const int t0 = ci * kBChunk;
-    if (ci > 0)
-      b_load<D16>(a, sm + ((it + 1) & 1) * L::kStage, b, h, band,
-                  t0 - kBChunk);
-    cp_async_commit();
-    cp_async_wait1();
-    __syncthreads();
-    const float* st = sm + (it & 1) * L::kStage;
-    const int nt = min(kBChunk, a.S - t0);
-    if (warp == 0) {
-      // dC_t = f'_{t+1} dC_{t+1} + ...: the factor into step t is the next
-      // step's f' (the first step of the chunk walked before, for the last)
-      const float fp = lane < kBChunk ? st[L::kFp + lane] : 1.f;
-      float rs = 1.f, p_t = 1.f;
-#pragma unroll
-      for (int u = kBChunk - 1; u >= 0; --u) {
-        const float fac =
-            u == nt - 1 ? fp_next
-                        : __shfl_sync(0xffffffffu, fp, min(u + 1, kBChunk - 1));
-        const float cand = p_run * fac;
-        const bool fold = cand < kMFloor;
-        if (lane == u) {
-          rs = fold ? cand : 1.f;
-          p_t = fold ? 1.f : cand;
-        }
-        if (u < nt) p_run = fold ? 1.f : cand;
-      }
-      fp_next = __shfl_sync(0xffffffffu, fp, 0);
-      if (lane < kBChunk) {
-        sm[L::kRs + lane] = rs;
-        sm[L::kCoef + lane] = 1.f / (st[L::kDen + lane] * p_t);
-        sm[L::kScale + lane] = p_t;
-        sm[L::kGc + lane] = st[L::kG + lane] / p_t;
-      }
-    }
-    __syncthreads();
-    for (int tt = nt - 1; tt >= 0; --tt) {
-      const float rs = sm[L::kRs + tt], bt = sm[L::kCoef + tt];
-      if (rs != 1.f) {
-        n0 *= rs;
-        n1 *= rs;
-#pragma unroll
-        for (int j = 0; j < D16; ++j) {
-          c[j][0] *= rs;
-          c[j][1] *= rs;
-        }
-      }
-      const float2 qq =
-          *reinterpret_cast<const float2*>(st + L::kQ + tt * kBBand + 2 * cp2);
-      const float2 kk =
-          *reinterpret_cast<const float2*>(st + L::kK + tt * kBBand + 2 * cp2);
-      float acc0 = 0.f, acc1 = 0.f;
-      float dv[V8];
-#pragma unroll
-      for (int j = 0; j < V8; ++j) dv[j] = 0.f;
-#pragma unroll
-      for (int j = 0; j < D16; ++j) {
-        const int r = rslot + 16 * j;
-        const float ad = bt * st[L::kDy + tt * HD + r];
-        const float vv = st[L::kV + tt * HD + r];
-        c[j][0] = fmaf(ad, qq.x, c[j][0]);
-        c[j][1] = fmaf(ad, qq.y, c[j][1]);
-        acc0 = fmaf(c[j][0], vv, acc0);
-        acc1 = fmaf(c[j][1], vv, acc1);
-        dv[j] = fmaf(c[j][0], kk.x, c[j][1] * kk.y);
-      }
-      const float gc = sm[L::kGc + tt];
-      n0 = fmaf(gc, qq.x, n0);
-      n1 = fmaf(gc, qq.y, n1);
-      sum_row_groups(acc0, acc1);
-      if (lane < 8) {
-        float* part = sm + L::kPart + (tt * kBWarps + warp) * kBBand;
-        part[2 * cp2] = acc0;
-        part[2 * cp2 + 1] = acc1;
-        if (warp == 0) {
-          sm[L::kN + tt * kBBand + 2 * cp2] = n0;
-          sm[L::kN + tt * kBBand + 2 * cp2 + 1] = n1;
-        }
-      }
-      // dv's sums over the 8 column pairs (lane bits 0-2): a transposing
-      // butterfly leaves lane cp2 with rows j in [cp2 V8/8, (cp2+1) V8/8)
-      int cnt = V8;
-#pragma unroll
-      for (int o = 4; o > 0; o >>= 1) {
-        const bool up = lane & o;
-#pragma unroll
-        for (int e = 0; e < V8 / 2; ++e) {
-          if (e < cnt / 2) {
-            const float mine = up ? dv[e + cnt / 2] : dv[e];
-            const float give = up ? dv[e] : dv[e + cnt / 2];
-            dv[e] = mine + __shfl_xor_sync(0xffffffffu, give, o);
-          }
-        }
-        cnt /= 2;
-      }
-#pragma unroll
-      for (int e = 0; e < V8 / 8; ++e) {
-        const int j = cp2 * (V8 / 8) + e;
-        if (j < D16) sm[L::kDvp + tt * HD + rslot + 16 * j] = dv[e];
-      }
-    }
-    __syncthreads();
-    // dk_t = i' P (dC^T v + dn) (its band, and the band's k . dk), and the
-    // band's part of dv_t = i' P dC k
-    band_outputs(
-        nt, st + L::kK, a.pk + band * pstride + bsh0 + t0 * tstep, tstep,
-        [&](int tt, int cc) {
-          const float* part = sm + L::kPart + tt * kBWarps * kBBand + cc;
-          float sum = part[0];
-#pragma unroll
-          for (int w = 1; w < kBWarps; ++w) sum += part[w * kBBand];
-          const float dk = st[L::kIp + tt] * sm[L::kScale + tt]
-              * (sum + sm[L::kN + tt * kBBand + cc]);
-          a.dk[(bsh0 + (t0 + tt) * tstep) * HD + band * kBBand + cc] = dk;
-          return dk;
-        });
-    float* dvp = a.dv_part + band * pstride * HD;
-    for (int e = threadIdx.x; e < nt * HD; e += kBThreads) {
-      const int tt = e / HD, r = e % HD;
-      dvp[(bsh0 + (t0 + tt) * tstep) * HD + r] =
-          st[L::kIp + tt] * sm[L::kScale + tt] * sm[L::kDvp + e];
-    }
-    __syncthreads();
-  }
-}
-
-// ------------------------------------------------------------- mLSTM reduce
-// Blocks [0, gate_blocks): a warp a (b, h) walks the gates in reverse, 32
-// steps a chunk (lane = step); the rest: dv = the bands' parts summed in
-// band order, 4 floats a thread.
-__global__ void __launch_bounds__(kRThreads)
-mlstm_bwd_reduce_kernel(const MlstmBwdArgs a, int gate_blocks) {
-  const int bands = a.hd / 16;
-  const long long pstride = static_cast<long long>(a.B) * a.S * a.H;
-  if (static_cast<int>(blockIdx.x) >= gate_blocks) {
-    const long long e4 =
-        (static_cast<long long>(blockIdx.x - gate_blocks) * kRThreads
-         + threadIdx.x) * 4;
-    if (e4 >= pstride * a.hd) return;
-    float4 sum = *reinterpret_cast<const float4*>(a.dv_part + e4);
-    for (int j = 1; j < bands; ++j) {
-      const float4 x =
-          *reinterpret_cast<const float4*>(a.dv_part + j * pstride * a.hd
-                                           + e4);
-      sum.x += x.x;
-      sum.y += x.y;
-      sum.z += x.z;
-      sum.w += x.w;
-    }
-    *reinterpret_cast<float4*>(a.dv + e4) = sum;
     return;
   }
+  if (blk < chain_blocks + ew_blocks) {
+    const int nch = (a.S + kMChunk - 1) / kMChunk;
+    const int idx = (blk - chain_blocks) * kWarps + warp;
+    if (idx >= a.B * a.H * nch) return;
+    const int bh = idx / nch, j = idx % nch, b = bh / a.H, h = bh % a.H;
+    const int t0 = j * kMChunk, nt = min(kMChunk, a.S - t0);
+    double c[kMPer], big[kMPer];
+    const double mp = a.m_st[static_cast<long long>(bh) * nch + j];
+    m_chunk_terms(a, b, h, t0, nt, mp, lane, c, big);
+#pragma unroll
+    for (int q = 0; q < kMPer; ++q) {
+      const int s = kMPer * lane + q;
+      if (s < nt)
+        a.ew[(static_cast<long long>(b) * a.S + t0 + s) * a.H + h] =
+            expf(static_cast<float>(mp - big[q]));
+    }
+    return;
+  }
+  const long long rows = static_cast<long long>(a.B) * a.S * a.H;
+  const long long r0 =
+      (static_cast<long long>(blk - chain_blocks - ew_blocks) * kWarps
+       + warp) * kGRows;
+  for (int rr = 0; rr < kGRows; ++rr) {
+    const long long r = r0 + rr;
+    if (r >= rows) break;
+    const float4* dyr = reinterpret_cast<const float4*>(a.dy + r * a.hd);
+    const float4* yr = reinterpret_cast<const float4*>(a.y + r * a.hd);
+    float s = 0.f;
+    for (int c4 = lane; c4 < a.hd / 4; c4 += 32) {
+      const float4 x = dyr[c4], z = yr[c4];
+      s = fmaf(x.x, z.x, s);
+      s = fmaf(x.y, z.y, s);
+      s = fmaf(x.z, z.z, s);
+      s = fmaf(x.w, z.w, s);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0) {
+      const float dp = a.den[r], den = fmaxf(fabsf(dp), 1.f);
+      a.g[r] = fabsf(dp) >= 1.f ? (dp > 0.f ? -s : s) / den : 0.f;
+    }
+  }
+}
+
+// ------------------------------------------------------- mLSTM states pass
+// Shared memory of mlstm_bwd_state_kernel, in floats: kStages stages of
+// the chunk's q columns and dy columns of the tile [kMChunk][kMTile] and
+// its e, den', g [kMChunk].
+struct BState {
+  static constexpr int kQ = 0;
+  static constexpr int kD = kMChunk * kMTile;
+  static constexpr int kE = 2 * kMChunk * kMTile;
+  static constexpr int kDen = kE + kMChunk;
+  static constexpr int kG = kDen + kMChunk;
+  static constexpr int kStage = kG + kMChunk;
+  static constexpr int kStages = 4;
+  static constexpr int kBytes = kStages * kStage * 4;
+};
+
+// Chunk j's q columns [k0, k0 + kMTile), dy columns [v0, ...), e, den'
+// and g into stage `st`, zero past S and past hd.
+__device__ __forceinline__ void bs_load(const MlstmBwdArgs& a, float* st,
+                                        int b, int h, int j, int k0,
+                                        int v0) {
+  constexpr int kRow4 = kMTile / 4;
+  const int t0 = j * kMChunk, nt = min(kMChunk, a.S - t0);
+  const long long base =
+      (static_cast<long long>(b) * a.S + t0) * a.H * a.hd
+      + static_cast<long long>(h) * a.hd;
+  const long long rowstep = static_cast<long long>(a.H) * a.hd;
+  for (int p = threadIdx.x; p < kMChunk * kRow4; p += kMThreads) {
+    const int s = p / kRow4, c4 = 4 * (p % kRow4);
+    const long long row = base + s * rowstep;
+    const bool kok = s < nt && k0 + c4 < a.hd, vok = s < nt && v0 + c4 < a.hd;
+    cp_async16(smem_addr(st + BState::kQ + s * kMTile + c4),
+               a.q + (kok ? row + k0 + c4 : 0), kok ? 16 : 0);
+    cp_async16(smem_addr(st + BState::kD + s * kMTile + c4),
+               a.dy + (vok ? row + v0 + c4 : 0), vok ? 16 : 0);
+  }
+  for (int s = threadIdx.x; s < kMChunk; s += kMThreads) {
+    const bool ok = s < nt;
+    const long long off =
+        ok ? (static_cast<long long>(b) * a.S + t0 + s) * a.H + h : 0;
+    cp_async4(smem_addr(st + BState::kE + s), a.ew + off, ok ? 4 : 0);
+    cp_async4(smem_addr(st + BState::kDen + s), a.den + off, ok ? 4 : 0);
+    cp_async4(smem_addr(st + BState::kG + s), a.g + off, ok ? 4 : 0);
+  }
+}
+
+// The reverse walk: the state gradient after every chunk. Block (tile, b h)
+// keeps the tile dC^T[k0 + .., v0 + ..] in registers, kMTileT x kMTileT a
+// thread (rows k = k0 + 2 ty + 32 jk + dk, columns v = v0 + 2 tx + 32 jv +
+// dv), and walks chunks N-1 .. 1: stores dC^T (and for tile row 0, dn)
+// after the chunk, then dC^T = e dC^T + sum_t q_t (u_t dy_t)^T with u_t =
+// e_t / den_t, and dn = e dn + sum_t e_t g_t q_t. Chunk 0 is not walked (no
+// state before it is learned); the gradient after the last chunk is 0. q,
+// dy and the per-step terms come two chunks ahead, so a chunk costs two
+// block barriers.
+__global__ void __launch_bounds__(kMThreads, 1)
+mlstm_bwd_state_kernel(const MlstmBwdArgs a) {
+  constexpr int kStages = BState::kStages, kAhead = 2;
+  static_assert(kStages > kAhead + 1, "a stage read two chunks ago");
+  extern __shared__ float4 smem_f4[];
+  float* sm = reinterpret_cast<float*>(smem_f4);
+  const int hd = a.hd;
+  const int ntile = (hd + kMTile - 1) / kMTile;
+  const int k0 = (blockIdx.x % ntile) * kMTile;
+  const int v0 = (blockIdx.x / ntile) * kMTile;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int nch = (a.S + kMChunk - 1) / kMChunk;
+  const long long hd2 = static_cast<long long>(hd) * hd;
+  float* dcs = a.dc_st + static_cast<long long>(bh) * nch * hd2;
+  float* dns = a.dn_st + static_cast<long long>(bh) * nch * hd;
+  const bool nrow = v0 == 0 && threadIdx.x < kMTile && k0 + threadIdx.x < hd;
+
+  float acc[kMTileT][kMTileT];               // [k][v]
+#pragma unroll
+  for (int r = 0; r < kMTileT; ++r)
+#pragma unroll
+    for (int q = 0; q < kMTileT; ++q) acc[r][q] = 0.f;
+  float dn_k = 0.f;                          // dn[k0 + threadIdx.x] (nrow)
+  // walk step `it` takes chunk nch - 1 - it; its loads come kAhead ahead
+  for (int w = 0; w < kAhead; ++w) {
+    if (nch - 1 - w >= 1)
+      bs_load(a, sm + w * BState::kStage, b, h, nch - 1 - w, k0, v0);
+    cp_async_commit();
+  }
+  for (int it = 0;; ++it) {
+    const int j = nch - 1 - it;
+    // the state gradient after chunk j
+    float* dcj = dcs + j * hd2;
+#pragma unroll
+    for (int jk = 0; jk < kMTileT / 2; ++jk)
+#pragma unroll
+      for (int dk = 0; dk < 2; ++dk) {
+        const int k = k0 + 2 * ty + 32 * jk + dk;
+#pragma unroll
+        for (int jv = 0; jv < kMTileT / 2; ++jv) {
+          const int v = v0 + 2 * tx + 32 * jv;
+          if (k < hd && v < hd)
+            *reinterpret_cast<float2*>(dcj + static_cast<long long>(k) * hd
+                                       + v) =
+                make_float2(acc[2 * jk + dk][2 * jv],
+                            acc[2 * jk + dk][2 * jv + 1]);
+        }
+      }
+    if (nrow) dns[static_cast<long long>(j) * hd + k0 + threadIdx.x] = dn_k;
+    if (j == 0) break;
+    // into the stage walk step it - 2 used: every thread is past it
+    if (j - kAhead >= 1)
+      bs_load(a, sm + ((it + kAhead) % kStages) * BState::kStage, b, h,
+              j - kAhead, k0, v0);
+    cp_async_commit();
+    cp_async_wait<kAhead>();
+    __syncthreads();            // chunk j's q, dy and terms
+    float* st = sm + (it % kStages) * BState::kStage;
+    // dy's rows scaled by u_t = e_t / den_t, in place (0 past S: dy is 0)
+    for (int p = threadIdx.x; p < kMChunk * kMTile / 4; p += kMThreads) {
+      const int s = p / (kMTile / 4);
+      float4* x = reinterpret_cast<float4*>(st + BState::kD) + p;
+      const float u =
+          st[BState::kE + s] / fmaxf(fabsf(st[BState::kDen + s]), 1.f);
+      float4 y = *x;
+      y.x *= u;
+      y.y *= u;
+      y.z *= u;
+      y.w *= u;
+      *x = y;
+    }
+    __syncthreads();
+    const float e = st[BState::kE + kMChunk - 1];   // chunk j is whole
+#pragma unroll
+    for (int r = 0; r < kMTileT; ++r)
+#pragma unroll
+      for (int q = 0; q < kMTileT; ++q) acc[r][q] *= e;
+    const float* sk = st + BState::kQ + 2 * ty;
+    const float* sv = st + BState::kD + 2 * tx;
+#pragma unroll 4
+    for (int s = 0; s < kMChunk; ++s) {
+      float av[kMTileT], kv[kMTileT];
+#pragma unroll
+      for (int q = 0; q < kMTileT / 2; ++q) {
+        const float2 x = *reinterpret_cast<const float2*>(sv + s * kMTile
+                                                          + 32 * q);
+        const float2 y = *reinterpret_cast<const float2*>(sk + s * kMTile
+                                                          + 32 * q);
+        av[2 * q] = x.x;
+        av[2 * q + 1] = x.y;
+        kv[2 * q] = y.x;
+        kv[2 * q + 1] = y.y;
+      }
+#pragma unroll
+      for (int r = 0; r < kMTileT; ++r)
+#pragma unroll
+        for (int q = 0; q < kMTileT; ++q)
+          acc[r][q] = fmaf(kv[r], av[q], acc[r][q]);
+    }
+    if (nrow) {
+      dn_k *= e;
+      for (int s = 0; s < kMChunk; ++s)
+        dn_k = fmaf(st[BState::kE + s] * st[BState::kG + s],
+                    st[BState::kQ + s * kMTile + threadIdx.x], dn_k);
+    }
+  }
+}
+
+// ------------------------------------------------------- mLSTM chunk pass
+// Shared memory of mlstm_bwd_chunk_kernel<D16>, in floats: two stages of a
+// slice (the largest: dy, v, q and k's columns [L][KS + 4] each); A and P
+// [L][L + 4]; n and dn [HD]; e, w, 1 / den and g [L]; c and M [L] in
+// double. A state column slice ([HD][KS] of C^T or dC^T, a row a column of
+// the output) lies unpadded with its 16-byte pieces swizzled when D16 is a
+// multiple of 4 (the output's columns 4 tx + 64 q4 + d), padded otherwise
+// (columns tx + 16 q).
+template <int D16>
+struct BChunk {
+  static constexpr int HD = 16 * D16;
+  static constexpr int KS = D16 % 2 == 0 ? 32 : 16;
+  static constexpr bool kSwz = D16 % 4 == 0;
+  static constexpr int kRow = KS + 4;
+  static constexpr int kSRow = kSwz ? KS : KS + 4;
+  static constexpr int kTR = kMChunk / 16;   // steps a thread
+  static constexpr int kOp = kMChunk * kRow;
+  static constexpr int kStage =
+      cmax(4 * kOp, cmax(kOp + HD * kSRow, kOp + KS * HD));
+  static constexpr int kPRow = kMChunk + 4;
+  static constexpr int kA = 2 * kStage;
+  static constexpr int kP = kA + kMChunk * kPRow;
+  static constexpr int kN = kP + kMChunk * kPRow;
+  static constexpr int kDn = kN + HD;
+  static constexpr int kE = kDn + HD;
+  static constexpr int kW = kE + kMChunk;
+  static constexpr int kRd = kW + kMChunk;
+  static constexpr int kG = kRd + kMChunk;
+  static constexpr int kC = kG + kMChunk;   // double c [L], M [L]
+  static constexpr int kBytes = (kC + 4 * kMChunk) * 4;
+  // slices: dy v^T and q k^T (G1); for dq, dk and dv each the state's
+  // part (G1) then the chunk's (G3)
+  static constexpr int G1 = HD / KS, G3 = kMChunk / KS;
+  static constexpr int GT = 4 * G1 + 3 * G3;
+};
+
+// Output column q (0 .. D16-1) of thread tx.
+template <int D16>
+__device__ __forceinline__ int out_col(int tx, int q) {
+  if constexpr (D16 % 4 == 0) return 4 * tx + 64 * (q / 4) + q % 4;
+  else return tx + 16 * q;
+}
+
+// The float offset of 16-byte piece c4 of row k in a state column slice.
+template <int D16>
+__device__ __forceinline__ int st_off(int k, int c4) {
+  using L = BChunk<D16>;
+  if constexpr (L::kSwz) return k * L::kSRow + 4 * (c4 ^ ((k >> 2) & 7));
+  else return k * L::kSRow + 4 * c4;
+}
+
+// A row of HD floats at this thread's output columns.
+template <int D16>
+__device__ __forceinline__ void row_cols(const float* row, int tx,
+                                         float (&out)[D16]) {
+  if constexpr (D16 % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < D16 / 4; ++q) {
+      const float4 x = *reinterpret_cast<const float4*>(row + 4 * tx + 64 * q);
+      out[4 * q] = x.x;
+      out[4 * q + 1] = x.y;
+      out[4 * q + 2] = x.z;
+      out[4 * q + 3] = x.w;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < D16; ++q) out[q] = row[tx + 16 * q];
+  }
+}
+
+// Columns [x0, x0 + KS) of the chunk's rows (zero at and past nt) of the
+// [B,S,H,hd] tensor X into dst [L][KS + 4].
+template <int D16>
+__device__ __forceinline__ void bc_cols(const float* X, long long base,
+                                        long long rowstep, int nt, int x0,
+                                        float* dst) {
+  using L = BChunk<D16>;
+  for (int p = threadIdx.x; p < kMChunk * L::KS / 4; p += kMThreads) {
+    const int t = p / (L::KS / 4), c4 = 4 * (p % (L::KS / 4));
+    const bool ok = t < nt;
+    cp_async16(smem_addr(dst + t * L::kRow + c4),
+               X + (ok ? base + t * rowstep + x0 + c4 : 0), ok ? 16 : 0);
+  }
+}
+
+// Rows [t0, t0 + KS) of the chunk (zero at and past nt), whole, into dst
+// [KS][HD].
+template <int D16>
+__device__ __forceinline__ void bc_rows(const float* X, long long base,
+                                        long long rowstep, int nt, int t0,
+                                        float* dst) {
+  using L = BChunk<D16>;
+  constexpr int HD = L::HD;
+  for (int p = threadIdx.x; p < L::KS * HD / 4; p += kMThreads) {
+    const int t = p / (HD / 4), c4 = 4 * (p % (HD / 4));
+    const bool ok = t0 + t < nt;
+    cp_async16(smem_addr(dst + t * HD + c4),
+               X + (ok ? base + (t0 + t) * rowstep + c4 : 0), ok ? 16 : 0);
+  }
+}
+
+// Columns [x0, x0 + KS) of a state matrix [HD][HD] as a column slice.
+template <int D16>
+__device__ __forceinline__ void bc_state_cols(const float* st, int x0,
+                                              float* dst) {
+  using L = BChunk<D16>;
+  constexpr int HD = L::HD, P = L::KS / 4;
+  for (int p = threadIdx.x; p < HD * P; p += kMThreads) {
+    const int k = p / P, c4 = p % P;
+    cp_async16(smem_addr(dst + st_off<D16>(k, c4)),
+               st + static_cast<long long>(k) * HD + x0 + 4 * c4, 16);
+  }
+}
+
+// acc[i][q] += sum_x a[4 ty + i][x] S[col q][x] over a slice: the rows of
+// `ar` ([L][KS + 4]) against a state column slice, dot-product form.
+template <int D16>
+__device__ __forceinline__ void bc_dot(const float* ar, const float* bs,
+                                       int tx, int ty,
+                                       float (&acc)[kMChunk / 16][D16]) {
+  using L = BChunk<D16>;
+  constexpr int kTR = L::kTR;
+  // out_col(tx, q) >> 2 & 7 is tx & 7 for every q when swizzled
+  const float* arow = ar + kTR * ty * L::kRow;
+#pragma unroll 2
+  for (int c4 = 0; c4 < L::KS / 4; ++c4) {
+    const int pc = 4 * (L::kSwz ? c4 ^ (tx & 7) : c4);
+    float4 av[kTR];
+#pragma unroll
+    for (int i = 0; i < kTR; ++i)
+      av[i] = *reinterpret_cast<const float4*>(arow + i * L::kRow + 4 * c4);
+#pragma unroll
+    for (int q = 0; q < D16; ++q) {
+      const float4 bv = *reinterpret_cast<const float4*>(
+          bs + out_col<D16>(tx, q) * L::kSRow + pc);
+#pragma unroll
+      for (int i = 0; i < kTR; ++i) {
+        float x = fmaf(av[i].x, bv.x, acc[i][q]);
+        x = fmaf(av[i].y, bv.y, x);
+        x = fmaf(av[i].z, bv.z, x);
+        acc[i][q] = fmaf(av[i].w, bv.w, x);
+      }
+    }
+  }
+}
+
+// acc[i][q] += sum_x a[4 ty + i][x] B[x][col q] over x in [0, n): the rows
+// of `ar` (stride `lda`, x contiguous) against the rows of `br` ([.][HD]),
+// the forward's outer-product form.
+template <int D16>
+__device__ __forceinline__ void bc_outer(const float* ar, int lda,
+                                         const float* br, int n, int tx,
+                                         int ty,
+                                         float (&acc)[kMChunk / 16][D16]) {
+  using L = BChunk<D16>;
+  constexpr int kTR = L::kTR, HD = L::HD;
+  for (int x0 = 0; x0 < n; x0 += 4) {
+    float4 av[kTR];
+#pragma unroll
+    for (int i = 0; i < kTR; ++i)
+      av[i] = *reinterpret_cast<const float4*>(ar + (kTR * ty + i) * lda
+                                               + x0);
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      float bv[D16];
+      row_cols<D16>(br + (x0 + d) * HD, tx, bv);
+#pragma unroll
+      for (int i = 0; i < kTR; ++i) {
+        const float x = f4_at(av[i], d);
+#pragma unroll
+        for (int q = 0; q < D16; ++q) acc[i][q] = fmaf(x, bv[q], acc[i][q]);
+      }
+    }
+  }
+}
+
+// acc[i][q] += sum_t M[t][4 ty + i] B[t - t0][col q] over t in [tb, t0 +
+// n): a column block of the L x L matrix M (A or P) against the rows of
+// `br` ([.][HD], row 0 at step t0).
+template <int D16>
+__device__ __forceinline__ void bc_trans(const float* mm, const float* br,
+                                         int t0, int tb, int n, int tx,
+                                         int ty,
+                                         float (&acc)[kMChunk / 16][D16]) {
+  using L = BChunk<D16>;
+  constexpr int HD = L::HD;
+  for (int t = tb; t < t0 + n; ++t) {
+    const float4 a4 =
+        *reinterpret_cast<const float4*>(mm + t * L::kPRow + L::kTR * ty);
+    float bv[D16];
+    row_cols<D16>(br + (t - t0) * HD, tx, bv);
+#pragma unroll
+    for (int q = 0; q < D16; ++q) {
+      acc[0][q] = fmaf(a4.x, bv[q], acc[0][q]);
+      acc[1][q] = fmaf(a4.y, bv[q], acc[1][q]);
+      acc[2][q] = fmaf(a4.z, bv[q], acc[2][q]);
+      acc[3][q] = fmaf(a4.w, bv[q], acc[3][q]);
+    }
+  }
+}
+
+// One output's tile written (rows below nt) and, with `with` set, each
+// row's dot with that tensor's row, summed over the thread's columns and
+// then the row's 16 threads, into dots [B,S,H].
+template <int D16>
+__device__ __forceinline__ void bc_store(float* out, const float* with,
+                                         float* dots, long long base,
+                                         long long rowstep, long long drow,
+                                         long long dstep, int nt, int tx,
+                                         int ty,
+                                         const float (&acc)[kMChunk / 16]
+                                                           [D16]) {
+  using L = BChunk<D16>;
+#pragma unroll
+  for (int i = 0; i < L::kTR; ++i) {
+    const int t = L::kTR * ty + i;
+    const bool ok = t < nt;
+    float part = 0.f;
+    if (ok) {
+      float* orow = out + base + t * rowstep;
+      if constexpr (D16 % 4 == 0) {
+#pragma unroll
+        for (int q = 0; q < D16 / 4; ++q)
+          *reinterpret_cast<float4*>(orow + 4 * tx + 64 * q) =
+              make_float4(acc[i][4 * q], acc[i][4 * q + 1], acc[i][4 * q + 2],
+                          acc[i][4 * q + 3]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < D16; ++q) orow[tx + 16 * q] = acc[i][q];
+      }
+      if (with != nullptr) {
+        float wv[D16];
+        row_cols<D16>(with + base + t * rowstep, tx, wv);
+#pragma unroll
+        for (int q = 0; q < D16; ++q) part = fmaf(wv[q], acc[i][q], part);
+      }
+    }
+    if (with != nullptr) {
+#pragma unroll
+      for (int o = 1; o < 16; o <<= 1)
+        part += __shfl_xor_sync(0xffffffffu, part, o);
+      if (ok && tx == 0) dots[drow + t * dstep] = part;
+    }
+  }
+}
+
+// Chunk blockIdx.x of (b, h) = blockIdx.y: dq, dk, dv and q . dq, k . dk.
+// Thread (ty, tx) takes steps 4 ty + i and the output columns out_col(tx,
+// q); the slices stream through two stages in the order of BChunk.
+template <int D16>
+__global__ void __launch_bounds__(kMThreads, 2)
+mlstm_bwd_chunk_kernel(const MlstmBwdArgs a) {
+  using L = BChunk<D16>;
+  constexpr int HD = L::HD, KS = L::KS, kTR = L::kTR;
+  constexpr int G1 = L::G1, G3 = L::G3, GT = L::GT;
+  extern __shared__ float4 smem_f4[];
+  float* sm = reinterpret_cast<float*>(smem_f4);
+  double* c_s = reinterpret_cast<double*>(sm + L::kC);
+  double* big_s = c_s + kMChunk;
+  const int j = blockIdx.x, nch = gridDim.x;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int t0 = j * kMChunk, nt = min(kMChunk, a.S - t0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const long long sj = static_cast<long long>(bh) * nch + j;
+  const float* cj = a.c_st + sj * HD * HD;     // C^T before chunk j
+  const float* dcj = a.dc_st + sj * HD * HD;   // dC^T after it
+  const long long base = (static_cast<long long>(b) * a.S + t0) * a.H * HD
+                         + static_cast<long long>(h) * HD;
+  const long long rowstep = static_cast<long long>(a.H) * HD;
+  const long long drow = (static_cast<long long>(b) * a.S + t0) * a.H + h;
+
+  // slice g into stage `st`, in BChunk's order
+  auto load = [&](int g, float* st) {
+    if (g < G1) {                               // dy, v, q, k columns
+      const int x0 = g * KS;
+      bc_cols<D16>(a.dy, base, rowstep, nt, x0, st);
+      bc_cols<D16>(a.v, base, rowstep, nt, x0, st + L::kOp);
+      bc_cols<D16>(a.q, base, rowstep, nt, x0, st + 2 * L::kOp);
+      bc_cols<D16>(a.k, base, rowstep, nt, x0, st + 3 * L::kOp);
+      return;
+    }
+    g -= G1;
+    const int part = g / (G1 + G3), r = g % (G1 + G3);
+    if (r < G1) {                               // the state's part
+      const int x0 = r * KS;
+      if (part == 0) {                          // dq: dy . C^T columns
+        bc_cols<D16>(a.dy, base, rowstep, nt, x0, st);
+        bc_state_cols<D16>(cj, x0, st + L::kOp);
+      } else if (part == 1) {                   // dk: v . dC^T columns
+        bc_cols<D16>(a.v, base, rowstep, nt, x0, st);
+        bc_state_cols<D16>(dcj, x0, st + L::kOp);
+      } else {                                  // dv: k x dC^T rows
+        bc_cols<D16>(a.k, base, rowstep, nt, x0, st);
+        for (int p = threadIdx.x; p < KS * HD / 4; p += kMThreads)
+          cp_async16(smem_addr(st + L::kOp + 4 * p),
+                     dcj + static_cast<long long>(x0) * HD + 4 * p, 16);
+      }
+    } else {                                    // the chunk's part: rows
+      const float* X = part == 0 ? a.k : part == 1 ? a.q : a.dy;
+      bc_rows<D16>(X, base, rowstep, nt, (r - G1) * KS, st);
+    }
+  };
+
+  load(0, sm);
+  cp_async_commit();
+  for (int e = threadIdx.x; e < HD; e += kMThreads) {
+    sm[L::kN + e] = a.n_st[sj * HD + e];
+    sm[L::kDn + e] = a.dn_st[sj * HD + e];
+  }
+  if (warp == 0) {
+    double c[kMPer], big[kMPer];
+    const double mp = a.m_st[sj];
+    const double blast = m_chunk_terms(a, b, h, t0, nt, mp, lane, c, big);
+#pragma unroll
+    for (int q = 0; q < kMPer; ++q) {
+      const int s = kMPer * lane + q;
+      const bool ok = s < nt;
+      c_s[s] = c[q];
+      big_s[s] = big[q];
+      sm[L::kE + s] = expf(static_cast<float>(mp - big[q]));
+      sm[L::kW + s] = expf(static_cast<float>(c[q] - blast));
+      const float dp = ok ? a.den[drow + s * a.H] : 1.f;
+      sm[L::kRd + s] = 1.f / fmaxf(fabsf(dp), 1.f);
+      sm[L::kG + s] = ok ? a.g[drow + s * a.H] : 0.f;
+    }
+  }
+
+  int g = 0;                                    // the slice being walked
+  auto begin = [&]() -> const float* {
+    if (g + 1 < GT) load(g + 1, sm + ((g + 1) & 1) * L::kStage);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    return sm + (g & 1) * L::kStage;
+  };
+  auto end = [&]() {
+    __syncthreads();                            // the stage is free
+    ++g;
+  };
+  const int tmax = 2 * kTR * (warp + 1) - 1;    // the warp's last step
+  const int smin = 2 * kTR * warp;              // and its first
+  const int qmax = tmax / 16;                   // its last s = tx + 16 q
+
+  // ---- dy v^T and q k^T, each slice's sums added apart; then A and P
+  for (int x = 0; x < G1; ++x) {
+    const float* st = begin();
+#pragma unroll
+    for (int which = 0; which < 2; ++which) {
+      const float* ar = st + 2 * which * L::kOp;
+      const float* br = ar + L::kOp;
+      float sp[kTR][kTR];
+#pragma unroll
+      for (int i = 0; i < kTR; ++i)
+#pragma unroll
+        for (int q = 0; q < kTR; ++q) sp[i][q] = 0.f;
+#pragma unroll 2
+      for (int kk = 0; kk < KS; kk += 4) {
+        float4 qa[kTR];
+#pragma unroll
+        for (int i = 0; i < kTR; ++i)
+          qa[i] = *reinterpret_cast<const float4*>(ar + (kTR * ty + i)
+                                                   * L::kRow + kk);
+#pragma unroll
+        for (int q = 0; q < kTR; ++q) {
+          if (q > qmax) break;
+          const float4 kb = *reinterpret_cast<const float4*>(
+              br + (tx + 16 * q) * L::kRow + kk);
+#pragma unroll
+          for (int i = 0; i < kTR; ++i) {
+            float y = fmaf(qa[i].x, kb.x, sp[i][q]);
+            y = fmaf(qa[i].y, kb.y, y);
+            y = fmaf(qa[i].z, kb.z, y);
+            sp[i][q] = fmaf(qa[i].w, kb.w, y);
+          }
+        }
+      }
+      float* pm = sm + (which ? L::kP : L::kA) + kTR * ty * L::kPRow + tx;
+#pragma unroll
+      for (int i = 0; i < kTR; ++i)
+#pragma unroll
+        for (int q = 0; q < kTR; ++q)
+          if (q <= qmax) {
+            float* y = pm + i * L::kPRow + 16 * q;
+            *y = x == 0 ? sp[i][q] : *y + sp[i][q];
+          }
+    }
+    if (x == G1 - 1) {
+      // A = D o (dy v^T / den + g), P = D o (q k^T) / den (rows t)
+#pragma unroll
+      for (int i = 0; i < kTR; ++i) {
+        const int t = kTR * ty + i;
+        const double bt = big_s[t];
+        const float rd = sm[L::kRd + t], gt = sm[L::kG + t];
+#pragma unroll
+        for (int q = 0; q < kTR; ++q) {
+          const int s = tx + 16 * q;
+          if (q > qmax) break;
+          float* xa = sm + L::kA + t * L::kPRow + s;
+          float* xp = sm + L::kP + t * L::kPRow + s;
+          if (s <= t) {
+            const float d = expf(static_cast<float>(c_s[s] - bt));
+            *xa = d * fmaf(*xa, rd, gt);
+            *xp = d * (*xp * rd);
+          } else {
+            *xa = 0.f;
+            *xp = 0.f;
+          }
+        }
+      }
+    }
+    end();
+  }
+
+  float acc[kTR][D16];
+  for (int part = 0; part < 3; ++part) {
+#pragma unroll
+    for (int i = 0; i < kTR; ++i)
+#pragma unroll
+      for (int q = 0; q < D16; ++q) acc[i][q] = 0.f;
+    // the state's part: C^T dnum (dq), dC^T v (dk), dC k (dv)
+    for (int x = 0; x < G1; ++x) {
+      const float* st = begin();
+      if (part < 2)
+        bc_dot<D16>(st, st + L::kOp, tx, ty, acc);
+      else
+        bc_outer<D16>(st, L::kRow, st + L::kOp, KS, tx, ty, acc);
+      if (x == G1 - 1) {
+#pragma unroll
+        for (int i = 0; i < kTR; ++i) {
+          const int t = kTR * ty + i;
+          if (part == 0) {          // e_t (C^T dy / den + g n)
+            const float et = sm[L::kE + t];
+            const float sc = et * sm[L::kRd + t], gn = et * sm[L::kG + t];
+#pragma unroll
+            for (int q = 0; q < D16; ++q)
+              acc[i][q] = fmaf(acc[i][q], sc,
+                               gn * sm[L::kN + out_col<D16>(tx, q)]);
+          } else {                  // w_s (dC^T v + dn), w_s dC k
+            const float ws = sm[L::kW + t];
+#pragma unroll
+            for (int q = 0; q < D16; ++q) {
+              const float dn = part == 1 ? sm[L::kDn + out_col<D16>(tx, q)]
+                                         : 0.f;
+              acc[i][q] = ws * (acc[i][q] + dn);
+            }
+          }
+        }
+      }
+      end();
+    }
+    // the chunk's part: A k (dq), A^T q (dk), P^T dnum (dv)
+    for (int x = 0; x < G3; ++x) {
+      const float* st = begin();
+      const int s0 = x * KS;
+      if (part == 0) {
+        const int n = min(KS, tmax + 1 - s0);
+        if (n > 0)
+          bc_outer<D16>(sm + L::kA + s0, L::kPRow, st, n, tx, ty, acc);
+      } else {
+        bc_trans<D16>(sm + (part == 1 ? L::kA : L::kP), st, s0,
+                      max(s0, smin), KS, tx, ty, acc);
+      }
+      if (x == G3 - 1)
+        bc_store<D16>(part == 0 ? a.dq : part == 1 ? a.dk : a.dv,
+                      part == 0 ? a.q : part == 1 ? a.k : nullptr,
+                      part == 0 ? a.qdq : a.kdk, base, rowstep, drow, a.H, nt,
+                      tx, ty, acc);
+      end();
+    }
+  }
+}
+
+// ------------------------------------------------------------- mLSTM gates
+// A warp a (b, h) walks the gates in reverse, 32 steps a round (lane =
+// step), from q . dq, k . dk and sel.
+__global__ void __launch_bounds__(kMThreads)
+mlstm_bwd_gate_kernel(const MlstmBwdArgs a) {
   const int lane = threadIdx.x & 31;
-  const int bh = blockIdx.x * (kRThreads / 32) + (threadIdx.x >> 5);
+  const int bh = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (bh >= a.B * a.H) return;                 // whole warps
   const int b = bh / a.H, h = bh % a.H;
   const long long bsh0 = static_cast<long long>(b) * a.S * a.H + h;
+  // a round's q . dq, k . dk, sel and f, loaded a round ahead
+  float4 nx;
+  auto terms = [&](int t0) {
+    const int t = t0 + lane;
+    const long long s = bsh0 + static_cast<long long>(t) * a.H;
+    nx = t0 >= 0 && t < a.S
+             ? make_float4(a.qdq[s], a.kdk[s], a.sel[s], a.f[s])
+             : make_float4(0.f, 0.f, 1.f, 0.f);
+  };
   float a_carry = 0.f, m_carry = 0.f;          // sum_{u >= t0+32} s_u; M
+  terms((a.S - 1) / kPChunk * kPChunk);
   for (int t0 = (a.S - 1) / kPChunk * kPChunk; t0 >= 0; t0 -= kPChunk) {
     const int t = t0 + lane;
     const bool ok = t < a.S;
     const long long s = bsh0 + static_cast<long long>(t) * a.H;
-    float qdq = 0.f, kdk = 0.f, sel = 1.f, fv = 0.f;
-    if (ok) {
-      for (int j = 0; j < bands; ++j) {
-        qdq += a.pq[j * pstride + s];
-        kdk += a.pk[j * pstride + s];
-      }
-      sel = a.sel[s];
-      fv = a.f[s];
-    }
+    const float qdq = nx.x, kdk = nx.y, sel = nx.z, fv = nx.w;
+    terms(t0 - kPChunk);
     // a_t = a_carry + sum_{u >= t} (q . dq - k . dk)_u: a suffix scan
     float at = qdq - kdk;
 #pragma unroll
@@ -750,52 +1111,82 @@ mlstm_bwd_reduce_kernel(const MlstmBwdArgs a, int gate_blocks) {
 }
 
 // ------------------------------------------------------------ sLSTM backward
+// The forward's short forms (fast_*) come from xlstm_fast.cuh, so that
+// f', i', tanh z and sigmoid o are the forward's own.
+
+// The step's affine coefficients (see the notes at the top), the
+// forward's cell as xlstm_scan.cu's slstm_scan_kernel rounds it: m_{t-1}
+// + log_sigmoid(p_f) and f', i' from the forward's own m_t.
+struct CellCoef {
+  float a1, a2, a3, bz, g1, g2, sel, sgf, fp;
+};
+
+// From the step's p (4 gates), the state before it (c0, n0, m0) and after
+// it (c, n, m), all the forward's.
+__device__ __forceinline__ CellCoef cell_coef(const float (&p)[4], float c0,
+                                              float n0, float m0, float c,
+                                              float n, float m) {
+  const float pi = p[0], pf = p[1], pz = p[2], po = p[3];
+  const float mf = __fadd_rn(fast_log_sigmoid(pf), m0);
+  const float ip = fast_exp(__fsub_rn(pi, m));
+  const float fp = fast_exp(__fsub_rn(mf, m));
+  const float tz = fast_tanh(pz);
+  const float sig = fast_sigmoid(po);
+  const float rn = fast_rcp(fmaxf(n, 1.f));
+  const float sel = first_arm(mf, pi);
+  CellCoef k;
+  k.a1 = sig * rn;
+  k.a2 = n >= 1.f ? -(k.a1 * c * rn) : 0.f;
+  k.a3 = c * rn * sig * (1.f - sig);
+  k.bz = ip * (1.f - tz * tz);
+  k.g1 = (1.f - sel) * fp * c0 - sel * ip * tz;
+  k.g2 = (1.f - sel) * fp * n0 - sel * ip;
+  k.sel = sel;
+  k.sgf = fast_sigmoid(-pf);
+  k.fp = fp;
+  return k;
+}
+
 template <int D16>
-constexpr int kBSThreads = 32 * D16;     // a warp two output rows: hd / 8
+constexpr int kBSThreads = 32 * D16;     // a warp 16 output columns w
 
 template <int D16>
 __global__ void __launch_bounds__(kBSThreads<D16>, 1)
     slstm_scan_bwd_kernel(const SlstmBwdArgs a) {
   constexpr int HD = 16 * D16;
-  constexpr int RB = HD / kSCluster;       // rows a block, two a warp
-  constexpr int kCells = RB * kSBatch;     // (row, batch row) cells a block
-  constexpr int kCellThreads = (kCells + 31) / 32 * 32;
-  constexpr int kPieces = 4 * RB;          // 16-byte pieces of its dp
-  constexpr int kBytes = 4 * HD * kSBatch * 4;   // dp a step, all blocks
-  __shared__ __align__(16) float dpbuf[2][4][HD][kSBatch];
-  __shared__ __align__(16) float dploc[4][RB][kSBatch];
-  __shared__ float rec_s[RB][kSBatch];
+  constexpr int RB = HD / kSCluster;       // rows a block
+  constexpr int kTerms = 4 * RB;           // its (gate, row) terms: 8 D16
+  constexpr int kCells = RB * kSBatch;     // (row, batch row) cells
+  constexpr int kBytes = kSCluster * kSBatch * RB * 4;  // partials a step
+  static_assert(kCells <= kBSThreads<D16>, "a thread a cell");
+  // the partial sums of this block's rows w by source block: [src][b][w]
+  __shared__ __align__(16) float rbuf[2][kSCluster][kSBatch][RB];
+  __shared__ __align__(16) float dploc[2][kTerms][kSBatch];
   __shared__ __align__(8) uint64_t mbar[2];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // matvec: warp wp owns output rows 2 wp, 2 wp + 1 of the block; lane
-  // holds W_g[v, w] for v = 32 jj + lane (zero past hd). The transposing
-  // reduction leaves lane l with sum 8 l / 32 = (row, batch row).
-  constexpr int kW = (HD + 31) / 32;
-  constexpr int kV = 2 * kSBatch;
-  const int vi = lane * kV / 32, rr = vi / kSBatch, hi = vi % kSBatch;
-  const bool writer = lane % (32 / kV) == 0;
+  // matvec: lane = 4 tg + wq takes the columns w = 16 warp + 4 wq + jw
+  // (jw < 4) and the terms tau = 8 i + tg (i < D16; gate tau / RB, row
+  // rank RB + tau % RB); its 16 sums, index 4 b + jw, reduced over the 8
+  // term groups by a transposing butterfly, leave it sums 2 tg, 2 tg + 1:
+  // batch row tg / 2, columns ws, ws + 1 below
+  const int wq = lane & 3, tg = lane >> 2;
+  const int ws = 16 * warp + 4 * wq + 2 * (tg & 1);
+  const int dst = ws / RB, wl = ws % RB, bs = tg >> 1;
   const int h = blockIdx.z;
   const int b0 = blockIdx.y * kSBatch;
 
-  float wt[2][4][kW];
+  float wt[D16][4];
 #pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const int w = rank * RB + 2 * warp + q;
+  for (int i = 0; i < D16; ++i) {
+    const int tau = 8 * i + tg, gg = tau / RB;
+    const int v = rank * RB + tau % RB;
 #pragma unroll
-    for (int gg = 0; gg < 4; ++gg)
-#pragma unroll
-      for (int jj = 0; jj < kW; ++jj) {
-        const int v = 32 * jj + lane;
-        wt[q][gg][jj] =
-            v < HD ? a.w_r[((static_cast<long long>(gg) * a.H + h) * HD + v)
-                           * HD + w]
-                   : 0.f;
-      }
+    for (int jw = 0; jw < 4; ++jw)
+      wt[i][jw] = a.w_r[((static_cast<long long>(gg) * a.H + h) * HD + v)
+                        * HD + 16 * warp + 4 * wq + jw];
   }
-  for (int e = threadIdx.x; e < RB * kSBatch; e += blockDim.x)
-    (&rec_s[0][0])[e] = 0.f;
   const auto bar0 = smem_addr(&mbar[0]), bar1 = smem_addr(&mbar[1]);
   if (threadIdx.x == 0) {
     mbar_init(bar0, 1);
@@ -814,8 +1205,8 @@ __global__ void __launch_bounds__(kBSThreads<D16>, 1)
       (static_cast<long long>(cvalid ? b0 + cb : 0) * a.S * a.H + h) * HD
       + rank * RB + cr;                       // t = 0
   const long long pbase = base + (base / ystep) * 3 * ystep;
-  // step t's p (4 gates), dy and the state before it (c, n, m of t - 1)
-  float pr[kSAhead][4], sr[kSAhead][3], dyr[kSAhead];
+  // step t's p (4 gates), dy, and c, n, m before it and after it
+  float pr[kSAhead][4], sr[kSAhead][6], dyr[kSAhead];
   auto load = [&](int j, int t) {
     const bool ok = cvalid && t >= 0 && t < a.S;
     const bool prev = ok && t > 0;
@@ -826,6 +1217,9 @@ __global__ void __launch_bounds__(kBSThreads<D16>, 1)
     sr[j][0] = prev ? a.c[base + (t - 1) * ystep] : 0.f;
     sr[j][1] = prev ? a.n[base + (t - 1) * ystep] : 0.f;
     sr[j][2] = prev ? a.m[base + (t - 1) * ystep] : 0.f;
+    sr[j][3] = ok ? a.c[base + t * ystep] : 0.f;
+    sr[j][4] = ok ? a.n[base + t * ystep] : 0.f;
+    sr[j][5] = ok ? a.m[base + t * ystep] : 0.f;
   };
 #pragma unroll
   for (int j = 0; j < kSAhead; ++j) load(j, a.S - 1 - j);
@@ -836,108 +1230,76 @@ __global__ void __launch_bounds__(kBSThreads<D16>, 1)
     for (int j = 0; j < kSAhead; ++j) {
       const int u = u0 + j, t = a.S - 1 - u;   // u: steps walked before
       if (t < 0) break;
-      if (threadIdx.x < kCellThreads) {
-        if (cell) {
-          // the forward's cell at step t, rounded as it rounds
-          const float pi = pr[j][0], pf = pr[j][1], pz = pr[j][2],
-                      po = pr[j][3];
-          const float c0 = sr[j][0], n0 = sr[j][1], m0 = sr[j][2];
-          const float dy = dyr[j];
-          load(j, t - kSAhead);
-          const float mf = __fadd_rn(log_sigmoid(pf), m0);
-          const float m_new = fmaxf(mf, pi);
-          const float ip = expf(__fsub_rn(pi, m_new));
-          const float fp = expf(__fsub_rn(mf, m_new));
-          const float tz = tanhf(pz);
-          const float c = __fadd_rn(__fmul_rn(fp, c0), __fmul_rn(ip, tz));
-          const float n = __fadd_rn(__fmul_rn(fp, n0), ip);
-          const float sig = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-po)));
-          const float nc = fmaxf(n, 1.f);
-          // back through h = sig c / nc, then the chains and the gates
-          const float dh = dy + rec_s[cr][cb];
-          const float dhn = dh / nc;
-          const float dct = dc + dhn * sig;
-          const float dnt = n >= 1.f ? dn - dhn * sig * c / nc : dn;
-          const float dpo = dhn * c * sig * (1.f - sig);
-          const float dfp = dct * c0 + dnt * n0;
-          const float dip = dct * tz + dnt;
-          const float dpz = dct * ip * (1.f - tz * tz);
-          const float rest = dm - dip * ip - dfp * fp;
-          const float sel = first_arm(mf, pi);
-          const float dmf = dfp * fp + sel * rest;
-          const float dpi = dip * ip + (1.f - sel) * rest;
-          const float dpf = dmf / (1.f + expf(pf));
-          dc = dct * fp;
-          dn = dnt * fp;
-          dm = dmf;
-          const float dp[4] = {dpi, dpf, dpz, dpo};
+      const int buf = u & 1;
+      if (cell) {
+        // the coefficients, before the wait, off the chain: c, n, m of
+        // step t and of t - 1 are the forward's own (its trails), and
+        // f', i', tanh z and sigmoid o the forward's short forms of them
+        const CellCoef k = cell_coef(pr[j], sr[j][0], sr[j][1], sr[j][2],
+                                     sr[j][3], sr[j][4], sr[j][5]);
+        const float dy = dyr[j];
+        // buffer u & 1 holds the partial sums for step t once every block's
+        // have landed; then this block arms the buffer's next phase
+        float rec = 0.f;
+        if (u > 0) {
+          const auto bar = buf ? bar1 : bar0;
+          mbar_wait(bar, ((u - 1) >> 1) & 1);
+          if (threadIdx.x == 0) mbar_expect(bar, kBytes);
 #pragma unroll
-          for (int gg = 0; gg < 4; ++gg) {
-            dploc[gg][cr][cb] = dp[gg];
-            if (cvalid) a.dpre[pbase + (4LL * t + gg) * ystep] = dp[gg];
-          }
+          for (int src = 0; src < kSCluster; ++src)
+            rec += rbuf[buf][src][cb][cr];
         }
-        // the block's dp_t, 4 x RB x kSBatch floats, to every block of the
-        // cluster, into buffer u & 1 (nobody reads step 0's)
-        named_barrier(1, kCellThreads);
-        if (t > 0) {
-          const auto bar = u & 1 ? bar1 : bar0;
-          for (int e = threadIdx.x; e < kPieces * kSCluster;
-               e += kCellThreads) {
-            const int to = e / kPieces, pc = e % kPieces;
-            const int gg = pc / RB, r = pc % RB;
-            const float4 v =
-                *reinterpret_cast<const float4*>(&dploc[gg][r][0]);
-            st_async4(map_rank(smem_addr(&dpbuf[u & 1][gg][rank * RB + r][0]),
-                               to),
-                      v.x, v.y, v.z, v.w, map_rank(bar, to));
-          }
+        // the chain
+        const float dh = dy + rec;
+        const float xx = fmaf(k.a1, dh, dc);
+        const float yy = fmaf(k.a2, dh, dn);
+        const float dmf = fmaf(k.g1, xx, fmaf(k.g2, yy, k.sel * dm));
+        const float dp[4] = {dm - dmf, k.sgf * dmf, k.bz * xx, k.a3 * dh};
+        dc = k.fp * xx;
+        dn = k.fp * yy;
+        dm = dmf;
+#pragma unroll
+        for (int gg = 0; gg < 4; ++gg) {
+          dploc[buf][gg * RB + cr][cb] = dp[gg];
+          if (cvalid) a.dpre[pbase + (4LL * t + gg) * ystep] = dp[gg];
         }
+        load(j, t - kSAhead);    // after the chain: its loads wait for none
       }
-      if (t == 0) break;
-      // buffer u & 1 holds dp_t once every block's rows have landed; then
-      // this block arms the buffer's next phase (dp_{t-2})
-      const auto bar = u & 1 ? bar1 : bar0;
-      mbar_wait(bar, (u >> 1) & 1);
-      if (threadIdx.x == 0) mbar_expect(bar, kBytes);
-      float s[kV];
-#pragma unroll
-      for (int e = 0; e < kV; ++e) s[e] = 0.f;
-#pragma unroll
-      for (int gg = 0; gg < 4; ++gg)
-#pragma unroll
-        for (int jj = 0; jj < kW; ++jj) {
-          const int v = min(32 * jj + lane, HD - 1);  // past hd: weight 0
-          const float4 d =
-              *reinterpret_cast<const float4*>(&dpbuf[u & 1][gg][v][0]);
-          const float dv[kSBatch] = {d.x, d.y, d.z, d.w};
-#pragma unroll
-          for (int q = 0; q < 2; ++q)
-#pragma unroll
-            for (int bb = 0; bb < kSBatch; ++bb)
-              s[q * kSBatch + bb] =
-                  fmaf(wt[q][gg][jj], dv[bb], s[q * kSBatch + bb]);
-        }
-      int cnt = kV;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        if (cnt > 1) {
-          const bool up = lane & o;
-#pragma unroll
-          for (int e = 0; e < kV / 2; ++e) {
-            if (e < cnt / 2) {
-              const float mine = up ? s[e + cnt / 2] : s[e];
-              const float give = up ? s[e] : s[e + cnt / 2];
-              s[e] = mine + __shfl_xor_sync(0xffffffffu, give, o);
-            }
-          }
-          cnt /= 2;
-        } else {
-          s[0] += __shfl_xor_sync(0xffffffffu, s[0], o);
-        }
-      }
-      if (writer) rec_s[2 * warp + rr][hi] = s[0];
       __syncthreads();
+      if (t == 0) break;
+      // the block's partial sums for step t - 1's rows w
+      float s[16];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) s[e] = 0.f;
+#pragma unroll
+      for (int i = 0; i < D16; ++i) {
+        const float4 d =
+            *reinterpret_cast<const float4*>(&dploc[buf][8 * i + tg][0]);
+        const float dv[kSBatch] = {d.x, d.y, d.z, d.w};
+#pragma unroll
+        for (int bb = 0; bb < kSBatch; ++bb)
+#pragma unroll
+          for (int jw = 0; jw < 4; ++jw)
+            s[4 * bb + jw] = fmaf(wt[i][jw], dv[bb], s[4 * bb + jw]);
+      }
+      int cnt = 16;
+#pragma unroll
+      for (int o = 16; o >= 4; o >>= 1) {
+        const bool up = lane & o;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          if (e < cnt / 2) {
+            const float mine = up ? s[e + cnt / 2] : s[e];
+            const float give = up ? s[e] : s[e + cnt / 2];
+            s[e] = mine + __shfl_xor_sync(0xffffffffu, give, o);
+          }
+        }
+        cnt /= 2;
+      }
+      // to the block that owns w, into buffer (u + 1) & 1
+      const auto nbar = buf ? bar0 : bar1;
+      st_async2(map_rank(smem_addr(&rbuf[buf ^ 1][rank][bs][wl]), dst), s[0],
+                s[1], map_rank(nbar, dst));
     }
   }
   cluster.sync();              // no block leaves while the others run
@@ -981,32 +1343,34 @@ int slstm_bwd_clusters_t(int batch, int heads) {
 }
 
 template <int D16>
-int launch_mlstm_bwd(const MlstmBwdArgs& a, cudaStream_t s) {
-  using L = BSmem<D16>;
+int launch_mlstm_chunk(const MlstmBwdArgs& a, cudaStream_t s) {
+  using L = BChunk<D16>;
   cudaError_t err = cudaFuncSetAttribute(
-      mlstm_bwd_kernel<D16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mlstm_bwd_chunk_kernel<D16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       L::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  mlstm_bwd_kernel<D16><<<dim3(D16, a.B * a.H), kBThreads, L::kBytes, s>>>(a);
+  const int nch = (a.S + kMChunk - 1) / kMChunk;
+  mlstm_bwd_chunk_kernel<D16><<<dim3(nch, a.B * a.H), kMThreads, L::kBytes,
+                                s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D16>
-int mlstm_bwd_blocks_per_sm_t() {
-  using L = BSmem<D16>;
+int mlstm_chunk_blocks_per_sm_t() {
+  using L = BChunk<D16>;
   int n = 0;
   cudaError_t err = cudaFuncSetAttribute(
-      mlstm_bwd_kernel<D16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mlstm_bwd_chunk_kernel<D16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       L::kBytes);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, mlstm_bwd_kernel<D16>, kBThreads, L::kBytes);
+        &n, mlstm_bwd_chunk_kernel<D16>, kMThreads, L::kBytes);
   return err == cudaSuccess ? n : 0;
 }
 
 template <int D16>
-int mlstm_bwd_smem_t() {
-  return BSmem<D16>::kBytes;
+int mlstm_chunk_smem_t() {
+  return BChunk<D16>::kBytes;
 }
 
 #define XLSTM_HD_CASES(F, ...)                                              \
@@ -1032,39 +1396,61 @@ int mlstm_bwd_smem_t() {
 
 bool good_hd(int hd) { return hd % 16 == 0 && hd >= 16 && hd <= 256; }
 
-int gate_blocks(const MlstmBwdArgs& a) {
-  return (a.B * a.H + kRThreads / 32 - 1) / (kRThreads / 32);
+// The prep kernel's blocks of each role: the m chain, e_t, dy . y.
+void prep_blocks(const MlstmBwdArgs& a, long long* chain, long long* ew,
+                 long long* rows) {
+  const long long nch = (a.S + kMChunk - 1) / kMChunk;
+  *chain = (static_cast<long long>(a.B) * a.H + kWarps - 1) / kWarps;
+  *ew = (static_cast<long long>(a.B) * a.H * nch + kWarps - 1) / kWarps;
+  *rows = (static_cast<long long>(a.B) * a.S * a.H + kWarps * kGRows - 1)
+          / (kWarps * kGRows);
 }
 
 }  // namespace
 
 // Plain C entry points for ctypes. A launch returns cudaGetLastError()
 // after it (0 = cudaSuccess), kBadHeadDim or kBadGrid; it is asynchronous
-// on `stream`. The mLSTM's three run in order on one stream: prep, the
-// passes, reduce.
+// on `stream`. The mLSTM's four run in order on one stream: prep, states,
+// chunks, gates. Their scratch holds ceil(S / 64) chunks.
 extern "C" int mlstm_bwd_prep_f32(const MlstmBwdArgs* a, void* stream) {
   if (!good_hd(a->hd)) return kBadHeadDim;
-  mlstm_bwd_prep_kernel<<<a->B * a->H, (a->hd + 31) / 32 * 32, 0,
-                          static_cast<cudaStream_t>(stream)>>>(*a);
+  long long chain, ew, rows;
+  prep_blocks(*a, &chain, &ew, &rows);
+  if (chain + ew + rows > 0x7fffffffLL) return kBadGrid;
+  mlstm_bwd_prep_kernel<<<static_cast<unsigned>(chain + ew + rows), kMThreads,
+                          0, static_cast<cudaStream_t>(stream)>>>(
+      *a, static_cast<int>(chain), static_cast<int>(ew));
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int mlstm_bwd_f32(const MlstmBwdArgs* a, void* stream) {
+extern "C" int mlstm_bwd_state_f32(const MlstmBwdArgs* a, void* stream) {
+  if (!good_hd(a->hd)) return kBadHeadDim;
+  if (static_cast<long long>(a->B) * a->H > kMaxGridYZ) return kBadGrid;
+  cudaError_t err = cudaFuncSetAttribute(
+      mlstm_bwd_state_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      BState::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int ntile = (a->hd + kMTile - 1) / kMTile;
+  mlstm_bwd_state_kernel<<<dim3(ntile * ntile, a->B * a->H), kMThreads,
+                           BState::kBytes,
+                           static_cast<cudaStream_t>(stream)>>>(*a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int mlstm_bwd_chunk_f32(const MlstmBwdArgs* a, void* stream) {
   const int hd = a->hd;
   if (!good_hd(hd)) return kBadHeadDim;
   if (static_cast<long long>(a->B) * a->H > kMaxGridYZ) return kBadGrid;
-  XLSTM_HD_CASES(launch_mlstm_bwd, *a, static_cast<cudaStream_t>(stream))
+  XLSTM_HD_CASES(launch_mlstm_chunk, *a, static_cast<cudaStream_t>(stream))
   return kBadHeadDim;
 }
 
-extern "C" int mlstm_bwd_reduce_f32(const MlstmBwdArgs* a, void* stream) {
+extern "C" int mlstm_bwd_gate_f32(const MlstmBwdArgs* a, void* stream) {
   if (!good_hd(a->hd)) return kBadHeadDim;
-  const long long n4 = static_cast<long long>(a->B) * a->S * a->H * a->hd / 4;
-  const long long blocks = gate_blocks(*a) + (n4 + kRThreads - 1) / kRThreads;
-  if (blocks > 0x7fffffffLL) return kBadGrid;
-  mlstm_bwd_reduce_kernel<<<static_cast<unsigned>(blocks), kRThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      *a, gate_blocks(*a));
+  const long long blocks =
+      (static_cast<long long>(a->B) * a->H + kWarps - 1) / kWarps;
+  mlstm_bwd_gate_kernel<<<static_cast<unsigned>(blocks), kMThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(*a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1077,18 +1463,20 @@ extern "C" int slstm_scan_bwd_f32(const SlstmBwdArgs* a, void* stream) {
   return kBadHeadDim;
 }
 
-// mlstm_bwd_kernel's blocks an SM and dynamic shared memory a block in
-// bytes at head dim hd; slstm_scan_bwd_kernel's clusters the card holds at
+// mlstm_bwd_chunk_kernel's blocks an SM at head dim hd, and the dynamic
+// shared memory a block of the states pass (which 0) or the chunk pass
+// (which 1) in bytes; slstm_scan_bwd_kernel's clusters the card holds at
 // once for `batch` rows and `heads` heads (0 on error).
 extern "C" int mlstm_bwd_blocks_per_sm(int hd) {
   if (!good_hd(hd)) return 0;
-  XLSTM_HD_CASES(mlstm_bwd_blocks_per_sm_t)
+  XLSTM_HD_CASES(mlstm_chunk_blocks_per_sm_t)
   return 0;
 }
 
-extern "C" int mlstm_bwd_smem_bytes(int hd) {
+extern "C" int mlstm_bwd_smem_bytes(int hd, int which) {
   if (!good_hd(hd)) return 0;
-  XLSTM_HD_CASES(mlstm_bwd_smem_t)
+  if (which == 0) return BState::kBytes;
+  XLSTM_HD_CASES(mlstm_chunk_smem_t)
   return 0;
 }
 

@@ -25,11 +25,14 @@ from a zero state and are the plain versions of the xLSTM scan kernels
 (JAX runs them as `lax.scan` bodies and has no Pallas kernel for them).
 `slstm_scan_trails_ref` is the plain version of the sLSTM kernel that
 also keeps the trails its backward reads. `mlstm_scan_bwd_ref` and
-`slstm_scan_bwd_ref` are the plain versions of the xLSTM backward
-kernels (JAX differentiates the `lax.scan`): reverse walks split into
-the kernels' passes, in plain tensor ops; `slstm_grad_weights` is the
-recurrent weights' and bias's gradient, a plain product outside any
-kernel on both devices.
+`slstm_scan_bwd_ref` are the plain xLSTM backwards (JAX differentiates
+the `lax.scan`), reverse walks in the step form, which the CPU path
+runs; `mlstm_scan_bwd_chunkwise_ref` and `slstm_scan_dpre_affine_ref`
+are the plain versions of the backward kernels, in their passes and
+orders (the mLSTM's in the chunkwise form, the sLSTM's cell as an affine
+map, its recurrent sum as the cluster's 8 block partials);
+`slstm_grad_weights` is the recurrent weights' and bias's gradient, a
+plain product outside any kernel on both devices.
 """
 from __future__ import annotations
 
@@ -422,6 +425,17 @@ def mlstm_scan_chunkwise_ref(q: torch.Tensor, k: torch.Tensor,
     max(|den_t|, 1). Equals `mlstm_scan_ref` up to rounding (its m_t is
     b_t + M_t). Same arguments as `mlstm_scan_ref`, plus the chunk length;
     f32 (f64 for f64 inputs)."""
+    return mlstm_scan_states_ref(q, k, v, i, f, chunk)[0]
+
+
+def mlstm_scan_states_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          i: torch.Tensor, f: torch.Tensor, chunk: int
+                          ) -> tuple[torch.Tensor, tuple]:
+    """`mlstm_scan_chunkwise_ref` keeping what the backward kernels read,
+    in the kernels' layouts: (y, (C^T [B*H,N,hd,hd] ([k][v]), n [B*H,N,hd],
+    m [B*H,N], the state before each chunk, and den' [B,S,H], each step's
+    denominator before its clamp)); the plain version of the forward
+    kernels under autograd."""
     bsz, s, nh, hd = q.shape
     dt = _scan_dtype(q)
     cst, nst, mst = mlstm_chunk_states_ref(k, v, i, f, chunk)
@@ -438,7 +452,10 @@ def mlstm_scan_chunkwise_ref(q: torch.Tensor, k: torch.Tensor,
     num = e[..., None] * torch.einsum("bhntk,bhnvk->bhntv", qc, cst) + \
         torch.einsum("bhnts,bhnsv->bhntv", p, vc)
     y = num / torch.clamp(den.abs(), min=1.0)[..., None]
-    return y.movedim(1, 3).reshape(bsz, -1, nh, hd)[:, :s]
+    nch = cst.shape[2]
+    return _unchunk(y, s), (cst.transpose(-1, -2).reshape(-1, nch, hd, hd),
+                            nst.reshape(-1, nch, hd), mst.reshape(-1, nch),
+                            _unchunk(den, s))
 
 
 def slstm_scan_ref(pre: torch.Tensor, w_r: torch.Tensor,
@@ -466,7 +483,8 @@ def mlstm_scan_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     output y; f32 (f64 for f64 inputs). Ties split as autograd splits them:
     a max's gradient half to each side, a clamp's whole to its input.
 
-    In the passes the backward kernels take (csrc/xlstm_scan_bwd.cu):
+    The step form, the CPU path's (the backward kernels take the chunkwise
+    form, `mlstm_scan_bwd_chunkwise_ref`), in its passes:
       prep, forward: the m chain, f' and i' and which arm each max took;
         n from zero, den_t = max(|n_t . q_t|, 1) and
         g_t = -(dy_t . y_t) / den_t sign(n_t . q_t) [|n_t . q_t| >= 1]
@@ -529,18 +547,113 @@ def mlstm_scan_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             torch.einsum("bhvk,bhv->bhk", dc, v[:, t]) + dn)
         dv[:, t] = ip[:, t, :, None] * torch.einsum("bhvk,bhk->bhv", dc,
                                                     k[:, t])
-    # gates
-    kdk = (k * dk).sum(-1)                                  # [B,S,H]
-    a = ((q * dq).sum(-1) - kdk).flip(1).cumsum(1).flip(1)
-    di, df = torch.empty_like(i), torch.empty_like(f)
-    after = q.new_zeros((bsz, nh))                          # M
-    for t in reversed(range(s)):
+    return (dq, dk, dv,
+            *_mlstm_gate_grads((q * dq).sum(-1), (k * dk).sum(-1), sel, f))
+
+
+def _mlstm_gate_grads(qdq: torch.Tensor, kdk: torch.Tensor,
+                      sel: torch.Tensor, f: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The mLSTM's gate gradients (di, df) [B,S,H] from q . dq and k . dk
+    of each step and sel, the share of each step's max that went to its
+    forget arm: a_t = sum_{u>=t} (q . dq - k . dk)_u, then the reverse walk
+    of `mlstm_scan_bwd_ref`'s notes."""
+    a = (qdq - kdk).flip(1).cumsum(1).flip(1)
+    di, df = torch.empty_like(qdq), torch.empty_like(qdq)
+    after = qdq.new_zeros((qdq.shape[0], qdq.shape[2]))     # M
+    for t in reversed(range(qdq.shape[1])):
         rest = after - a[:, t] - kdk[:, t]
         dlf = a[:, t] + sel[:, t] * rest
         di[:, t] = kdk[:, t] + (1.0 - sel[:, t]) * rest
         df[:, t] = dlf * torch.sigmoid(-f[:, t])
         after = dlf
-    return dq, dk, dv, di, df
+    return di, df
+
+
+def _unchunk(t: torch.Tensor, s: int) -> torch.Tensor:
+    """[B,H,N,L,...] -> [B,S,H,...], the inverse of `_mlstm_chunks`."""
+    t = t.movedim(1, 3)
+    return t.reshape(t.shape[0], -1, *t.shape[3:])[:, :s]
+
+
+def mlstm_scan_bwd_chunkwise_ref(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, i: torch.Tensor,
+                                 f: torch.Tensor, y: torch.Tensor,
+                                 dy: torch.Tensor, chunk: int
+                                 ) -> tuple[torch.Tensor, ...]:
+    """The mLSTM backward in the chunkwise form the backward kernels take
+    (csrc/xlstm_scan_bwd.cu): the gradients (dq, dk, dv, di, df) of
+    `mlstm_scan_ref(q, k, v, i, f)` for dy, given its output y, chunks of
+    `chunk` steps; f32 (f64 for f64 inputs). Its passes:
+      states: the state (C, n, m) before each chunk
+        (`mlstm_chunk_states_ref`; the kernels read the forward's);
+      prep: den'_t = e_t n . q_t + sum_s D_ts k_s . q_t as the forward
+        forms it (the kernels keep the forward's), den_t = max(|den'_t|,
+        1), g_t = -(dy_t . y_t) / den_t sign(den'_t) [|den'_t| >= 1], and
+        the step form's m chain's arms (sel);
+      reverse walk: dC_k = e dC_{k+1} + sum_t e_t dnum_t q_t^T (dnum =
+        dy / den), dn_k = e dn_{k+1} + sum_t e_t g_t q_t, from 0 after
+        the last chunk;
+      chunks: with A_ts = D_ts (v_s . dnum_t + g_t), P_ts = D_ts (k_s .
+        q_t) (s <= t),
+        dq_t = e_t (C_k^T dnum_t + g_t n_k) + sum_s A_ts k_s,
+        dk_s = sum_t A_ts q_t + w_s (dC_{k+1}^T v_s + dn_{k+1}),
+        dv_s = sum_t P_ts dnum_t + w_s dC_{k+1} k_s;
+      gates: `mlstm_scan_bwd_ref`'s reverse walk over q . dq, k . dk and
+        sel.
+    Equals `mlstm_scan_bwd_ref` up to rounding, ties split alike."""
+    bsz, s, nh, hd = q.shape
+    dt = _scan_dtype(q)
+    q, k, v, i, f, y, dy = (t.to(dt) for t in (q, k, v, i, f, y, dy))
+    cst, nst, mst = mlstm_chunk_states_ref(k, v, i, f, chunk)
+    qc, kc, vc, yc, dyc = (_mlstm_chunks(t, chunk) for t in (q, k, v, y, dy))
+    _, c = _mlstm_chunk_gates(i, f, chunk)
+    big = torch.maximum(mst.double()[..., None], c.cummax(-1).values)
+    causal = torch.ones(chunk, chunk, dtype=torch.bool,
+                        device=q.device).tril()
+    d = torch.where(causal, torch.exp((c[..., None, :] - big[..., None])
+                                      .to(dt)), 0.0)
+    e = torch.exp((mst.double()[..., None] - big).to(dt))   # [B,H,N,L]
+    w = torch.exp((c - big[..., -1:]).to(dt))
+    # prep
+    qk = torch.einsum("bhntk,bhnsk->bhnts", qc, kc)
+    den_p = e * torch.einsum("bhntk,bhnk->bhnt", qc, nst) + (qk * d).sum(-1)
+    den = torch.clamp(den_p.abs(), min=1.0)
+    g = -(dyc * yc).sum(-1) / den * torch.sign(den_p) * (den_p.abs() >= 1.0)
+    dnum = dyc / den[..., None]
+    lf = F.logsigmoid(f)
+    sel = torch.empty_like(i)
+    m = q.new_zeros((bsz, nh))
+    for t in range(s):
+        mf = lf[:, t] + m
+        sel[:, t] = torch.where(mf > i[:, t], 1.0,
+                                torch.where(mf < i[:, t], 0.0, 0.5))
+        m = torch.maximum(mf, i[:, t])
+    # reverse walk: the state gradient after each chunk
+    nch = qc.shape[2]
+    dcs = [q.new_zeros((bsz, nh, hd, hd))]
+    dns = [q.new_zeros((bsz, nh, hd))]
+    for j in reversed(range(1, nch)):
+        ej = e[:, :, j, -1]
+        dcs.append(ej[..., None, None] * dcs[-1] + torch.einsum(
+            "bhtv,bhtk->bhvk", e[:, :, j, :, None] * dnum[:, :, j],
+            qc[:, :, j]))
+        dns.append(ej[..., None] * dns[-1] + torch.einsum(
+            "bht,bhtk->bhk", e[:, :, j] * g[:, :, j], qc[:, :, j]))
+    dcs, dns = torch.stack(dcs[::-1], 2), torch.stack(dns[::-1], 2)
+    # chunks
+    am = d * (torch.einsum("bhntv,bhnsv->bhnts", dnum, vc) + g[..., None])
+    pm = d * qk
+    dq = e[..., None] * (torch.einsum("bhnvk,bhntv->bhntk", cst, dnum)
+                         + g[..., None] * nst[:, :, :, None]) + \
+        torch.einsum("bhnts,bhnsk->bhntk", am, kc)
+    dk = torch.einsum("bhnts,bhntk->bhnsk", am, qc) + w[..., None] * (
+        torch.einsum("bhnvk,bhnsv->bhnsk", dcs, vc) + dns[:, :, :, None])
+    dv = torch.einsum("bhnts,bhntv->bhnsv", pm, dnum) + \
+        w[..., None] * torch.einsum("bhnvk,bhnsk->bhnsv", dcs, kc)
+    dq, dk, dv = (_unchunk(t, s) for t in (dq, dk, dv))
+    return (dq, dk, dv,
+            *_mlstm_gate_grads((q * dq).sum(-1), (k * dk).sum(-1), sel, f))
 
 
 def slstm_scan_trails_ref(pre: torch.Tensor, w_r: torch.Tensor,
@@ -566,9 +679,10 @@ def slstm_scan_trails_ref(pre: torch.Tensor, w_r: torch.Tensor,
 
 def slstm_scan_dpre_ref(w_r: torch.Tensor, dy: torch.Tensor,
                         trails: tuple) -> torch.Tensor:
-    """The sLSTM's reverse walk (the backward kernel's plain version):
-    the gradient of the gates' pre-activations dpre [B,S,4,H,hd] for the
-    output gradient dy [B,S,H,hd], from the trails of
+    """The sLSTM's reverse walk (the CPU path's; the backward kernel takes
+    `slstm_scan_dpre_affine_ref`'s order of operations): the gradient of
+    the gates' pre-activations dpre [B,S,4,H,hd] for the output gradient
+    dy [B,S,H,hd], from the trails of
     `slstm_scan_trails_ref` (p, c, n, m; the h trail is not read). Each
     step recomputes its cell from p and the previous c, n, m as the
     forward does, then
@@ -611,6 +725,62 @@ def slstm_scan_dpre_ref(w_r: torch.Tensor, dy: torch.Tensor,
         dp = torch.stack([dpi, dpf, dpz, dpo], dim=1)         # [B,4,H,hd]
         dpre[:, t] = dp
         rec = torch.einsum("khvw,bkhv->bhw", w_r, dp)
+    return dpre
+
+
+SLSTM_BLOCKS = 8      # kSCluster of csrc/xlstm_scan_bwd.cu: blocks a cluster
+
+
+def slstm_scan_dpre_affine_ref(w_r: torch.Tensor, dy: torch.Tensor,
+                               trails: tuple) -> torch.Tensor:
+    """`slstm_scan_dpre_ref` in the order of operations of the backward
+    kernel (csrc/xlstm_scan_bwd.cu): each step's cell backward as an
+    affine map of (dh, dc, dn, dm) whose coefficients come from the
+    trails alone (p; c, n, m of the step before and of the step itself,
+    the forward's), and the recurrent sum sum_g W_g^T dp_g as
+    SLSTM_BLOCKS partials, each over one block's rows of dp (hd /
+    SLSTM_BLOCKS of them), added in rank order. Equals
+    `slstm_scan_dpre_ref` up to rounding."""
+    p, cs, ns, ms = trails
+    bsz, s, _, nh, hd = p.shape
+    dt = _scan_dtype(p)
+    p, cs, ns, ms, w_r, dy = (t.to(dt) for t in (p, cs, ns, ms, w_r, dy))
+    blocks = SLSTM_BLOCKS
+    rb = hd // blocks
+    z = p.new_zeros((bsz, nh, hd))
+    dc, dn, dm, rec = z, z, z, z
+    dpre = torch.empty_like(p)
+    for t in reversed(range(s)):
+        pi, pf, pz, po = p[:, t].unbind(1)
+        c0, n0, m0 = (cs[:, t - 1], ns[:, t - 1], ms[:, t - 1]) if t \
+            else (z, z, z)
+        c, n, m = cs[:, t], ns[:, t], ms[:, t]
+        # the coefficients
+        mf = F.logsigmoid(pf) + m0
+        i_p, f_p = torch.exp(pi - m), torch.exp(mf - m)
+        tz, sig = torch.tanh(pz), torch.sigmoid(po)
+        rn = 1.0 / torch.clamp(n, min=1.0)
+        sel = torch.where(mf > pi, 1.0, torch.where(mf < pi, 0.0, 0.5))
+        a1 = sig * rn
+        a2 = torch.where(n >= 1.0, -(a1 * c * rn), 0.0)
+        a3 = c * rn * sig * (1.0 - sig)
+        bz = i_p * (1.0 - tz * tz)
+        g1 = (1.0 - sel) * f_p * c0 - sel * i_p * tz
+        g2 = (1.0 - sel) * f_p * n0 - sel * i_p
+        # the chain
+        dh = dy[:, t] + rec
+        x, y = dc + a1 * dh, dn + a2 * dh
+        dmf = g1 * x + (g2 * y + sel * dm)
+        dp = torch.stack([dm - dmf, torch.sigmoid(-pf) * dmf, bz * x,
+                          a3 * dh], dim=1)                   # [B,4,H,hd]
+        dc, dn, dm = f_p * x, f_p * y, dmf
+        dpre[:, t] = dp
+        parts = torch.einsum("khrvw,bkhrv->rbhw",
+                             w_r.reshape(4, nh, blocks, rb, hd),
+                             dp.reshape(bsz, 4, nh, blocks, rb))
+        rec = parts[0]
+        for part in parts[1:]:
+            rec = rec + part
     return dpre
 
 

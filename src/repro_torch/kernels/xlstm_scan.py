@@ -7,12 +7,13 @@ which XLA compiles into one device loop, and differentiates with
 hand-written Hopper kernels in `csrc/xlstm_scan.cu`, and under autograd
 go through `_MlstmScan` and `_SlstmScan`, whose backwards launch those in
 `csrc/xlstm_scan_bwd.cu` (`mlstm_scan_bwd`, `slstm_scan_bwd`; the notes in
-the sources give the bounds and the designs). For CPU tensors they
-compute the plain versions, `ref.mlstm_scan_ref` and `ref.slstm_scan_ref`,
-which autograd differentiates, and the backward wrappers
-`ref.mlstm_scan_bwd_ref` and `ref.slstm_scan_dpre_ref` (with the weight
-products, `ref.slstm_scan_bwd_ref`). Nothing sends a CUDA tensor to a
-plain version.
+the sources give the bounds and the designs; their plain mirrors are
+`ref.mlstm_scan_bwd_chunkwise_ref` and `ref.slstm_scan_dpre_affine_ref`).
+For CPU tensors they compute the plain versions, `ref.mlstm_scan_ref` and
+`ref.slstm_scan_ref`, which autograd differentiates, and the backward
+wrappers `ref.mlstm_scan_bwd_ref` and `ref.slstm_scan_dpre_ref` (with the
+weight products, `ref.slstm_scan_bwd_ref`). Nothing sends a CUDA tensor to
+a plain version.
 
 The kernels take f32 in and out (the JAX mixers cast to f32 before the
 scan) and a head dim that is a multiple of 16 up to 256. The mLSTM is
@@ -21,9 +22,16 @@ plain mirror): `mlstm_scan_state_kernel` walks the chunks of
 `mlstm_chunk()` steps and leaves the state before each in scratch that
 the wrapper allocates (C^T, n, m: [B*H, N, hd, hd], [B*H, N, hd],
 [B*H, N]), then `mlstm_scan_out_kernel` forms every chunk's outputs at
-once. Under autograd the mLSTM's forward is the same, its output saved
-beside its inputs (the backward recomputes C from zero); the sLSTM's
-keeps the trails its backward reads (`slstm_scan_kernel<hd/16, true>`).
+once. Under autograd the mLSTM's forward is the same, and keeps for its
+backward the chunk states and den' (the signed denominator of each step
+before its clamp, [B,S,H]) beside its inputs and y: 151 MB a layer at
+the xlstm-125m train shape; the sLSTM's keeps the trails its backward
+reads (`slstm_scan_kernel<hd/16, true>`). The mLSTM's backward is four
+kernels: `mlstm_bwd_prep_kernel` (the m chain's arms, e_t, g),
+`mlstm_bwd_state_kernel` (the reverse walk over the chunks: the state
+gradient after each, in scratch the wrapper allocates, as large as the
+states), `mlstm_bwd_chunk_kernel` (dq, dk, dv a chunk at a time) and
+`mlstm_bwd_gate_kernel` (di, df).
 The sLSTM's recurrent weights' and bias's gradients are plain products
 over the backward kernel's output (`ref.slstm_grad_weights`: f32
 `einsum`, no kernel), as the JAX package leaves them to XLA.
@@ -31,8 +39,8 @@ over the backward kernel's output (`ref.slstm_grad_weights`: f32
 Launch counts, one a call each: `mlstm_scan.launches` (a launch of each
 of its two kernels), `slstm_scan.launches` (of which
 `slstm_scan.trail_launches` kept the trails),
-`mlstm_scan_bwd.prep_launches`, `.launches` (the two passes) and
-`.reduce_launches`, `slstm_scan_bwd.launches`.
+`mlstm_scan_bwd.prep_launches`, `.state_launches`, `.launches` (the chunk
+kernel) and `.gate_launches`, `slstm_scan_bwd.launches`.
 """
 from __future__ import annotations
 
@@ -47,12 +55,17 @@ from .ref import (mlstm_scan_bwd_ref, mlstm_scan_ref, slstm_grad_weights,
 from .ssm_scan import _needs_grad, _on_cuda
 
 MAX_HEAD_DIM = 256              # and a multiple of 16 (csrc/xlstm_scan.cu)
+MLSTM_CHUNK = 64                # kMChunk of csrc/xlstm_scan.cu (mlstm_chunk)
+# the mLSTM backward's C entry points, in launch order
+MLSTM_BWD_ENTRIES = ("mlstm_bwd_prep_f32", "mlstm_bwd_state_f32",
+                     "mlstm_bwd_chunk_f32", "mlstm_bwd_gate_f32")
 
 
 class _MlstmArgs(ctypes.Structure):
     """Mirror of `MlstmScanArgs` in csrc/xlstm_scan.cu."""
     _fields_ = ([(n, ctypes.c_void_p) for n in
-                 ("q", "k", "v", "i", "f", "y", "c_st", "n_st", "m_st")]
+                 ("q", "k", "v", "i", "f", "y", "c_st", "n_st", "m_st",
+                  "den")]
                 + [(n, ctypes.c_int) for n in ("B", "S", "H", "hd")])
 
 
@@ -67,8 +80,9 @@ class _SlstmArgs(ctypes.Structure):
 class _MlstmBwdArgs(ctypes.Structure):
     """Mirror of `MlstmBwdArgs` in csrc/xlstm_scan_bwd.cu."""
     _fields_ = ([(n, ctypes.c_void_p) for n in
-                 ("q", "k", "v", "i", "f", "y", "dy", "dq", "dk", "dv", "di",
-                  "df", "fp", "ip", "sel", "den", "g", "pq", "pk", "dv_part")]
+                 ("q", "k", "v", "i", "f", "y", "dy", "c_st", "n_st", "m_st",
+                  "den", "dq", "dk", "dv", "di", "df", "g", "sel", "ew", "qdq",
+                  "kdk", "dc_st", "dn_st")]
                 + [(n, ctypes.c_int) for n in ("B", "S", "H", "hd")])
 
 
@@ -112,13 +126,13 @@ def load(path) -> ctypes.CDLL:
 def load_bwd(path) -> ctypes.CDLL:
     """A built xlstm_scan_bwd library with its C entry points typed."""
     lib = ctypes.CDLL(str(path))
-    for name in ("mlstm_bwd_prep_f32", "mlstm_bwd_f32", "mlstm_bwd_reduce_f32"):
+    for name in MLSTM_BWD_ENTRIES:
         getattr(lib, name).argtypes = [ctypes.POINTER(_MlstmBwdArgs),
                                        ctypes.c_void_p]
     lib.slstm_scan_bwd_f32.argtypes = [ctypes.POINTER(_SlstmBwdArgs),
                                        ctypes.c_void_p]
     for name, nargs in (("mlstm_bwd_blocks_per_sm", 1),
-                        ("mlstm_bwd_smem_bytes", 1),
+                        ("mlstm_bwd_smem_bytes", 2),
                         ("slstm_bwd_max_active_clusters", 3)):
         getattr(lib, name).argtypes = [ctypes.c_int] * nargs
     lib.xlstm_scan_bwd_error_string.argtypes = [ctypes.c_int]
@@ -184,15 +198,20 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def mlstm_chunk() -> int:
-    """The chunk length L the mLSTM kernels were built for."""
-    return _lib().xlstm_scan_layout(0)
+    """The chunk length L the mLSTM kernels were built for (MLSTM_CHUNK,
+    which the backward's scratch is sized by)."""
+    chunk = _lib().xlstm_scan_layout(0)
+    if chunk != MLSTM_CHUNK:
+        raise RuntimeError(f"xlstm_scan.cu built with chunks of {chunk}, "
+                           f"the wrapper sizes them {MLSTM_CHUNK}")
+    return chunk
 
 
-def _mlstm_args(q, k, v, i, f, chunk: int) -> tuple:
+def _mlstm_args(q, k, v, i, f, chunk: int, keep: bool = False) -> tuple:
     """The C arguments of one mLSTM call on checked CUDA operands, chunks
     of `chunk` steps: (args, y, kept), `kept` the operands and the scratch
-    the args point at (the state before each chunk: C^T, n, m), to be kept
-    alive until the launches are queued."""
+    the args point at (the state before each chunk: C^T, n, m; with `keep`
+    also den' [B,S,H]), to be kept alive until the launches are queued."""
     bsz, s, nh, hd = q.shape
     ops = [_aligned(t) for t in (q, k, v, i, f)]
     nch = -(-s // chunk)
@@ -200,79 +219,101 @@ def _mlstm_args(q, k, v, i, f, chunk: int) -> tuple:
                                      device=q.device)
     y = new(bsz, s, nh, hd)
     scratch = [new(bsz * nh, nch, hd, hd), new(bsz * nh, nch, hd),
-               new(bsz * nh, nch)]
+               new(bsz * nh, nch)] + ([new(bsz, s, nh)] if keep else [])
     args = _MlstmArgs(*(t.data_ptr() for t in ops + [y] + scratch),
-                      bsz, s, nh, hd)
+                      *([] if keep else [None]), bsz, s, nh, hd)
     return args, y, ops + scratch
 
 
-def _mlstm_fwd(q, k, v, i, f) -> torch.Tensor:
+def _mlstm_fwd(q, k, v, i, f, keep: bool = False):
     """Launch mlstm_scan_state_kernel, then mlstm_scan_out_kernel, on
-    checked CUDA operands -> y."""
-    args, y, kept = _mlstm_args(q, k, v, i, f, mlstm_chunk())
+    checked CUDA operands -> y, or with `keep` (y, states): the states the
+    backward reads, (C^T [B*H,N,hd,hd], n [B*H,N,hd], m [B*H,N] before
+    each chunk, den' [B,S,H])."""
+    args, y, kept = _mlstm_args(q, k, v, i, f, mlstm_chunk(), keep)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _raise_on(_lib().mlstm_scan_f32(ctypes.byref(args), stream),
               "mlstm_scan")
     mlstm_scan.launches += 1
-    del kept
-    return y
+    return (y, tuple(kept[5:])) if keep else y
 
 
 class _MlstmScan(torch.autograd.Function):
-    """The inference kernel, saving its operands and y; the backward
-    kernels (`mlstm_scan_bwd`)."""
+    """The forward kernels, keeping the chunk states and den' and saving
+    them with the operands and y; the backward kernels
+    (`mlstm_scan_bwd`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, i, f):
-        y = _mlstm_fwd(q, k, v, i, f)
-        ctx.save_for_backward(q, k, v, i, f, y)
+        y, states = _mlstm_fwd(q, k, v, i, f, keep=True)
+        ctx.save_for_backward(q, k, v, i, f, y, *states)
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        return mlstm_scan_bwd(*ctx.saved_tensors, dy)
+        *ops, c_st, n_st, m_st, den = ctx.saved_tensors
+        return mlstm_scan_bwd(*ops, dy, (c_st, n_st, m_st, den))
 
 
 def mlstm_scan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    i: torch.Tensor, f: torch.Tensor, y: torch.Tensor,
-                   dy: torch.Tensor) -> tuple[torch.Tensor, ...]:
+                   dy: torch.Tensor, states: tuple | None = None
+                   ) -> tuple[torch.Tensor, ...]:
     """The gradients (dq, dk, dv, di, df) of `mlstm_scan(q, k, v, i, f)`
     for the output gradient dy, given its output y; all f32. CUDA: the
-    three backward kernels; CPU: `ref.mlstm_scan_bwd_ref`."""
+    four backward kernels on the forward's kept `states`
+    (`_mlstm_fwd(..., keep=True)`); CPU: `ref.mlstm_scan_bwd_ref` (states
+    not read)."""
     ops = [q, k, v, i, f, y, dy]
     _check_mlstm("mlstm_scan_bwd", q, k, v, i, f, y, dy)
     if not _on_cuda("mlstm_scan_bwd", ops):
         return mlstm_scan_bwd_ref(*ops)
-    return _mlstm_bwd(*ops)
-
-
-def _mlstm_bwd(q, k, v, i, f, y, dy) -> tuple[torch.Tensor, ...]:
-    """Launch the mLSTM's backward kernels on checked CUDA operands: the
-    prep (m chain, n . q, den, g), the two passes (dq; dk and the bands'
-    dv parts), the reduce (dv; di, df)."""
     bsz, s, nh, hd = q.shape
-    ops = [_aligned(t) for t in (q, k, v, i, f, y, dy)]
+    bh, nch = bsz * nh, -(-s // MLSTM_CHUNK)
+    want = [(bh, nch, hd, hd), (bh, nch, hd), (bh, nch), (bsz, s, nh)]
+    got = None if states is None else [tuple(t.shape) for t in states]
+    if got != want:
+        raise ValueError(f"mlstm_scan_bwd on CUDA wants the forward's "
+                         f"states (C^T, n, m, den') of shapes {want}, got "
+                         f"{got}")
+    _check_f32("mlstm_scan_bwd", states)
+    return _mlstm_bwd(*ops, states)
+
+
+def _mlstm_bwd(q, k, v, i, f, y, dy, states) -> tuple[torch.Tensor, ...]:
+    """Launch the mLSTM's backward kernels on checked CUDA operands and
+    the forward's states: the prep (the m chain's arms, e_t, g), the
+    reverse walk over the chunks (dC, dn after each), the chunks (dq, dk,
+    dv, q . dq, k . dk), the gates (di, df)."""
+    args, grads, kept = _mlstm_bwd_args(q, k, v, i, f, y, dy, states)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    lib = _bwd_lib()
+    for entry, counter in zip(MLSTM_BWD_ENTRIES,
+                              ("prep_launches", "state_launches", "launches",
+                               "gate_launches")):
+        _raise_on(getattr(lib, entry)(ctypes.byref(args), stream),
+                  entry[:-4], lib)
+        setattr(mlstm_scan_bwd, counter, getattr(mlstm_scan_bwd, counter) + 1)
+    del kept
+    return grads
+
+
+def _mlstm_bwd_args(q, k, v, i, f, y, dy, states) -> tuple:
+    """The C arguments of one mLSTM backward: (args, grads, kept), `grads`
+    (dq, dk, dv, di, df) and `kept` the operands and scratch the args
+    point at, to be kept alive until the launches are queued."""
+    bsz, s, nh, hd = q.shape
+    nch = -(-s // MLSTM_CHUNK)
+    ops = [_aligned(t) for t in (q, k, v, i, f, y, dy, *states)]
     new = lambda *shape: torch.empty(shape, dtype=torch.float32,  # noqa: E731
                                      device=q.device)
     grads = [new(bsz, s, nh, hd) for _ in range(3)] + \
         [new(bsz, s, nh) for _ in range(2)]
     scratch = [new(bsz, s, nh) for _ in range(5)] + \
-        [new(hd // 16, bsz, s, nh) for _ in range(2)] + \
-        [new(hd // 16, bsz, s, nh, hd)]
+        [new(bsz * nh, nch, hd, hd), new(bsz * nh, nch, hd)]
     args = _MlstmBwdArgs(*(t.data_ptr() for t in ops + grads + scratch),
                          bsz, s, nh, hd)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    lib = _bwd_lib()
-    _raise_on(lib.mlstm_bwd_prep_f32(ctypes.byref(args), stream),
-              "mlstm_bwd_prep", lib)
-    mlstm_scan_bwd.prep_launches += 1
-    _raise_on(lib.mlstm_bwd_f32(ctypes.byref(args), stream), "mlstm_bwd",
-              lib)
-    mlstm_scan_bwd.launches += 1
-    _raise_on(lib.mlstm_bwd_reduce_f32(ctypes.byref(args), stream),
-              "mlstm_bwd_reduce", lib)
-    mlstm_scan_bwd.reduce_launches += 1
-    return tuple(grads)
+    return args, tuple(grads), ops + scratch
 
 
 def slstm_scan(pre: torch.Tensor, w_r: torch.Tensor,
@@ -387,6 +428,7 @@ mlstm_scan.launches = 0
 slstm_scan.launches = 0
 slstm_scan.trail_launches = 0
 mlstm_scan_bwd.prep_launches = 0
+mlstm_scan_bwd.state_launches = 0
 mlstm_scan_bwd.launches = 0
-mlstm_scan_bwd.reduce_launches = 0
+mlstm_scan_bwd.gate_launches = 0
 slstm_scan_bwd.launches = 0

@@ -1,6 +1,7 @@
 """`kernels/_build.build` on the CPU, with a stand-in for nvcc (the real
 one runs only on the machine with the card): a library is built once
-and reused, and two threads of one process that build the same source
+and reused, rebuilt when its source or a local header it includes is
+edited, and two threads of one process that build the same source
 at once both get the library."""
 import subprocess
 import threading
@@ -60,4 +61,15 @@ def test_a_built_library_is_reused(tmp_path, fake_nvcc):
     first = _build.build("k", src=src)
     assert _build.build("k", src=src) == first and len(fake_nvcc) == 1
     src.write_text("// edited\n")
+    assert _build.build("k", src=src) != first and len(fake_nvcc) == 2
+
+
+def test_an_edited_local_header_is_rebuilt(tmp_path, fake_nvcc):
+    src = tmp_path / "k.cu"
+    src.write_text('// a kernel\n#include "forms.cuh"\n')
+    header = tmp_path / "forms.cuh"
+    header.write_text("// the short forms\n")
+    first = _build.build("k", src=src)
+    assert _build.build("k", src=src) == first and len(fake_nvcc) == 1
+    header.write_text("// the short forms, edited\n")
     assert _build.build("k", src=src) != first and len(fake_nvcc) == 2

@@ -34,7 +34,8 @@ from repro_torch.convert import jax_state_dict, load_jax_params  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import xlstm_scan  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
-    mlstm_scan_bwd_ref, mlstm_scan_ref, slstm_scan_dpre_ref, slstm_scan_ref,
+    mlstm_scan_bwd_ref, mlstm_scan_ref, mlstm_scan_states_ref,
+    slstm_scan_dpre_ref, slstm_scan_ref,
     slstm_scan_trails_ref)
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
@@ -241,8 +242,13 @@ def test_scan_wrappers_check_their_inputs(monkeypatch):
     with pytest.raises(ValueError, match="w_r"):
         ops.slstm_scan(pre, w_r[:, :1], bias)
     monkeypatch.setattr(xlstm_scan, "_on_cuda", lambda name, ts: True)
-    monkeypatch.setattr(xlstm_scan, "_mlstm_fwd", mlstm_scan_ref)
-    monkeypatch.setattr(xlstm_scan, "_mlstm_bwd", mlstm_scan_bwd_ref)
+    monkeypatch.setattr(
+        xlstm_scan, "_mlstm_fwd",
+        lambda q, k, v, i, f, keep=False: (
+            mlstm_scan_states_ref(q, k, v, i, f, xlstm_scan.MLSTM_CHUNK)
+            if keep else mlstm_scan_ref(q, k, v, i, f)))
+    monkeypatch.setattr(xlstm_scan, "_mlstm_bwd",
+                        lambda *ops: mlstm_scan_bwd_ref(*ops[:7]))
     monkeypatch.setattr(
         xlstm_scan, "_slstm_fwd",
         lambda pre, w_r, bias, trails: (slstm_scan_trails_ref(pre, w_r, bias)

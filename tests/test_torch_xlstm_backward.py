@@ -11,7 +11,8 @@ the autograd Functions' wiring.
 - `MLSTM` and `SLSTM` input and parameter gradients against `jax.grad`
   of `mlstm_train` and `slstm_train` on bridged f32 weights at S = 256;
 - the autograd Functions on the CPU, with the device check stubbed and
-  the kernel launchers replaced by their plain versions: the output's
+  the kernel launchers replaced by their plain versions (the mLSTM's
+keeping forward by `mlstm_scan_states_ref`): the output's
   grad_fn is the Function's node, its gradients are autograd's of the
   plain scan, and a bf16 mixer's gradients reach its bf16 projections
   through the casts before the scan.
@@ -41,7 +42,8 @@ from repro_torch.convert import load_jax_params  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import xlstm_scan  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
-    mlstm_scan_bwd_ref, mlstm_scan_ref, slstm_grad_weights,
+    mlstm_scan_bwd_ref, mlstm_scan_ref, mlstm_scan_states_ref,
+    slstm_grad_weights,
     slstm_scan_bwd_ref, slstm_scan_dpre_ref, slstm_scan_ref,
     slstm_scan_trails_ref)
 from repro_torch.models.registry import get_model  # noqa: E402
@@ -247,8 +249,13 @@ def stubbed_kernels(monkeypatch):
     """The CUDA path of the scan wrappers on CPU tensors: the device check
     says CUDA and each kernel launcher is its plain version."""
     monkeypatch.setattr(xlstm_scan, "_on_cuda", lambda name, ts: True)
-    monkeypatch.setattr(xlstm_scan, "_mlstm_fwd", mlstm_scan_ref)
-    monkeypatch.setattr(xlstm_scan, "_mlstm_bwd", mlstm_scan_bwd_ref)
+    monkeypatch.setattr(
+        xlstm_scan, "_mlstm_fwd",
+        lambda q, k, v, i, f, keep=False: (
+            mlstm_scan_states_ref(q, k, v, i, f, xlstm_scan.MLSTM_CHUNK)
+            if keep else mlstm_scan_ref(q, k, v, i, f)))
+    monkeypatch.setattr(xlstm_scan, "_mlstm_bwd",
+                        lambda *ops: mlstm_scan_bwd_ref(*ops[:7]))
     monkeypatch.setattr(
         xlstm_scan, "_slstm_fwd",
         lambda pre, w_r, bias, trails: (slstm_scan_trails_ref(pre, w_r, bias)

@@ -1,6 +1,6 @@
 """The xLSTM scan kernels' time split by clock stamps, from stamped copies
-of src/repro_torch/kernels/csrc/xlstm_scan.cu (`ncu` does not run on the
-card):
+of src/repro_torch/kernels/csrc/xlstm_scan.cu and xlstm_scan_bwd.cu
+(`ncu` does not run on the card):
 
   python3 xlstm_stamps.py [--parent PATH]
 
@@ -11,11 +11,20 @@ card):
   block's wait ending (%globaltimer). With --parent PATH (a checkout of
   the parent commit, e.g. from `git archive`), the parent's kernel too;
 - mlstm_scan_state_kernel's chunk: lane 0 of each warp of its first
-  block stamps 64 chunks at the path shape.
+  block stamps 64 chunks at the path shape;
+- the sLSTM backward's step (slstm_scan_bwd_kernel): thread 0 of each
+  block of the first cluster stamps 64 steps at the train shape (8 x
+  2048), its parts in its own order: this tree's the coefficients, the
+  wait for the partial sums, their sum and the chain (with the next trail
+  loads), the block barrier, the matvec, the butterfly and the
+  sends; the parent's (with --parent)
+  the cell's backward, the named barrier, the sends, the wait for dp, the
+  matvec, the butterfly and the block barrier; and the landing in both.
 
 Stamps cost time of their own: a stamped step or chunk is longer than an
 unstamped one (chip_smoke.py times those). The copies are written under
-_archive/stamps/ (git ignores _archive/) and built with `_build.build`.
+_archive/stamps/<tree>/ beside the tree's local headers (git ignores
+_archive/) and built with `_build.build`.
 Needs the card.
 """
 from __future__ import annotations
@@ -39,6 +48,7 @@ from repro_torch.kernels import xlstm_scan as xls  # noqa: E402
 
 OUT = ROOT / "_archive" / "stamps"
 SRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "xlstm_scan.cu"
+BWD_SRC = SRC.with_name("xlstm_scan_bwd.cu")
 STAMP_T0, STAMP_N, STAMPS = 20000, 64, 12
 STAMP_NAMES = ("wait", "matvec", "butterfly", "block barrier",
                "cell update", "named barrier", "sends")
@@ -165,6 +175,152 @@ def state_stamps() -> list:
          'extern "C" const char* xlstm_scan_error_string(int code) {')]
 
 
+# the sLSTM backward: walk steps BSTAMP_U0 .. + STAMP_N at the train shape
+BSTAMP_U0 = 1000
+BSTAMP_CLOCK = """__device__ unsigned long long g_bstamp[{n}][32][{k}];
+__device__ __forceinline__ unsigned long long clk() {{
+  unsigned long long c;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(c) :: "memory");
+  return c;
+}}
+__device__ __forceinline__ unsigned long long gtime() {{
+  unsigned long long c;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(c) :: "memory");
+  return c;
+}}
+
+__device__ __forceinline__ float log_sigmoid(float x) {{"""
+# the parts of a step in each design, between stamps 0 .. 7; stamp 8 is
+# %globaltimer where the sends are out, 9 where the wait ends, and the
+# landing's lag is the steps between a send and the wait that takes it
+BWD_NAMES = {
+    "this tree": ("coefficients", "wait", "sum and chain", "block barrier",
+                  "matvec", "butterfly", "sends"),
+    "parent": ("cell's backward", "named barrier", "sends", "wait",
+               "matvec", "butterfly", "block barrier")}
+BWD_LAG = {"this tree": 1, "parent": 0}
+
+
+def bwd_stamped(src: str) -> str:
+    """The sLSTM backward with clock stamps: thread 0 of each block of
+    cluster (0, 0) records clock64 at the step's part boundaries for walk
+    steps BSTAMP_U0 .. + STAMP_N; `slstm_bwd_stamps` copies them out.
+    Either design: the parent's (a named barrier among the cell threads,
+    dp sent to every block) or this tree's."""
+    rec = "if (stp) sp[{}] = clk();"
+    head = (f"      const int ws = u - {BSTAMP_U0};\n"
+            "      const bool stp = blockIdx.y == 0 && blockIdx.z == 0 && "
+            "threadIdx.x == 0 && ws >= 0 && ws < " + str(STAMP_N) + ";\n"
+            "      unsigned long long sp[12];\n"
+            f"      {rec.format(0)}\n")
+    flush = ("if (stp) { sp[10] = 0; sp[11] = 0;\n#pragma unroll\n"
+             "        for (int q = 0; q < 12; ++q) g_bstamp[ws][rank][q] = "
+             "sp[q]; }\n")
+    pairs = [("__device__ __forceinline__ float log_sigmoid(float x) {",
+              BSTAMP_CLOCK.format(n=STAMP_N, k=12)),
+             ('extern "C" const char* xlstm_scan_bwd_error_string(int code) {',
+              'extern "C" int slstm_bwd_stamps(unsigned long long* out) {\n'
+              "  return static_cast<int>(\n"
+              "      cudaMemcpyFromSymbol(out, g_bstamp, sizeof(g_bstamp)));"
+              "\n}\n\n"
+              'extern "C" const char* xlstm_scan_bwd_error_string(int code) {')]
+    if "named_barrier(1, kCellThreads);" in src:           # the parent's
+        pairs += [
+            ("      if (t < 0) break;\n      if (threadIdx.x < kCellThreads) {",
+             "      if (t < 0) break;\n" + head
+             + "      if (threadIdx.x < kCellThreads) {"),
+            ("        named_barrier(1, kCellThreads);\n",
+             f"        {rec.format(1)}\n        named_barrier(1, "
+             f"kCellThreads);\n        {rec.format(2)}\n"),
+            ("      if (t == 0) break;\n      // buffer u & 1 holds dp_t",
+             f"      if (stp) {{ sp[3] = clk(); sp[8] = gtime(); }}\n"
+             "      if (t == 0) break;\n      // buffer u & 1 holds dp_t"),
+            ("      if (threadIdx.x == 0) mbar_expect(bar, kBytes);\n"
+             "      float s[kV];",
+             "      if (threadIdx.x == 0) mbar_expect(bar, kBytes);\n"
+             "      if (stp) { sp[4] = clk(); sp[9] = gtime(); }\n"
+             "      float s[kV];"),
+            ("      int cnt = kV;",
+             "      asm volatile(\"\" :: \"f\"(s[0]), \"f\"(s[kV - 1]));\n"
+             f"      {rec.format(5)}\n      int cnt = kV;"),
+            ("      if (writer) rec_s[2 * warp + rr][hi] = s[0];\n"
+             "      __syncthreads();\n",
+             "      asm volatile(\"\" :: \"f\"(s[0]));\n"
+             f"      {rec.format(6)}\n"
+             "      if (writer) rec_s[2 * warp + rr][hi] = s[0];\n"
+             f"      __syncthreads();\n      {rec.format(7)}\n      "
+             + flush)]
+    else:
+        pairs += [
+            ("      if (t < 0) break;\n      const int buf = u & 1;\n",
+             "      if (t < 0) break;\n      const int buf = u & 1;\n" + head),
+            ("        const float dy = dyr[j];\n",
+             "        const float dy = dyr[j];\n"
+             "        asm volatile(\"\" :: \"f\"(k.a1), \"f\"(k.a2), "
+             "\"f\"(k.g1), \"f\"(k.g2), \"f\"(k.bz), \"f\"(k.sgf));\n"
+             f"        {rec.format(1)}\n"),
+            ("          if (threadIdx.x == 0) mbar_expect(bar, kBytes);\n",
+             "          if (threadIdx.x == 0) mbar_expect(bar, kBytes);\n"
+             "          if (stp) { sp[2] = clk(); sp[9] = gtime(); }\n"),
+            ("      __syncthreads();\n      if (t == 0) break;\n",
+             f"      {rec.format(3)}\n      __syncthreads();\n"
+             f"      {rec.format(4)}\n      if (t == 0) break;\n"),
+            ("      int cnt = 16;",
+             "      asm volatile(\"\" :: \"f\"(s[0]), \"f\"(s[15]));\n"
+             f"      {rec.format(5)}\n      int cnt = 16;"),
+            ("      // to the block that owns w, into buffer (u + 1) & 1\n",
+             "      asm volatile(\"\" :: \"f\"(s[0]), \"f\"(s[1]));\n"
+             f"      {rec.format(6)}\n"
+             "      // to the block that owns w, into buffer (u + 1) & 1\n"),
+            ("                s[1], map_rank(nbar, dst));\n",
+             "                s[1], map_rank(nbar, dst));\n"
+             "      if (stp) { sp[7] = clk(); sp[8] = gtime(); }\n      "
+             + flush)]
+    return edit(src, pairs)
+
+
+def bwd_split(label: str, path: Path, trails, w_r, dy) -> None:
+    """Run a stamped backward library at the train shape and print each
+    part's median (cycles and ns) by block, and the landing."""
+    lib = ctypes.CDLL(str(path))
+    lib.slstm_scan_bwd_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.slstm_bwd_stamps.argtypes = [ctypes.c_void_p]
+    p = trails[0]
+    b, s, _, nh, hd = p.shape
+    dpre = torch.empty_like(p)
+    args = xls._SlstmBwdArgs(w_r.data_ptr(), *(t.data_ptr() for t in trails),
+                             dy.data_ptr(), dpre.data_ptr(), b, s, nh, hd)
+    for _ in range(2):
+        assert lib.slstm_scan_bwd_f32(
+            ctypes.byref(args), torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    buf = (ctypes.c_ulonglong * (STAMP_N * 32 * 12))()
+    assert lib.slstm_bwd_stamps(ctypes.addressof(buf)) == 0
+    st = torch.tensor(list(buf), dtype=torch.float64).reshape(STAMP_N, 32, 12)
+    ranks = int((st[0, :, 0] > 0).sum())
+    st = st[:, :ranks]
+    ns = ((st[-1, :, 8] - st[0, :, 8]) / (st[-1, :, 0] - st[0, :, 0])).mean()
+    step = (st[1:, :, 0] - st[:-1, :, 0]).median().item()
+    print(f"[stamp] slstm_scan_bwd_kernel, {label}: {ranks} blocks a cluster;"
+          f" {ns.item():.4f} ns a clock; a step {step:.0f} clocks = "
+          f"{step * ns.item():.1f} ns (median over walk steps {BSTAMP_U0}.. "
+          f"and blocks)")
+    for i, name in enumerate(BWD_NAMES[label]):
+        part = st[:, :, i + 1] - st[:, :, i]
+        print(f"[stamp]   {name}: {part.median().item():.0f} clocks "
+              f"({part.median().item() * ns.item():.1f} ns); by block "
+              + " ".join(f"{part[:, r].median().item():.0f}"
+                         for r in range(ranks)))
+    lag = BWD_LAG[label]
+    sent = st[:STAMP_N - lag, :, 8].amax(1, keepdim=True)
+    landing = st[lag:, :, 9] - sent
+    print(f"[stamp]   landing (the last block's sends out to this block's "
+          f"wait done): {landing.median().item():.0f} ns; by block "
+          + " ".join(f"{landing[:, r].median().item():.0f}"
+                     for r in range(ranks)))
+    del dpre
+
+
 def state_split(path: Path, gen) -> None:
     """Run the stamped states kernel at the path shape and print each
     part's median (cycles) by warp of block (0, 0)."""
@@ -245,6 +401,15 @@ def stamp_split(label: str, path: Path, gen) -> None:
     torch.cuda.empty_cache()
 
 
+def copy_headers(root: Path, out: Path) -> Path:
+    """`out`, made, with a copy of each local header of `root`'s csrc/
+    (the stamped copies written there include them); returns `out`."""
+    out.mkdir(parents=True, exist_ok=True)
+    for header in (root / SRC.relative_to(ROOT)).parent.glob("*.cuh"):
+        (out / header.name).write_bytes(header.read_bytes())
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, default=None)
@@ -259,9 +424,11 @@ def main() -> int:
     trees = {"this tree": ROOT}
     if opts.parent is not None:
         trees["parent"] = opts.parent
+    dirs = {label: copy_headers(root, OUT / label.replace(" ", "_"))
+            for label, root in trees.items()}
     paths = {}
     for label, root in trees.items():
-        paths[label] = OUT / f"xlstm_scan_{label.replace(' ', '_')}.cu"
+        paths[label] = dirs[label] / SRC.name
         paths[label].write_text(stamped((root / SRC.relative_to(ROOT))
                                         .read_text()))
     t0 = time.time()
@@ -273,6 +440,22 @@ def main() -> int:
     for label, lib in libs.items():
         stamp_split(label, lib, gen)
     state_split(libs["this tree"], gen)
+    bpaths = {}
+    for label, root in trees.items():
+        bpaths[label] = dirs[label] / BWD_SRC.name
+        bpaths[label].write_text(bwd_stamped(
+            (root / BWD_SRC.relative_to(ROOT)).read_text()))
+    with ThreadPoolExecutor(len(bpaths)) as pool:
+        blibs = dict(zip(bpaths, pool.map(
+            lambda p: _build.build("xlstm_scan_bwd", src=p),
+            bpaths.values())))
+    case = cs.XLSTM_BWD_CASES["train"]
+    args = cs.xlstm_inputs("slstm_scan", case, gen)
+    dy = torch.randn(case, generator=gen, device="cuda")
+    with torch.no_grad():
+        trails = xls._slstm_fwd(*args, trails=True)[1:]
+    for label, lib in blibs.items():
+        bwd_split(label, lib, trails, args[1], dy)
     return 0
 
 
