@@ -83,14 +83,19 @@ its own failure):
      a torch.profiler window over the same steps for device busy time by
      kernel (device idle share = 1 - busy / wall);
   7. the tiny qwen2-moe engine in f32 on the card gives the same tokens as
-     the port's greedy decode for each request;
+     the port's greedy decode for each request, through the private drain
+     loop and through a runtime-backed engine (`ServeEngine(runtime=)` on
+     `TaskRuntime(num_workers=2, mode="ddast", num_clients=2)`, two
+     clients);
   8. `moe_gemm`'s gradients through its autograd Function (the dx and dw
      kernels) equal autograd through `moe_gemm_ref`, in bf16 and f32, one
      launch of each a call, and dw alone when only the weight requires
      grad;
   9. slice 2's main path: `train()` on full-width qwen2-0.5b, 6 steps of
      B=4 x S=2048 in bf16, with the flash-attention launch counts set to
-     0 just before and read just after; then a torch.profiler window over
+     0 just before and read just after; the step's host wall with and
+     without a running `TaskRuntime(num_workers=2, mode="ddast")` (the
+     trainer's host runtime); then a torch.profiler window over
      two train steps, which must show 24 launches a step of each bf16
      kernel (`flash_fwd_mma_kernel`, `flash_bwd_dq_mma_kernel`,
      `flash_bwd_dkdv_mma_kernel`) and none of the CUDA-core flash kernels;
@@ -250,7 +255,18 @@ its own failure):
      memory, then a torch.profiler window over two more steps;
  31. tiny xlstm training in f32 on the card through `train()`: the loss
      falls, a resume is exact, and the launches are 60 steps' worth;
- 32. a JSON line with the kernels' numbers (the bf16 and f32 routes of
+ 32. slice 16's main path: the runtime-backed engine, `ServeEngine(...,
+     runtime=rt)` on `TaskRuntime(num_workers=2, mode="ddast",
+     num_clients=4)`, on full-width qwen2-moe-a2.7b in bf16 with phase 5's
+     weights (seed 0) and traffic (16 requests from 4 client threads, 8
+     new tokens each, 4 slots), beside the private drain loop on the same
+     model object (private, runtime-backed, private): moe_gemm launches,
+     set to 0 just before and read just after, 72 a step; every request's
+     tokens equal the private loop's; each client's scope admitted its 4
+     requests and ran 4 tasks; ms/step of both; then `decode_profile` of
+     both engines on the same model (all slots decoding: host wall, and
+     device busy and idle share under torch.profiler);
+ 33. a JSON line with the kernels' numbers (the bf16 and f32 routes of
      `moe_gemm`, of its backward and of the flash forward and backward as
      entries of their own, the flash entries with the whisper encoder's
      and gemma2's shapes; the selective scan's backward; the two xLSTM
@@ -266,7 +282,6 @@ import gc
 import hashlib
 import importlib
 import importlib.util
-import inspect
 import json
 import math
 import re
@@ -275,11 +290,13 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -288,7 +305,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config, tiny_config  # noqa: E402
-from repro_torch.core.dispatcher import FunctionalityDispatcher  # noqa: E402
+from repro_torch.core import TaskRuntime  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -308,7 +325,7 @@ from repro_torch.kernels.ssm_scan import (  # noqa: E402
     selective_scan, selective_scan_bwd, ssm_scan)
 from repro_torch.kernels import xlstm_scan as xls  # noqa: E402
 from repro_torch.launch.serve import serve, serve_requests  # noqa: E402
-from repro_torch.launch.train import idle_workers, train  # noqa: E402
+from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models.layers import padded_vocab  # noqa: E402
 from repro_torch.models.moe import capacity, padded_experts  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
@@ -1162,13 +1179,10 @@ def compare_xlstm(parent_xls) -> None:
 
 
 def mlstm_bwd_call(mod, args, y, dy):
-    """One mLSTM backward through tree `mod`'s wrapper: on the chunk states
-    its own keeping forward leaves, where its backward reads them, or, for
-    a tree whose backward takes none, on the operands alone."""
-    if "states" in inspect.signature(mod.mlstm_scan_bwd).parameters:
-        _, states = mod._mlstm_fwd(*args, keep=True)
-        return lambda: mod.mlstm_scan_bwd(*args, y, dy, states)
-    return lambda: mod.mlstm_scan_bwd(*args, y, dy)
+    """One mLSTM backward through tree `mod`'s wrapper, on the chunk states
+    its own keeping forward leaves."""
+    _, states = mod._mlstm_fwd(*args, keep=True)
+    return lambda: mod.mlstm_scan_bwd(*args, y, dy, states)
 
 
 def compare_xlstm_bwd(parent_xls) -> None:
@@ -1519,9 +1533,10 @@ def profile_train(cfg, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
     """Full-width train steps of `batch` x `seq` (an encoder-decoder's
     over the zero frames its forward makes when given none, as `train()`
     gives them): host wall per step without
-    the profiler, with and without the launcher's two idle dispatcher
-    threads running (no thread first and last), then device busy time per
-    step by kernel and by group under torch.profiler."""
+    the profiler, with and without a running `TaskRuntime(num_workers=2,
+    mode="ddast")`, the trainer's host runtime (no runtime first and
+    last), then device busy time per step by kernel and by group under
+    torch.profiler."""
     model = get_model(cfg, "cuda")
     params = model.init_params(torch.Generator("cuda").manual_seed(1))
     opt = init_opt_state(params)
@@ -1542,12 +1557,13 @@ def profile_train(cfg, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
 
     plain, threaded = [wall_ms()], []
     for _ in range(2):
-        with idle_workers(FunctionalityDispatcher()):
+        with TaskRuntime(num_workers=2, mode="ddast"):
             threaded.append(wall_ms())
     plain.append(wall_ms())
     print(f"[profile] train step host wall, ms/step over {n_steps} steps: "
-          f"no idle threads {[round(x, 3) for x in plain]}, two idle "
-          f"dispatcher threads {[round(x, 3) for x in threaded]}")
+          f"no runtime {[round(x, 3) for x in plain]}, a running "
+          f"TaskRuntime(num_workers=2, mode='ddast') "
+          f"{[round(x, 3) for x in threaded]}")
     wall = statistics.mean(plain)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1558,8 +1574,8 @@ def profile_train(cfg, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
     busy = sum(r[0] for r in rows)
     attn = sum(r[0] for r in rows if "flash_" in r[2])
     print(f"[profile] full-width {cfg.name} train step, B={batch} "
-          f"S={seq}: wall {wall:.3f} ms/step (no profiler, no idle "
-          f"threads); device busy {busy:.3f} ms/step in "
+          f"S={seq}: wall {wall:.3f} ms/step (no profiler, no "
+          f"runtime); device busy {busy:.3f} ms/step in "
           f"{sum(r[1] for r in rows):.0f} kernels; idle share "
           f"{1 - busy / wall:.3f}; flash-attention kernels {attn:.3f} "
           f"ms/step ({attn / busy if busy else 0:.3f} of busy)")
@@ -1615,19 +1631,30 @@ def kernel_rows(prof, n_steps: int):
 
 
 def profile_steps(cfg, per_step: int, n_steps: int = 8) -> None:
-    """Full-width engine with all slots decoding: host wall per step
-    without the profiler, then device busy time per step by kernel over
-    the same number of steps under torch.profiler."""
+    """Full-width engine with all slots decoding, on weights of its own
+    (seed 1): see `decode_profile`."""
     model = get_model(cfg, "cuda")
     with torch.no_grad():
         params = model.init_params(torch.Generator("cuda").manual_seed(1))
     params.requires_grad_(False)
+    decode_profile(model, params, per_step, n_steps)
+
+
+def decode_profile(model, params, per_step: int, n_steps: int = 8,
+                   runtime=None) -> dict:
+    """An engine with all slots decoding (runtime-backed when `runtime` is
+    given): host wall per step without the profiler, then device busy time
+    per step by kernel over the same number of steps under
+    torch.profiler. Returns wall, busy and idle share."""
     eng = ServeEngine(model, params, batch_slots=SLOTS, max_len=64,
-                      num_clients=1)
+                      num_clients=1, runtime=runtime)
     for i in range(SLOTS):
         eng.submit(Request(prompt=[1 + i, 2, 3], max_new_tokens=64))
-    for _ in range(3):                              # admit and warm up
-        eng.step()
+    t0 = time.perf_counter()
+    warm = 0
+    while warm < 3 or eng._free_slots():            # admit and warm up
+        warm += 1 if eng.step() else 0
+        assert time.perf_counter() - t0 < 60, "slots not filled"
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n_steps):
@@ -1644,16 +1671,130 @@ def profile_steps(cfg, per_step: int, n_steps: int = 8) -> None:
     rows = kernel_rows(prof, n_steps)
     busy = sum(r[0] for r in rows)
     moe = sum(r[0] for r in rows if "moe_gemm" in r[2])
-    print(f"[profile] full-width decode step, {SLOTS} slots busy: wall "
-          f"{wall_ms:.3f} ms/step (no profiler); device busy {busy:.3f} "
-          f"ms/step in {sum(r[1] for r in rows):.0f} kernels; idle share "
-          f"{1 - busy / wall_ms:.3f}; moe_gemm {moe:.3f} ms/step "
-          f"({moe / busy if busy else 0:.3f} of busy)")
+    which = "runtime-backed" if runtime is not None else "private loop"
+    print(f"[profile] full-width decode step ({which}), {SLOTS} slots "
+          f"busy: wall {wall_ms:.3f} ms/step (no profiler); device busy "
+          f"{busy:.3f} ms/step in {sum(r[1] for r in rows):.0f} kernels; "
+          f"idle share {1 - busy / wall_ms:.3f}; moe_gemm {moe:.3f} "
+          f"ms/step ({moe / busy if busy else 0:.3f} of busy)")
     if not rows:
         print("[profile] device time not measured: the profiler saw no "
               "CUDA kernels")
     for ms, count, key in rows[:10]:
         print(f"[profile]   {ms:8.4f} ms/step {count:6.1f}x  {key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy,
+            "idle_share": 1 - busy / wall_ms}
+
+
+def drive_traffic(eng: ServeEngine, n: int = REQUESTS,
+                  clients: int = CLIENTS, max_new: int = MAX_NEW) -> dict:
+    """Phase 5's traffic (`serve_requests`): `n` prompts of 2-9 tokens
+    from `RandomState(0)`, sent round-robin from `clients` threads, each
+    asking for `max_new` tokens; the engine steps on this thread until
+    every request is done. Returns each prompt's tokens, wall and
+    steps."""
+    rng = np.random.RandomState(0)
+    reqs = [Request(prompt=rng.randint(1, 100, rng.randint(2, 10)).tolist(),
+                    max_new_tokens=max_new) for _ in range(n)]
+
+    def client(cid: int) -> None:
+        for i, r in enumerate(reqs):
+            if i % clients == cid:
+                eng.submit(r, client_id=cid)
+                time.sleep(0.001)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    steps0 = eng.steps
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    while len(eng.completed) < n:
+        eng.step()
+        assert time.perf_counter() - t0 < 120, "serve timeout"
+    for th in threads:
+        th.join()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = {tuple(r.prompt): r.output for r in reqs}
+    assert len(tokens) == n, "two requests share a prompt"
+    return {"tokens": tokens, "wall_s": wall, "steps": eng.steps - steps0}
+
+
+def runtime_serve_path(cfg, per_step: int) -> dict:
+    """Slice 16's main path: the runtime-backed engine (`ServeEngine(...,
+    runtime=rt)` on `TaskRuntime(num_workers=2, mode="ddast",
+    num_clients=CLIENTS)`) on full-width qwen2-moe-a2.7b, phase 5's
+    weights (seed 0) and traffic, beside the private drain loop on the
+    same model object (private, runtime-backed, private). The moe_gemm
+    count is set to 0 just before the runtime-backed run and read just
+    after. Every request's tokens must equal the private loop's: at SLOTS
+    slots `capacity()` gives each expert at least SLOTS rows, so no token
+    is dropped at decode and no row depends on which slot holds it."""
+    model = get_model(cfg, "cuda")
+    with torch.no_grad():
+        params = model.init_params(torch.Generator("cuda").manual_seed(0))
+    params.requires_grad_(False)
+    assert capacity(cfg, SLOTS) >= SLOTS
+
+    def private_run() -> dict:
+        return drive_traffic(ServeEngine(model, params, batch_slots=SLOTS,
+                                         max_len=64, num_clients=CLIENTS))
+
+    private = [private_run()]
+    # one client slot a client scope, as the JAX package's tests size it;
+    # the engine steps on this thread, which owns the main slot
+    with TaskRuntime(num_workers=2, mode="ddast",
+                     num_clients=CLIENTS) as rt:
+        eng = ServeEngine(model, params, batch_slots=SLOTS, max_len=64,
+                          num_clients=CLIENTS, runtime=rt)
+        moe_gemm.launches = 0
+        got = drive_traffic(eng)
+        launches = moe_gemm.launches
+        admission = eng.scope_admission()
+        nonfinite = eng.stats["nonfinite_steps"]
+    private.append(private_run())
+    scopes = rt.stats.scopes
+    steps = got["steps"]
+    ms = 1e3 * got["wall_s"] / steps
+    private_ms = [1e3 * r["wall_s"] / r["steps"] for r in private]
+    tokens = sum(len(v) for v in got["tokens"].values())
+    print(f"[runtime-serve] {cfg.name} full width, bf16, "
+          f"ServeEngine(runtime=TaskRuntime(num_workers=2, mode='ddast', "
+          f"num_clients={CLIENTS})): {len(got['tokens'])} requests, "
+          f"{tokens} tokens, {steps} engine steps, wall "
+          f"{got['wall_s']:.3f} s, {ms:.3f} ms/step; private drain loop "
+          f"on the same model before and after: "
+          f"{[round(x, 3) for x in private_ms]} ms/step over "
+          f"{[r['steps'] for r in private]} steps; moe_gemm launches "
+          f"{launches} ({per_step} per step)")
+    print(f"[runtime-serve] scope admission {admission}; runtime scopes "
+          f"{ {k: v['tasks'] for k, v in scopes.items()} }")
+    assert tokens == REQUESTS * MAX_NEW, tokens
+    assert nonfinite == 0, nonfinite
+    assert per_step == 72 and launches == per_step * steps > 0, \
+        (launches, per_step, steps)
+    for r in private:
+        bad = [p for p in got["tokens"]
+               if got["tokens"][p] != r["tokens"][p]]
+        assert not bad, [(p, got["tokens"][p], r["tokens"][p])
+                         for p in bad]
+    per_client = REQUESTS // CLIENTS
+    for c in range(CLIENTS):
+        assert admission[f"client{c}"]["admitted"] == per_client, admission
+        assert scopes[f"client{c}"]["tasks"] == per_client, scopes
+    print(f"[check] runtime-backed engine == private drain loop for all "
+          f"{REQUESTS} requests (bf16, cuda); each client admitted "
+          f"{per_client}")
+    profiles = {"private": decode_profile(model, params, per_step)}
+    with TaskRuntime(num_workers=2, mode="ddast", num_clients=1) as rt:
+        profiles["runtime"] = decode_profile(model, params, per_step,
+                                             runtime=rt)
+    del model, params, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "steps": steps, "ms_per_step": ms,
+            "private_ms_per_step": private_ms, "profiles": profiles}
 
 
 def sel_inputs(case, dtype, gen, with_h0=True):
@@ -3057,9 +3198,10 @@ def gemma2_train_path() -> dict:
 
 
 def launcher_train_path(arch: str, batch: int, seq: int) -> dict:
-    """`train()` on full-width `arch` (bf16, its two idle dispatcher
-    threads running), TRAIN_STEPS steps of `batch` x `seq` (an
-    encoder-decoder's over encoder_seq zero frames), with the launch
+    """`train()` on full-width `arch` (bf16, its host runtime
+    `TaskRuntime(num_workers=2, mode="ddast")` running), TRAIN_STEPS
+    steps of `batch` x `seq` (an encoder-decoder's over encoder_seq zero
+    frames), with the launch
     counts set to 0 just before and read just after (`train_step_counts`
     a step); step wall, tokens/s, peak memory, the final checkpoint; then
     `profile_train` over two steps."""
@@ -3086,8 +3228,8 @@ def launcher_train_path(arch: str, batch: int, seq: int) -> dict:
           f"bf16, B={batch} S={seq}: losses "
           f"{[round(x_, 4) for x_ in out['losses']]}; grad norms "
           f"{[round(x_, 4) for x_ in out['grad_norms']]}")
-    print(f"[train] wall per step (host, ends in the loss's sync, two idle "
-          f"dispatcher threads running) "
+    print(f"[train] wall per step (host, ends in the loss's sync, "
+          f"TaskRuntime(num_workers=2, mode='ddast') running) "
           f"{[round(1e3 * t, 1) for t in out['step_s']]} ms; steps 2.. "
           f"median {1e3 * wall:.1f} ms, {batch * seq / wall:.0f} tok/s; "
           f"peak memory {peak / 2**30:.2f} GiB; final checkpoint "
@@ -3526,14 +3668,26 @@ def main() -> int:
     eng = ServeEngine(model, params, batch_slots=2, max_len=32, num_clients=1)
     reqs = [eng.submit(Request(prompt=p, max_new_tokens=5)) for p in prompts]
     eng.run_until_drained()
-    for p, r in zip(prompts, reqs):
+    # the same prompts through a runtime-backed engine, two clients
+    with TaskRuntime(num_workers=2, mode="ddast", num_clients=2) as rt:
+        rt_eng = ServeEngine(model, params, batch_slots=2, max_len=32,
+                             num_clients=2, runtime=rt)
+        rt_reqs = [rt_eng.submit(Request(prompt=p, max_new_tokens=5), i % 2)
+                   for i, p in enumerate(prompts)]
+        t0 = time.perf_counter()
+        while not all(r.done_event.is_set() for r in rt_reqs):
+            rt_eng.step()
+            assert time.perf_counter() - t0 < 60, "runtime engine timeout"
+    for p, r, rr in zip(prompts, reqs, rt_reqs):
         want = greedy_decode(model, params,
                              torch.tensor([p], device="cuda"), 5, 32)
         assert r.output == want[0].tolist(), (p, r.output, want)
+        assert rr.output == want[0].tolist(), (p, rr.output, want)
     print(f"[check] tiny {ARCH} engine == greedy decode for "
-          f"{len(prompts)} requests (f32, cuda)")
+          f"{len(prompts)} requests (f32, cuda), the private loop and the "
+          f"runtime-backed engine (2 clients)")
 
-    del model, params, eng
+    del model, params, eng, rt_eng
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3619,7 +3773,12 @@ def main() -> int:
     # ---- 31. tiny f32 xlstm training on the card: learns, resumes -------
     xlstm_f32_train = tiny_f32_train(XLSTM)
 
-    # ---- 32. results -----------------------------------------------------
+    # ---- 32. slice 16's main path: the runtime-backed engine -----------
+    gc.collect()
+    torch.cuda.empty_cache()
+    rt_serve = runtime_serve_path(cfg, per_step)
+
+    # ---- 33. results -----------------------------------------------------
     # Both dtypes of moe_gemm, of its backward and of the flash forward and
     # backward count in one `launches`; each route's own count is that of
     # a run in its dtype: bf16 the main paths (phases 5, 9 and 15), f32 the
@@ -3649,6 +3808,10 @@ def main() -> int:
             "max_abs_err": max(errs[(lb, dtype)]
                                for lb in ("gate/up", "down")),
             **times_of(t), "unit": unit,
+            **({"runtime_serve": {
+                "launches": rt_serve["launches"],
+                "unit": "over the runtime-backed serve run (phase 32)"}}
+               if bf16 else {}),
             **({"jamba_prefill_layer": times_of(times["jamba prefill layer"]),
                 "jamba_decode_layer": times_of(times["jamba decode layer"]),
                 "jamba_train_layer": {

@@ -1,5 +1,26 @@
-"""Latency histogram and Prometheus export for the serving engine."""
-from .export import prometheus_text
-from .instruments import LogHistogram
+"""Copy of `repro/core/metrics/__init__.py`.
 
-__all__ = ["LogHistogram", "prometheus_text"]
+Live metrics plane: lock-free per-slot instruments, a
+dispatcher-riding time-series sampler, per-scope SLO attainment, and
+Prometheus / Perfetto exporters.
+
+Layering: this package imports nothing from the rest of ``repro_torch.core``
+(so ``scopes``, ``runtime`` and ``serve`` can all depend on
+it without cycles). The incremental detector lives in ``core.trace``
+next to its batch siblings; the sampler takes it by injection. The
+process backend's shared-memory counter plane (``shm_plane``) is not
+ported.
+"""
+from .instruments import (LogHistogram, MetricsHub, NullMetricsHub,
+                          NULL_METRICS, SlotCounter, SlotGauge)
+from .sampler import MetricsSampler
+from .export import (counter_track_events, load_metrics,
+                     prometheus_text, save_metrics)
+
+__all__ = [
+    "LogHistogram", "MetricsHub", "NullMetricsHub", "NULL_METRICS",
+    "SlotCounter", "SlotGauge",
+    "MetricsSampler",
+    "counter_track_events", "load_metrics", "prometheus_text",
+    "save_metrics",
+]

@@ -1,18 +1,29 @@
-"""Prometheus text exposition (format 0.0.4): copy of `prometheus_text`
-from `repro/core/metrics/export.py`.
+"""Copy of `repro/core/metrics/export.py`.
 
-It renders the JSON-friendly snapshots of ``ServeEngine.metrics_snapshot``
-(and the runtime's, once ported): counters get a ``_total`` suffix with
-``{slot="i"}`` labels, log-bucket histograms are flattened to cumulative
-``_bucket{le="..."}`` rows plus ``_sum`` / ``_count``, per-scope series
-carry a ``scope`` label, per-client ones a ``client`` label.
+Exporters: Prometheus text exposition and Perfetto counter tracks.
+
+Both consume the JSON-friendly snapshots produced by
+``MetricsHub.snapshot`` / ``TaskRuntime.metrics`` /
+``ServeEngine.metrics_snapshot`` — exporters never touch live
+instruments, so they can run in another process entirely
+(``repro_torch.analysis.metricsview``).
+
+Prometheus exposition follows the text format 0.0.4: counters get a
+``_total`` suffix with ``{slot="i"}`` labels, log-bucket histograms are
+flattened to cumulative ``_bucket{le="..."}`` rows plus ``_sum`` /
+``_count``, per-scope series carry a ``scope`` label, per-client ones a
+``client`` label. The Perfetto exporter renders every sampled series as
+a Chrome-trace "C" (counter) event stream on its own pid, so
+``traceview --counters`` can merge them under the task slices.
 """
 from __future__ import annotations
 
+import json
 import re
 from typing import Dict, List
 
-__all__ = ["prometheus_text"]
+__all__ = ["prometheus_text", "counter_track_events",
+           "save_metrics", "load_metrics"]
 
 _NAME_RE = re.compile(r"[^a-zA-Z0-9_:]")
 
@@ -145,3 +156,30 @@ def prometheus_text(snapshot: Dict[str, object],
         L.append(f"{prefix}_sampler_samples_total {samp['samples']}")
 
     return "\n".join(L) + "\n"
+
+
+def counter_track_events(series: Dict[str, list], time_unit: str = "s",
+                         pid: int = 2,
+                         process_name: str = "metrics") -> List[dict]:
+    """Render sampled series as Chrome-trace counter ("C") events.
+    Chrome-trace timestamps are microseconds, so seconds scale by 1e6
+    and simulator microseconds pass through — the same ``_scale`` rule
+    as ``analysis.traceview``."""
+    k = 1e6 if time_unit == "s" else 1.0
+    out: List[dict] = [{"name": "process_name", "ph": "M", "pid": pid,
+                        "tid": 0, "args": {"name": process_name}}]
+    for name in sorted(series):
+        for t, v in series[name]:
+            out.append({"name": name, "ph": "C", "pid": pid, "tid": 0,
+                        "ts": t * k, "args": {"value": v}})
+    return out
+
+
+def save_metrics(path: str, snapshot: Dict[str, object]) -> None:
+    with open(path, "w") as f:
+        json.dump(snapshot, f, indent=1)
+
+
+def load_metrics(path: str) -> Dict[str, object]:
+    with open(path) as f:
+        return json.load(f)

@@ -1,19 +1,33 @@
-"""Log-bucketed latency histogram: copy of `LogHistogram` from
-`repro/core/metrics/instruments.py`.
+"""Copy of `repro/core/metrics/instruments.py`.
+
+Live instruments: per-slot counters, gauges and log-bucketed
+latency histograms.
+
+Same discipline as ``core.trace.recorder``: every hot-path write is a
+single GIL-atomic operation on a slot owned by exactly one thread (a
+plain ``list.__setitem__`` / int ``+=`` on CPython is one bytecode-level
+store under the GIL, and per-slot single-writer means there is nothing
+to race even without it), and the disabled path is one attribute check
+on a shared ``NULL_METRICS`` singleton. Aggregation — summing slots,
+merging histograms — happens lazily at read time on whichever thread
+asks, never on the task path. Zero locks are introduced anywhere in
+this module.
 
 The histogram is HDR-style log-bucketed: values are quantized to a
 ``resolution``, small values get exact buckets, larger values land in
 buckets of 4 per power of two, so the relative bucket width is bounded
-by 25% at any magnitude. Buckets are a sparse dict, merge is element-wise
-addition, and quantiles report the bucket's upper bound, so
-``quantile(q)`` is always >= the exact q-quantile and
-<= ``exact * 1.25 + resolution``. Single writer per instance.
+by 25% at any magnitude. Buckets are a sparse dict (most workloads
+touch a handful), merge is element-wise addition (associative and
+commutative — the property the merge tests gate), and quantiles report
+the bucket's upper bound, so ``quantile(q)`` is always >= the exact
+q-quantile and <= ``exact * 1.25 + resolution``.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional
 
-__all__ = ["LogHistogram"]
+__all__ = ["LogHistogram", "SlotCounter", "SlotGauge", "MetricsHub",
+           "NullMetricsHub", "NULL_METRICS"]
 
 
 class LogHistogram:
@@ -72,13 +86,19 @@ class LogHistogram:
     # -- read side ------------------------------------------------------
     def merge(self, other: "LogHistogram") -> "LogHistogram":
         """Element-wise sum into a NEW histogram (inputs untouched).
-        Requires equal resolutions; associative and commutative."""
+        Requires equal resolutions; associative and commutative.
+
+        ``other``'s buckets are copied by one C-level ``tuple()`` call
+        before the loop: its writer may add a bucket meanwhile, and the
+        loop over the live dict (the JAX package's copy) then raised
+        "dictionary changed size during iteration" in a reader of
+        ``TaskRuntime.metrics()``."""
         if other.resolution != self.resolution:
             raise ValueError("histogram resolutions differ: "
                              f"{self.resolution} vs {other.resolution}")
         out = LogHistogram(self.resolution)
         out.counts = dict(self.counts)
-        for idx, n in other.counts.items():
+        for idx, n in tuple(other.counts.items()):
             out.counts[idx] = out.counts.get(idx, 0) + n
         out.count = self.count + other.count
         out.total = self.total + other.total
@@ -120,3 +140,140 @@ class LogHistogram:
         for h in hists[1:]:
             out = out.merge(h)
         return out
+
+
+class SlotCounter:
+    """Monotonic per-slot counter; writes from slot *i* only ever touch
+    ``per_slot[i]`` (GIL-atomic), reads sum lazily. Index ``num_slots``
+    is the shared overflow slot for unattributed writers (same layout
+    as the tracer's overflow ring)."""
+
+    __slots__ = ("per_slot",)
+
+    def __init__(self, num_slots: int) -> None:
+        self.per_slot: List[int] = [0] * (num_slots + 1)
+
+    def add(self, slot: int, delta: int = 1) -> None:
+        p = self.per_slot
+        n = len(p) - 1
+        p[slot if 0 <= slot < n else n] += delta
+
+    @property
+    def total(self) -> int:
+        return sum(self.per_slot)
+
+
+class SlotGauge:
+    """Per-slot last-value gauge (e.g. busy flags); ``total`` sums."""
+
+    __slots__ = ("per_slot",)
+
+    def __init__(self, num_slots: int) -> None:
+        self.per_slot: List[float] = [0.0] * (num_slots + 1)
+
+    def set(self, slot: int, value: float) -> None:
+        p = self.per_slot
+        n = len(p) - 1
+        p[slot if 0 <= slot < n else n] = value
+
+    @property
+    def total(self) -> float:
+        return sum(self.per_slot)
+
+
+class MetricsHub:
+    """The driver-side instrument bundle: task start/finish counters,
+    busy flags, summed exec time and a latency histogram — all per
+    slot, all single-writer, aggregated only in :meth:`snapshot`.
+
+    ``charge`` is the simulator's :class:`SimCharger` (or ``None`` on
+    real drivers): each instrument write prices one ``metric_event`` of
+    local virtual time so the overhead gate measures a real cost, the
+    same contract as ``TraceRecorder``.
+    """
+
+    enabled = True
+
+    def __init__(self, num_slots: int, clock: Callable[[], float],
+                 charge=None, time_unit: str = "s",
+                 latency_resolution: Optional[float] = None) -> None:
+        self.num_slots = num_slots
+        self.clock = clock
+        self.time_unit = time_unit
+        self._charge = charge
+        if latency_resolution is None:
+            latency_resolution = 1.0 if time_unit == "us" else 1e-6
+        self.tasks_started = [0] * (num_slots + 1)
+        self.tasks_finished = [0] * (num_slots + 1)
+        self.exec_time = [0.0] * (num_slots + 1)
+        self.busy = [0] * (num_slots + 1)
+        self.latency = [LogHistogram(latency_resolution)
+                        for _ in range(num_slots + 1)]
+
+    def _clamp(self, slot: int) -> int:
+        return slot if 0 <= slot < self.num_slots else self.num_slots
+
+    # -- hot path -------------------------------------------------------
+    def task_start(self, slot: int) -> None:
+        s = self._clamp(slot)
+        self.tasks_started[s] += 1
+        self.busy[s] = 1
+        ch = self._charge
+        if ch is not None:
+            ch.metric_event()
+
+    def task_end(self, slot: int, dur: float) -> None:
+        s = self._clamp(slot)
+        self.tasks_finished[s] += 1
+        self.exec_time[s] += dur
+        self.latency[s].record(dur)
+        self.busy[s] = 0
+        ch = self._charge
+        if ch is not None:
+            ch.metric_event()
+
+    # -- read side ------------------------------------------------------
+    def busy_fraction(self, num_workers: Optional[int] = None) -> float:
+        n = num_workers if num_workers is not None else self.num_slots
+        if n <= 0:
+            return 0.0
+        return sum(self.busy[:n]) / n
+
+    def snapshot(self) -> Dict[str, object]:
+        merged = LogHistogram.merge_all(list(self.latency))
+        return {
+            "time_unit": self.time_unit,
+            "counters": {
+                "tasks_started": {"total": sum(self.tasks_started),
+                                  "per_slot": list(self.tasks_started)},
+                "tasks_finished": {"total": sum(self.tasks_finished),
+                                   "per_slot": list(self.tasks_finished)},
+            },
+            "exec_time": {"total": sum(self.exec_time),
+                          "per_slot": list(self.exec_time)},
+            "busy_slots": list(self.busy),
+            "task_latency": merged.snapshot(),
+        }
+
+
+class NullMetricsHub:
+    """Metrics-off singleton: one ``.enabled`` check is the entire
+    disabled-path cost (gated by the no-op cost test)."""
+
+    enabled = False
+    num_slots = 0
+
+    def task_start(self, slot: int) -> None:
+        pass
+
+    def task_end(self, slot: int, dur: float) -> None:
+        pass
+
+    def busy_fraction(self, num_workers=None) -> float:
+        return 0.0
+
+    def snapshot(self) -> Dict[str, object]:
+        return {}
+
+
+NULL_METRICS = NullMetricsHub()

@@ -1,10 +1,26 @@
-"""Shared DAG core of the scheduling subsystem: copy of `DagNode`,
-`build_arrays`, `bottom_levels` and `list_schedule` from
-`repro/core/sched/dag.py`. The serving engine admits the longest request
-chain first by bottom level; `sched.static.ddast_schedule` orders the
-train step's microbatches with the list schedule.
+"""Copy of `repro/core/sched/dag.py`.
 
-Functions operate on plain lists indexed by task id.
+Shared DAG core of the scheduling subsystem.
+
+Every scheduling layer in this runtime reasons about the same object — a
+task DAG flattened to int-indexed successor arrays:
+
+  * the *static* scheduler (``sched.static``) replays the DDAST manager's
+    release discipline over a :class:`DagNode` list to order device-side
+    work (train microbatches, serve admission);
+  * the *dynamic* replay scheduler (``engine/replay.py`` +
+    :class:`~repro_torch.core.sched.placement.CriticalPathPlacement`) computes
+    bottom levels over a frozen :class:`~repro_torch.core.engine.replay.ReplayGraph`'s
+    successor arrays to prioritize the longest remaining chain.
+
+Before this module existed both layers duplicated the topology code
+(name→index maps, successor lists, topological event loops); now the
+successor-array construction, the bottom-level / critical-path
+computation, and the list-schedule event loop exist exactly once.
+
+All functions here operate on plain lists indexed by task id so they are
+agnostic to where the DAG came from (``DagNode`` lists, frozen replay
+graphs, anything with successor arrays).
 """
 from __future__ import annotations
 
@@ -75,6 +91,25 @@ def bottom_levels(succs: Sequence[Sequence[int]],
     if seen != n:
         raise ValueError("bottom_levels: successor arrays contain a cycle")
     return bl
+
+
+def quantize_bands(levels: Sequence[float],
+                   max_bands: int) -> Tuple[List[int], int]:
+    """Map bottom levels to discrete priority bands (0 = lowest). Bands
+    are what make the two-lane ready deques lock-free: a band is one
+    GIL-atomic ``deque``, so pushes never need a heap or a lock. With at
+    most ``max_bands`` distinct levels the mapping is exact (the longest
+    remaining chain is *always* started first); beyond that, levels are
+    rank-quantized so adjacent priorities may share a band."""
+    distinct = sorted(set(levels))
+    nd = len(distinct)
+    if nd == 0:
+        return [], 0
+    if nd <= max_bands:
+        rank = {v: i for i, v in enumerate(distinct)}
+        return [rank[v] for v in levels], nd
+    rank = {v: (i * max_bands) // nd for i, v in enumerate(distinct)}
+    return [rank[v] for v in levels], max_bands
 
 
 def list_schedule(costs: Sequence[float], succs: Sequence[Sequence[int]],

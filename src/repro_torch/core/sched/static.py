@@ -1,5 +1,6 @@
-"""DDAST as a *static* scheduler for device-side task DAGs: copy of
-`repro/core/sched/static.py`.
+"""Copy of `repro/core/sched/static.py`.
+
+DDAST as a *static* scheduler for device-side task DAGs.
 
 On TPU, the compiled program cannot mutate a dependence graph at run time —
 XLA fixes the schedule at compile time. The transferable part of the
@@ -17,7 +18,7 @@ uses it to:
     (serve/engine.py) — requests are tasks, prefill->decode are edges.
 
 The topology machinery (successor arrays, the list-schedule event loop,
-bottom levels) lives in :mod:`repro.core.sched.dag`, shared with the
+bottom levels) lives in :mod:`repro_torch.core.sched.dag`, shared with the
 runtime's critical-path replay placement — this module only maps
 names <-> int ids and keeps the historical API.
 """
@@ -32,7 +33,7 @@ from .dag import DagNode, build_arrays, list_schedule
 def ddast_schedule(nodes: Sequence[DagNode], num_units: int = 2,
                    params: Optional[DDASTParams] = None) -> List[Hashable]:
     """Deterministic list schedule with the DDAST manager's release
-    discipline (see :func:`~repro.core.sched.dag.list_schedule`).
+    discipline (see :func:`~repro_torch.core.sched.dag.list_schedule`).
     Returns a valid topological order (asserted)."""
     params = params or DDASTParams()
     del params                          # tunables reserved, as historically

@@ -1,6 +1,8 @@
-"""End-to-end trainer; counterpart of `repro/launch/train.py`. Two idle
-host threads run the dispatcher's callbacks (data prefetch and async
-checkpoint flushing), so the main thread only issues device steps.
+"""End-to-end trainer; counterpart of `repro/launch/train.py`. The host
+side runs the paper's runtime: a `TaskRuntime` in ddast mode whose two
+idle workers execute the registered callbacks (DDAST message handling,
+data prefetch and async checkpoint flushing), so the main thread only
+issues device steps.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --steps 50 --batch 8 --seq 128 --device cpu
@@ -31,17 +33,15 @@ Random weights come from a seeded `torch.Generator`.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import os
 import tempfile
-import threading
 import time
-from typing import Iterator, Optional
+from typing import Optional
 
 import torch
 
 from ..configs import ARCHS, get_config, tiny_config
-from ..core.dispatcher import FunctionalityDispatcher
+from ..core.runtime import TaskRuntime
 from ..device import DeviceLike, resolve_device
 from ..models.registry import get_model
 from ..train.checkpoint import CheckpointManager
@@ -51,33 +51,6 @@ from ..train.optimizer import OptConfig, init_opt_state
 from ..train.train_step import TrainConfig, make_train_step
 
 CKPT_EVERY = 20
-IDLE_WORKERS = 2
-
-
-@contextlib.contextmanager
-def idle_workers(dispatcher: FunctionalityDispatcher) -> Iterator[None]:
-    """Two daemon threads that each loop `notify_idle(wid); sleep(0)`
-    until the block exits: what the JAX trainer's `TaskRuntime(
-    num_workers=2, mode="ddast")` workers do when they have no task
-    (repro/core/runtime.py:864-874), which is all it asks of them."""
-    stop = threading.Event()
-
-    def loop(wid: int) -> None:
-        while not stop.is_set():
-            dispatcher.notify_idle(wid)
-            time.sleep(0)
-
-    threads = [threading.Thread(target=loop, args=(i,), daemon=True,
-                                name=f"idle-worker-{i}")
-               for i in range(IDLE_WORKERS)]
-    for t in threads:
-        t.start()
-    try:
-        yield
-    finally:
-        stop.set()
-        for t in threads:
-            t.join()
 
 
 def train(arch: str, tiny: bool, steps: int, batch: int, seq: int,
@@ -102,10 +75,11 @@ def train(arch: str, tiny: bool, steps: int, batch: int, seq: int,
     params = model.init_params(torch.Generator(dev).manual_seed(0))
     opt = init_opt_state(params)
 
-    dispatcher = FunctionalityDispatcher()
+    # host runtime: idle threads do prefetch + checkpoint I/O (DDAST org)
+    rt = TaskRuntime(num_workers=2, mode="ddast")
     ds = SyntheticLM(cfg, DataConfig(batch=batch, seq_len=seq))
-    prefetch = Prefetcher(ds, dispatcher, depth=4)
-    ckpt = CheckpointManager(ckpt_dir, dispatcher)
+    prefetch = Prefetcher(ds, rt.dispatcher, depth=4)
+    ckpt = CheckpointManager(ckpt_dir, rt.dispatcher)
     hb = HeartbeatMonitor(hosts=["host0"])
 
     start_step = 0
@@ -122,36 +96,41 @@ def train(arch: str, tiny: bool, steps: int, batch: int, seq: int,
                           dtype=cfg.torch_dtype, device=dev)
               if cfg.is_encoder_decoder else None)
     losses, gnorms, step_s = [], [], []
-    with idle_workers(dispatcher):
-        try:
-            t0 = time.perf_counter()
-            for step in range(start_step, steps):
-                batch_dev = {k: torch.from_numpy(v).to(dev)
-                             for k, v in prefetch.get(step).items()}
-                if frames is not None:
-                    batch_dev["frames"] = frames
-                st = time.perf_counter()
-                params, opt, metrics = step_fn(params, opt, batch_dev)
-                loss = float(metrics["loss"])
-                step_s.append(time.perf_counter() - st)
-                losses.append(loss)
-                gnorms.append(float(metrics["grad_norm"]))
-                hb.beat("host0", step, step_s[-1])
-                if step % log_every == 0 or step == steps - 1:
-                    print(f"[train] step {step} loss {loss:.4f} "
-                          f"lr {float(metrics['lr']):.2e} "
-                          f"gnorm {gnorms[-1]:.2f}")
-                # named by the step a resume starts from (the JAX trainer
-                # names it one step early: launch/train.py:75-76)
-                done = step + 1
-                if done % CKPT_EVERY == 0 and done < steps:
-                    ckpt.save(done, {"params": params.state_dict(),
-                                     "opt": opt})
-            ckpt.save(steps, {"params": params.state_dict(), "opt": opt},
-                      blocking=True)
-            wall = time.perf_counter() - t0
-        finally:
-            ckpt.flush()
+    rt.start()
+    try:
+        t0 = time.perf_counter()
+        for step in range(start_step, steps):
+            batch_dev = {k: torch.from_numpy(v).to(dev)
+                         for k, v in prefetch.get(step).items()}
+            if frames is not None:
+                batch_dev["frames"] = frames
+            st = time.perf_counter()
+            params, opt, metrics = step_fn(params, opt, batch_dev)
+            loss = float(metrics["loss"])
+            step_s.append(time.perf_counter() - st)
+            losses.append(loss)
+            gnorms.append(float(metrics["grad_norm"]))
+            hb.beat("host0", step, step_s[-1])
+            if step % log_every == 0 or step == steps - 1:
+                print(f"[train] step {step} loss {loss:.4f} "
+                      f"lr {float(metrics['lr']):.2e} "
+                      f"gnorm {gnorms[-1]:.2f}")
+            # named by the step a resume starts from (the JAX trainer
+            # names it one step early: launch/train.py:75-76)
+            done = step + 1
+            if done % CKPT_EVERY == 0 and done < steps:
+                ckpt.save(done, {"params": params.state_dict(),
+                                 "opt": opt})
+        ckpt.save(steps, {"params": params.state_dict(), "opt": opt},
+                  blocking=True)
+        wall = time.perf_counter() - t0
+    finally:
+        ckpt.flush()
+        rt._stop.set()
+        # a worker may still be writing a checkpoint it took from the
+        # queue (the final one included): wait for it, within a bound
+        for th in rt._threads:
+            th.join(timeout=60)
     return {"losses": losses, "grad_norms": gnorms, "step_s": step_s,
             "wall_s": wall, "prefetch_async": prefetch.fills_async,
             "ckpt_writes": ckpt.async_writes, "last_ckpt": ckpt.last_write,

@@ -11,16 +11,24 @@ tokens are teacher-forced through the decode path; generated tokens
 continue it). Slots free as requests finish: continuous batching with
 per-slot positions.
 
-The JAX engine's ``runtime=`` mode (client queues as JobScopes on a
-TaskRuntime) and its HTTP scrape endpoint wait for the port of the
-runtime; ``runtime=`` raises here.
+With ``runtime=`` (a multi-tenant ``TaskRuntime(num_clients>=1)`` of
+`repro_torch.core`) each client queue becomes a
+:class:`~repro_torch.core.scopes.JobScope` on the real runtime instead of
+the engine's private drain loop: every drained request is submitted as a
+scope task chained per client (region ``("reqchain",)`` INOUT under the
+scope's namespace: client FIFO for free), the scopes' weighted-fair
+admission decides which client's requests reach the admission buffer
+first, and per-client ``max_inflight`` bounds a flooding client's
+presence in the shared pool. Scope task bodies only append to that
+buffer; every device call stays on the thread that steps the engine.
 """
 from __future__ import annotations
 
 import itertools
 import threading
+from collections import deque
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -62,10 +70,12 @@ class ServeEngine:
     def __init__(self, model: ModelAPI, params: Any, *, batch_slots: int = 4,
                  max_len: int = 256, num_clients: int = 4,
                  ddast: Optional[DDASTParams] = None, eos_id: int = -1,
-                 runtime: Any = None):
-        if runtime is not None:
-            raise NotImplementedError(
-                "ServeEngine(runtime=) needs the TaskRuntime port")
+                 runtime: Any = None,
+                 client_weights: Optional[Sequence[float]] = None,
+                 client_max_inflight: Optional[Sequence[Optional[int]]]
+                 = None,
+                 client_deadlines: Optional[Sequence[Optional[float]]]
+                 = None):
         self.model = model
         self.params = params
         self.B = batch_slots
@@ -74,6 +84,32 @@ class ServeEngine:
         self.ddast = ddast or DDASTParams()
         self.client_queues = [WorkerQueues(i) for i in range(num_clients)]
         self._req_ids = itertools.count()
+        # runtime-backed request layer: one JobScope per client queue
+        self.runtime = runtime
+        self._scopes: List[Any] = []
+        self._admitq: deque = deque()   # GIL-atomic: filled by scope
+        #   task bodies on worker threads, drained by the engine step
+        if runtime is not None:
+            ws = (list(client_weights) if client_weights is not None
+                  else [1.0] * num_clients)
+            caps = (list(client_max_inflight)
+                    if client_max_inflight is not None
+                    else [None] * num_clients)
+            dls = (list(client_deadlines)
+                   if client_deadlines is not None
+                   else [None] * num_clients)
+            if len(ws) != num_clients or len(caps) != num_clients \
+                    or len(dls) != num_clients:
+                raise ValueError("client_weights/client_max_inflight/"
+                                 "client_deadlines must have "
+                                 "num_clients entries")
+            for c in range(num_clients):
+                # deadline= makes the client scope an SLO tenant: the
+                # scope records per-task met/missed + slack (exported by
+                # metrics_snapshot) and hard-expires past the deadline
+                self._scopes.append(runtime.open_scope(
+                    f"client{c}", weight=ws[c], max_inflight=caps[c],
+                    deadline=dls[c]))
         self.slots = [_Slot() for _ in range(self.B)]
         self.cache = model.init_cache(self.B, max_len)
         self._tokens = np.zeros((self.B,), np.int32)
@@ -104,10 +140,64 @@ class ServeEngine:
     def _free_slots(self) -> int:
         return sum(1 for s in self.slots if s.free)
 
+    def _pump_to_scopes(self) -> None:
+        """Runtime-backed request layer: move drained client-queue entries
+        onto the runtime as per-client scope tasks. The per-client
+        ``("reqchain",) INOUT`` chain (scope-qualified by the keying shim,
+        so clients never alias) keeps each client FIFO; which client's
+        chain advances first is the scope layer's weighted-fair admission.
+        Task bodies append to the GIL-atomic admission buffer the engine
+        step admits from.
+
+        The pumping thread first claims its own runtime submit slot: scope
+        submissions ride per-thread SPSC queues, so a serving thread that
+        differs from the engine's constructing thread must not share the
+        main slot with a concurrently-submitting main thread (size
+        ``num_clients`` one larger when stepping from a dedicated
+        thread)."""
+        self.runtime._ensure_client_slot()
+        for cid, q in enumerate(self.client_queues):
+            if not q.acquire_submit():
+                continue
+            try:
+                while True:
+                    req = q.submit.pop()
+                    if req is None:
+                        break
+                    self._scopes[cid].task(
+                        self._admitq.append, req,
+                        deps=[(("reqchain",), "inout")],
+                        label=f"req{req.req_id}")
+                    self.stats["drained_msgs"] += 1
+            finally:
+                q.release_submit()
+
+    def scope_admission(self) -> Dict[str, dict]:
+        """Per-client fairness counters from the runtime's admission
+        layer (runtime-backed engines only)."""
+        return {sc.name:
+                self.runtime.placement.scope_admission(sc.scope_id)
+                for sc in self._scopes}
+
     def _admit_requests(self) -> None:
         """DDAST callback port: round-robin client queues, up to
         MAX_OPS_THREAD per queue, stopping once the free slots are filled.
-        Each drain pass admits its batch longest-remaining-chain first."""
+        Each drain pass admits its batch longest-remaining-chain first.
+
+        Runtime-backed engines skip the private drain discipline: the
+        scope layer already ordered requests into the admission buffer;
+        this just fills free slots from it."""
+        if self.runtime is not None:
+            self._pump_to_scopes()
+            batch: List[Request] = []
+            while self._free_slots() - len(batch) > 0:
+                try:
+                    batch.append(self._admitq.popleft())
+                except IndexError:
+                    break
+            for req in self._admission_order(batch):
+                self._admit(req)
+            return
         p = self.ddast
         self.stats["callback_passes"] += 1
         spins = max(p.max_spins, 1)
@@ -218,19 +308,33 @@ class ServeEngine:
         return len(active)
 
     def _backlog(self) -> int:
-        """Requests not yet in a batch slot."""
-        return sum(len(q.submit) for q in self.client_queues)
+        """Requests not yet in a batch slot: client queues, plus (when
+        runtime-backed) in-flight scope tasks and the admission buffer."""
+        n = sum(len(q.submit) for q in self.client_queues)
+        n += len(self._admitq)
+        for sc in self._scopes:
+            n += sc.root.num_children_alive
+        return n
 
     # ----------------------------------------------------- observability
     def metrics_snapshot(self) -> Dict[str, Any]:
         """JSON-friendly serving metrics: engine gauges plus one entry per
-        client with its request-latency histogram (in engine steps)."""
+        client: its request-latency histogram (in engine steps) and, for
+        runtime-backed engines, the scope layer's admission counters and
+        SLO attainment (``client_deadlines=``)."""
         clients: Dict[str, Any] = {}
         for cid in range(len(self.client_queues)):
             entry: Dict[str, Any] = {}
             hist = self._client_latency[cid]
             if hist.count:
                 entry["latency_steps"] = hist.snapshot()
+            if self._scopes:
+                sc = self._scopes[cid]
+                entry["admission"] = \
+                    self.runtime.placement.scope_admission(sc.scope_id)
+                slo = sc.slo_snapshot()
+                if slo is not None:
+                    entry["slo"] = slo
             clients[f"client{cid}"] = entry
         return {
             "time_unit": "s",
@@ -243,6 +347,37 @@ class ServeEngine:
 
     def metrics_text(self) -> str:
         return prometheus_text(self.metrics_snapshot())
+
+    def serve_metrics(self, port: int = 0):
+        """Start a Prometheus scrape endpoint (text format 0.0.4) on
+        localhost in a daemon thread; ``port=0`` picks a free port.
+        Returns ``(server, port)``: call ``server.shutdown()`` when done.
+        Every GET /metrics renders a fresh snapshot, so scrapes observe
+        the run in flight."""
+        import http.server
+        engine = self
+
+        class _Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):          # noqa: N802 (stdlib API name)
+                if self.path.split("?")[0] not in ("/metrics", "/"):
+                    self.send_error(404)
+                    return
+                body = engine.metrics_text().encode("utf-8")
+                self.send_response(200)
+                self.send_header("Content-Type",
+                                 "text/plain; version=0.0.4")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *args):
+                pass                   # scrapes must not spam stderr
+
+        srv = http.server.ThreadingHTTPServer(("127.0.0.1", port),
+                                              _Handler)
+        threading.Thread(target=srv.serve_forever,
+                         name="metrics-scrape", daemon=True).start()
+        return srv, srv.server_address[1]
 
     def run_until_drained(self, max_steps: int = 10_000) -> None:
         idle = 0

@@ -79,12 +79,6 @@ def test_serve_without_gpu_raises(monkeypatch):
         get_model(tiny_config("qwen2-moe-a2.7b"))
 
 
-def test_runtime_backed_engine_not_ported():
-    m = get_model(tiny_config("qwen2-0.5b"), "cpu")
-    with pytest.raises(NotImplementedError):
-        ServeEngine(m, None, runtime=object())
-
-
 def test_unported_families_raise():
     # whisper is ported as a model, but the serving launcher refuses an
     # encoder-decoder, as the JAX launcher does (repro/launch/serve.py)

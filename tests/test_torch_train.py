@@ -9,7 +9,6 @@ scan's gradients on the CPU are autograd's over its plain version, which
 `tests/test_torch_ssm_backward.py` holds to the backward kernel's plain
 version)."""
 import threading
-import time
 
 import numpy as np
 import pytest
@@ -33,7 +32,8 @@ from repro_torch.configs import get_config, tiny_config  # noqa: E402
 from repro_torch.convert import (jax_grads, load_jax_opt_state,  # noqa: E402
                                  load_jax_params)
 from repro_torch.core.dispatcher import FunctionalityDispatcher  # noqa: E402
-from repro_torch.launch.train import idle_workers, train  # noqa: E402
+from repro_torch.launch import train as train_mod  # noqa: E402
+from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.train.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.train.data import DataConfig, Prefetcher, SyntheticLM  # noqa: E402,E501
@@ -234,21 +234,41 @@ def test_prefetcher_async_and_sync_agree():
     np.testing.assert_array_equal(got["tokens"], ds.batch_at(0)["tokens"])
 
 
-def test_idle_workers_run_callbacks_and_stop():
-    ds = SyntheticLM(tiny_config(ARCH), DataConfig(batch=2, seq_len=16))
-    disp = FunctionalityDispatcher()
-    pf = Prefetcher(ds, disp, depth=3)
-    with idle_workers(disp):
-        deadline = time.monotonic() + 30
-        while pf.fills_async < 3 and time.monotonic() < deadline:
-            time.sleep(0.001)
-    # two workers may both top up the last slot: depth is a floor here
-    assert pf.fills_async >= 3
-    np.testing.assert_array_equal(pf.get(0)["tokens"],
-                                  ds.batch_at(0)["tokens"])
-    assert pf.fills_sync == 0
-    assert not [t for t in threading.enumerate()
-                if t.name.startswith("idle-worker")]
+def test_train_runs_callbacks_on_runtime_workers(tmp_path, monkeypatch):
+    """`train()` runs on a real `TaskRuntime(num_workers=2, mode="ddast")`:
+    its idle workers fill the prefetch queue and flush the async
+    checkpoint, and no runtime thread outlives the call."""
+    runtimes, ran_on = [], {"prefetch": set(), "ckpt": set()}
+
+    class _Runtime(train_mod.TaskRuntime):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            runtimes.append(self)
+
+    def record(cls, key):
+        orig = cls._callback
+
+        def callback(self, worker_id):
+            ran_on[key].add(threading.current_thread())
+            return orig(self, worker_id)
+        monkeypatch.setattr(cls, "_callback", callback)
+
+    record(Prefetcher, "prefetch")
+    record(CheckpointManager, "ckpt")
+    monkeypatch.setattr(train_mod, "TaskRuntime", _Runtime)
+    out = train(ARCH, tiny=True, steps=22, batch=2, seq=8,
+                ckpt_dir=str(tmp_path), device="cpu", log_every=100)
+    assert len(out["losses"]) == 22
+    (rt,) = runtimes
+    assert rt.num_workers == 2 and rt.mode == "ddast"
+    workers = set(rt._threads)
+    assert len(workers) == 2
+    # only the runtime's two workers run the callbacks
+    assert ran_on["prefetch"] and ran_on["prefetch"] <= workers
+    assert ran_on["ckpt"] and ran_on["ckpt"] <= workers
+    assert out["prefetch_async"] > 0
+    assert not any(th.is_alive() for th in workers)
+    assert not [th for th in threading.enumerate() if th in workers]
 
 
 # ------------------------------------------------------------ train step

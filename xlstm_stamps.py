@@ -14,12 +14,10 @@ of src/repro_torch/kernels/csrc/xlstm_scan.cu and xlstm_scan_bwd.cu
   block stamps 64 chunks at the path shape;
 - the sLSTM backward's step (slstm_scan_bwd_kernel): thread 0 of each
   block of the first cluster stamps 64 steps at the train shape (8 x
-  2048), its parts in its own order: this tree's the coefficients, the
-  wait for the partial sums, their sum and the chain (with the next trail
-  loads), the block barrier, the matvec, the butterfly and the
-  sends; the parent's (with --parent)
-  the cell's backward, the named barrier, the sends, the wait for dp, the
-  matvec, the butterfly and the block barrier; and the landing in both.
+  2048), its parts in order: the coefficients, the wait for the partial
+  sums, their sum and the chain (with the next trail loads), the block
+  barrier, the matvec, the butterfly and the sends; and the landing. With
+  --parent PATH, the parent's kernel too (the same design).
 
 Stamps cost time of their own: a stamped step or chunk is longer than an
 unstamped one (chip_smoke.py times those). The copies are written under
@@ -190,23 +188,17 @@ __device__ __forceinline__ unsigned long long gtime() {{
 }}
 
 __device__ __forceinline__ float log_sigmoid(float x) {{"""
-# the parts of a step in each design, between stamps 0 .. 7; stamp 8 is
-# %globaltimer where the sends are out, 9 where the wait ends, and the
-# landing's lag is the steps between a send and the wait that takes it
-BWD_NAMES = {
-    "this tree": ("coefficients", "wait", "sum and chain", "block barrier",
-                  "matvec", "butterfly", "sends"),
-    "parent": ("cell's backward", "named barrier", "sends", "wait",
-               "matvec", "butterfly", "block barrier")}
-BWD_LAG = {"this tree": 1, "parent": 0}
+# the parts of a step, between stamps 0 .. 7; stamp 8 is %globaltimer
+# where the sends are out, 9 where the wait ends; a send lands at the wait
+# of the next step
+BWD_NAMES = ("coefficients", "wait", "sum and chain", "block barrier",
+             "matvec", "butterfly", "sends")
 
 
 def bwd_stamped(src: str) -> str:
     """The sLSTM backward with clock stamps: thread 0 of each block of
     cluster (0, 0) records clock64 at the step's part boundaries for walk
-    steps BSTAMP_U0 .. + STAMP_N; `slstm_bwd_stamps` copies them out.
-    Either design: the parent's (a named barrier among the cell threads,
-    dp sent to every block) or this tree's."""
+    steps BSTAMP_U0 .. + STAMP_N; `slstm_bwd_stamps` copies them out."""
     rec = "if (stp) sp[{}] = clk();"
     head = (f"      const int ws = u - {BSTAMP_U0};\n"
             "      const bool stp = blockIdx.y == 0 && blockIdx.z == 0 && "
@@ -223,59 +215,32 @@ def bwd_stamped(src: str) -> str:
               "  return static_cast<int>(\n"
               "      cudaMemcpyFromSymbol(out, g_bstamp, sizeof(g_bstamp)));"
               "\n}\n\n"
-              'extern "C" const char* xlstm_scan_bwd_error_string(int code) {')]
-    if "named_barrier(1, kCellThreads);" in src:           # the parent's
-        pairs += [
-            ("      if (t < 0) break;\n      if (threadIdx.x < kCellThreads) {",
-             "      if (t < 0) break;\n" + head
-             + "      if (threadIdx.x < kCellThreads) {"),
-            ("        named_barrier(1, kCellThreads);\n",
-             f"        {rec.format(1)}\n        named_barrier(1, "
-             f"kCellThreads);\n        {rec.format(2)}\n"),
-            ("      if (t == 0) break;\n      // buffer u & 1 holds dp_t",
-             f"      if (stp) {{ sp[3] = clk(); sp[8] = gtime(); }}\n"
-             "      if (t == 0) break;\n      // buffer u & 1 holds dp_t"),
-            ("      if (threadIdx.x == 0) mbar_expect(bar, kBytes);\n"
-             "      float s[kV];",
-             "      if (threadIdx.x == 0) mbar_expect(bar, kBytes);\n"
-             "      if (stp) { sp[4] = clk(); sp[9] = gtime(); }\n"
-             "      float s[kV];"),
-            ("      int cnt = kV;",
-             "      asm volatile(\"\" :: \"f\"(s[0]), \"f\"(s[kV - 1]));\n"
-             f"      {rec.format(5)}\n      int cnt = kV;"),
-            ("      if (writer) rec_s[2 * warp + rr][hi] = s[0];\n"
-             "      __syncthreads();\n",
-             "      asm volatile(\"\" :: \"f\"(s[0]));\n"
-             f"      {rec.format(6)}\n"
-             "      if (writer) rec_s[2 * warp + rr][hi] = s[0];\n"
-             f"      __syncthreads();\n      {rec.format(7)}\n      "
-             + flush)]
-    else:
-        pairs += [
-            ("      if (t < 0) break;\n      const int buf = u & 1;\n",
-             "      if (t < 0) break;\n      const int buf = u & 1;\n" + head),
-            ("        const float dy = dyr[j];\n",
-             "        const float dy = dyr[j];\n"
-             "        asm volatile(\"\" :: \"f\"(k.a1), \"f\"(k.a2), "
-             "\"f\"(k.g1), \"f\"(k.g2), \"f\"(k.bz), \"f\"(k.sgf));\n"
-             f"        {rec.format(1)}\n"),
-            ("          if (threadIdx.x == 0) mbar_expect(bar, kBytes);\n",
-             "          if (threadIdx.x == 0) mbar_expect(bar, kBytes);\n"
-             "          if (stp) { sp[2] = clk(); sp[9] = gtime(); }\n"),
-            ("      __syncthreads();\n      if (t == 0) break;\n",
-             f"      {rec.format(3)}\n      __syncthreads();\n"
-             f"      {rec.format(4)}\n      if (t == 0) break;\n"),
-            ("      int cnt = 16;",
-             "      asm volatile(\"\" :: \"f\"(s[0]), \"f\"(s[15]));\n"
-             f"      {rec.format(5)}\n      int cnt = 16;"),
-            ("      // to the block that owns w, into buffer (u + 1) & 1\n",
-             "      asm volatile(\"\" :: \"f\"(s[0]), \"f\"(s[1]));\n"
-             f"      {rec.format(6)}\n"
-             "      // to the block that owns w, into buffer (u + 1) & 1\n"),
-            ("                s[1], map_rank(nbar, dst));\n",
-             "                s[1], map_rank(nbar, dst));\n"
-             "      if (stp) { sp[7] = clk(); sp[8] = gtime(); }\n      "
-             + flush)]
+              'extern "C" const char* xlstm_scan_bwd_error_string(int code) {'),
+             ("      if (t < 0) break;\n      const int buf = u & 1;\n",
+              "      if (t < 0) break;\n      const int buf = u & 1;\n"
+              + head),
+             ("        const float dy = dyr[j];\n",
+              "        const float dy = dyr[j];\n"
+              "        asm volatile(\"\" :: \"f\"(k.a1), \"f\"(k.a2), "
+              "\"f\"(k.g1), \"f\"(k.g2), \"f\"(k.bz), \"f\"(k.sgf));\n"
+              f"        {rec.format(1)}\n"),
+             ("          if (threadIdx.x == 0) mbar_expect(bar, kBytes);\n",
+              "          if (threadIdx.x == 0) mbar_expect(bar, kBytes);\n"
+              "          if (stp) { sp[2] = clk(); sp[9] = gtime(); }\n"),
+             ("      __syncthreads();\n      if (t == 0) break;\n",
+              f"      {rec.format(3)}\n      __syncthreads();\n"
+              f"      {rec.format(4)}\n      if (t == 0) break;\n"),
+             ("      int cnt = 16;",
+              "      asm volatile(\"\" :: \"f\"(s[0]), \"f\"(s[15]));\n"
+              f"      {rec.format(5)}\n      int cnt = 16;"),
+             ("      // to the block that owns w, into buffer (u + 1) & 1\n",
+              "      asm volatile(\"\" :: \"f\"(s[0]), \"f\"(s[1]));\n"
+              f"      {rec.format(6)}\n"
+              "      // to the block that owns w, into buffer (u + 1) & 1\n"),
+             ("                s[1], map_rank(nbar, dst));\n",
+              "                s[1], map_rank(nbar, dst));\n"
+              "      if (stp) { sp[7] = clk(); sp[8] = gtime(); }\n      "
+              + flush)]
     return edit(src, pairs)
 
 
@@ -305,15 +270,14 @@ def bwd_split(label: str, path: Path, trails, w_r, dy) -> None:
           f" {ns.item():.4f} ns a clock; a step {step:.0f} clocks = "
           f"{step * ns.item():.1f} ns (median over walk steps {BSTAMP_U0}.. "
           f"and blocks)")
-    for i, name in enumerate(BWD_NAMES[label]):
+    for i, name in enumerate(BWD_NAMES):
         part = st[:, :, i + 1] - st[:, :, i]
         print(f"[stamp]   {name}: {part.median().item():.0f} clocks "
               f"({part.median().item() * ns.item():.1f} ns); by block "
               + " ".join(f"{part[:, r].median().item():.0f}"
                          for r in range(ranks)))
-    lag = BWD_LAG[label]
-    sent = st[:STAMP_N - lag, :, 8].amax(1, keepdim=True)
-    landing = st[lag:, :, 9] - sent
+    sent = st[:STAMP_N - 1, :, 8].amax(1, keepdim=True)
+    landing = st[1:, :, 9] - sent
     print(f"[stamp]   landing (the last block's sends out to this block's "
           f"wait done): {landing.median().item():.0f} ns; by block "
           + " ".join(f"{landing[:, r].median().item():.0f}"
