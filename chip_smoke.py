@@ -5,6 +5,8 @@
   python3 chip_smoke.py --ab PARENT   # moe_gemm, the selective scan,
                                       # the xLSTM scans and their
                                       # backwards against another checkout
+  python3 chip_smoke.py --apps        # phases 1 and 33 alone (the apps;
+                                      # no kernel build, no result line)
 
 Run from the repository root on a machine with a Hopper card and `nvcc`.
 With `--ab PARENT` (a checkout of another commit, e.g. unpacked from `git
@@ -96,9 +98,13 @@ its own failure):
      0 just before and read just after; the step's host wall with and
      without a running `TaskRuntime(num_workers=2, mode="ddast")` (the
      trainer's host runtime); then a torch.profiler window over
-     two train steps, which must show 24 launches a step of each bf16
-     kernel (`flash_fwd_mma_kernel`, `flash_bwd_dq_mma_kernel`,
-     `flash_bwd_dkdv_mma_kernel`) and none of the CUDA-core flash kernels;
+     two train steps, with the launch counts set to 0 just before and
+     read just after (exactly 24 flash forwards and 48 backward kernels a
+     step); the profiler's records of each bf16 kernel
+     (`flash_fwd_mma_kernel`, `flash_bwd_dq_mma_kernel`,
+     `flash_bwd_dkdv_mma_kernel`) are printed beside the wrappers' counts
+     with the number it dropped, must not exceed them, and hold none of
+     the CUDA-core flash kernels;
  10. tiny qwen2-0.5b training in f32 on the card: the loss falls over 24
      steps, and a resume from the step-24 checkpoint to step 30 equals a
      straight run to step 30; the flash launch counts of these 60 steps
@@ -192,7 +198,8 @@ its own failure):
      after (12 flash forwards a step: 6 encoder layers not causal, 6
      decoder layers causal, counted by call shape; 24 backward kernels;
      cross-attention on the plain op); step wall, tokens/s, peak memory; then a torch.profiler
-     window over two steps (12 of each bf16 flash kernel a step);
+     window over two steps, gated on the wrappers' counts as in phase 9
+     (12 flash forwards and 24 backward kernels a step);
  23. whisper-base decode, B=4: `fill_cross_cache` over seeded frames (6
      encoder flash launches), then 32 greedy `decode_step`s (none); ms per
      step; max |decode - forward| in bf16;
@@ -266,7 +273,27 @@ its own failure):
      requests and ran 4 tasks; ms/step of both; then `decode_profile` of
      both engines on the same model (all slots decoding: host wall, and
      device busy and idle share under torch.profiler);
- 33. a JSON line with the kernels' numbers (the bf16 and f32 routes of
+ 33. slice 17's path: the paper's three applications
+     (`repro_torch.core.taskgraph_apps`) on the card through `TaskRuntime(
+     num_workers=4)` in each of `sync`, `dast`, `ddast` and `sharded`, f32
+     inputs from seeded numpy, every body on the caller's stream: Matmul
+     coarse (n=16,384, blocks of 2,048: 512 GEMMs of 17.2 GFLOP) and fine
+     (n=8,192, blocks of 512: 4,096 of 0.27 GFLOP), against one float64
+     `torch.matmul` on the card; the fine products in a plain loop on this
+     thread (no runtime), bit-identical to the runtime's; the fine run on
+     a side stream and under a `DynamicTuner`, both bit-identical to the
+     default-stream run; `run_matmul_epochs` x3 under `replay=True` equal
+     to 3 A@B; Sparse LU (n=8,192, blocks of 512, M = rand + n I: 1,496
+     tasks) against the float64 sequential oracle (each factor apart);
+     nested N-Body (N=16,384, blocks of 1,024, 4 steps, masses summing to
+     ~0.5) against the float64 oracle; each app bit-identical across the
+     four modes, within APP_TOL of float64; for every run the wall,
+     `tasks_executed`, tasks/s over the graph (first submit to the card's
+     last kernel) and host us a task (first submit to the root taskwait's
+     return, over the tasks); peak memory; a torch.profiler window over one
+     `ddast` run each of coarse and fine Matmul: device busy, idle share,
+     launches by group;
+ 34. a JSON line with the kernels' numbers (the bf16 and f32 routes of
      `moe_gemm`, of its backward and of the flash forward and backward as
      entries of their own, the flash entries with the whisper encoder's
      and gemma2's shapes; the selective scan's backward; the two xLSTM
@@ -305,7 +332,11 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config, tiny_config  # noqa: E402
-from repro_torch.core import TaskRuntime  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    DynamicTuner, TaskRuntime, TunerConfig)
+from repro_torch.core.taskgraph_apps import (  # noqa: E402
+    matmul_oracle_torch, nbody_oracle_torch, run_matmul, run_matmul_epochs,
+    run_nbody, run_sparselu, sim_sparselu_specs, sparselu_oracle_torch)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -490,6 +521,15 @@ SFU_PER_CLOCK = 16                       # exp2 results a clock on an SM
 # reduction and a degree-3 polynomial, ~5 instructions of 2 flops' issue
 # time each (the software exp2 of FlashAttention-3/4)
 EXP2_FMA_FLOPS = 10
+
+# Phase 33: the paper's three applications on TaskRuntime(APP_WORKERS)
+APP_WORKERS = 4
+APP_MODES = ("sync", "dast", "ddast", "sharded")
+MM_COARSE, MM_FINE = (16384, 2048), (8192, 512)      # (n, block)
+MM_EPOCHS = 3
+LU_SIZE = (8192, 512)                                 # (n, block)
+NBODY = (16384, 1024, 4)                              # (N, block, steps)
+APP_TOL = 1e-4      # f32 runs vs float64: of the largest magnitude
 
 # NVIDIA data sheets, dense rates: memory bytes/s, bf16 tensor-core flop/s,
 # f32 (CUDA core) flop/s. The SXM part is the default.
@@ -893,7 +933,7 @@ def time_moe_train_layer(shapes, dtype, gen, flops_peak, mem_bps) -> dict:
         t = time_turns({key: (lambda fn=fn: [fn(*a) for a in calls])
                         for key, fn in (("ms", kern), ("library_ms", lib))},
                        *reps)
-        t["plain_ms"] = time_ms(lambda: [plain(*a) for a in calls], *reps)
+        t["plain_ms"] = time_ms(lambda: [plain(*a) for a in calls], 3, 1)
         t["device_ms"] = time_ms(lambda: [kern(*a) for a in calls], *reps,
                                  backlog=True)
         # dx and dw move the forward's three tensors' sizes and do its
@@ -1536,7 +1576,9 @@ def profile_train(cfg, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
     the profiler, with and without a running `TaskRuntime(num_workers=2,
     mode="ddast")`, the trainer's host runtime (no runtime first and
     last), then device busy time per step by kernel and by group under
-    torch.profiler."""
+    torch.profiler, with the wrappers' launch counts set to 0 just before
+    that window and read just after: they must be `train_step_counts`
+    exactly; the profiler's flash records are printed beside them."""
     model = get_model(cfg, "cuda")
     params = model.init_params(torch.Generator("cuda").manual_seed(1))
     opt = init_opt_state(params)
@@ -1565,11 +1607,13 @@ def profile_train(cfg, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
           f"TaskRuntime(num_workers=2, mode='ddast') "
           f"{[round(x, 3) for x in threaded]}")
     wall = statistics.mean(plain)
+    zero_train_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for i in range(n_steps):
             step_fn(params, opt, batches[1 + i % 2])
         torch.cuda.synchronize()
+    counts = read_train_counts()
     rows = kernel_rows(prof, n_steps)
     busy = sum(r[0] for r in rows)
     attn = sum(r[0] for r in rows if "flash_" in r[2])
@@ -1585,18 +1629,30 @@ def profile_train(cfg, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
     print_groups(rows, "ms/step (launches/step)")
     for ms, count, key in rows[:12]:
         print(f"[profile]   {ms:8.4f} ms/step {count:6.1f}x  {key[:90]}")
-    # the bf16 step runs only the tensor-core flash kernels, one of each
-    # an attention layer
+    # The exact gate is the wrappers' counts around the profiled steps: the
+    # profiler can drop kernel records (1 of 48 flash forwards has gone
+    # missing from a window). The bf16 step runs only the tensor-core
+    # flash kernels, one of each an attention layer: the profiler may see
+    # fewer, never more, and no CUDA-core flash kernel.
+    per_step = train_step_counts(cfg)
+    assert counts == {k: v * n_steps for k, v in per_step.items()}, \
+        (counts, per_step)
     flash = {}
     for ms, count, key in rows:
         m = re.search(r"(flash_\w+?_kernel)", key)
         if m:
-            flash[m.group(1)] = flash.get(m.group(1), 0.0) + count
-    n_attn = forward_counts(cfg)["flash_attention"]
-    print(f"[profile] flash kernels, launches/step: {flash}")
-    assert flash == {"flash_fwd_mma_kernel": n_attn,
-                     "flash_bwd_dq_mma_kernel": n_attn,
-                     "flash_bwd_dkdv_mma_kernel": n_attn}, flash
+            flash[m.group(1)] = flash.get(m.group(1), 0) + round(
+                count * n_steps)
+    n_attn = n_steps * forward_counts(cfg)["flash_attention"]
+    want = {"flash_fwd_mma_kernel": n_attn, "flash_bwd_dq_mma_kernel": n_attn,
+            "flash_bwd_dkdv_mma_kernel": n_attn}
+    dropped = {k: n - flash.get(k, 0) for k, n in want.items()}
+    print(f"[profile] flash launches over the {n_steps} profiled steps: "
+          f"wrappers {counts['flash_attention']} forward, "
+          f"{counts['flash_attention_bwd']} backward ({want}); profiler "
+          f"records {flash}, dropped {dropped}")
+    assert set(flash) <= set(want), flash
+    assert all(n >= 0 for n in dropped.values()), dropped
     del model, params, opt, step_fn, batches, prof
     gc.collect()
     torch.cuda.empty_cache()
@@ -1797,6 +1853,346 @@ def runtime_serve_path(cfg, per_step: int) -> dict:
             "private_ms_per_step": private_ms, "profiles": profiles}
 
 
+class ClockedRuntime(TaskRuntime):
+    """A `TaskRuntime` that stamps the host clock at its first submission
+    and at each return of a root taskwait on the thread that started it;
+    there it also synchronises the card and stamps again (the runners copy
+    their result to the host next, which waits for the card all the same;
+    the epochs runner's next epoch starts behind the sync). Nested
+    taskwaits (N-Body's step bodies, which may run on that thread too) are
+    not stamped."""
+
+    def __init__(self, *args, **kwargs) -> None:
+        super().__init__(*args, **kwargs)
+        self.first_submit: Optional[float] = None
+        self.waits: list = []           # (enqueued, card done) a root wait
+        self._depth = 0
+
+    def task(self, *args, **kwargs):
+        if self.first_submit is None:
+            self.first_submit = time.perf_counter()
+        return super().task(*args, **kwargs)
+
+    def taskwait(self) -> None:
+        main = threading.current_thread() is self._main_thread
+        root = main and self._depth == 0
+        self._depth += main
+        try:
+            super().taskwait()
+        finally:
+            self._depth -= main
+        if root and self.first_submit is not None:
+            t = time.perf_counter()
+            torch.cuda.synchronize()
+            self.waits.append((t, time.perf_counter()))
+
+
+def app_outs(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
+def app_run(name: str, mode: str, run, setup=None, **rt_kw) -> dict:
+    """`run(rt)` (a runner of `taskgraph_apps`, numpy in and out) on
+    `ClockedRuntime(APP_WORKERS, mode)`; `setup(rt)` first (a tuner).
+    Prints the call's wall, the tasks, the graph's time from the first
+    submission to the card's last kernel (tasks/s over it) and the host µs
+    a task: the first submission to the last root taskwait's return, over
+    the tasks."""
+    with ClockedRuntime(num_workers=APP_WORKERS, mode=mode, **rt_kw) as rt:
+        hook = setup(rt) if setup else None
+        t0 = time.perf_counter()
+        out = run(rt)
+        wall = time.perf_counter() - t0
+        enqueued, done = rt.waits[-1]
+        first = rt.first_submit
+    tasks = rt.stats.tasks_executed
+    graph = done - first
+    r = {"out": out, "wall_ms": 1e3 * wall, "tasks": tasks,
+         "graph_ms": 1e3 * graph, "tasks_per_s": tasks / graph,
+         "host_us_per_task": 1e6 * (enqueued - first) / tasks,
+         "stats": rt.stats, "hook": hook}
+    print(f"[apps] {name}, {mode}: wall {r['wall_ms']:.3f} ms (numpy in, "
+          f"numpy out); tasks_executed {tasks}; graph {r['graph_ms']:.3f} "
+          f"ms (first submit to the card's last kernel), "
+          f"{r['tasks_per_s']:.0f} tasks/s; host "
+          f"{r['host_us_per_task']:.3f} us a task")
+    return r
+
+
+def app_modes(name: str, run, tasks: int) -> dict:
+    """`app_run` in each of APP_MODES; every result bit-identical to the
+    first mode's, and `tasks` tasks executed in each."""
+    runs = {mode: app_run(name, mode, run) for mode in APP_MODES}
+    ref = app_outs(runs[APP_MODES[0]]["out"])
+    for mode, r in runs.items():
+        assert r["tasks"] == tasks, (name, mode, r["tasks"], tasks)
+        assert all(np.array_equal(x, y) for x, y in
+                   zip(app_outs(r["out"]), ref)), f"{name}: {mode} differs"
+    print(f"[check] {name}: bit-identical across {', '.join(APP_MODES)}; "
+          f"{tasks} tasks each; host us a task "
+          + ", ".join(f"{m} {r['host_us_per_task']:.3f}"
+                      for m, r in runs.items()))
+    return runs
+
+
+def rel_err(got, want: torch.Tensor) -> float:
+    """max |got - want| / max |want| on the card in float64 (`got` a numpy
+    array or a tensor)."""
+    g = torch.as_tensor(got).to("cuda", torch.float64)
+    return float((g - want).abs().max() / want.abs().max())
+
+
+def app_profile(name: str, run, graph_ms: float, products: int) -> None:
+    """One `ddast` run of `run` under torch.profiler: device busy in
+    kernels (copies and fills apart), the idle share against the
+    unprofiled run's graph time `graph_ms`, and launches by group. The
+    profiler keeps only some kernel records of such a window (55 of 512
+    have gone missing): every one of the `products` launches the same
+    kernels once each, so a kernel seen on most products counts at its
+    mean time on all of them."""
+    with ClockedRuntime(num_workers=APP_WORKERS, mode="ddast") as rt:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(rt)
+        prof_graph = 1e3 * (rt.waits[-1][1] - rt.first_submit)
+    rows = kernel_rows(prof, 1)
+    kern = [r for r in rows if not r[2].startswith(("Memcpy", "Memset"))]
+    seen = sum(r[0] for r in kern)
+    busy = sum(ms * products / n if products / 2 <= n < products else ms
+               for ms, n, _ in kern)
+    copies = sum(r[0] for r in rows) - seen
+    print(f"[profile] {name}, ddast: device busy {seen:.3f} ms in "
+          f"{sum(r[1] for r in kern):.0f} kernel records, {busy:.3f} ms "
+          f"with each product's kernels counted on all {products}; idle "
+          f"share {1 - busy / graph_ms:.3f} of the unprofiled graph "
+          f"{graph_ms:.3f} ms ({1 - busy / prof_graph:.3f} of the profiled "
+          f"run's own {prof_graph:.3f} ms); copies and fills {copies:.3f} "
+          f"ms (the inputs in, the result out)")
+    if not kern:
+        print("[profile] device time not measured: the profiler saw no "
+              "CUDA kernels")
+    print_groups(kern, "ms (launches)")
+    for ms, count, key in kern[:4]:
+        print(f"[profile]   {ms:9.4f} ms {count:6.0f}x  {key[:90]}")
+
+
+def plain_matmul(a: np.ndarray, b: np.ndarray, bs: int) -> dict:
+    """The runner's products (`addmm_` into a view of C, the same views,
+    the same (i, j, k) order) in a plain loop on this thread, no runtime:
+    host us a product and the time to the card's last kernel."""
+    nb = a.shape[0] // bs
+    at, bt = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    ct = torch.zeros_like(at)
+
+    def views(t):
+        return {(i, j): t[i * bs:(i + 1) * bs, j * bs:(j + 1) * bs]
+                for i in range(nb) for j in range(nb)}
+
+    ab, bb, cb = views(at), views(bt), views(ct)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(nb):
+        for j in range(nb):
+            for k in range(nb):
+                cb[(i, j)].addmm_(ab[(i, k)], bb[(k, j)])
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    n = nb ** 3
+    r = {"out": ct.cpu().numpy(), "host_us_per_task": 1e6 * (t1 - t0) / n,
+         "graph_ms": 1e3 * (t2 - t0), "tasks_per_s": n / (t2 - t0)}
+    print(f"[apps] matmul fine, plain loop on this thread (no runtime): "
+          f"{n} products, host {r['host_us_per_task']:.3f} us a product, "
+          f"graph {r['graph_ms']:.3f} ms, {r['tasks_per_s']:.0f} "
+          f"products/s")
+    return r
+
+
+def empty_matmul_graph(rt, nb: int) -> None:
+    """The Matmul runner's task graph (nb³ tasks, its dependences and
+    labels) with empty bodies: what the runtime alone costs the host."""
+    for i in range(nb):
+        for j in range(nb):
+            for k in range(nb):
+                rt.task(lambda: None,
+                        deps=[(("A", i, k), "in"), (("B", k, j), "in"),
+                              (("C", i, j), "inout")],
+                        label=f"gemm{i}.{j}.{k}")
+    rt.taskwait()
+
+
+def apps_path() -> None:
+    """Slice 17's path: the paper's three applications
+    (`repro_torch.core.taskgraph_apps`) on the card through
+    `TaskRuntime(num_workers=APP_WORKERS)` in each mode of APP_MODES, f32
+    inputs from seeded numpy (TF32 off since phase 1): Matmul coarse and
+    fine, the fine products in a plain loop beside them, the fine run on
+    a side stream and under a DynamicTuner, `run_matmul_epochs` with
+    replay, Sparse LU, nested N-Body, each held bit-identical across the
+    modes and within APP_TOL of a float64 run on the card; a
+    torch.profiler window over one `ddast` run each of coarse and fine
+    Matmul."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(0)
+    marks = [t_phase]
+
+    def peak(label: str) -> None:
+        marks.append(time.perf_counter())
+        print(f"[apps] {label}: peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"{marks[-1] - marks[-2]:.1f} s")
+        torch.cuda.reset_peak_memory_stats()
+
+    # warm-up, not reported: the CUDA context and cuBLAS handles of this
+    # thread and of pooled worker threads, and both products' kernels
+    for _, bs in (MM_COARSE, MM_FINE):
+        w = np.ones((2 * bs, 2 * bs), np.float32)
+        with TaskRuntime(num_workers=APP_WORKERS, mode="sync") as rt:
+            run_matmul(rt, w, w, bs)
+    peak("warm-up")
+
+    # ---- Matmul, coarse: device-bound blocks
+    n, bs = MM_COARSE
+    a = rng.random((n, n), dtype=np.float32)
+    b = rng.random((n, n), dtype=np.float32)
+    name = f"matmul coarse n={n} bs={bs}"
+    runs = app_modes(name, lambda rt: run_matmul(rt, a, b, bs),
+                     (n // bs) ** 3)
+    want = matmul_oracle_torch(a, b)
+    err = rel_err(runs["ddast"]["out"], want)
+    err32 = rel_err(matmul_oracle_torch(a, b, dtype=torch.float32), want)
+    print(f"[check] {name} vs one float64 torch.matmul on the card: "
+          f"{err:.3e} of the largest |C| (tolerance {APP_TOL}); one float32 "
+          f"torch.matmul {err32:.3e}")
+    assert err <= APP_TOL, err
+    del want
+    app_profile(name, lambda rt: run_matmul(rt, a, b, bs),
+                runs["ddast"]["graph_ms"], (n // bs) ** 3)
+    peak(name)
+    del a, b, runs
+
+    # ---- Matmul, fine: the runtime sets the pace
+    n, bs = MM_FINE
+    a = rng.random((n, n), dtype=np.float32)
+    b = rng.random((n, n), dtype=np.float32)
+    tasks = (n // bs) ** 3
+    name = f"matmul fine n={n} bs={bs}"
+    fine = app_modes(name, lambda rt: run_matmul(rt, a, b, bs), tasks)
+    c = fine["ddast"]["out"]
+    want = matmul_oracle_torch(a, b)
+    err = rel_err(c, want)
+    print(f"[check] {name} vs float64 torch.matmul on the card: {err:.3e} "
+          f"(tolerance {APP_TOL})")
+    assert err <= APP_TOL, err
+    base = plain_matmul(a, b, bs)
+    assert np.array_equal(base["out"], c), "plain loop != runtime"
+    print(f"[check] {name}: the plain loop's C is bit-identical to the "
+          f"runtime's; the runtime costs "
+          + ", ".join(f"{m} {r['host_us_per_task'] - base['host_us_per_task']:.3f}"
+                      for m, r in fine.items())
+          + " host us a task more")
+    empty = {mode: app_run(name + " with empty bodies", mode,
+                           lambda rt: empty_matmul_graph(rt, n // bs))
+             for mode in APP_MODES}
+    print(f"[apps] {name}: host us a task of the runtime alone (empty "
+          f"bodies) "
+          + ", ".join(f"{m} {r['host_us_per_task']:.3f}"
+                      for m, r in empty.items())
+          + "; the bodies' PyTorch calls add "
+          + ", ".join(f"{m} {fine[m]['host_us_per_task'] - r['host_us_per_task']:.3f}"
+                      for m, r in empty.items())
+          + f" (one product in the plain loop: "
+          f"{base['host_us_per_task']:.3f})")
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        on_side = app_run(name + " on a side stream", "ddast",
+                          lambda rt: run_matmul(rt, a, b, bs))
+    assert np.array_equal(on_side["out"], c), "side stream differs"
+    print(f"[check] {name}: the run on a side stream is bit-identical to "
+          f"the default stream's")
+    tuned = app_run(name + " with DynamicTuner", "ddast",
+                    lambda rt: run_matmul(rt, a, b, bs),
+                    setup=lambda rt: DynamicTuner(
+                        rt, TunerConfig(interval_s=0.0005)))
+    tuner = tuned["hook"]
+    assert tuned["tasks"] == tasks
+    assert np.array_equal(tuned["out"], c), "tuned run differs"
+    print(f"[check] {name} with DynamicTuner: bit-identical to the untuned "
+          f"run; {len(tuner.adjustments)} adjustments (max_ddast_threads, "
+          f"max_ops_thread; last {[a_[1:] for a_ in tuner.adjustments[-4:]]}"
+          f"), final max_ddast_threads {tuner.rt.params.max_ddast_threads}")
+    epochs = app_run(f"matmul_epochs fine x{MM_EPOCHS}, replay", "ddast",
+                     lambda rt: run_matmul_epochs(rt, a, b, bs, MM_EPOCHS),
+                     replay=True)
+    st = epochs["stats"]
+    assert epochs["tasks"] == MM_EPOCHS * tasks, epochs["tasks"]
+    err = rel_err(epochs["out"], MM_EPOCHS * want)
+    err1 = rel_err(epochs["out"], MM_EPOCHS * torch.from_numpy(c).cuda()
+                   .double())
+    print(f"[check] matmul_epochs: {MM_EPOCHS} A@B within {err:.3e} of "
+          f"float64 (tolerance {APP_TOL}), {err1:.3e} of {MM_EPOCHS} x the "
+          f"single run's C; replay iterations {st.replay_iterations}, "
+          f"replayed tasks {st.replayed_tasks}, invalidations "
+          f"{st.replay_invalidations} (printed only)")
+    assert err <= APP_TOL, err
+    del want
+    app_profile(name, lambda rt: run_matmul(rt, a, b, bs),
+                fine["ddast"]["graph_ms"], tasks)
+    peak(name)
+    del a, b, c, fine, base, empty, on_side, tuned, epochs
+
+    # ---- Sparse LU: the irregular graph
+    n, bs = LU_SIZE
+    m = rng.random((n, n), dtype=np.float32) + n * np.eye(n, dtype=np.float32)
+    name = f"sparselu n={n} bs={bs}"
+    lu = app_modes(name, lambda rt: run_sparselu(rt, m, bs),
+                   len(sim_sparselu_specs(n // bs)))
+    want = sparselu_oracle_torch(m, bs)
+    got32 = sparselu_oracle_torch(m, bs, dtype=torch.float32)
+    got = torch.from_numpy(lu["ddast"]["out"]).cuda()
+    errs = {}
+    for part, f in (("L", lambda x: torch.tril(x, -1)), ("U", torch.triu)):
+        w = f(want)
+        errs[part] = rel_err(f(got), w)
+        errs[part + " (f32 oracle)"] = rel_err(f(got32), w)
+    # the same calls in the same order per block as the sequential oracle
+    same = torch.equal(got, got32)
+    print(f"[check] {name} vs the sequential oracle in float64 on the card, "
+          f"of each factor's largest |entry| (tolerance {APP_TOL}): {errs}; "
+          f"bit-identical to the oracle in f32: {same}")
+    assert errs["L"] <= APP_TOL and errs["U"] <= APP_TOL, errs
+    assert same, "sparselu differs from its f32 sequential oracle"
+    peak(name)
+    del m, lu, want, got, got32
+
+    # ---- N-Body: nested tasks; masses sum to ~0.5 (N-body units)
+    nn, bs, steps = NBODY
+    pos = rng.random((nn, 3), dtype=np.float32)
+    vel = np.zeros((nn, 3), np.float32)
+    mass = rng.random(nn, dtype=np.float32) / nn
+    name = f"nbody N={nn} bs={bs} steps={steps}"
+    nbr = app_modes(name, lambda rt: run_nbody(rt, pos, vel, mass, bs,
+                                               steps),
+                    steps * (2 * (nn // bs) + 1))
+    want = nbody_oracle_torch(pos, vel, mass, steps)
+    got32 = nbody_oracle_torch(pos, vel, mass, steps, dtype=torch.float32)
+    errs = {}
+    for i, part in enumerate(("p", "v")):
+        errs[part] = rel_err(nbr["ddast"]["out"][i], want[i])
+        errs[part + " (f32 oracle)"] = rel_err(got32[i], want[i])
+    same = all(torch.equal(torch.from_numpy(x).cuda(), y)
+               for x, y in zip(nbr["ddast"]["out"], got32))
+    print(f"[check] {name} vs the oracle in float64 on the card, of the "
+          f"largest magnitude (tolerance {APP_TOL}): {errs}; bit-identical "
+          f"to the oracle in f32: {same}")
+    assert errs["p"] <= APP_TOL and errs["v"] <= APP_TOL, errs
+    peak(name)
+    del nbr, want, got32
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[apps] phase 33 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def sel_inputs(case, dtype, gen, with_h0=True):
     """Selective-scan operands on the card, at the Mamba path's scales: x,
     dt, b, c in `dtype` (b and c as column slices of one x_proj-like
@@ -1994,7 +2390,7 @@ def check_scans(gen, mem_bps, sfu_rate, f32_fps, split_libs) -> dict:
     del lone_args
     t = {"ms": time_ms(lambda: selective_scan(*args)),
          "device_ms": time_ms(lambda: selective_scan(*args), backlog=True),
-         "plain_ms": time_ms(lambda: selective_scan_ref(*args), 3, 1),
+         "plain_ms": time_ms(lambda: selective_scan_ref(*args), 1, 0),
          "library_ms": None,
          "splits_ms": {f"R={r_} P={p_}": v for (r_, p_), v in
                        splits.items()},
@@ -2007,7 +2403,7 @@ def check_scans(gen, mem_bps, sfu_rate, f32_fps, split_libs) -> dict:
     a, bx, _ = lin_inputs(SCAN_CASES["path"], torch.bfloat16, gen)
     t = {"ms": time_ms(lambda: ssm_scan(a, bx)),
          "device_ms": time_ms(lambda: ssm_scan(a, bx), backlog=True),
-         "plain_ms": time_ms(lambda: ssm_scan_ref(a, bx), 3, 1),
+         "plain_ms": time_ms(lambda: ssm_scan_ref(a, bx), 1, 0),
          "library_ms": None}
     t.update(scan_bound(2 * 3 * b * s * d, 0, 2 * b * s * d, mem_bps,
                         sfu_rate, f32_fps))
@@ -2145,7 +2541,7 @@ def check_scan_bwd(gen, mem_bps, sfu_rate, f32_fps) -> dict:
          "device_ms": time_ms(lambda: selective_scan_bwd(*args, dy, None,
                                                          h_seg),
                               backlog=True),
-         "plain_ms": time_ms(lambda: selective_scan_bwd_ref(*args, dy), 2, 1),
+         "plain_ms": time_ms(lambda: selective_scan_bwd_ref(*args, dy), 1, 0),
          "library_ms": None,
          # the forward as the path runs it, plain and keeping the states
          "forward_device_ms": time_ms(lambda: selective_scan(*args),
@@ -2600,8 +2996,8 @@ def check_xlstm(gen, mem_bps: float, f32_fps: float) -> dict:
                         t[f"{name}_device_ms"] = time_ms(fn, reps=5, warmup=1,
                                                          backlog=True)
                     t["mirror_ms"] = time_ms(
-                        lambda: mlstm_scan_chunkwise_ref(*args, chunk), reps=3,
-                        warmup=1)
+                        lambda: mlstm_scan_chunkwise_ref(*args, chunk), reps=1,
+                        warmup=0)
             t["us_per_step"] = 1e3 * t["ms"] / case[1]
             print(f"[time] {kind} path {case} f32: kernel {t['ms']:.4f} ms "
                   f"({t['us_per_step']:.4f} us a step; behind a device sleep "
@@ -2874,7 +3270,7 @@ def check_xlstm_bwd(gen, mem_bps: float, f32_fps: float) -> dict:
                     t["ms"] = time_ms(alone, reps=5, warmup=1)
                     t["device_ms"] = time_ms(alone, reps=5, warmup=1,
                                              backlog=True)
-                    t["mirror_ms"] = time_ms(mirror, reps=2, warmup=1)
+                    t["mirror_ms"] = time_ms(mirror, reps=1, warmup=0)
                 t["us_per_step"] = 1e3 * t["ms"] / case[1]
                 print(f"[time] {kind} train {case} f32: kernel"
                       f"{'s' if kind == 'mlstm_scan_bwd' else ''} "
@@ -3383,6 +3779,7 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--ab"]:
         return compare_trees(Path(sys.argv[2]))
+    apps_only = sys.argv[1:2] == ["--apps"]
 
     # ---- 1. the card -----------------------------------------------------
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3404,6 +3801,9 @@ def main() -> int:
           f"{bf16_fps / 1e12} bf16 TFLOP/s, {f32_fps / 1e12} f32 TFLOP/s; "
           f"{sms} SMs at up to {max_sm_mhz:.0f} MHz: "
           f"{sfu_rate / 1e12:.3f} T exp2/s ({SFU_PER_CLOCK} a clock an SM)")
+    if apps_only:
+        apps_path()
+        return 0
 
     # ---- 2. build, one nvcc per source, all started together ----------
     def timed_build(job):
@@ -3778,7 +4178,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     rt_serve = runtime_serve_path(cfg, per_step)
 
-    # ---- 33. results -----------------------------------------------------
+    # ---- 33. slice 17's path: the paper's three apps on TaskRuntime ------
+    gc.collect()
+    torch.cuda.empty_cache()
+    apps_path()
+
+    # ---- 34. results -----------------------------------------------------
     # Both dtypes of moe_gemm, of its backward and of the flash forward and
     # backward count in one `launches`; each route's own count is that of
     # a run in its dtype: bf16 the main paths (phases 5, 9 and 15), f32 the
