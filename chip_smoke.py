@@ -75,9 +75,9 @@ its own failure):
      both dtypes, and the bf16 backward's dq and dk/dv kernels each
      alone), of the bf16 forward at the Jamba shape, at the whisper
      encoder's and decoder's and at gemma2's prefill shapes, and of the
-     bf16 backward at the whisper encoder's and decoder's and gemma2's
-     train shapes (S=6144), beside their bounds (the live (query, key)
-     pairs' products);
+     bf16 forward and backward at the whisper encoder's and decoder's and
+     gemma2's train shapes (S=6144), beside their bounds (the live
+     (query, key) pairs' products);
   5. slice 1's main path: `serve()` on full-width qwen2-moe-a2.7b with
      random bf16 weights from a seeded generator, with the `moe_gemm`
      launch count set to 0 just before and read just after;
@@ -229,11 +229,12 @@ its own failure):
      `slstm_scan_trails_ref`) against their plain mirrors
      (`mlstm_scan_bwd_chunkwise_ref`, `slstm_scan_dpre_affine_ref`) and
      the step forms `mlstm_scan_bwd_ref` and `slstm_scan_bwd_ref` at
-     every XLSTM_BWD_CASES shape (XLSTM_CASES, the path's S=32,768 at
-     B=1, and the train cell's 8 x 2048), a dy of seeded noise, two calls
-     bit for bit, the share of steps past each clamp (|n . q| > 1, n >
-     1); through the autograd Functions against autograd of the plain
-     scans at small shapes; at S=32,768 each kernel's, its mirror's and
+     every XLSTM_BWD_CASES shape (XLSTM_CASES with the B=1 shape, S=4,096,
+     as the long case, and the train cell's 8 x 2048), a dy of seeded
+     noise, two calls bit for bit, the share of steps past each clamp
+     (|n . q| > 1, n > 1); through the autograd Functions against
+     autograd of the plain scans at small shapes; at S=4,096 each
+     kernel's, its mirror's and
      the step form's error against a float64 plain backward; at the train
      shape the times (CUDA events, and behind a device sleep; the
      mLSTM's four kernels each alone behind the sleep), us a step, the
@@ -293,7 +294,23 @@ its own failure):
      return, over the tasks); peak memory; a torch.profiler window over one
      `ddast` run each of coarse and fine Matmul: device busy, idle share,
      launches by group;
- 34. a JSON line with the kernels' numbers (the bf16 and f32 routes of
+ 34. slice 18's path, the roofline and the dry-run: the card's own
+     peaks (a bf16 `torch.matmul` at 8192^3 and a 1 GiB device-to-device
+     copy, CUDA events, median after warm-up) beside the data sheet's
+     (`repro_torch.analysis.roofline.PEAKS`), failing if either measured
+     rate passes 105% of its figure; the model-level work of phase 9's
+     train step (qwen2-0.5b, B=4 x S=2048) and of phase 5's decode step
+     (qwen2-moe-a2.7b, 4 slots against the engine's 64-row cache),
+     counted by `StepCounter` on fake host tensors at those shapes on a
+     1 x 1 mesh (`lower_cell(..., mesh_shape=(1, 1))`): `model_flops`,
+     the counted flops, `useful_ratio` and the share of the card's bf16
+     peak each reaches over the wall and over the device-busy time that
+     phases 5, 6 and 9 measured; then one full-size dry-run cell on this
+     machine's host, `perf.py`'s `small_baseline` (qwen2-0.5b train_4k on
+     the 16 x 16 fake world): its record and its time, failing on an
+     error, on collectives that are all zero, or on a process group left
+     initialised;
+ 35. a JSON line with the kernels' numbers (the bf16 and f32 routes of
      `moe_gemm`, of its backward and of the flash forward and backward as
      entries of their own, the flash entries with the whisper encoder's
      and gemma2's shapes; the selective scan's backward; the two xLSTM
@@ -331,6 +348,7 @@ from torch.profiler import ProfilerActivity, profile
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.analysis.roofline import peaks_for  # noqa: E402
 from repro_torch.configs import get_config, tiny_config  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     DynamicTuner, TaskRuntime, TunerConfig)
@@ -355,8 +373,10 @@ from repro_torch.kernels import ssm_scan as sscan  # noqa: E402
 from repro_torch.kernels.ssm_scan import (  # noqa: E402
     selective_scan, selective_scan_bwd, ssm_scan)
 from repro_torch.kernels import xlstm_scan as xls  # noqa: E402
+from repro_torch.launch import dryrun, perf  # noqa: E402
 from repro_torch.launch.serve import serve, serve_requests  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
+from repro_torch.models.config import ShapeSpec  # noqa: E402
 from repro_torch.models.layers import padded_vocab  # noqa: E402
 from repro_torch.models.moe import capacity, padded_experts  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
@@ -495,18 +515,21 @@ XLSTM_TOL = {"mlstm_scan": 1e-4, "slstm_scan": 1e-5}
 # xlstm-125m training: the training context of arXiv:2405.04517 (2,048
 # tokens), B=8 (the sLSTM backward then runs 8 clusters, one wave)
 XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ = 8, 2048
-# (B, S, H, hd) of the backward checks: XLSTM_CASES with the path's S at
-# B=1 (the plain backward walks S four times in Python), and the train
-# cell's shape
-XLSTM_BWD_CASES = {**XLSTM_CASES, "path": (1, XLSTM_SEQ, 4, 192),
+# (B, S, H, hd) of the backward checks: XLSTM_CASES with the long case at
+# B=1 x S=4,096 (the plain backward walks S four times in Python: the
+# prefill path's 32,768 took ~4 min of the run's limit; the backward's own
+# path is the train shape), and the train cell's shape
+XLSTM_BWD_CASES = {**{k: v for k, v in XLSTM_CASES.items() if k != "B=1"},
+                   "path": XLSTM_CASES["B=1"],
                    "train": (XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ, 4, 192)}
 # backward kernel vs plain, f32: max |diff| <= tol * max |plain| over each
 # gradient (sums over hd, the bands and time in other orders; the gates'
 # gradients sum q . dq - k . dk over the rest of the sequence)
 XLSTM_BWD_TOL = 1e-4
-# at S=32,768 a kernel's error against a float64 plain run (of the forward
-# or the backward) may be at most this many times the plain f32 version's
-# (the same f32 arithmetic, summed in other orders)
+# at the long S (32,768 forward, 4,096 backward) a kernel's error against
+# a float64 plain run (of the forward or the backward) may be at most this
+# many times the plain f32 version's (the same f32 arithmetic, summed in
+# other orders)
 XLSTM_F64_FACTOR = 2.0
 BACKLOG_CYCLES = 20_000_000              # ~10 ms of device sleep
 # dw's contraction C = K of the K sweep (phase 3), at the MoE train gate/up
@@ -531,17 +554,9 @@ LU_SIZE = (8192, 512)                                 # (n, block)
 NBODY = (16384, 1024, 4)                              # (N, block, steps)
 APP_TOL = 1e-4      # f32 runs vs float64: of the largest magnitude
 
-# NVIDIA data sheets, dense rates: memory bytes/s, bf16 tensor-core flop/s,
-# f32 (CUDA core) flop/s. The SXM part is the default.
-PEAKS = {"H100 SXM": (3.35e12, 989e12, 67e12),
-         "H100 PCIe": (2.0e12, 756e12, 51e12),
-         "H100 NVL": (3.9e12, 835e12, 60e12)}
-
-
-def peaks_for(name: str):
-    key = ("H100 PCIe" if "PCIe" in name else
-           "H100 NVL" if "NVL" in name else "H100 SXM")
-    return key, PEAKS[key]
+# Phase 34: the card's own rates (a bf16 product of PEAK_MM^3 and a copy
+# of PEAK_COPY bytes) may pass their data-sheet figures by at most 5%
+PEAK_MM, PEAK_COPY, PEAK_SLACK = 8192, 2 ** 30, 1.05
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3,
@@ -992,7 +1007,8 @@ def compare_trees(parent: Path) -> int:
                          capture_output=True, text=True).stdout
     print(smi.strip().splitlines()[0])
     name = torch.cuda.get_device_name(0)
-    _, (mem_bps, bf16_fps, _) = peaks_for(name)
+    pk = peaks_for(name)[1]
+    mem_bps, bf16_fps = pk.hbm_bps, pk.bf16_fps
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     jobs = {"parent": parent / "src/repro_torch/kernels/csrc/moe_gemm.cu",
             "change": None}
@@ -1515,11 +1531,12 @@ def time_bwd(label, dtype, gen, flops_peak, mem_bps, plain_reps) -> dict:
 
 
 # the flash kernels' shapes on slice 11's paths, timed in bf16: the
-# forward at the whisper-base train cell's encoder and decoder and the
-# gemma2-27b prefill's two layers, the backward at the whisper encoder's
-# and decoder's and the gemma2 train cell's two layers
+# forward at the whisper-base train cell's encoder and decoder, the
+# gemma2-27b prefill's two layers and the gemma2 train cell's two layers,
+# the backward at the whisper encoder's and decoder's and the gemma2 train
+# cell's two layers
 FWD_PATH_CASES = ("whisper encoder", "whisper decoder", "gemma2 local",
-                  "gemma2 global")
+                  "gemma2 global", "gemma2 train local", "gemma2 train global")
 BWD_PATH_CASES = ("whisper encoder", "whisper decoder", "gemma2 train local",
                   "gemma2 train global")
 
@@ -1686,14 +1703,14 @@ def kernel_rows(prof, n_steps: int):
     return rows
 
 
-def profile_steps(cfg, per_step: int, n_steps: int = 8) -> None:
+def profile_steps(cfg, per_step: int, n_steps: int = 8) -> dict:
     """Full-width engine with all slots decoding, on weights of its own
     (seed 1): see `decode_profile`."""
     model = get_model(cfg, "cuda")
     with torch.no_grad():
         params = model.init_params(torch.Generator("cuda").manual_seed(1))
     params.requires_grad_(False)
-    decode_profile(model, params, per_step, n_steps)
+    return decode_profile(model, params, per_step, n_steps)
 
 
 def decode_profile(model, params, per_step: int, n_steps: int = 8,
@@ -3130,7 +3147,7 @@ def check_xlstm_bwd(gen, mem_bps: float, f32_fps: float) -> dict:
     for bit the inference kernel's), its dpre against its mirror
     `slstm_scan_dpre_affine_ref` and, with the weight products, against
     `slstm_scan_bwd_ref`; the shares of steps past each clamp and on each
-    arm of the max; at the path's S=32,768 (B=1) each kernel's and the
+    arm of the max; at the long S=4,096 (B=1) each kernel's and the
     plain f32 versions' error against a float64 plain backward (the
     kernel's at most XLSTM_F64_FACTOR times the step form's); through the
     autograd Functions against autograd of the plain scans at the small
@@ -3773,6 +3790,103 @@ def tiny_f32_train(arch: str) -> dict:
     return counts
 
 
+def card_peaks(smi: str, peak_key: str, pk) -> dict:
+    """The card's own rates beside the data sheet's: a bf16 `torch.matmul`
+    of PEAK_MM^3 (2 n^3 flops) and a device-to-device copy of PEAK_COPY
+    bytes (each byte read once and written once), CUDA events, median
+    after warm-up. These library calls are yardsticks, not ports. Fails
+    if either rate passes PEAK_SLACK x its data-sheet figure."""
+    gen = torch.Generator("cuda").manual_seed(0)
+    a = torch.randn((PEAK_MM, PEAK_MM), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    b = torch.randn((PEAK_MM, PEAK_MM), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    mm_ms = time_ms(lambda: torch.matmul(a, b), reps=20, warmup=5)
+    src = torch.empty(PEAK_COPY, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    copy_ms = time_ms(lambda: dst.copy_(src), reps=20, warmup=5)
+    out = {"matmul_ms": mm_ms, "copy_ms": copy_ms,
+           "bf16_fps": 2 * PEAK_MM ** 3 / (mm_ms * 1e-3),
+           "hbm_bps": 2 * PEAK_COPY / (copy_ms * 1e-3)}
+    del a, b, src, dst
+    torch.cuda.empty_cache()
+    print(f"[roofline] {smi}: bf16 torch.matmul {PEAK_MM}^3 {mm_ms:.4f} ms "
+          f"= {out['bf16_fps'] / 1e12:.1f} TFLOP/s against the {peak_key} "
+          f"data sheet's {pk.bf16_fps / 1e12:.1f} "
+          f"({100 * out['bf16_fps'] / pk.bf16_fps:.1f}%); copy of "
+          f"{PEAK_COPY / 2**30:.0f} GiB {copy_ms:.4f} ms = "
+          f"{out['hbm_bps'] / 1e12:.3f} TB/s read + written against "
+          f"{pk.hbm_bps / 1e12:.2f} ({100 * out['hbm_bps'] / pk.hbm_bps:.1f}"
+          f"%); NVLink in the collective term {pk.link_bps / 1e9:.0f} GB/s "
+          f"a direction (not measured: one card)")
+    assert out["bf16_fps"] <= PEAK_SLACK * pk.bf16_fps, out
+    assert out["hbm_bps"] <= PEAK_SLACK * pk.hbm_bps, out
+    return out
+
+
+def step_work(label: str, arch: str, shape: ShapeSpec, times: dict,
+              bf16_fps: float) -> dict:
+    """Model-level work of a step the card ran: `lower_cell` on fake host
+    tensors at the step's shape on a 1 x 1 mesh (the whole step on one
+    rank, no collective), and the share of the bf16 peak that its
+    `model_flops` and its counted flops reach over each of `times` (ms a
+    step, measured by the phases named)."""
+    t0 = time.perf_counter()
+    rec = dryrun.lower_cell(arch, shape.name, False, shape=shape,
+                            mesh_shape=(1, 1))
+    secs = time.perf_counter() - t0
+    shares = {name: {"model": rec["model_flops"] / (ms * 1e-3) / bf16_fps,
+                     "counted": rec["flops"] / (ms * 1e-3) / bf16_fps}
+              for name, ms in times.items()}
+    print(f"[roofline] {label}: {arch} {shape}: model_flops "
+          f"{rec['model_flops']:.4e}, counted {rec['flops']:.4e} "
+          f"({rec['collective_ops'] or 'no collective'}), useful_ratio "
+          f"{rec['useful_ratio']:.4f}; counted in {secs:.1f} s on the host")
+    for name, ms in times.items():
+        print(f"[roofline]   over {name} {ms:.3f} ms a step: model_flops "
+              f"at {100 * shares[name]['model']:.2f}% of the bf16 peak, the "
+              f"counted flops at {100 * shares[name]['counted']:.2f}%")
+    assert rec["flops"] > 0, rec
+    return {"model_flops": rec["model_flops"], "flops": rec["flops"],
+            "useful_ratio": rec["useful_ratio"], "shares": shares}
+
+
+def roofline_path(smi: str, peak_key: str, pk, qwen_train: dict,
+                  serve_ms: float, dec_prof: dict) -> dict:
+    """Slice 18's path on this machine: the card's peaks, the work of
+    phase 9's train step and phase 5's decode step, and one full-size
+    dry-run cell on the host's fake 256-rank world."""
+    t_phase = time.perf_counter()
+    out = {"peaks": card_peaks(smi, peak_key, pk)}
+    out["train"] = step_work(
+        "phase 9's train step", TRAIN_ARCH,
+        ShapeSpec("phase9_train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+        {"train() wall (phase 9)": qwen_train["wall_ms"],
+         "profiled wall (phase 9)": qwen_train["profile_wall_ms"],
+         "device busy (phase 9)": qwen_train["profile_busy_ms"]},
+        pk.bf16_fps)
+    out["decode"] = step_work(
+        "phase 5's decode step", ARCH,
+        ShapeSpec("phase5_decode", 64, SLOTS, "decode"),
+        {"engine wall (phase 5)": serve_ms,
+         "profiled wall (phase 6)": dec_prof["wall_ms"],
+         "device busy (phase 6)": dec_prof["busy_ms"]}, pk.bf16_fps)
+    arch, shape, kw = perf.ITERATIONS["small_baseline"]
+    t0 = time.perf_counter()
+    rec = dryrun.lower_cell(arch, shape, multi_pod=False, **kw)
+    secs = time.perf_counter() - t0
+    print(f"[dryrun] small_baseline ({arch} {shape}, pod mesh 16 x 16, "
+          f"{kw or 'default knobs'}) on the host in {secs:.1f} s, torch "
+          f"{torch.__version__}: "
+          f"{json.dumps(rec)}")
+    assert "error" not in rec and "skip" not in rec, rec
+    assert sum(rec["collectives"].values()) > 0, rec["collectives"]
+    assert not torch.distributed.is_initialized()
+    out["dryrun"] = {"record": rec, "seconds": secs}
+    print(f"[roofline] phase 34 took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -3785,11 +3899,13 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout
-    print(smi.strip().splitlines()[0])
+    smi = smi.strip().splitlines()[0]
+    print(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
-    peak_key, (mem_bps, bf16_fps, f32_fps) = peaks_for(name)
+    peak_key, pk = peaks_for(name)
+    mem_bps, bf16_fps, f32_fps = pk.hbm_bps, pk.bf16_fps, pk.f32_fps
     max_sm_mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], check=True, capture_output=True,
@@ -4043,6 +4159,7 @@ def main() -> int:
     launches = moe_gemm.launches
     peak = torch.cuda.max_memory_allocated()
     steps = out["engine_steps"]
+    serve_ms = 1e3 * out["wall_s"] / steps
     print(f"[serve] {ARCH} full width, {cfg.num_layers} layers, bf16: "
           f"{out['requests']} requests, {out['tokens']} tokens, {steps} "
           f"engine steps, wall {out['wall_s']:.3f} s, "
@@ -4058,7 +4175,7 @@ def main() -> int:
 
     # ---- 6. where a decode step's time goes -----------------------------
     del out
-    profile_steps(cfg, per_step)
+    dec_prof = profile_steps(cfg, per_step)
 
     # ---- 7. tiny engine == greedy reference, f32 on the card -----------
     tcfg = tiny_config(ARCH).scaled(dtype="float32")
@@ -4152,11 +4269,13 @@ def main() -> int:
     # ---- 26. the xLSTM scan kernels vs plain, and their times -----------
     gc.collect()
     torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
     xlstm_times = check_xlstm(gen, mem_bps, f32_fps)
     # the backward checks draw from a generator of their own, so that
     # their inputs do not depend on what the phases before them drew
     xlstm_times.update(check_xlstm_bwd(torch.Generator("cuda").manual_seed(0),
                                        mem_bps, f32_fps))
+    print(f"[xlstm] phase 26 took {time.perf_counter() - t_phase:.1f} s")
 
     # ---- 27, 28. slice 12's main path: full-width xlstm-125m prefill,
     # serve ---------------------------------------------------------------
@@ -4183,7 +4302,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     apps_path()
 
-    # ---- 34. results -----------------------------------------------------
+    # ---- 34. slice 18's path: the roofline and the dry-run --------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    roofline_path(smi, peak_key, pk, qwen_train, serve_ms, dec_prof)
+
+    # ---- 35. results -----------------------------------------------------
     # Both dtypes of moe_gemm, of its backward and of the flash forward and
     # backward count in one `launches`; each route's own count is that of
     # a run in its dtype: bf16 the main paths (phases 5, 9 and 15), f32 the
@@ -4294,6 +4418,7 @@ def main() -> int:
     # the flash kernels at slice 11's path shapes, bf16; launches: each
     # shape's own count (the wrappers' `by_shape`) over its path's run
     g_fwd = gemma2["prefill_shapes"]
+    g_tfwd = gemma2_train["shapes"]["forward"]
     g_bwd = gemma2_train["shapes"]["backward"]
     w_fwd, w_bwd = (whisper_train["shapes"][w] for w in ("forward",
                                                           "backward"))
@@ -4319,6 +4444,17 @@ def main() -> int:
             "gemma2-27b's global layer at the prefill's S (window none, "
             "softcap 50); launches: the global layers' over the 4 gemma2 "
             "prefills"),
+        ("forward", "gemma2 train local"): (
+            g_tfwd["gemma2 train local"],
+            "gemma2-27b's local layer at the train cell's S (B=1, S=T=6144, "
+            "32:16 heads, hd 128, causal, window 4096, softcap 50); no "
+            "PyTorch call computes softcapped attention; launches: the "
+            "local layer's over the 6 gemma2 train steps"),
+        ("forward", "gemma2 train global"): (
+            g_tfwd["gemma2 train global"],
+            "gemma2-27b's global layer at the train cell's S (S=T=6144, "
+            "window none, softcap 50); launches: the global layer's over "
+            "the 6 gemma2 train steps"),
         ("backward", "whisper encoder"): (
             w_bwd["whisper encoder"],
             "whisper-base's encoder layer, dq then dk/dv; library = SDPA's "

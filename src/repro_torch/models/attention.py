@@ -9,7 +9,9 @@ and so routes as it does: self-attention over a whole sequence (S == T,
 causal or not) to the flash kernels on CUDA, cross-attention (K/V from
 `memory`, S != T in general) and decode to the plain op.
 Decode updates the KV cache in place (the JAX version returns a new one):
-the engine keeps one cache for its whole life.
+the engine keeps one cache for its whole life. The `constrain` calls are
+the JAX file's sharding constraints (attention.py:48,57,58,87,112): the
+identity unless the dry-run's mesh is in scope.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 from torch import nn
 
 from ..kernels import ops as kops
+from ..parallel.collectives import constrain
 from .config import ModelConfig
 from .layers import apply_rope, const_param, normal_param, rope_cos_sin
 
@@ -50,7 +53,7 @@ class Attention(nn.Module):
 
     def _project_q(self, x: torch.Tensor) -> torch.Tensor:
         b, s, _ = x.shape
-        q = x @ self.wq
+        q = constrain(x @ self.wq, "dp", None, "model")
         if self.cfg.qkv_bias:
             q = q + self.bq
         return q.reshape(b, s, self.cfg.num_heads, self.cfg.resolved_head_dim)
@@ -58,8 +61,8 @@ class Attention(nn.Module):
     def _project_kv(self, x: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor]:
         b, s, _ = x.shape
-        k = x @ self.wk
-        v = x @ self.wv
+        k = constrain(x @ self.wk, "dp", None, "model")
+        v = constrain(x @ self.wv, "dp", None, "model")
         if self.cfg.qkv_bias:
             k = k + self.bk
             v = v + self.bv
@@ -90,7 +93,7 @@ class Attention(nn.Module):
         o = kops.attention(q, k, v, causal=is_causal,
                            window=self.window if is_causal else None,
                            softcap=self.cfg.attn_softcap)
-        return o.reshape(b, s, -1) @ self.wo
+        return constrain(o.reshape(b, s, -1) @ self.wo, "dp", None, None)
 
     def decode(self, x: torch.Tensor, cache: Cache,
                pos: Union[int, torch.Tensor], *, use_rope: bool = True,
@@ -101,6 +104,8 @@ class Attention(nn.Module):
         precomputed encoder K/V, the cache left as it is."""
         b = x.shape[0]
         q = self._project_q(x)                           # [B,1,nq,hd]
+        # replicated on the model axis: the cache is context-parallel
+        q = constrain(q, "dp", None, None, None)
         if memory_kv is not None:
             o = kops.attention(q, memory_kv["k"], memory_kv["v"],
                                softcap=self.cfg.attn_softcap)

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import constrain
 from .config import ModelConfig
 
 
@@ -104,10 +105,16 @@ class MLP(nn.Module):
             self.b_down = const_param((d,), 0.0, dt, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # the JAX file's constraints (layers.py:81-84)
+        nd = x.ndim
+        mid = ("dp",) + (None,) * (nd - 2) + ("model",)
+        out = ("dp",) + (None,) * (nd - 1)
         if self.gated:
-            return (F.silu(x @ self.w_gate) * (x @ self.w_up)) @ self.w_down
-        h = F.gelu(x @ self.w_up + self.b_up, approximate="tanh")
-        return h @ self.w_down + self.b_down
+            h = constrain(F.silu(x @ self.w_gate) * (x @ self.w_up), *mid)
+            return constrain(h @ self.w_down, *out)
+        h = constrain(F.gelu(x @ self.w_up + self.b_up, approximate="tanh"),
+                      *mid)
+        return constrain(h @ self.w_down + self.b_down, *out)
 
 
 # ---------------------------------------------------------------- embed

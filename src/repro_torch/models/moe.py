@@ -15,8 +15,13 @@ as in the JAX package, so the same tokens are kept and dropped:
 * a combine in the activation dtype with `index_add_`, plus the shared
   experts as one gated MLP of width `num_shared_experts * moe_d_ff`.
 
-The sharding constraints of the JAX version are no-ops on one device and
-are left out.
+The JAX version's sharding constraints (moe.py:118-166) stand at the
+counterpart points (`constrain`, the identity unless the dry-run's mesh
+is in scope): the packed buffer [B, E*C, d] (batch, and the slot dim on
+model for big "ep" buffers), the E-major [E, B, C, d] form and the
+grouped [E, B*C, d] operand and outputs of the three grouped matmuls
+(experts on model under "ep", tokens on the data axes), the combine's
+[B, E, C, d] and [B, E*C, d] forms, and the combined [B, S, d].
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops as kops
+from ..parallel.collectives import constrain, moe_mode
 from .config import ModelConfig
 from .layers import MLP, normal_param
 
@@ -96,22 +102,38 @@ class MoE(nn.Module):
         rows = torch.arange(b, device=dev)[:, None]
         buf = x.new_zeros((b, e_pad * cap + 1, d))
         buf[rows, slot] = x[rows, st]
-        grouped = (buf[:, :-1].reshape(b, e_pad, cap, d).transpose(0, 1)
-                   .reshape(e_pad, b * cap, d).contiguous())
+        # the JAX version's layout choices: decode-sized buffers stay
+        # replicated; the slot dim goes on model only for big "ep" buffers
+        decode = s == 1 and b * e_pad * cap * d < (1 << 26)
+        slot_ax = "model" if (moe_mode() == "ep" and not decode
+                              and e_pad * cap >= 4096) else None
+        batch_ax = None if decode else "dp"
+        e_ax = "model" if moe_mode() == "ep" else None
+        tok_ax = None if decode else "dp"
+        packed = constrain(buf[:, :-1], batch_ax, slot_ax, None)
+        grouped4 = constrain(packed.reshape(b, e_pad, cap, d).transpose(0, 1),
+                             e_ax, tok_ax, None, None)
+        grouped = constrain(grouped4.reshape(e_pad, b * cap, d).contiguous(),
+                            e_ax, tok_ax, None)
 
-        h = kops.moe_gemm(grouped, self.w_gate)
-        hu = kops.moe_gemm(grouped, self.w_up)
-        out = kops.moe_gemm((F.silu(h) * hu).contiguous(), self.w_down)
+        h = constrain(kops.moe_gemm(grouped, self.w_gate), e_ax, tok_ax, None)
+        hu = constrain(kops.moe_gemm(grouped, self.w_up), e_ax, tok_ax, None)
+        out = constrain(kops.moe_gemm((F.silu(h) * hu).contiguous(),
+                                      self.w_down), e_ax, tok_ax, None)
 
         # ---- combine ---------------------------------------------------
-        outb = (out.reshape(e_pad, b, cap, d).transpose(0, 1)
-                .reshape(b, e_pad * cap, d))
+        slot_back = None if decode else e_ax
+        out4 = constrain(out.reshape(e_pad, b, cap, d), e_ax, tok_ax, None,
+                         None)
+        outb = constrain(out4.transpose(0, 1), batch_ax, slot_back, None,
+                         None).reshape(b, e_pad * cap, d)
+        outb = constrain(outb, "dp", slot_back, None)
         vals = outb[rows, torch.where(keep, slot, torch.zeros_like(slot))]
         vals = torch.where(keep[..., None], vals, torch.zeros_like(vals))
         vals = vals * sw[..., None].to(out.dtype)
         y = x.new_zeros((b * s, d))
         y.index_add_(0, (rows * s + st).reshape(-1), vals.reshape(b * nk, d))
-        y = y.reshape(b, s, d)
+        y = constrain(y.reshape(b, s, d), "dp", None, None)
 
         if cfg.num_shared_experts:
             y = y + self.shared(x.reshape(b * s, d)).reshape(b, s, d)

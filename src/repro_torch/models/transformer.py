@@ -19,6 +19,7 @@ from typing import List, Optional, Union
 import torch
 from torch import nn
 
+from ..parallel.collectives import constrain
 from .attention import Attention, Cache, init_kv_cache
 from .config import BlockSpec, ModelConfig
 from .layers import MLP, Embed, Norm
@@ -126,9 +127,11 @@ class Transformer(nn.Module):
         keeps every activation for autograd: about 11 GB for full-width qwen2-0.5b at B=4, S=2048
         (arithmetic), besides the logits and the loss's f32 copies."""
         x = embeds if embeds is not None else self.embed.embed(tokens)
+        x = constrain(x, "dp", None, None)     # transformer.py:107,115
         aux = x.new_zeros((), dtype=torch.float32)
         for block in self.layers:
             x, a = block(x)
+            x = constrain(x, "dp", None, None)
             aux = aux + a
         return self.embed.logits(self.final_norm(x)), aux
 
