@@ -11,8 +11,10 @@ the virtual-time ``RuntimeSimulator`` over the same policies
 (``core.simulator``), the ``DynamicTuner`` (``core.autotune``) and the
 paper's three applications (``core.taskgraph_apps``: blocked Matmul,
 nested N-Body and Sparse LU, whose task bodies are PyTorch calls on the
-caller's device and stream). Not ported: the process backend
-(``TaskRuntime(backend="processes")`` raises).
+caller's device and stream); and the process backend
+(``core.procs``: ``TaskRuntime(backend="processes")`` returns a
+``ProcessRuntime``, whose workers start from a fork server and may each
+hold a CUDA context, with tensors on the card shared by CUDA IPC).
 """
 from .autotune import DynamicTuner, TunerConfig
 from .ddast import DDASTManager, DDASTParams
@@ -23,10 +25,11 @@ from .engine import (CostCharger, CriticalPathPlacement, DastPolicy,
                      ReplayGraph, ReplayPolicy, RoundRobinPlacement,
                      ShardAffinePlacement, ShardedPolicy, SimCharger,
                      SyncPolicy, make_placement, make_policy)
-from .errors import ScopeExpired, TaskFailed
+from .errors import RingCorruption, ScopeExpired, TaskFailed, WorkerLost
 from .messages import (DoneBatchMessage, DoneTaskMessage,
                        SubmitBatchMessage, SubmitTaskMessage)
 from .queues import InstrumentedLock, SPSCQueue, WorkerQueues
+from .procs import FaultPlan, ProcessRuntime, ShmRing
 from .runtime import RuntimeStats, TaskRuntime
 from .sched import bottom_levels, list_schedule, quantize_bands
 from .scopes import (FairAdmission, JobScope, ScopedPolicy, ScopedRegion,
@@ -48,7 +51,8 @@ __all__ = [
     "ShardedPolicy", "ReplayPolicy", "ReplayGraph", "make_policy",
     "PlacementPolicy", "RoundRobinPlacement", "ShardAffinePlacement",
     "CriticalPathPlacement", "make_placement",
-    "ScopeExpired", "TaskFailed",
+    "ProcessRuntime", "ShmRing", "TaskFailed", "WorkerLost",
+    "FaultPlan", "RingCorruption", "ScopeExpired",
     "DoneBatchMessage", "DoneTaskMessage", "SubmitBatchMessage",
     "SubmitTaskMessage",
     "InstrumentedLock", "SPSCQueue", "WorkerQueues",

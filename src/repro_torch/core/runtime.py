@@ -174,14 +174,14 @@ class TaskRuntime:
     """
 
     def __new__(cls, *args, backend: str = "threads", **kwargs):
-        # The multi-process sibling driver (repro/core/procs) is not
-        # ported: its workers are forked, and a CUDA context does not
-        # survive a fork, so a worker could never touch the card.
+        # Backend dispatch: ``TaskRuntime(backend="processes")`` builds
+        # the multi-process sibling driver (core.procs). ProcessRuntime
+        # is deliberately NOT a subclass — it returns fully constructed
+        # from here, so this __init__ never runs on it and the two
+        # drivers cannot half-share thread state by accident.
         if cls is TaskRuntime and backend == "processes":
-            raise NotImplementedError(
-                "TaskRuntime(backend='processes') is not ported: its "
-                "workers are forked, and a CUDA context does not survive "
-                "fork(); use backend='threads'")
+            from .procs import ProcessRuntime
+            return ProcessRuntime(*args, backend=backend, **kwargs)
         return super().__new__(cls)
 
     def __init__(self, num_workers: int = 4, mode: str = "ddast",

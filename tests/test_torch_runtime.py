@@ -246,11 +246,13 @@ def test_scope_deadline_past_due_expires(core):
     assert rt.stats.scopes["late"]["expired"].startswith("deadline")
 
 
-def test_processes_backend_raises_in_port():
-    with pytest.raises(NotImplementedError, match="fork"):
-        tcore.TaskRuntime(num_workers=2, backend="processes")
+@pytest.mark.parametrize("core", CORES.values(), ids=CORES.keys())
+def test_processes_backend_dispatches(core):
+    rt = core.TaskRuntime(num_workers=2, backend="processes")
+    assert isinstance(rt, core.ProcessRuntime)
+    assert (rt.num_workers, rt.mode) == (2, "sharded")
     with pytest.raises(ValueError, match="backend"):
-        tcore.TaskRuntime(num_workers=2, backend="gpu")
+        core.TaskRuntime(num_workers=2, backend="gpu")
 
 
 # ------------------------------------------------- tracing and metrics
