@@ -14,8 +14,9 @@
 
 Run from the repository root on a machine with a Hopper card and `nvcc`.
 With `--ab PARENT` (a checkout of another commit, e.g. unpacked from `git
-archive` into a directory `.gitignore` lists) it only compares the bf16
-`moe_gemm` kernels of the two trees (`compare_trees`), their selective
+archive` into a directory `.gitignore` lists) it only compares the
+`moe_gemm` kernels of the two trees (`compare_trees`: bf16; f32 in
+`compare_f32`), their selective
 scans (`compare_scans`), their xLSTM forward scans (`compare_xlstm`) and
 the xLSTM backwards (`compare_xlstm_bwd`), each through its own tree's
 wrapper. With no argument,
@@ -39,7 +40,9 @@ its own failure):
      (forward, dq and dk/dv, each in both routes), the selective scan's
      and its backward's dynamic smem (both dtypes), the three scan
      kernels' resident blocks an SM, the backward's channels a block and
-     the steps between the states the forward keeps;
+     the steps between the states the forward keeps; fail unless ptxas
+     reports each instantiation of the f32 GEMM `moe_gemm_f32_kernel` (the
+     forward in 128- and 16-row tiles, dx, dw) with no spill;
   3. `moe_gemm` and its backward kernels (dx, dw) against their plain
      PyTorch versions on the card, in bf16 (wgmma/TMA) and f32 (CUDA
      cores): the qwen2-moe serving path's two shapes, the Jamba prefill's
@@ -48,18 +51,27 @@ its own failure):
      qwen3-moe's E=128 experts at decode, up and down, a ragged shape, one
      with d and f not multiples of 8 (bf16 goes through the padding), and
      the persistent backward's edges: one expert with fewer tiles than
-     SMs, 2 x SMs + 1 tiles, one expert whose rows span many tiles; the
+     SMs, 2 x SMs + 1 tiles, one expert whose rows span many tiles; in
+     f32 also the f32 GEMM's edges: the contraction under one chunk, C at
+     the forward's route threshold and one row either side, one expert
+     whose output spans many tiles with d and f ragged; the
      backward's two calls bit for bit and exact zeros for an expert no
      token reaches (with one expert: for all-zero x and dy); expert
      isolation; a SHA-256 digest of the bf16 forward's output on seeded
-     inputs (to compare two trees' forwards bit for bit); times (CUDA
+     inputs (to compare two trees' forwards bit for bit); f32 batch
+     invariance: the forward's and dx's first c1 rows of a C = 640 call,
+     for c1 across the route threshold, bit for bit against the call on
+     those rows alone; times (CUDA
      events, median after warm-up) of the kernel, the plain version and
      `torch.bmm` for one MoE layer at the qwen2-moe serving shapes (bf16
      and f32), at the Jamba prefill's and at Jamba decode's, and of the
      forward, dx and dw at the MoE train shapes in both routes and at the
      Jamba train shapes in bf16 (kernel and `torch.bmm` in turns), beside
      the least time the card could take; dw's K sweep (C = 320 ... 2560
-     at E=64, d=2048, f=1408): its fixed cost and main-loop rate;
+     at E=64, d=2048, f=1408): its fixed cost and main-loop rate; the f32
+     forward's C sweep (C = 16 ... 640 at the qwen2-moe gate/up dims)
+     through its 16- and 128-row tiles' C entry points and `torch.bmm`,
+     from which the wrapper's route threshold is set;
   4. the flash-attention forward and backward kernels (bf16 on tensor
      cores, f32 on CUDA cores) against their plain versions (and the
      backward against autograd through `attention_ref`) at every
@@ -408,6 +420,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_bwd, flash_attention_fwd)
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import moe_gemm as mg  # noqa: E402
 from repro_torch.kernels.moe_gemm import (  # noqa: E402
     load as mg_load, moe_gemm, moe_gemm_bwd_dw, moe_gemm_bwd_dx)
 from repro_torch.kernels.ref import (  # noqa: E402
@@ -588,6 +601,10 @@ BACKLOG_CYCLES = 20_000_000              # ~10 ms of device sleep
 # rate (slope) and the fixed cost of the tiles (intercept)
 DW_SWEEP_C = (320, 640, 1280, 2560)
 DW_SWEEP_EDF = (64, 2048, 1408)
+# C of the f32 forward's route sweep (phase 3), at the qwen2-moe gate/up
+# dims: the wrapper's F32_NARROW_MAX_C is set from it
+F32_SWEEP_C = (16, 24, 32, 48, 64, 80, 96, 112, 128, 192, 256, 384, 512,
+               640)
 # the forward's output digest: (E, C, d, f), the MoE train gate/up shape
 FWD_DIGEST_SHAPE = (64, 640, 2048, 1408)
 SFU_PER_CLOCK = 16                       # exp2 results a clock on an SM
@@ -743,10 +760,14 @@ def scan_bound(nbytes, exps, flops, mem_bps, sfu_rate, f32_fps) -> dict:
             "sfu_only_bound_ms": max(t_bytes, t_sfu_only) * 1e3}
 
 
-def ptxas_report(lib: Path, only="") -> None:
+F32_PRODUCTS = {("0", "1"): "forward", ("0", "0"): "dx", ("1", "1"): "dw"}
+
+
+def ptxas_report(lib: Path, only="") -> dict:
     """ptxas's registers, spills and static smem for each kernel entry
-    (those whose name starts with `only`, a string or a tuple of them)."""
-    name = "?"
+    (those whose name starts with `only`, a string or a tuple of them),
+    printed; returns the printed lines by kernel name."""
+    name, lines = "?", {}
     for line in lib.with_suffix(".log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
@@ -754,10 +775,11 @@ def ptxas_report(lib: Path, only="") -> None:
                           r"((?:Li\d+E)*)(?:Lb(\d)E)?E", m.group(1))
             t = re.search(r"([a-z_]+_kernel)ILi(\d+)E(?:Lb(\d)E)?E",
                           m.group(1))
-            b = re.search(r"(moe_gemm_bwd_kernel)ILb(\d)ELb\dEE", m.group(1))
-            if b:                    # the f32 backward: <1, 1> is dw
-                name = (f"{b.group(1)}<f32, "
-                        f"{'dw' if b.group(2) == '1' else 'dx'}>")
+            b = re.search(r"(moe_gemm_f32_kernel)ILi(\d+)ELb(\d)ELb(\d)EE",
+                          m.group(1))
+            if b:                    # the f32 GEMM: rows a tile, product
+                name = (f"{b.group(1)}<{b.group(2)} rows, "
+                        f"{F32_PRODUCTS[b.group(3), b.group(4)]}>")
             elif k:
                 labels = (("R", "P") if k.group(1) == "sel_scan_kernel"
                           else ("hd",))
@@ -786,6 +808,79 @@ def ptxas_report(lib: Path, only="") -> None:
         elif ("registers" in line or "spill" in line or "smem" in line
               or "warning" in line) and name.startswith(only):
             print(f"[build]   {name}: {line.strip()}")
+            lines.setdefault(name, []).append(line)
+    return lines
+
+
+def f32_spills(report: dict) -> None:
+    """Fails unless ptxas reports each instantiation of the f32 GEMM
+    (forward in both tiles, dx, dw) with no spill (`report`: ptxas_report's
+    lines of the moe_gemm library)."""
+    f32 = {k: v for k, v in report.items()
+           if k.startswith("moe_gemm_f32_kernel")}
+    assert len(f32) == 4, sorted(f32)
+    for kname, lines in f32.items():
+        assert any("0 bytes spill stores, 0 bytes spill loads" in ln
+                   for ln in lines), (kname, lines)
+    print(f"[build]   {len(f32)} instantiations of moe_gemm_f32_kernel: no "
+          f"spills")
+
+
+def f32_batch_invariance(shape, gen) -> None:
+    """Each row of the f32 forward's and dx's outputs, bit for bit, the
+    same whatever the other rows of its expert: `moe_gemm(x)[:, :c1]`
+    against `moe_gemm(x[:, :c1])` and dx's rows of dy likewise, at the
+    dims of `shape` (E, C, d, f) with C = 640 (128-row tiles) and c1 on
+    both sides of the forward's route threshold."""
+    e, _, d, f = shape
+    c, t = 640, mg.F32_NARROW_MAX_C
+    x = torch.randn((e, c, d), generator=gen, device="cuda") * d ** -0.25
+    w = torch.randn((e, d, f), generator=gen, device="cuda") * d ** -0.25
+    dy = torch.randn((e, c, f), generator=gen, device="cuda")
+    full, dfull = moe_gemm(x, w), moe_gemm_bwd_dx(dy, w)
+    cuts = (1, 16, t - 1, t, t + 1, 200, c - 1)
+    for c1 in cuts:
+        part = moe_gemm(x[:, :c1].contiguous(), w)
+        dpart = moe_gemm_bwd_dx(dy[:, :c1].contiguous(), w)
+        torch.cuda.synchronize()
+        assert torch.equal(part, full[:, :c1]), ("forward", c1)
+        assert torch.equal(dpart, dfull[:, :c1]), ("dx", c1)
+    print(f"[check] moe_gemm f32 batch invariance at (E, C, d, f) = "
+          f"{(e, c, d, f)}: the forward's and dx's first c1 rows, for c1 in "
+          f"{cuts} (routes: " + ", ".join(
+              f"{c1} {mg.forward_entry(torch.float32, c1)}" for c1 in cuts)
+          + f"; C = {c} {mg.forward_entry(torch.float32, c)}), bit-identical "
+          f"to those rows of the whole call")
+
+
+def f32_route_sweep(shape, gen) -> dict:
+    """The f32 forward at the dims of `shape` (E, C, d, f) with C = each of
+    F32_SWEEP_C rows an expert, through each route's C entry point (16-
+    and 128-row tiles) and `torch.bmm`, in turns: the C up to which the
+    16-row tiles were faster, beside the wrapper's F32_NARROW_MAX_C."""
+    e, _, d, f = shape
+    lib = mg._lib()
+    routes = {"16-row tiles": lib_fn(lib, "moe_gemm_f32_narrow"),
+              "128-row tiles": lib_fn(lib, "moe_gemm_f32"),
+              "torch.bmm": torch.bmm}
+    rows = {}
+    for c in F32_SWEEP_C:
+        x = torch.randn((e, c, d), generator=gen, device="cuda") * d ** -0.25
+        w = torch.randn((e, d, f), generator=gen, device="cuda") * d ** -0.25
+        rows[c] = time_turns({name: (lambda fn=fn: fn(x, w))
+                              for name, fn in routes.items()}, 10, 2)
+        print(f"[time] moe_gemm f32 forward C sweep {(e, c, d, f)}: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in rows[c].items())
+              + " ms")
+        del x, w
+    narrow = [c for c in F32_SWEEP_C
+              if rows[c]["16-row tiles"] < rows[c]["128-row tiles"]]
+    print(f"[time] moe_gemm f32 forward: 16-row tiles faster at C = "
+          f"{narrow} of {list(F32_SWEEP_C)}; the wrapper takes them up to C "
+          f"= {mg.F32_NARROW_MAX_C}")
+    return {"c": list(F32_SWEEP_C), "ms": [rows[c] for c in F32_SWEEP_C],
+            "narrow_faster_at": narrow,
+            "narrow_max_c": mg.F32_NARROW_MAX_C}
 
 
 def check_moe_bwd(label, x, w, scale, tol, gen) -> tuple[float, float]:
@@ -960,28 +1055,56 @@ def kernel_sass(lib: Path, pattern: str = r"moe_gemm_wgmma_kernelI(\w+?)E"
     return funcs
 
 
-def lib_fn(lib, kname: str):
-    """fn(a, b) -> out through the bf16 entry `kname` (moe_gemm,
-    moe_gemm_bwd_dx or moe_gemm_bwd_dw) of a loaded moe_gemm library, on
+F32_SASS = (r"(moe_gemm_kernelIfE|moe_gemm_bwd_kernelILb\dELb\dEE"
+            r"|moe_gemm_f32_kernelILi\d+ELb\dELb\dEE)")
+
+
+def loop_mix(lines: list) -> dict:
+    """The instruction mix of the longest loop in a kernel's SASS (lines
+    from `kernel_sass`: the span from a backward branch's target to the
+    branch): its instructions, FFMAs, shared-memory and global loads and
+    stores, and the FFMAs' share."""
+    code = []
+    for line in lines:
+        m = re.match(r"/\*([0-9a-f]{4,})\*/ (?:@!?U?P\w+ )?([A-Z][A-Z0-9_.]*)"
+                     r"(.*?);", line)
+        if m:
+            code.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    span = (0, 0)
+    for off, op, args in code:
+        t = re.search(r"0x([0-9a-f]+)", args) if op == "BRA" else None
+        if t and int(t.group(1), 16) < off and \
+                off - int(t.group(1), 16) > span[1] - span[0]:
+            span = (int(t.group(1), 16), off)
+    ops = [op for off, op, _ in code if span[0] <= off <= span[1]]
+    count = {k: sum(o.startswith(k) for o in ops)
+             for k in ("FFMA", "LDS", "STS", "LDG", "BAR")}
+    return {"instructions": len(ops), **count,
+            "ffma_share": count["FFMA"] / max(len(ops), 1)}
+
+
+def lib_fn(lib, entry: str):
+    """fn(a, b) -> out through the C entry point `entry` of a loaded
+    moe_gemm library (a forward's, dx's or dw's, in either dtype), on
     operands that need no padding, with no wrapper around it: the
     forward's (x, w), dx's (dy, w) or dw's (x, dy)."""
-    entry = getattr(lib, f"{kname}_bf16")
+    fn_c = getattr(lib, entry)
 
     def fn(a, b):
-        if kname == "moe_gemm_bwd_dx":
+        if entry.startswith("moe_gemm_bwd_dx"):
             (e, c, f), d = a.shape, b.shape[1]
             shape = (e, c, d)
-        elif kname == "moe_gemm_bwd_dw":
+        elif entry.startswith("moe_gemm_bwd_dw"):
             (e, c, d), f = a.shape, b.shape[2]
             shape = (e, d, f)
         else:
             (e, c, d), f = a.shape, b.shape[2]
             shape = (e, c, f)
         out = torch.empty(shape, dtype=a.dtype, device=a.device)
-        err = entry(a.data_ptr(), b.data_ptr(), out.data_ptr(), e, c, d, f,
-                    torch.cuda.current_stream().cuda_stream)
+        err = fn_c(a.data_ptr(), b.data_ptr(), out.data_ptr(), e, c, d, f,
+                   torch.cuda.current_stream().cuda_stream)
         if err:
-            raise RuntimeError(f"{kname} launch failed: "
+            raise RuntimeError(f"{entry} launch failed: "
                                f"{lib.moe_gemm_error_string(err).decode()}")
         return out
     return fn
@@ -1082,8 +1205,9 @@ def compare_trees(parent: Path) -> int:
     against the parent's; times in turns (parent, change, change, parent)
     of the forward, dx and dw of one layer at the MoE and Jamba train
     shapes, beside `torch.bmm` on the same operands and their bound, and
-    of the dw K sweep; then the scans (`compare_scans`, `compare_xlstm`)
-    and the xLSTM backwards (`compare_xlstm_bwd`)."""
+    of the dw K sweep; the f32 kernels likewise (`compare_f32`); then the
+    scans (`compare_scans`, `compare_xlstm`) and the xLSTM backwards
+    (`compare_xlstm_bwd`)."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout
@@ -1103,13 +1227,25 @@ def compare_trees(parent: Path) -> int:
             lambda src: _build.build("moe_gemm", src=src), jobs.values())))
         for job in scan_builds:
             job.result()
-    fns = {}
+    fns, f32_fns = {}, {}
     for tag, lib in built.items():
         print(f"[build] moe_gemm ({tag}) -> {lib.name}")
         ptxas_report(lib, only="moe_gemm_")
-        loaded = mg_load(lib)
-        fns[tag] = {k: lib_fn(loaded, k) for k in
+        # the entry points this tree's library has (the parent's has no
+        # 16-row route of the f32 forward)
+        raw = ctypes.CDLL(str(lib))
+        loaded = mg_load(lib, entries=[e_ for e_ in mg.ENTRIES
+                                       if hasattr(raw, e_)])
+        fns[tag] = {k: lib_fn(loaded, f"{k}_bf16") for k in
                     ("moe_gemm", "moe_gemm_bwd_dx", "moe_gemm_bwd_dw")}
+        f32_fns[tag] = {k: lib_fn(loaded, f"{k}_f32") for k in
+                        ("moe_gemm", "moe_gemm_bwd_dx", "moe_gemm_bwd_dw")}
+        # the f32 forward at decode's C: the route this tree's wrapper
+        # takes there, where the library has it
+        entry = mg.forward_entry(torch.float32,
+                                 SLOTS * capacity(get_config(ARCH), 1))
+        f32_fns[tag]["decode"] = lib_fn(
+            loaded, entry if hasattr(raw, entry) else "moe_gemm_f32")
     shapes = train_shapes()
     sass = {tag: kernel_sass(lib) for tag, lib in built.items()}
     print(f"[ab] bf16 forward kernel's SASS (cuobjdump), "
@@ -1173,6 +1309,7 @@ def compare_trees(parent: Path) -> int:
         torch.cuda.empty_cache()
     dw_sweep({tag: fns[tag]["moe_gemm_bwd_dw"] for tag in fns}, bf16_fps,
              sms)
+    compare_f32(built, f32_fns, shapes, gen, pk.f32_fps, mem_bps)
     compare_scans(parent_scan)
     parent_xls = tree_module(parent, "kernels.xlstm_scan",
                              "parent_repro_torch")
@@ -1182,6 +1319,71 @@ def compare_trees(parent: Path) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def compare_f32(libs: dict, f32_fns: dict, shapes: dict, gen,
+                f32_fps: float, mem_bps: float) -> None:
+    """`--ab`'s f32 kernels: the instruction mix of each f32 kernel's main
+    loop in each tree's library (`libs`: tree -> path; `loop_mix`); each
+    tree's forward, dx and dw (`f32_fns`: tree -> product -> fn, through
+    the C entry points) against the
+    other's on one MoE train layer's operands (max |diff|, bit for bit),
+    then their times in turns (parent, change, change, parent) beside
+    `torch.bmm` on the same operands and the bound, at the MoE train
+    layer (gate, up, down at E=64, C=640) and, for the forward, at the
+    qwen2-moe serving layer (C=16)."""
+    for tag, lib in libs.items():
+        for kname, lines in sorted(kernel_sass(lib, F32_SASS).items()):
+            mix = loop_mix(lines)
+            print(f"[ab] f32 SASS ({tag}) {kname}: main loop "
+                  + ", ".join(f"{k} {v}" for k, v in mix.items()
+                              if k != "ffma_share")
+                  + f"; FFMA share {mix['ffma_share']:.3f}")
+    cfg = get_config(ARCH)
+    e, c, d, f = padded_experts(cfg), SLOTS * capacity(cfg, 1), \
+        cfg.d_model, cfg.moe_d_ff
+    for label, layer, products in (
+            ("MoE train layer", [shapes["train gate/up"]] * 2
+             + [shapes["train down"]], ("moe_gemm", "moe_gemm_bwd_dx",
+                                        "moe_gemm_bwd_dw")),
+            ("serving layer", [(e, c, d, f)] * 2 + [(e, c, f, d)],
+             ("decode",))):
+        calls = [tuple((torch.randn(shp, generator=gen, device="cuda")
+                        * d_ ** -0.25)
+                       for shp in ((e_, c_, d_), (e_, d_, f_), (e_, c_, f_)))
+                 for e_, c_, d_, f_ in layer]
+        bound_ms, bound_by = bound(layer, 4, f32_fps, mem_bps)
+        for kname in products:
+            pick, lib = {
+                "moe_gemm": (lambda x_, w_, dy_: (x_, w_), torch.bmm),
+                "decode": (lambda x_, w_, dy_: (x_, w_), torch.bmm),
+                "moe_gemm_bwd_dx": (lambda x_, w_, dy_: (dy_, w_),
+                                    lambda a, b: torch.bmm(
+                                        a, b.transpose(1, 2))),
+                "moe_gemm_bwd_dw": (lambda x_, w_, dy_: (x_, dy_),
+                                    lambda a, b: torch.bmm(
+                                        a.transpose(1, 2), b))}[kname]
+            got = {tag: f32_fns[tag][kname](*pick(*calls[0]))
+                   for tag in ("parent", "change")}
+            fns_ = {tag: f32_fns[tag][kname] for tag in ("parent", "change")}
+            fns_["torch.bmm"] = lib
+            runs = [time_turns({
+                tag: (lambda fn=fn: [fn(*pick(*a)) for a in calls])
+                for tag, fn in fns_.items()}, 10, 2) for _ in range(2)]
+            print(f"[ab] f32 {kname} {label} {layer}: change vs parent max "
+                  f"|diff| {(got['change'] - got['parent']).abs().max():.3e}"
+                  f", bit-identical "
+                  f"{torch.equal(got['change'], got['parent'])}; ms (two "
+                  f"runs of 10 calls each in turns): " + "; ".join(
+                      ", ".join(f"{tag} {ms:.4f}" for tag, ms in t.items())
+                      + f" (change / parent {t['change'] / t['parent']:.4f})"
+                      for t in runs)
+                  + f"; bound {bound_ms:.4f} ms ({bound_by}); change at "
+                  f"{100 * bound_ms / runs[-1]['change']:.1f}% of the bound;"
+                  f" card just after: {card_state()}")
+            del got
+        del calls
+        torch.cuda.empty_cache()
 
 
 def tree_module(root: Path, dotted: str, alias: str):
@@ -4497,7 +4699,9 @@ def main() -> int:
                                         "mlstm_bwd_gate_kernel"))
         elif split is None:
             print(f"[build] {kname}: {secs:.2f} s -> {lib.name}")
-            ptxas_report(lib)
+            report = ptxas_report(lib)
+            if kname == "moe_gemm":
+                f32_spills(report)
         else:
             print(f"[build] {kname} with R={split[0]} P={split[1]}, to time "
                   f"it: {secs:.2f} s -> {lib.name}")
@@ -4594,6 +4798,17 @@ def main() -> int:
                    ("edge: 2 x SMs + 1 tiles", (2 * sms + 1, 64, 64, 200)),
                    ("edge: one expert, many row tiles",
                     (1, 4096, 4096, 1024))]
+    # the f32 GEMM's edges, f32 only: the contraction under one chunk of 8
+    # (d 6 for the forward, f 7 for dx, C 5 for dw; d and f padded to 8);
+    # C at the forward's route threshold and one row either side (16- and
+    # 128-row tiles) at the qwen2-moe gate/up dims; one expert whose
+    # output spans many tiles in every product, all three dims ragged
+    t_c = mg.F32_NARROW_MAX_C
+    f32_cases = [("f32 edge: K under one chunk", (3, 5, 6, 7))]
+    f32_cases += [(f"f32 edge: C = threshold {c_ - t_c:+d}", (4, c_, d, f))
+                  for c_ in (t_c - 1, t_c, t_c + 1)]
+    f32_cases.append(("f32 edge: one expert, many tiles", (1, 1000, 2050,
+                                                            1410)))
     gen = torch.Generator("cuda").manual_seed(0)
 
     def operands(shape, dtype, scale=0.3):
@@ -4605,14 +4820,15 @@ def main() -> int:
     tols = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
     errs, bwd_errs = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
-        for label, shape in gemm_cases:
+        for label, shape in gemm_cases + (
+                f32_cases if dtype == torch.float32 else []):
             # Jamba's, the train and the qwen3 shapes: operands at
             # d**-0.25, so outputs have unit variance as in the model. At
             # 0.3 they reach |out| ~ 65, and f32 sums over d=4096 in the
             # kernel's and cuBLAS's orders part by up to 1.5e-4 (H100 80GB
             # HBM3, 700 W).
             scale = (shape[2] ** -0.25 if label.startswith(
-                ("jamba", "train", "qwen3", "edge")) else 0.3)
+                ("jamba", "train", "qwen3", "edge", "f32 edge")) else 0.3)
             x, w = operands(shape, dtype, scale)
             got, want = moe_gemm(x, w), moe_gemm_ref(x, w)
             torch.cuda.synchronize()
@@ -4637,6 +4853,7 @@ def main() -> int:
     print("[check] moe_gemm expert isolation: ok")
     print(f"[check] moe_gemm bf16 forward output digest at "
           f"{FWD_DIGEST_SHAPE}: {forward_digest(moe_gemm)}")
+    f32_batch_invariance(up_shape, gen)
 
     # times at the path's shapes, bf16: each shape, then one MoE layer's
     # three calls (gate, up, down) as the kernel's line in the JSON, at the
@@ -4689,6 +4906,7 @@ def main() -> int:
         [jtrain_up, jtrain_up, jtrain_down], torch.bfloat16, gen, bf16_fps,
         mem_bps)
     dw_sweep({"dw": moe_gemm_bwd_dw}, bf16_fps, sms)
+    f32_sweep = f32_route_sweep(up_shape, gen)
 
     lap("4")
     # ---- 4. flash attention vs plain, and its times ---------------------
@@ -4922,7 +5140,10 @@ def main() -> int:
             "name": f"moe_gemm ({'bf16' if bf16 else 'f32'})",
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/moe_gemm.cu",
-            "kernel": "moe_gemm_wgmma_kernel" if bf16 else "moe_gemm_kernel",
+            "kernel": ("moe_gemm_wgmma_kernel" if bf16 else
+                       "moe_gemm_f32_kernel<16, false, true> (16 x 256 "
+                       "tiles, C <= F32_NARROW_MAX_C), <128, false, true> "
+                       "(128 x 128 tiles)"),
             "replaces": "src/repro/kernels/moe_gemm.py:21",
             "launches": count,
             "max_abs_err": max(errs[(lb, dtype)]
@@ -4952,6 +5173,7 @@ def main() -> int:
                         "shapes (E=64, C=640, d=2048, f=1408); launches "
                         + ("over the 6 full-width train steps" if bf16
                            else "over the tiny f32 MoE training (60 steps)")},
+            **({} if bf16 else {"c_sweep": f32_sweep}),
         })
     # the backward: no TPU counterpart (the JAX package differentiates its
     # jnp oracle); each route's launches are those of its training run
@@ -4964,7 +5186,8 @@ def main() -> int:
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/moe_gemm.cu",
             "kernel": ("moe_gemm_dx_wgmma_kernel, moe_gemm_dw_wgmma_kernel"
-                       if bf16 else "moe_gemm_bwd_kernel"),
+                       if bf16 else "moe_gemm_f32_kernel<128, false, false> "
+                       "(dx), <128, true, true> (dw)"),
             "replaces": None,
             "launches": count["moe_gemm_bwd_dx"] + count["moe_gemm_bwd_dw"],
             "max_abs_err": max(max(bwd_errs[(lb, dtype)])

@@ -53,6 +53,7 @@ have shut down.
 """
 from __future__ import annotations
 
+import inspect
 import secrets
 from multiprocessing import shared_memory
 from typing import Dict, List, NamedTuple, Optional, Tuple, Union
@@ -73,6 +74,26 @@ class DeviceName(NamedTuple):
     shape: Tuple[int, ...]
     dtype: torch.dtype
     ipc: Union[str, bytes]
+
+
+# the arguments of torch's `rebuild_cuda_tensor` that carry an IPC send's
+# reference counter, which the owner gives back
+_SEND_COUNTER = ("ref_counter_handle", "ref_counter_offset")
+
+
+def send_counter(rebuild, args: tuple) -> tuple:
+    """The reference counter of a CUDA IPC send `(rebuild, args)` (what
+    `reductions.reduce_tensor` gives): the arguments of `rebuild` named
+    `ref_counter_handle` and `ref_counter_offset`, found by name in its
+    signature. Raises if it has no argument of either name, as it would
+    in a PyTorch that renamed or moved them."""
+    names = list(inspect.signature(rebuild).parameters)
+    missing = [n for n in _SEND_COUNTER if n not in names]
+    if missing:
+        raise RuntimeError(f"{getattr(rebuild, '__name__', rebuild)} has no "
+                           f"argument {' or '.join(missing)}: cannot give "
+                           f"a CUDA IPC send back")
+    return tuple(args[names.index(n)] for n in _SEND_COUNTER)
 
 
 # the tensors this process owns, and the ones it attached, by key
@@ -179,10 +200,9 @@ class DeviceArray:
             from torch.multiprocessing import reductions
             self.tensor = torch.zeros(shape, dtype=dtype, device=dev)
             torch.cuda.synchronize(dev)
-            # one send: (rebuild_cuda_tensor, its arguments), whose 12th
-            # and 13th are the send's reference counter
+            # one send: (rebuild_cuda_tensor, its arguments)
             rebuild, args = reductions.reduce_tensor(self.tensor)
-            self._send = args[11:13]
+            self._send = send_counter(rebuild, args)
             ipc = pickle.dumps((rebuild, args))
         else:
             raise ValueError(f"DeviceArray on {device!r}: use 'cuda' or "

@@ -13,7 +13,7 @@
 //     bf16 products are exact in f32, and the JAX kernel casts to f32
 //     before its dot, so this is the same function; only the order of
 //     the sums differs.
-//   * f32: moe_gemm_kernel<float>, on the CUDA cores. Tensor cores would
+//   * f32: moe_gemm_f32_kernel, on the CUDA cores. Tensor cores would
 //     take f32 only as TF32 (about 10 mantissa bits).
 //
 // Bound. Serving decode: C = 4 slots x capacity 4 = 16 rows an expert,
@@ -48,19 +48,46 @@
 //   * TMA needs 16-byte row strides: the wrapper pads d and f of bf16
 //     operands to multiples of 8 (as the JAX wrapper pads to its blocks).
 //
-// f32 design (unchanged from the first port): read each weight element
-// once per 16-row tile of x, on the CUDA cores.
-//   * One block per (expert, tile of 64 output columns).
-//   * The block stages a tile of x (16 rows x 128 of the contraction
-//     dim) in shared memory as f32; threads read it by broadcast.
-//   * The 32 lanes of a warp own neighbouring f columns (two each, 32
-//     apart), so every load of a w row is one coalesced transaction.
-//     Each thread keeps 16 rows x 2 columns of f32 sums in registers.
-//   * The block's 8 warps split the contraction dim (rows d of w) and
-//     add their partial sums through shared memory at the end, so no
-//     weight element is loaded by two threads.
-//   * Ragged C, D and F are masked. C above 16 loops over row tiles in
-//     the block, and each tile reads the expert's weights again.
+// f32 design: moe_gemm_f32_kernel, one tiled and pipelined CUDA-core GEMM
+// for the forward and both gradients (the three differ only in which
+// operand is contiguous along the contraction; template parameters).
+// Bound: a training call (C = 640, d = 2048, f = 1408) does 2*C = 1,280
+// flops a weight element, 320 a byte, far above the ~20 flops a byte at
+// which the 67 TFLOP/s of f32 FMAs become the limit; so the FMA pipes,
+// not memory, must set its pace. Decode (C = 16) does 8 a byte and is
+// bound by the weights' bytes.
+//   * One block per (row tile, column tile, expert), row tiles varying
+//     fastest, so the blocks that share an expert's B tile run together
+//     and its slabs stay in L2. No split-K and no atomics.
+//   * 128 x 128 output tiles, 256 threads, each 8 x 8 outputs as two
+//     4 x 4 sub-tiles 16 rows and 32 columns apart (a warp owns 32 x 64).
+//     Both operands are staged in shared memory as [k][m] and [k][n], so
+//     each k costs a thread four 16-byte reads for 64 FMAs, and a warp's
+//     16-byte reads touch at most 128 bytes (one wavefront).
+//   * The contraction runs in chunks of 16 through a ring of 2 stages:
+//     the next chunk loads while this chunk's 1,024 FMAs a thread run
+//     (chunks of 8, and 3 or 4 stages, were no faster on the card).
+//     Operands contiguous along M or N (the forward's w, dw's x and dy)
+//     go to shared memory by 16-byte cp.async, zero-filled past the
+//     edges. Operands contiguous along K (the forward's x, dx's dy and w)
+//     cannot be transposed by a copy engine: each thread loads its
+//     16-byte pieces of the next chunk into registers while the current
+//     chunk's FMAs run, then stores them transposed into rows padded to
+//     16n + 4 words (at most two-way bank conflicts). Staging them as
+//     they lie and reading 4 k at once was slower (more registers).
+//   * 128 registers a thread at most (two blocks an SM), no spills.
+//   * Few rows an expert (decode): the same kernel in 16 x 256 tiles,
+//     4 x 4 outputs a thread (moe_gemm_f32_narrow), so that C = 16 does
+//     not pay for 128 rows of FMAs and the weights stream from memory
+//     about once; the wrapper picks the tile by C.
+//   * Order: each output is one thread's fmaf chain over k = 0 .. K-1
+//     from 0, whatever the tile, the route or C. So two calls agree bit
+//     for bit, a row's result does not depend on the other rows of its
+//     expert (batch invariance: the tiny f32 engine equals greedy decode
+//     at another C), and an expert whose rows are all zero gets exact
+//     zeros in dw. Zero padding adds exact zeros to the chain's end.
+//   * cp.async and float4 need 16-byte rows: the wrapper pads d and f of
+//     f32 operands to multiples of 4 and slices the output back.
 // On the TPU the contraction was a sequential grid axis carrying an f32
 // VMEM accumulator. Blocks here run in no order, so the contraction is
 // a loop inside the block.
@@ -106,8 +133,8 @@
 //     ascending order, so two calls agree bit for bit (and with the first
 //     design), and an expert that no token reaches (all its rows zero)
 //     gets exact zeros in dw.
-//   * f32: moe_gemm_bwd_kernel<kAmn, kBmn>, a tiled CUDA-core GEMM with
-//     the operand layouts as template parameters (see there).
+//   * f32: moe_gemm_f32_kernel<128, false, false> (dx) and <128, true,
+//     true> (dw), the forward's tiled CUDA-core GEMM (f32 design above).
 
 #include <cuda.h>  // CUtensorMap and its types; no -lcuda needed
 #include <cuda_bf16.h>
@@ -120,188 +147,262 @@
 
 namespace {
 
-constexpr int kLanes = 32;                     // threads along f (a warp)
-constexpr int kColsPerLane = 2;                // f columns per thread
-constexpr int kTileF = kLanes * kColsPerLane;  // f columns per block
-constexpr int kWarps = 8;                      // split of the contraction
-constexpr int kThreads = kLanes * kWarps;
-constexpr int kTileC = 16;                     // x rows per pass
-constexpr int kTileD = 128;                    // contraction chunk in smem
-constexpr int kRowsPerStep = 4;                // d rows a warp takes a step
-
-static_assert(kTileD % (kWarps * kRowsPerStep) == 0, "chunk split");
-
-// The CUDA-core kernel is instantiated for f32 only; bf16 takes the
-// tensor-core kernel below.
-__device__ __forceinline__ float to_f32(float v) { return v; }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
+// ------------------------------------------------ f32: CUDA-core tiles
+// One template for the three f32 products: out[e] (M x N) = A[e] (M x K)
+// x B[e] (K x N), with A stored [M][K] or, kAmn, [K][M], and B stored
+// [N][K] or, kBmn, [K][N]:
+//   forward  A = x  [C][d]                B = w  [d][f]          <false, true>
+//   dx       A = dy [C][f]                B = w  [d][f] as [N][K] <false, false>
+//   dw       A = x  [C][d] as [K][M]      B = dy [C][f]          <true, true>
+// Both operands are staged in shared memory as [k][m] and [k][n], so that
+// each k costs a thread four 16-byte reads (two of A, two of B) for 64
+// FMAs. See the note at the top for the design and its bound.
+//
+// A block's output tile: a thread's kSubM x kSubN sub-tiles of 4 x 4
+// outputs, the sub-tiles of a warp's 4 x 8 lanes side by side (so that a
+// warp's 16-byte reads of a k touch 64 bytes of A and 128 of B, one
+// wavefront each), kWarpsM x kWarpsN warps; 256 threads, two blocks an SM
+// (at most 128 registers a thread).
+template <int kSubM_, int kSubN_, int kWarpsM_>
+struct F32Shape {
+  static constexpr int kSubM = kSubM_, kSubN = kSubN_;
+  static constexpr int kLanesM = 4, kLanesN = 8;
+  static constexpr int kWM = 4 * kSubM * kLanesM;      // a warp's rows
+  static constexpr int kWN = 4 * kSubN * kLanesN;      // a warp's columns
+  static constexpr int kWarpsM = kWarpsM_, kWarpsN = 8 / kWarpsM_;
+  static constexpr int kBM = kWarpsM * kWM, kBN = kWarpsN * kWN;
+  static constexpr int kThreads = 256;
+};
+// the tile by rows a block: 128 x 128 (8 x 8 outputs a thread), or for
+// few rows an expert 16 x 256 (4 x 4 a thread)
+template <int kRows>
+struct F32Tile;
 template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+struct F32Tile<128> : F32Shape<2, 2, 4> {};
+template <>
+struct F32Tile<16> : F32Shape<1, 1, 1> {};
+static_assert(F32Tile<128>::kBM == 128 && F32Tile<16>::kBM == 16, "rows");
+constexpr int kFK = 16;       // contraction chunk
+constexpr int kFStages = 2;   // chunks in the shared-memory ring: the
+                              // next chunk loads while this one's FMAs
+                              // run (1,024 a thread at 128 rows)
+constexpr int kFPad = 4;      // words after each staged row: with rows of
+                              // 16n + 4 words, the transposed stores of
+                              // a K-contiguous operand conflict at most
+                              // two ways
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-moe_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                T* __restrict__ out, int C, int D, int F) {
-  __shared__ __align__(16) float xs[kTileC][kTileD];
-  __shared__ float part[kWarps][kTileC][kTileF];
+// Dynamic shared memory of moe_gemm_f32_kernel<kRows, ...>, the ring of A
+// and B chunks: 33,792 bytes at 128 rows, 35,840 at 16 (under the 48 KB
+// a launch gets without opting in).
+template <int kRows>
+constexpr int f32_smem_bytes() {
+  using L = F32Tile<kRows>;
+  return kFStages * kFK * (L::kBM + L::kBN + 2 * kFPad) * 4;
+}
+static_assert(f32_smem_bytes<128>() <= 48 * 1024 &&
+              f32_smem_bytes<16>() <= 48 * 1024, "no opt-in");
 
-  const int lane = threadIdx.x;
-  const int warp = threadIdx.y;
-  const int tid = warp * kLanes + lane;
-  const int e = blockIdx.y;
-  const int f0 = blockIdx.x * kTileF;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  // src-size 0 fills the 16 bytes with zeros and reads nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
 
-  const T* xe = x + static_cast<size_t>(e) * C * D;
-  const T* we = w + static_cast<size_t>(e) * D * F;
-  T* oe = out + static_cast<size_t>(e) * C * F;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
 
-  bool f_ok[kColsPerLane];
-#pragma unroll
-  for (int j = 0; j < kColsPerLane; ++j) f_ok[j] = f0 + lane + j * kLanes < F;
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
 
-  for (int c0 = 0; c0 < C; c0 += kTileC) {
-    float acc[kTileC][kColsPerLane];
+// Chunk k0 of an MN-contiguous operand ([K][rows], rows a multiple of 4)
+// at tile rows r0 .. r0 + R - 1 into dst [kFK][R + kFPad], by 16-byte
+// cp.async; zeros past K and past `rows`. A warp copies whole k-rows.
+template <int R, int T>
+__device__ __forceinline__ void stage_mn(float* dst, const float* src,
+                                         int rows, int K, int r0, int k0,
+                                         int tid) {
+  constexpr int kVecs = kFK * R / 4;
 #pragma unroll
-    for (int c = 0; c < kTileC; ++c)
-#pragma unroll
-      for (int j = 0; j < kColsPerLane; ++j) acc[c][j] = 0.f;
-
-    for (int d0 = 0; d0 < D; d0 += kTileD) {
-      __syncthreads();  // every thread is done with the previous chunk
-      for (int i = tid; i < kTileC * kTileD; i += kThreads) {
-        const int c = i / kTileD, dd = i % kTileD;
-        xs[c][dd] = (c0 + c < C && d0 + dd < D)
-                        ? to_f32(xe[static_cast<size_t>(c0 + c) * D + d0 + dd])
-                        : 0.f;
-      }
-      __syncthreads();
-      const int dn = min(kTileD, D - d0);
-      for (int dd = warp * kRowsPerStep; dd < dn;
-           dd += kWarps * kRowsPerStep) {
-        float wv[kRowsPerStep][kColsPerLane];
-#pragma unroll
-        for (int r = 0; r < kRowsPerStep; ++r) {
-          const bool d_ok = dd + r < dn;
-          const T* wrow = we + static_cast<size_t>(d0 + dd + r) * F + f0 + lane;
-#pragma unroll
-          for (int j = 0; j < kColsPerLane; ++j)
-            wv[r][j] = (d_ok && f_ok[j]) ? to_f32(wrow[j * kLanes]) : 0.f;
-        }
-#pragma unroll
-        for (int c = 0; c < kTileC; ++c) {
-          // rows past D were staged as 0, so the masked w values meet 0s
-          const float4 xv = *reinterpret_cast<const float4*>(&xs[c][dd]);
-#pragma unroll
-          for (int j = 0; j < kColsPerLane; ++j) {
-            acc[c][j] += xv.x * wv[0][j];
-            acc[c][j] += xv.y * wv[1][j];
-            acc[c][j] += xv.z * wv[2][j];
-            acc[c][j] += xv.w * wv[3][j];
-          }
-        }
-      }
-    }
-    // Sum the warps' partials. The next row tile writes `part` only after
-    // the barrier at the top of its first contraction chunk.
-#pragma unroll
-    for (int c = 0; c < kTileC; ++c)
-#pragma unroll
-      for (int j = 0; j < kColsPerLane; ++j)
-        part[warp][c][lane + j * kLanes] = acc[c][j];
-    __syncthreads();
-    for (int i = tid; i < kTileC * kTileF; i += kThreads) {
-      const int c = i / kTileF, fl = i % kTileF;
-      if (c0 + c < C && f0 + fl < F) {
-        float s = 0.f;
-#pragma unroll
-        for (int k = 0; k < kWarps; ++k) s += part[k][c][fl];
-        oe[static_cast<size_t>(c0 + c) * F + f0 + fl] = from_f32<T>(s);
-      }
-    }
+  for (int j = 0; j < (kVecs + T - 1) / T; ++j) {
+    const int i = j * T + tid;
+    if (kVecs % T != 0 && i >= kVecs) break;
+    const int kk = i / (R / 4), c = i % (R / 4) * 4;
+    const bool ok = k0 + kk < K && r0 + c < rows;
+    cp_async16(dst + kk * (R + kFPad) + c,
+               ok ? src + static_cast<size_t>(k0 + kk) * rows + r0 + c : src,
+               ok);
   }
 }
 
-// f32 backward on the CUDA cores: out[e] (M x N) = A[e] (M x K) x B[e]
-// (K x N), for dx = dy w^T (A = dy [C,f], B = w [d,f] read as [N,K]) and
-// dw = x^T dy (A = x [C,d] read as [K,M], B = dy [C,f]). A is stored
-// [M][K] or, kAmn, [K][M]; B is stored [N][K] or, kBmn, [K][N].
-//   * One block per (64 x 64 output tile, expert); 16 x 16 threads, each
-//     4 x 4 outputs 16 apart, so a warp's shared-memory reads are
-//     broadcasts or consecutive words.
-//   * The contraction runs in chunks of 16 staged in shared memory as
-//     [k][m] and [k][n], rows padded to 65 words, so that a warp storing
-//     a K-major operand (k varying fastest) conflicts at most two ways.
-//     Global loads run along each operand's contiguous dim, so they
-//     coalesce in both layouts.
-//   * Every output is one thread's sum in a fixed k order: no atomics, two
-//     calls agree bit for bit, and an expert whose rows are all zero gets
-//     exact zeros.
-constexpr int kGT = 64;                        // output tile, rows and cols
-constexpr int kGK = 16;                        // contraction chunk
-constexpr int kGThreads = 256;
+// A K-contiguous operand ([rows][K], K a multiple of 4): a thread loads
+// its 16-byte pieces of the next chunk into registers (`load`) and stores
+// them transposed into dst [kFK][R + kFPad] (`store`), one piece at a
+// time (two a thread at R = 128: one for each half of the chunk's FMAs,
+// so that a piece holds four registers, not eight). Piece i is row i / 4,
+// k 4 (i % 4): four neighbouring threads read a row's 64 bytes, a warp 8
+// rows; its transposed stores conflict at most two ways (pieces 0 and 2
+// of a row share banks).
+template <int R, int T>
+struct KMajor {
+  static constexpr int kVecs = R * kFK / 4;
+  static constexpr int kN = (kVecs + T - 1) / T;     // pieces a thread
+  float4 v;
 
-template <bool kAmn, bool kBmn>
-__global__ void __launch_bounds__(kGThreads)
-moe_gemm_bwd_kernel(const float* __restrict__ a, const float* __restrict__ b,
+  __device__ __forceinline__ void load(int j, const float* src, int rows,
+                                       int K, int r0, int k0, int tid) {
+    static_assert(kN <= 2, "a piece for each half of a chunk");
+    const int i = j * T + tid;
+    const int r = r0 + i / (kFK / 4), k = k0 + i % (kFK / 4) * 4;
+    v = (i < kVecs && r < rows && k < K)
+            ? __ldg(reinterpret_cast<const float4*>(
+                  src + static_cast<size_t>(r) * K + k))
+            : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  __device__ __forceinline__ void store(int j, float* dst, int tid) const {
+    const int i = j * T + tid;
+    if (kVecs % T != 0 && i >= kVecs) return;
+    float* d = dst + i % (kFK / 4) * 4 * (R + kFPad) + i / (kFK / 4);
+    d[0] = v.x;
+    d[R + kFPad] = v.y;
+    d[2 * (R + kFPad)] = v.z;
+    d[3 * (R + kFPad)] = v.w;
+  }
+};
+
+template <int kRows, bool kAmn, bool kBmn>
+__global__ void __launch_bounds__(256, 2)
+moe_gemm_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
                     float* __restrict__ out, int M, int N, int K) {
-  __shared__ float as[kGK][kGT + 1];
-  __shared__ float bs[kGK][kGT + 1];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int m0 = blockIdx.x * kGT, n0 = blockIdx.y * kGT, e = blockIdx.z;
+  using L = F32Tile<kRows>;
+  constexpr int kTM = 4 * L::kSubM, kTN = 4 * L::kSubN;  // a thread's tile
+  constexpr int kPA = L::kBM + kFPad, kPB = L::kBN + kFPad;  // row pitch
+  // the ring, in dynamic shared memory (f32_smem_bytes): one buffer (two
+  // static arrays compiled to a slower dx)
+  extern __shared__ __align__(16) float smem_f32[];
+  float* const as = smem_f32;                     // [S][kFK][kPA]
+  float* const bs = as + kFStages * kFK * kPA;    // [S][kFK][kPB]
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  // row tiles vary fastest: the blocks that share a B tile run together
+  const int m0 = blockIdx.x * L::kBM, n0 = blockIdx.y * L::kBN;
+  const int e = blockIdx.z;
   const float* ae = a + static_cast<size_t>(e) * M * K;
   const float* be = b + static_cast<size_t>(e) * K * N;
+  // this thread's outputs: rows am + s kWM / kSubM + {0..3}, columns
+  // bn + s kWN / kSubN + {0..3} of the block's tile
+  const int am = warp % L::kWarpsM * L::kWM + lane / L::kLanesN * 4;
+  const int bn = warp / L::kWarpsM * L::kWN + lane % L::kLanesN * 4;
+  const int nk = (K + kFK - 1) / kFK;
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  constexpr int T = L::kThreads;
+  KMajor<L::kBM, T> ra;   // used where A is K-contiguous
+  KMajor<L::kBN, T> rb;   // and B
+  // cp.async of the MN-contiguous operands' chunk kt, one group a chunk
+  auto stage_async = [&](int kt) {
+    if (kt < nk) {
+      if constexpr (kAmn)
+        stage_mn<L::kBM, T>(as + kt % kFStages * kFK * kPA, ae, M, K, m0,
+                            kt * kFK, tid);
+      if constexpr (kBmn)
+        stage_mn<L::kBN, T>(bs + kt % kFStages * kFK * kPB, be, N, K, n0,
+                            kt * kFK, tid);
+    }
+    cp_async_commit();
+  };
 
-  for (int k0 = 0; k0 < K; k0 += kGK) {
-    __syncthreads();  // every thread is done with the previous chunk
-    for (int i = threadIdx.x; i < kGK * kGT; i += kGThreads) {
-      const int kk = kAmn ? i / kGT : i % kGK;
-      const int mm = kAmn ? i % kGT : i / kGK;
-      const int m = m0 + mm, k = k0 + kk;
-      as[kk][mm] = (m < M && k < K)
-                       ? ae[kAmn ? static_cast<size_t>(k) * M + m
-                                 : static_cast<size_t>(m) * K + k]
-                       : 0.f;
+  float acc[kTM][kTN];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+
+  for (int s = 0; s < kFStages - 1; ++s) stage_async(s);
+  for (int j = 0; j < 2; ++j) {
+    if constexpr (!kAmn) {
+      if (j < ra.kN) {
+        ra.load(j, ae, M, K, m0, 0, tid);
+        ra.store(j, as, tid);
+      }
     }
-    for (int i = threadIdx.x; i < kGK * kGT; i += kGThreads) {
-      const int kk = kBmn ? i / kGT : i % kGK;
-      const int nn = kBmn ? i % kGT : i / kGK;
-      const int n = n0 + nn, k = k0 + kk;
-      bs[kk][nn] = (n < N && k < K)
-                       ? be[kBmn ? static_cast<size_t>(k) * N + n
-                                 : static_cast<size_t>(n) * K + k]
-                       : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kGK; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = as[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    if constexpr (!kBmn) {
+      if (j < rb.kN) {
+        rb.load(j, be, N, K, n0, 0, tid);
+        rb.store(j, bs, tid);
+      }
     }
   }
+  for (int kt = 0; kt < nk; ++kt) {
+    // chunk kt is in shared memory, and every thread is done with the
+    // stage that the next chunk overwrites (read in iteration kt - 1)
+    cp_async_wait<kFStages - 2>();
+    __syncthreads();
+    stage_async(kt + kFStages - 1);
+    const bool next = kt + 1 < nk;
+    const int k1 = (kt + 1) * kFK, st1 = (kt + 1) % kFStages;
+    const float* at = as + kt % kFStages * kFK * kPA + am;
+    const float* bt = bs + kt % kFStages * kFK * kPB + bn;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // piece h of the next chunk of each K-contiguous operand: loaded
+      // before this half chunk's FMAs, stored after them
+      if constexpr (!kAmn)
+        if (next && h < ra.kN) ra.load(h, ae, M, K, m0, k1, tid);
+      if constexpr (!kBmn)
+        if (next && h < rb.kN) rb.load(h, be, N, K, n0, k1, tid);
+#pragma unroll
+      for (int k = h * kFK / 2; k < (h + 1) * kFK / 2; ++k) {
+        float av[kTM], bv[kTN];
+#pragma unroll
+        for (int s = 0; s < L::kSubM; ++s) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              at + k * kPA + s * (L::kWM / L::kSubM));
+          av[4 * s] = v.x, av[4 * s + 1] = v.y;
+          av[4 * s + 2] = v.z, av[4 * s + 3] = v.w;
+        }
+#pragma unroll
+        for (int s = 0; s < L::kSubN; ++s) {
+          const float4 v = *reinterpret_cast<const float4*>(
+              bt + k * kPB + s * (L::kWN / L::kSubN));
+          bv[4 * s] = v.x, bv[4 * s + 1] = v.y;
+          bv[4 * s + 2] = v.z, bv[4 * s + 3] = v.w;
+        }
+        // a thread's row i runs its columns forward for even i, backward
+        // for odd, so that consecutive FMAs share an operand register
+#pragma unroll
+        for (int i = 0; i < kTM; ++i)
+#pragma unroll
+          for (int jj = 0; jj < kTN; ++jj) {
+            const int j = i % 2 ? kTN - 1 - jj : jj;
+            acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+          }
+      }
+      if constexpr (!kAmn)
+        if (next && h < ra.kN)
+          ra.store(h, as + st1 * kFK * kPA, tid);
+      if constexpr (!kBmn)
+        if (next && h < rb.kN)
+          rb.store(h, bs + st1 * kFK * kPB, tid);
+    }
+  }
+  cp_async_wait<0>();   // no copy in flight at exit (the last are empty)
+
   float* oe = out + static_cast<size_t>(e) * M * N;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
+  for (int i = 0; i < kTM; ++i) {
+    const int m = m0 + am + i / 4 * (L::kWM / L::kSubM) + i % 4;
     if (m >= M) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < N) oe[static_cast<size_t>(m) * N + n] = acc[i][j];
+    for (int s = 0; s < L::kSubN; ++s) {
+      const int n = n0 + bn + s * (L::kWN / L::kSubN);
+      if (n < N)    // N is a multiple of 4: a float4 is all in or all out
+        *reinterpret_cast<float4*>(oe + static_cast<size_t>(m) * N + n) =
+            make_float4(acc[i][4 * s], acc[i][4 * s + 1], acc[i][4 * s + 2],
+                        acc[i][4 * s + 3]);
     }
   }
 }
@@ -987,7 +1088,7 @@ moe_gemm_dw_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
 }
 
 // ------------------------------------------------------- host side
-constexpr int kErrLayout = -1;    // d or f not a multiple of 8, or unaligned
+constexpr int kErrLayout = -1;    // d or f not 16-byte rows, or unaligned
 constexpr int kErrEntry = -2;     // cuTensorMapEncodeTiled not found
 constexpr int kErrTensorMap = -3; // cuTensorMapEncodeTiled refused a map
 constexpr int kErrTiles = -4;     // more tiles than an int counts
@@ -1158,31 +1259,25 @@ int launch_bwd_wgmma(const void* a, const void* b, void* out, int E, int C,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kDw>
-int launch_bwd_f32(const void* a, const void* b, void* out, int E, int C,
-                   int D, int F, cudaStream_t stream) {
-  const int M = kDw ? D : C, N = kDw ? F : D, K = kDw ? C : F;
-  const dim3 grid((M + kGT - 1) / kGT, (N + kGT - 1) / kGT, E);
-  moe_gemm_bwd_kernel<kDw, kDw><<<grid, kGThreads, 0, stream>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<float*>(out), M, N, K);
-  return static_cast<int>(cudaGetLastError());
-}
-
-bool bf16_layout_ok(const void* a, const void* b, const void* out, int D,
-                    int F) {
-  return D % 8 == 0 && F % 8 == 0 &&
+// Rows a multiple of `align` elements (16 bytes) and 16-byte-aligned
+// operands and output: what TMA (bf16) and cp.async and float4 (f32) need.
+bool layout_ok(const void* a, const void* b, const void* out, int D, int F,
+               int align) {
+  return D % align == 0 && F % align == 0 &&
          ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
            reinterpret_cast<uintptr_t>(out)) & 15) == 0;
 }
 
-int launch_f32(const void* x, const void* w, void* out, int E, int C, int D,
-               int F, cudaStream_t stream) {
-  const dim3 grid((F + kTileF - 1) / kTileF, E);
-  const dim3 block(kLanes, kWarps);
-  moe_gemm_kernel<float><<<grid, block, 0, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<float*>(out), C, D, F);
+// One launch of moe_gemm_f32_kernel: out[e] (M x N) = A[e] x B[e] over K.
+template <int kRows, bool kAmn, bool kBmn>
+int launch_f32(const void* a, const void* b, void* out, int E, int M, int N,
+               int K, cudaStream_t stream) {
+  using L = F32Tile<kRows>;
+  const dim3 grid((M + L::kBM - 1) / L::kBM, (N + L::kBN - 1) / L::kBN, E);
+  moe_gemm_f32_kernel<kRows, kAmn, kBmn>
+      <<<grid, L::kThreads, f32_smem_bytes<kRows>(), stream>>>(
+          static_cast<const float*>(a), static_cast<const float*>(b),
+          static_cast<float*>(out), M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1190,20 +1285,33 @@ int launch_f32(const void* x, const void* w, void* out, int E, int C, int D,
 
 // Plain C entry points for ctypes. Each launches one kernel on `stream`
 // and returns cudaGetLastError() after the launch (0 = cudaSuccess), or
-// one of the negative codes above; the launch is asynchronous.
-// bf16 needs d and f multiples of 8 and 16-byte-aligned operands and
-// outputs.
+// one of the negative codes above; the launch is asynchronous. Every
+// entry needs d and f multiples of 16 bytes (8 bf16, 4 f32 elements) and
+// 16-byte-aligned operands and output.
 extern "C" int moe_gemm_bf16(const void* x, const void* w, void* out, int E,
                              int C, int D, int F, void* stream) {
-  if (!bf16_layout_ok(x, w, out, D, F)) return kErrLayout;
+  if (!layout_ok(x, w, out, D, F, 8)) return kErrLayout;
   const auto s = static_cast<cudaStream_t>(stream);
   return C >= 128 ? launch_wgmma<2>(x, w, out, E, C, D, F, s)
                   : launch_wgmma<1>(x, w, out, E, C, D, F, s);
 }
 
+// The f32 forward in 128 x 128 output tiles.
 extern "C" int moe_gemm_f32(const void* x, const void* w, void* out, int E,
                             int C, int D, int F, void* stream) {
-  return launch_f32(x, w, out, E, C, D, F, static_cast<cudaStream_t>(stream));
+  if (!layout_ok(x, w, out, D, F, 4)) return kErrLayout;
+  return launch_f32<128, false, true>(x, w, out, E, C, F, D,
+                                      static_cast<cudaStream_t>(stream));
+}
+
+// The f32 forward in 16 x 256 output tiles, for few rows an expert
+// (decode): the same sums in the same order as moe_gemm_f32.
+extern "C" int moe_gemm_f32_narrow(const void* x, const void* w, void* out,
+                                   int E, int C, int D, int F,
+                                   void* stream) {
+  if (!layout_ok(x, w, out, D, F, 4)) return kErrLayout;
+  return launch_f32<16, false, true>(x, w, out, E, C, F, D,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 // The backward, for the forward's x [E,C,D], w [E,D,F] and the output
@@ -1211,7 +1319,7 @@ extern "C" int moe_gemm_f32(const void* x, const void* w, void* out, int E,
 extern "C" int moe_gemm_bwd_dx_bf16(const void* dy, const void* w, void* dx,
                                     int E, int C, int D, int F,
                                     void* stream) {
-  if (!bf16_layout_ok(dy, w, dx, D, F)) return kErrLayout;
+  if (!layout_ok(dy, w, dx, D, F, 8)) return kErrLayout;
   return launch_bwd_wgmma<false>(dy, w, dx, E, C, D, F,
                                  static_cast<cudaStream_t>(stream));
 }
@@ -1219,28 +1327,30 @@ extern "C" int moe_gemm_bwd_dx_bf16(const void* dy, const void* w, void* dx,
 extern "C" int moe_gemm_bwd_dw_bf16(const void* x, const void* dy, void* dw,
                                     int E, int C, int D, int F,
                                     void* stream) {
-  if (!bf16_layout_ok(x, dy, dw, D, F)) return kErrLayout;
+  if (!layout_ok(x, dy, dw, D, F, 8)) return kErrLayout;
   return launch_bwd_wgmma<true>(x, dy, dw, E, C, D, F,
                                 static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int moe_gemm_bwd_dx_f32(const void* dy, const void* w, void* dx,
                                    int E, int C, int D, int F, void* stream) {
-  return launch_bwd_f32<false>(dy, w, dx, E, C, D, F,
-                               static_cast<cudaStream_t>(stream));
+  if (!layout_ok(dy, w, dx, D, F, 4)) return kErrLayout;
+  return launch_f32<128, false, false>(dy, w, dx, E, C, D, F,
+                                       static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int moe_gemm_bwd_dw_f32(const void* x, const void* dy, void* dw,
                                    int E, int C, int D, int F, void* stream) {
-  return launch_bwd_f32<true>(x, dy, dw, E, C, D, F,
-                              static_cast<cudaStream_t>(stream));
+  if (!layout_ok(x, dy, dw, D, F, 4)) return kErrLayout;
+  return launch_f32<128, true, true>(x, dy, dw, E, D, F, C,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* moe_gemm_error_string(int code) {
   switch (code) {
     case kErrLayout:
-      return "bf16 moe_gemm needs d and f multiples of 8 and 16-byte-aligned "
-             "operands";
+      return "moe_gemm needs d and f multiples of 16 bytes (8 bf16, 4 f32 "
+             "elements) and 16-byte-aligned operands";
     case kErrEntry:
       return "cuTensorMapEncodeTiled not found";
     case kErrTiles:

@@ -15,10 +15,16 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.moe_gemm import moe_gemm_pallas  # noqa: E402
+from repro_torch.kernels import moe_gemm as mg  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.moe_gemm import moe_gemm  # noqa: E402
 
 MOE_SHAPES = [(4, 64, 128, 256), (8, 128, 256, 128), (3, 100, 96, 72)]
+# the f32 kernel's edges: the contraction under one chunk (d 6, f 7, C 5);
+# d and f not multiples of 4; C not a multiple of the 128- or 16-row tile
+# and just past the narrow route's rows; one contraction piece (d 4)
+F32_EDGE_SHAPES = [(3, 5, 6, 7), (2, 130, 93, 71),
+                   (1, mg.F32_NARROW_MAX_C + 1, 4, 260), (2, 17, 36, 130)]
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-4),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
 
@@ -50,6 +56,76 @@ def test_moe_gemm_matches_jax(shape, dtype):
                              interpret=True)
     for want in (pallas, jref.moe_gemm_ref(jx, jw)):
         np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("shape", F32_EDGE_SHAPES)
+def test_moe_gemm_f32_edges_match_jax(shape):
+    """The plain forward, and the plain forward on the operands padded as
+    the f32 kernel takes them (d and f to multiples of 4) and sliced back,
+    against the Pallas kernel and JAX's oracle at the f32 kernel's edge
+    shapes."""
+    e, c, d, f = shape
+    jdt, tdt, tol = DTYPES["float32"]
+    rng = np.random.RandomState(3)
+    jx, tx = _both(rng.randn(e, c, d) * 0.3, jdt, tdt)
+    jw, tw = _both(rng.randn(e, d, f) * 0.3, jdt, tdt)
+    xp, wp = mg.pad_operands(tx, tw, b_rows=True)
+    assert xp.shape == (e, c, -(-d // 4) * 4)
+    assert wp.shape == (e, xp.shape[2], -(-f // 4) * 4)
+    padded = mg._sliced(ref.moe_gemm_ref(xp, wp), f)
+    assert padded.shape == (e, c, f) and padded.is_contiguous()
+    pallas = moe_gemm_pallas(jx, jw, blk_c=64, blk_d=64, blk_f=64,
+                             interpret=True)
+    for got in (moe_gemm(tx, tw), padded):
+        for want in (pallas, jref.moe_gemm_ref(jx, jw)):
+            np.testing.assert_allclose(_f32(got), _f32(want), rtol=tol,
+                                       atol=tol)
+
+
+@pytest.mark.parametrize("dtype,c,entry", [
+    (torch.float32, 1, "moe_gemm_f32_narrow"),
+    (torch.float32, 16, "moe_gemm_f32_narrow"),
+    (torch.float32, mg.F32_NARROW_MAX_C - 1, "moe_gemm_f32_narrow"),
+    (torch.float32, mg.F32_NARROW_MAX_C, "moe_gemm_f32_narrow"),
+    (torch.float32, mg.F32_NARROW_MAX_C + 1, "moe_gemm_f32"),
+    (torch.float32, 640, "moe_gemm_f32"),
+    (torch.bfloat16, 16, "moe_gemm_bf16"),
+    (torch.bfloat16, 640, "moe_gemm_bf16"),
+])
+def test_moe_gemm_forward_route_by_c(dtype, c, entry):
+    """The C entry point the wrapper launches for the forward: f32 takes
+    16-row tiles up to F32_NARROW_MAX_C rows an expert, 128-row tiles
+    above; bf16 has one entry. Every entry is typed by `load`."""
+    assert mg.forward_entry(dtype, c) == entry
+    assert entry in mg.ENTRIES
+
+
+@pytest.mark.parametrize("dtype,align", [(torch.float32, 4),
+                                         (torch.bfloat16, 8)])
+def test_pad_operands_adds_zeros_only(dtype, align):
+    """16-byte rows for each dtype: d and f up to multiples of 4 (f32) or
+    8 (bf16), zeros only, 16-byte-aligned; `_sliced` cuts an output back,
+    and operands and outputs that fit are passed through as they are."""
+    x = torch.randn(2, 5, 4 * 6 + 1).to(dtype)
+    w = torch.randn(2, 4 * 6 + 1, 13).to(dtype)
+    xp, wp = mg.pad_operands(x, w, b_rows=True)
+    dp, fp = -(-25 // align) * align, -(-13 // align) * align
+    assert xp.shape == (2, 5, dp) and wp.shape == (2, dp, fp)
+    assert torch.equal(xp[..., :25], x) and not xp[..., 25:].any()
+    assert torch.equal(wp[:, :25, :13], w)
+    assert not wp[:, 25:].any() and not wp[..., 13:].any()
+    assert xp.data_ptr() % 16 == 0 and wp.data_ptr() % 16 == 0
+    # dw's operands: x and dy, neither padded along its rows (C)
+    dy = torch.randn(2, 5, 13).to(dtype)
+    xq, dyq = mg.pad_operands(x, dy, b_rows=False)
+    assert xq.shape == (2, 5, dp) and dyq.shape == (2, 5, fp)
+    out = torch.randn(2, dp, fp)
+    cut = mg._sliced(out, 25, 13)
+    assert cut.shape == (2, 25, 13) and cut.is_contiguous()
+    assert torch.equal(cut, out[:, :25, :13])
+    fit_x, fit_w = torch.randn(2, 5, 16).to(dtype), torch.randn(2, 16, 24)
+    xp, wp = mg.pad_operands(fit_x, fit_w.to(dtype), b_rows=True)
+    assert xp is fit_x and mg._sliced(out, dp, fp) is out
 
 
 def test_moe_gemm_expert_isolation():

@@ -24,7 +24,7 @@ from repro_torch.kernels import moe_gemm as mg  # noqa: E402
 from repro_torch.kernels.ref import (moe_gemm_bwd_ref,  # noqa: E402
                                      moe_gemm_dw_ref, moe_gemm_dx_ref)
 from repro_torch.models.moe import capacity  # noqa: E402
-from test_torch_kernels import MOE_SHAPES  # noqa: E402
+from test_torch_kernels import F32_EDGE_SHAPES, MOE_SHAPES  # noqa: E402
 from test_torch_model import _moe_case, _pair  # noqa: E402
 
 # f32: the same f32 products summed in another order. bf16: both sides
@@ -112,6 +112,29 @@ def test_padded_moe_gemm_bwd_matches_jax(shape, dtype):
     tol = DTYPES[dtype][2]
     _close(dx, want_dx, tol)
     _close(dw, want_dw, tol)
+
+
+@pytest.mark.parametrize("shape", F32_EDGE_SHAPES)
+def test_f32_padded_moe_gemm_bwd_matches_jax(shape):
+    """dx and dw at the f32 kernel's edge shapes (the contraction under one
+    chunk: f for dx, C for dw; d and f not multiples of 4; C not a multiple
+    of the tile), against `jax.vjp` of JAX's oracle: the wrappers on the
+    CPU, and the plain gradients on the operands padded as the f32 kernels
+    take them (d and f to multiples of 4) and sliced back."""
+    (jx, tx), (jw, tw), (jdy, tdy) = _operands(shape, "float32", seed=3)
+    want_dx, want_dw = _jax_grads(jx, jw, jdy)
+    _, _, d, f = shape
+    dyp, wp = mg.pad_operands(tdy, tw, b_rows=True)
+    xp, dyp2 = mg.pad_operands(tx, tdy, b_rows=False)
+    assert all(t.shape[-1] % 4 == 0 for t in (dyp, wp, xp, dyp2))
+    assert wp.shape[1] % 4 == 0 and dyp2.shape[1] == shape[1]
+    tol = DTYPES["float32"][2]
+    for dx, dw in ((mg.moe_gemm_bwd_dx(tdy, tw), mg.moe_gemm_bwd_dw(tx, tdy)),
+                   (mg._sliced(moe_gemm_dx_ref(dyp, wp), d),
+                    mg._sliced(moe_gemm_dw_ref(xp, dyp2), d, f))):
+        assert dx.shape == tx.shape and dw.shape == tw.shape
+        _close(dx, want_dx, tol)
+        _close(dw, want_dw, tol)
 
 
 @pytest.mark.parametrize("fn,a,b", [

@@ -16,6 +16,7 @@ The task bodies come from the port's `procs.apps` and `procs.chaos`,
 which the fork server preloads: a body defined in this file would make
 every fresh worker import it (and pytest) on its first task."""
 import dataclasses
+import inspect
 import os
 import pickle
 import subprocess
@@ -750,6 +751,28 @@ def test_device_name_pickles_and_owner_attach_is_the_tensor():
         arr.close_unlink()
     with pytest.raises(ValueError, match="cuda"):
         apps.DeviceArray(4, device="meta")
+
+
+def _stand_in_rebuild(tensor_cls, storage_handle, event_handle):
+    """A `rebuild_cuda_tensor` whose signature lacks the send's counter."""
+
+
+@pytest.mark.parametrize("rebuild", ["installed", "stand-in"])
+def test_send_counter_found_by_name(rebuild):
+    """A CUDA IPC send's reference counter is found by its argument names
+    in the installed torch's `rebuild_cuda_tensor`; a signature without
+    them raises instead of giving back the wrong arguments."""
+    from torch.multiprocessing import reductions
+    if rebuild == "installed":
+        fn = reductions.rebuild_cuda_tensor
+        names = list(inspect.signature(fn).parameters)
+        args = tuple(f"arg {n}" for n in names)
+        assert apps.send_counter(fn, args) == ("arg ref_counter_handle",
+                                               "arg ref_counter_offset")
+    else:
+        with pytest.raises(RuntimeError, match="ref_counter_handle or "
+                                               "ref_counter_offset"):
+            apps.send_counter(_stand_in_rebuild, ("a", "b", "c"))
 
 
 def _dev(n, seed=None, dtype=torch.float64):
