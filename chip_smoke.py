@@ -4,7 +4,8 @@
   python3 chip_smoke.py
   python3 chip_smoke.py --ab PARENT   # moe_gemm, the selective scan,
                                       # the xLSTM scans and their
-                                      # backwards against another checkout
+                                      # backwards, the f32 flash kernels
+                                      # against another checkout
   python3 chip_smoke.py --apps        # phases 1 and 33 alone (the apps;
                                       # no kernel build, no result line)
   python3 chip_smoke.py --procs       # phases 1 and 35 alone (the process
@@ -17,9 +18,12 @@ With `--ab PARENT` (a checkout of another commit, e.g. unpacked from `git
 archive` into a directory `.gitignore` lists) it only compares the
 `moe_gemm` kernels of the two trees (`compare_trees`: bf16; f32 in
 `compare_f32`), their selective
-scans (`compare_scans`), their xLSTM forward scans (`compare_xlstm`) and
-the xLSTM backwards (`compare_xlstm_bwd`), each through its own tree's
-wrapper. With no argument,
+scans (`compare_scans`), their xLSTM forward scans (`compare_xlstm`),
+the xLSTM backwards (`compare_xlstm_bwd`) and the f32 flash forward and
+backward (`compare_flash_f32`: both trees in turns with SDPA at the path
+and whisper encoder shapes, each kernel alone, and a full-width
+qwen2-0.5b f32 train step's flash share under the profiler), each
+through its own tree's wrapper. With no argument,
 phases, in order; any failure raises and exits non-zero (no phase catches
 its own failure):
 
@@ -42,7 +46,9 @@ its own failure):
      kernels' resident blocks an SM, the backward's channels a block and
      the steps between the states the forward keeps; fail unless ptxas
      reports each instantiation of the f32 GEMM `moe_gemm_f32_kernel` (the
-     forward in 128- and 16-row tiles, dx, dw) with no spill;
+     forward in 128- and 16-row tiles, dx, dw) and of the f32 flash
+     kernels (forward, dq, dk/dv and the group sum at hd 16, 64 and 128)
+     with no spill;
   3. `moe_gemm` and its backward kernels (dx, dw) against their plain
      PyTorch versions on the card, in bf16 (wgmma/TMA) and f32 (CUDA
      cores): the qwen2-moe serving path's two shapes, the Jamba prefill's
@@ -85,11 +91,14 @@ its own failure):
      6144, 32:16, hd 128, softcap 50, in bf16 and f32 (the plain versions run a few
      heads at a time where their f32 scores would pass 4 GiB); two
      backward calls on the same inputs give bit-identical dq, dk and dv;
-     times of the kernels, the plain versions and
+     the f32 forward's rows 0-1,023 at the path's shape equal a call on
+     the first 1,024 positions bit for bit, and its batch row 1 a call
+     on that row alone; times of the kernels, the plain versions and
      `scaled_dot_product_attention` (where it computes the same function:
      no window, no softcap) at the path's shape (forward and backward in
-     both dtypes, and the bf16 backward's dq and dk/dv kernels each
-     alone), of the bf16 forward at the Jamba shape, at the whisper
+     both dtypes, and the backward's dq and dk/dv kernels each alone in
+     both, the f32 group sum alone and the f32 dk/dv kernel on its other
+     grid), of the bf16 forward at the Jamba shape, at the whisper
      encoder's and decoder's and at gemma2's prefill shapes, and of the
      bf16 forward and backward at the whisper encoder's and decoder's and
      gemma2's train shapes (S=6144), beside their bounds (the live
@@ -124,7 +133,8 @@ its own failure):
  10. tiny qwen2-0.5b training in f32 on the card: the loss falls over 24
      steps, and a resume from the step-24 checkpoint to step 30 equals a
      straight run to step 30; the flash launch counts of these 60 steps
-     (the f32 routes' launches; no moe_gemm);
+     (the f32 routes' launches: a forward and three backward kernels an
+     attention layer; no moe_gemm);
  11. the selective-scan and linear-scan kernels against their plain
      versions, in bf16 and f32: the Jamba prefill path's shape (B=1,
      S=4096, D=8192, N=16), S=4097 with D=8200 beside it, B=2, a ragged S
@@ -454,7 +464,6 @@ MOE_TRAIN_REPEATS = 4                    # of qwen2-moe-a2.7b's 24 layers
 QWEN3 = "qwen3-moe-235b-a22b"            # the zoo's E=128 expert shape
 TRAIN_ARCH = "qwen2-0.5b"
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 6, 4, 2048
-BWD_KERNELS = 2                         # dq, then dk/dv, per backward call
 
 
 class AttnCase(NamedTuple):
@@ -777,7 +786,13 @@ def ptxas_report(lib: Path, only="") -> dict:
                           m.group(1))
             b = re.search(r"(moe_gemm_f32_kernel)ILi(\d+)ELb(\d)ELb(\d)EE",
                           m.group(1))
-            if b:                    # the f32 GEMM: rows a tile, product
+            fl = re.search(r"(flash_\w+?_f32_kernel)ILi(\d+)E(?:Lb(\d)E)?E",
+                           m.group(1))
+            if fl:                   # the f32 flash kernels: hd, dk/dv's grid
+                grid = {None: "", "0": ", a block a q head",
+                        "1": ", a block a kv head"}[fl.group(3)]
+                name = f"{fl.group(1)}<hd {fl.group(2)}{grid}>"
+            elif b:                  # the f32 GEMM: rows a tile, product
                 name = (f"{b.group(1)}<{b.group(2)} rows, "
                         f"{F32_PRODUCTS[b.group(3), b.group(4)]}>")
             elif k:
@@ -812,18 +827,26 @@ def ptxas_report(lib: Path, only="") -> dict:
     return lines
 
 
-def f32_spills(report: dict) -> None:
-    """Fails unless ptxas reports each instantiation of the f32 GEMM
-    (forward in both tiles, dx, dw) with no spill (`report`: ptxas_report's
-    lines of the moe_gemm library)."""
-    f32 = {k: v for k, v in report.items()
-           if k.startswith("moe_gemm_f32_kernel")}
-    assert len(f32) == 4, sorted(f32)
+# the f32 CUDA-core kernels that must not spill: in each library, the name
+# pattern of its f32 kernels and how many instantiations it has (the f32
+# GEMM: the forward in both tiles, dx, dw; the flash kernels: forward, dq,
+# dk/dv and the group sum at hd 16, 64 and 128)
+F32_KERNELS = {"moe_gemm": (r"moe_gemm_f32_kernel", 4),
+               "flash_attention": (r"flash_\w+_f32_kernel", 12)}
+
+
+def f32_spills(report: dict, lib: str) -> None:
+    """Fails unless ptxas reports each f32 CUDA-core instantiation of `lib`
+    (F32_KERNELS) with no spill (`report`: ptxas_report's lines of that
+    library)."""
+    pattern, count = F32_KERNELS[lib]
+    f32 = {k: v for k, v in report.items() if re.match(pattern, k)}
+    assert len(f32) == count, sorted(f32)
     for kname, lines in f32.items():
         assert any("0 bytes spill stores, 0 bytes spill loads" in ln
                    for ln in lines), (kname, lines)
-    print(f"[build]   {len(f32)} instantiations of moe_gemm_f32_kernel: no "
-          f"spills")
+    print(f"[build]   {len(f32)} f32 instantiations of {lib} "
+          f"({', '.join(sorted(f32))}): no spills")
 
 
 def f32_batch_invariance(shape, gen) -> None:
@@ -1206,8 +1229,9 @@ def compare_trees(parent: Path) -> int:
     of the forward, dx and dw of one layer at the MoE and Jamba train
     shapes, beside `torch.bmm` on the same operands and their bound, and
     of the dw K sweep; the f32 kernels likewise (`compare_f32`); then the
-    scans (`compare_scans`, `compare_xlstm`) and the xLSTM backwards
-    (`compare_xlstm_bwd`)."""
+    scans (`compare_scans`, `compare_xlstm`), the xLSTM backwards
+    (`compare_xlstm_bwd`) and the f32 flash kernels
+    (`compare_flash_f32`)."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout
@@ -1315,6 +1339,7 @@ def compare_trees(parent: Path) -> int:
                              "parent_repro_torch")
     compare_xlstm(parent_xls)
     compare_xlstm_bwd(parent_xls)
+    compare_flash_f32(parent, pk.f32_fps, mem_bps)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -1569,6 +1594,131 @@ def compare_xlstm_bwd(parent_xls) -> None:
         torch.cuda.empty_cache()
 
 
+# --ab's f32 flash shapes: the training path's and whisper-base's encoder
+AB_FLASH_CASES = ("path", "whisper encoder")
+
+
+def compare_flash_f32(parent: Path, f32_fps: float, mem_bps: float) -> None:
+    """`--ab`'s f32 flash attention: the parent's wrapper (its package
+    imported beside this one as `parent_repro_torch`, building its own
+    flash_attention.cu) and this tree's at AB_FLASH_CASES: the change's o,
+    lse, dq, dk and dv against the parent's within the f32 tolerances (the
+    sums' order differs, so not bit for bit); the forward, the whole
+    backward and the dq and dk/dv kernels each alone of both trees in turns
+    (the first two with SDPA's f32 forward and backward), beside the
+    bounds, and the change's group sum alone; then a full-width qwen2-0.5b
+    f32 train step under the profiler on each tree
+    (`ab_f32_train_step`)."""
+    pfa = tree_module(parent, "kernels.flash_attention", "parent_repro_torch")
+    trees = {"parent": pfa, "change": fa}
+    # the parent's f32 backward is dq then dk/dv; the change adds the sum
+    entries = {"parent": ("flash_attention_bwd_dq",
+                          "flash_attention_bwd_dkdv"),
+               "change": fa._BWD_ENTRIES[:fa.BWD_LAUNCHES[torch.float32]]}
+    gen = torch.Generator("cuda").manual_seed(7)
+    for label in AB_FLASH_CASES:
+        case = ATTN_CASES[label]
+        kw = case.kw
+        q, k, v, do = attn_inputs(case, torch.float32, gen)
+        outs = {tag: m.flash_attention_fwd(q, k, v, **kw)
+                for tag, m in trees.items()}
+        grads = {tag: m.flash_attention_bwd(q, k, v, *outs[tag], do, **kw)
+                 for tag, m in trees.items()}
+        torch.cuda.synchronize()
+        errs = {}
+        for name, tol, got, want in (
+                ("o", FLASH_TOL_O[torch.float32], outs["change"][0],
+                 outs["parent"][0]),
+                ("lse", FLASH_TOL_LSE, outs["change"][1], outs["parent"][1]),
+                *((f"d{x}", FLASH_TOL_G[torch.float32], g, w)
+                  for x, g, w in zip("qkv", grads["change"],
+                                     grads["parent"]))):
+            torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+            errs[name] = (got - want).abs().max().item()
+        print(f"[ab] f32 flash {label} {case}: change vs parent max |diff| "
+              + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+              + " (within the f32 tolerances, |diff| <= tol * (1 + "
+              "|parent|); not bit for bit: the sums' order changed)")
+        o, lse = outs["change"]
+        args = {tag: m._bwd_args(q, k, v, o, lse, do, **kw)
+                for tag, m in trees.items()}
+        for tag, m in trees.items():          # D and the partials, once
+            for entry in entries[tag]:
+                m._launch(entry, args[tag][0], q)
+        qs, ks, vs = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        dos = do.transpose(1, 2).contiguous()
+        sdpa = sdpa_fn(case, qs, ks, vs)
+        so = sdpa()
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                sdpa()
+        stat = 4 * lse.numel()
+        qb, kvb = 4 * q.numel(), 4 * (k.numel() + v.numel())
+        for which, fns, products, nbytes in (
+                ("forward", {
+                    **{tag: (lambda m=m: m.flash_attention_fwd(q, k, v, **kw))
+                       for tag, m in trees.items()},
+                    "SDPA": sdpa_fwd}, 2, 2 * qb + kvb + stat),
+                ("backward", {
+                    **{tag: (lambda m=m: m.flash_attention_bwd(
+                        q, k, v, o, lse, do, **kw))
+                       for tag, m in trees.items()},
+                    "SDPA": lambda: torch.autograd.grad(
+                        so, (qs, ks, vs), dos, retain_graph=True)},
+                 5, 4 * qb + 2 * kvb + stat),
+                ("dq kernel", {
+                    tag: (lambda m=m, a=args[tag][0]: m._launch(
+                        "flash_attention_bwd_dq", a, q))
+                    for tag, m in trees.items()}, 3, 3 * qb + kvb + 2 * stat),
+                ("dk/dv kernel", {
+                    tag: (lambda m=m, a=args[tag][0]: m._launch(
+                        "flash_attention_bwd_dkdv", a, q))
+                    for tag, m in trees.items()},
+                 4, 2 * qb + 2 * kvb + 2 * stat)):
+            runs = [time_turns(fns) for _ in range(2)]
+            bms, by = attn_bound(case, products, nbytes, f32_fps, mem_bps)
+            print(f"[ab] f32 flash {which} {label}, ms (two runs of 20 calls "
+                  f"each in turns): " + "; ".join(
+                      ", ".join(f"{tag} {ms:.4f}" for tag, ms in t.items())
+                      + f" (change / parent {t['change'] / t['parent']:.4f})"
+                      for t in runs)
+                  + f"; bound {bms:.4f} ms ({by}); change at "
+                  f"{100 * bms / runs[-1]['change']:.1f}% of the bound; card "
+                  f"just after: {card_state()}")
+        ms = time_ms(lambda: fa._launch("flash_attention_bwd_sum",
+                                        args["change"][0], q))
+        print(f"[ab] f32 flash group sum {label} (the change's third "
+              f"launch): {ms:.4f} ms")
+        del q, k, v, do, outs, grads, o, lse, args, qs, ks, vs, dos, sdpa, so
+        torch.cuda.empty_cache()
+    ab_f32_train_step(pfa)
+
+
+def ab_f32_train_step(parent_fa) -> None:
+    """`--ab`: full-width qwen2-0.5b train steps in f32 (B=TRAIN_BATCH x
+    S=TRAIN_SEQ) under the profiler, on this tree (`profile_train`, its
+    wrappers' counts exact) and once with the parent's flash wrappers in
+    place of this tree's: flash's share of device busy on each."""
+    cfg = get_config(TRAIN_ARCH).scaled(dtype="float32")
+    batch = TRAIN_BATCH
+    mine = profile_train(cfg, batch, TRAIN_SEQ)
+    saved = fa.flash_attention_fwd, fa.flash_attention_bwd
+    fa.flash_attention_fwd = parent_fa.flash_attention_fwd
+    fa.flash_attention_bwd = parent_fa.flash_attention_bwd
+    try:
+        theirs = profile_train(cfg, batch, TRAIN_SEQ, counted=False)
+    finally:
+        fa.flash_attention_fwd, fa.flash_attention_bwd = saved
+    print(f"[ab] full-width {TRAIN_ARCH} f32 train step, B={batch} "
+          f"S={TRAIN_SEQ}, ms/step: " + "; ".join(
+              f"{tag} wall {r['wall_ms']:.3f}, device busy {r['busy_ms']:.3f}"
+              f", flash {r['flash_ms']:.3f} "
+              f"({r['flash_ms'] / r['busy_ms']:.3f} of busy)"
+              for tag, r in (("change", mine), ("parent", theirs))))
+
+
 def attn_inputs(case: AttnCase, dtype, gen):
     b, s, nq, nkv, hd = case[:5]
     t = case.t or s
@@ -1761,11 +1911,13 @@ def time_fwd(label, dtype, gen, flops_peak, mem_bps, plain_reps) -> dict:
 
 
 def time_bwd(label, dtype, gen, flops_peak, mem_bps, plain_reps) -> dict:
-    """The backward at ATTN_CASES[label]: the two kernels, the plain
-    version and SDPA's backward alone (autograd.grad on a retained graph)
-    where SDPA computes the same function, beside the bound of its 5
-    products; in bf16 also the dq and dk/dv kernels each alone beside the
-    bounds of their 3 and 4 products, and SDPA's forward + backward."""
+    """The backward at ATTN_CASES[label]: its kernels (`fa.BWD_LAUNCHES`
+    of the dtype), the plain version and SDPA's backward alone
+    (autograd.grad on a retained graph) where SDPA computes the same
+    function, beside the bound of its 5 products; the dq and dk/dv kernels
+    each alone beside the bounds of their 3 and 4 products, in f32 also
+    the group sum alone (bound by its bytes); in bf16 SDPA's forward +
+    backward."""
     case = ATTN_CASES[label]
     q, k, v, do = attn_inputs(case, dtype, gen)
     o, lse = flash_attention_fwd(q, k, v, **case.kw)
@@ -1798,30 +1950,35 @@ def time_bwd(label, dtype, gen, flops_peak, mem_bps, plain_reps) -> dict:
           f"backward {lib}, bound {t['bound_ms']:.4f} ms "
           f"({t['bound_by']}); kernels at "
           f"{100 * t['bound_ms'] / t['ms']:.2f}% of the bound")
-    if dtype == torch.bfloat16:
-        args, _alive, _ = fa._bwd_args(q, k, v, o, lse, do, **case.kw)
-        fa._launch("flash_attention_bwd_dq", args, q)   # D for dk/dv alone
-        # dq: q, k, v, o, do, lse read; dq, D written. dk/dv: q, k, v, do,
-        # lse, D read; dk, dv written.
-        for name, products, nbytes in (
-                ("dq", 3, 3 * qb + kvb + 2 * stat),
-                ("dkdv", 4, 2 * qb + 2 * kvb + 2 * stat)):
-            ms = time_ms(lambda: fa._launch(f"flash_attention_bwd_{name}",
-                                            args, q))
-            bms, by = attn_bound(case, products, nbytes, flops_peak,
-                                 mem_bps)
-            t[name] = {"ms": ms, "bound_ms": bms, "bound_by": by}
-            print(f"[time]   {name} kernel alone: {ms:.4f} ms, bound of its "
-                  f"{products} products {bms:.4f} ms ({by}), "
-                  f"{100 * bms / ms:.2f}% of it")
-        print(f"[time]   the two kernels recompute S and dP (7 products in "
-              f"all, no atomics): their own ceiling is "
-              f"{t['bound_ms'] * 7 / 5:.4f} ms, the backward at "
-              f"{100 * t['bound_ms'] * 7 / 5 / t['ms']:.2f}% of it")
-        del args, _alive
-        if sdpa is not None:
-            t["sdpa_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
-                sdpa(), (qs, ks, vs), dos))
+    args, alive, grads = fa._bwd_args(q, k, v, o, lse, do, **case.kw)
+    for entry in fa._BWD_ENTRIES[:fa.BWD_LAUNCHES[dtype]]:
+        fa._launch(entry, args, q)           # D, and the f32 partials
+    # dq: q, k, v, o, do, lse read; dq, D written. dk/dv: q, k, v, do, lse,
+    # D read; dk, dv written (f32: each query head's partials, nq / nkv
+    # times dk and dv's bytes). The f32 sum: the partials read, dk and dv
+    # written.
+    f32 = dtype == torch.float32
+    written = kvb * case.nq // case.nkv if f32 else kvb
+    kernels = [("dq", 3, 3 * qb + kvb + 2 * stat),
+               ("dkdv", 4, 2 * qb + kvb + written + 2 * stat)]
+    if f32:
+        kernels.append(("sum", 0, written + kvb))
+    for name, products, nbytes in kernels:
+        entry = f"flash_attention_bwd_{name}"
+        ms = time_ms(lambda: fa._launch(entry, args, q))
+        bms, by = attn_bound(case, products, nbytes, flops_peak, mem_bps)
+        t[name] = {"ms": ms, "bound_ms": bms, "bound_by": by}
+        print(f"[time]   {name} kernel alone: {ms:.4f} ms, bound of its "
+              f"{products} products and {nbytes / 1e6:.1f} MB {bms:.4f} ms "
+              f"({by}), {100 * bms / ms:.2f}% of it")
+    print(f"[time]   the kernels recompute S and dP (7 products in all, no "
+          f"atomics): their own ceiling is {t['bound_ms'] * 7 / 5:.4f} ms, "
+          f"the backward at {100 * t['bound_ms'] * 7 / 5 / t['ms']:.2f}% of "
+          f"it")
+    del args, alive, grads
+    if dtype == torch.bfloat16 and sdpa is not None:
+        t["sdpa_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            sdpa(), (qs, ks, vs), dos))
     del q, k, v, do, o, lse, qs, ks, vs, dos, sdpa
     torch.cuda.empty_cache()
     return t
@@ -1866,6 +2023,34 @@ def time_flash(gen, bf16_fps, f32_fps, mem_bps) -> dict:
     return out
 
 
+# the f32 forward's rows that `check_f32_rows` calls again alone
+F32_ROWS = 1024
+
+
+def check_f32_rows(gen) -> None:
+    """The f32 forward at the path shape: its rows 0 .. F32_ROWS-1 equal,
+    bit for bit (o and lse), a call on the first F32_ROWS positions, and
+    its batch row 1 a call on that row alone: a row's result does not
+    depend on S or B (the tiny f32 checks compare calls of other
+    shapes)."""
+    case = ATTN_CASES["path"]
+    q, k, v, _ = attn_inputs(case, torch.float32, gen)
+    o, lse = flash_attention_fwd(q, k, v, **case.kw)
+    n = F32_ROWS
+    o_s, lse_s = flash_attention_fwd(q[:, :n], k[:, :n], v[:, :n], **case.kw)
+    o_b, lse_b = flash_attention_fwd(q[1:2], k[1:2], v[1:2], **case.kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o[:, :n], o_s) and torch.equal(lse[..., :n], lse_s), \
+        "f32 forward rows depend on S"
+    assert torch.equal(o[1:2], o_b) and torch.equal(lse[1:2], lse_b), \
+        "f32 forward rows depend on B"
+    print(f"[check] flash_attention f32 forward at {case}: rows 0-{n - 1} "
+          f"equal a call on the first {n} positions and batch row 1 a call "
+          f"on it alone, bit for bit (o and lse)")
+    del q, k, v, o, lse, o_s, lse_s, o_b, lse_b
+    torch.cuda.empty_cache()
+
+
 # kernel-name substrings -> the group a train step's device time is
 # summed under (first match wins)
 KERNEL_GROUPS = (("moe_gemm backward", ("moe_gemm_dx", "moe_gemm_dw",
@@ -1883,7 +2068,7 @@ KERNEL_GROUPS = (("moe_gemm backward", ("moe_gemm_dx", "moe_gemm_dw",
 
 
 def profile_train(cfg, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
-                  n_steps: int = 2) -> dict:
+                  n_steps: int = 2, counted: bool = True) -> dict:
     """Full-width train steps of `batch` x `seq` (an encoder-decoder's
     over the zero frames its forward makes when given none, as `train()`
     gives them): host wall per step without
@@ -1892,7 +2077,9 @@ def profile_train(cfg, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
     last), then device busy time per step by kernel and by group under
     torch.profiler, with the wrappers' launch counts set to 0 just before
     that window and read just after: they must be `train_step_counts`
-    exactly; the profiler's flash records are printed beside them."""
+    exactly; the profiler's flash records (the kernels of the config's
+    dtype, FLASH_KERNELS) are printed beside them. `counted=False` (the
+    parent's flash wrappers swapped in, `--ab`) skips the counts."""
     model = get_model(cfg, "cuda")
     params = model.init_params(torch.Generator("cuda").manual_seed(1))
     opt = init_opt_state(params)
@@ -1943,11 +2130,17 @@ def profile_train(cfg, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
     print_groups(rows, "ms/step (launches/step)")
     for ms, count, key in rows[:12]:
         print(f"[profile]   {ms:8.4f} ms/step {count:6.1f}x  {key[:90]}")
+    result = {"wall_ms": wall, "busy_ms": busy, "flash_ms": attn}
+    if not counted:
+        del model, params, opt, step_fn, batches, prof
+        gc.collect()
+        torch.cuda.empty_cache()
+        return result
     # The exact gate is the wrappers' counts around the profiled steps: the
     # profiler can drop kernel records (1 of 48 flash forwards has gone
-    # missing from a window). The bf16 step runs only the tensor-core
-    # flash kernels, one of each an attention layer: the profiler may see
-    # fewer, never more, and no CUDA-core flash kernel.
+    # missing from a window). A step runs only the flash kernels of its
+    # dtype's route, one of each an attention layer: the profiler may see
+    # fewer, never more, and none of the other route's.
     per_step = train_step_counts(cfg)
     assert counts == {k: v * n_steps for k, v in per_step.items()}, \
         (counts, per_step)
@@ -1958,8 +2151,7 @@ def profile_train(cfg, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
             flash[m.group(1)] = flash.get(m.group(1), 0) + round(
                 count * n_steps)
     n_attn = n_steps * forward_counts(cfg)["flash_attention"]
-    want = {"flash_fwd_mma_kernel": n_attn, "flash_bwd_dq_mma_kernel": n_attn,
-            "flash_bwd_dkdv_mma_kernel": n_attn}
+    want = {k: n_attn for k in FLASH_KERNELS[cfg.torch_dtype]}
     dropped = {k: n - flash.get(k, 0) for k, n in want.items()}
     print(f"[profile] flash launches over the {n_steps} profiled steps: "
           f"wrappers {counts['flash_attention']} forward, "
@@ -1970,7 +2162,7 @@ def profile_train(cfg, batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
     del model, params, opt, step_fn, batches, prof
     gc.collect()
     torch.cuda.empty_cache()
-    return {"wall_ms": wall, "busy_ms": busy, "flash_ms": attn}
+    return result
 
 
 def print_groups(rows, unit: str) -> None:
@@ -4180,8 +4372,9 @@ def read_flash_shapes() -> dict:
 
 def train_step_counts(cfg) -> dict:
     """Kernel launches of one train step of `cfg`: three grouped GEMMs a
-    MoE layer, each with its dx and dw; the flash forward and its two
-    backward kernels a self-attention layer (`forward_counts`); the
+    MoE layer, each with its dx and dw; the flash forward and its
+    backward kernels (`fa.BWD_LAUNCHES` of the config's dtype: two in bf16,
+    three in f32) a self-attention layer (`forward_counts`); the
     selective scan, its backward and the backward's second pass a Mamba
     layer; the mLSTM scan and its four backward kernels an mLSTM layer;
     the trail-keeping sLSTM scan and its backward an sLSTM layer."""
@@ -4190,7 +4383,8 @@ def train_step_counts(cfg) -> dict:
     mamba, mlstm, slstm = (fwd["selective_scan"], fwd["mlstm_scan"],
                            fwd["slstm_scan"])
     return {"moe_gemm": moe, "moe_gemm_bwd_dx": moe, "moe_gemm_bwd_dw": moe,
-            "flash_attention": attn, "flash_attention_bwd": BWD_KERNELS * attn,
+            "flash_attention": attn,
+            "flash_attention_bwd": fa.BWD_LAUNCHES[cfg.torch_dtype] * attn,
             "selective_scan": mamba, "selective_scan_bwd": mamba,
             "selective_scan_bwd_reduce": mamba, "mlstm_scan": mlstm,
             "mlstm_scan_bwd_prep": mlstm, "mlstm_scan_bwd_state": mlstm,
@@ -4311,8 +4505,15 @@ def jamba_train_path() -> dict:
                        "sel_scan_bwd_reduce_kernel") + MOE_KERNELS)
 
 
-FLASH_KERNELS = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
-                 "flash_bwd_dkdv_mma_kernel")
+# the flash kernels a train step of each dtype launches, one each an
+# attention layer
+FLASH_KERNELS = {torch.bfloat16: ("flash_fwd_mma_kernel",
+                                  "flash_bwd_dq_mma_kernel",
+                                  "flash_bwd_dkdv_mma_kernel"),
+                 torch.float32: ("flash_fwd_f32_kernel",
+                                 "flash_bwd_dq_f32_kernel",
+                                 "flash_bwd_dkdv_f32_kernel",
+                                 "flash_bwd_dkdv_sum_f32_kernel")}
 
 
 def gemma2_train_path() -> dict:
@@ -4326,12 +4527,13 @@ def gemma2_train_path() -> dict:
     assert GEMMA2_TRAIN_SEQ > cfg.sliding_window
     out = train_cell("gemma2-train", cfg, 1, GEMMA2_TRAIN_SEQ,
                      train_only(flash_attention=2, flash_attention_bwd=4),
-                     FLASH_KERNELS)
+                     FLASH_KERNELS[torch.bfloat16])
     local, glob = mixer_layers(cfg)
     out["shapes"] = {which: shape_launches(out["shapes"][which], {
         "gemma2 train local": n * local * TRAIN_STEPS,
         "gemma2 train global": n * glob * TRAIN_STEPS})
-        for which, n in (("forward", 1), ("backward", BWD_KERNELS))}
+        for which, n in (("forward", 1),
+                         ("backward", fa.BWD_LAUNCHES[torch.bfloat16]))}
     print(f"[gemma2-train] flash launches by shape over {TRAIN_STEPS} "
           f"steps: {out['shapes']}")
     return out
@@ -4398,7 +4600,8 @@ def whisper_train_path() -> dict:
     out["shapes"] = {which: shape_launches(out["shapes"][which], {
         "whisper encoder": n * cfg.encoder_layers * TRAIN_STEPS,
         "whisper decoder": n * cfg.num_layers * TRAIN_STEPS})
-        for which, n in (("forward", 1), ("backward", BWD_KERNELS))}
+        for which, n in (("forward", 1),
+                         ("backward", fa.BWD_LAUNCHES[torch.bfloat16]))}
     print(f"[train] {WHISPER} flash launches by shape over {TRAIN_STEPS} "
           f"steps: {out['shapes']}")
     return out
@@ -4502,7 +4705,7 @@ def tiny_f32_train(arch: str) -> dict:
         counts = read_train_counts()
     finally:
         shutil.rmtree(tiny_dir, ignore_errors=True)
-    per_step = train_step_counts(tiny_config(arch))
+    per_step = train_step_counts(tiny_config(arch).scaled(dtype="float32"))
     assert counts == {k: 60 * v for k, v in per_step.items()}, counts
     assert first["final_loss"] < first["losses"][0], first["losses"]
     assert len(resumed["losses"]) == 6
@@ -4700,8 +4903,8 @@ def main() -> int:
         elif split is None:
             print(f"[build] {kname}: {secs:.2f} s -> {lib.name}")
             report = ptxas_report(lib)
-            if kname == "moe_gemm":
-                f32_spills(report)
+            if kname in F32_KERNELS:
+                f32_spills(report, kname)
         else:
             print(f"[build] {kname} with R={split[0]} P={split[1]}, to time "
                   f"it: {secs:.2f} s -> {lib.name}")
@@ -4710,11 +4913,11 @@ def main() -> int:
     flib = fa._lib()
     flib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 3
     for which, bf16, kname in ((0, 1, "flash_fwd_mma_kernel<bf16>"),
-                               (0, 0, "flash_fwd_kernel<f32>"),
+                               (0, 0, "flash_fwd_f32_kernel"),
                                (1, 1, "flash_bwd_dq_mma_kernel<bf16>"),
-                               (1, 0, "flash_bwd_dq_kernel<f32>"),
+                               (1, 0, "flash_bwd_dq_f32_kernel"),
                                (2, 1, "flash_bwd_dkdv_mma_kernel<bf16>"),
-                               (2, 0, "flash_bwd_dkdv_kernel<f32>")):
+                               (2, 0, "flash_bwd_dkdv_f32_kernel")):
         print(f"[build]   {kname}: dynamic smem " + ", ".join(
             f"hd {hd} {flib.flash_attention_smem_bytes(which, hd, bf16)} B"
             for hd in fa.HEAD_DIMS))
@@ -4911,6 +5114,7 @@ def main() -> int:
     lap("4")
     # ---- 4. flash attention vs plain, and its times ---------------------
     flash_errs = check_flash(gen)
+    check_f32_rows(gen)
     flash_times = time_flash(gen, bf16_fps, f32_fps, mem_bps)
 
     lap("5")
@@ -5226,9 +5430,8 @@ def main() -> int:
                                                      "jamba train down"))}
                    for i, g in enumerate(("dx", "dw"))}}} if bf16 else {}),
         })
-    bwd_unit = ("one layer's call (dq, then dk/dv: two launches) at the "
-                "training path's shape (B=4, S=T=2048, 14:2 heads, hd 64, "
-                "causal)")
+    bwd_unit = ("one layer's call at the training path's shape (B=4, "
+                "S=T=2048, 14:2 heads, hd 64, causal)")
     # the flash kernels at slice 11's path shapes, bf16; launches: each
     # shape's own count (the wrappers' `by_shape`) over its path's run
     g_fwd = gemma2["prefill_shapes"]
@@ -5311,20 +5514,21 @@ def main() -> int:
                                "unit": "examples/torch_train_lm.py on "
                                "the card (tiny qwen2-0.5b, bf16, hd 16), "
                                "its two runs (phase 36)"}}),
-            ("flash_attention (f32)", "flash_fwd_kernel",
+            ("flash_attention (f32)", "flash_fwd_f32_kernel",
              "src/repro/kernels/flash_attention.py:30",
              f32_counts["flash_attention"], flash_errs["o_f32"],
              flash_times["forward_f32"],
              "one layer's forward at the training path's shape in f32; "
              "launches: the tiny f32 Jamba forward",
-             {"whisper_tiny_f32_launches": {
-                 "forward": whisper_f32["flash_attention"],
-                 "training": whisper_f32_train["flash_attention"]}}),
+             {"f32_tiny_train_launches": f32_train["forward"],
+              "whisper_tiny_f32_launches": {
+                  "forward": whisper_f32["flash_attention"],
+                  "training": whisper_f32_train["flash_attention"]}}),
             ("flash_attention_bwd (bf16)",
              "flash_bwd_dq_mma_kernel, flash_bwd_dkdv_mma_kernel", None,
              bwd_launches, flash_errs["grads"], flash_times["backward"],
-             bwd_unit + " in bf16; launches over the train run; library = "
-             "SDPA's backward alone",
+             bwd_unit + " in bf16 (dq, then dk/dv: two launches); launches "
+             "over the train run; library = SDPA's backward alone",
              {**{k_: flash_times["backward"][k_] for k_ in ("dq", "dkdv")},
               **path_entries("backward"),
               "examples_train": {
@@ -5333,12 +5537,16 @@ def main() -> int:
                   "unit": "examples/torch_train_lm.py on the card, its two "
                   "runs (phase 36)"}}),
             ("flash_attention_bwd (f32)",
-             "flash_bwd_dq_kernel, flash_bwd_dkdv_kernel", None,
+             "flash_bwd_dq_f32_kernel, flash_bwd_dkdv_f32_kernel, "
+             "flash_bwd_dkdv_sum_f32_kernel", None,
              f32_train["backward"], flash_errs["grads_f32"],
              flash_times["backward_f32"],
-             bwd_unit + " in f32; launches: the tiny f32 training (60 "
+             bwd_unit + " in f32 (dq, dk/dv into per-head partials, their "
+             "sum: three launches); launches: the tiny f32 training (60 "
              "steps); library = SDPA's backward alone, f32",
-             {"whisper_tiny_f32_launches":
+             {**{k_: flash_times["backward_f32"][k_]
+                 for k_ in ("dq", "dkdv", "sum")},
+              "whisper_tiny_f32_launches":
               whisper_f32_train["flash_attention_bwd"]})):
         kernels.append({
             "name": kname, "route": "cuda",

@@ -93,38 +93,60 @@
 //     cores' time. 32-query steps in dk/dv, or K and V read from shared
 //     memory there, were slower.
 //
-// Forward and backward in f32: simple and right first. No tensor cores:
-// tiles are staged in shared memory as f32 by plain loads and every
-// product runs on the CUDA cores in f32 (67 TFLOP/s on the H100 SXM, so
-// these kernels sit far above the bound; tensor cores would take f32
-// only as TF32, and the f32 checks need 1e-4).
-//   * 64x64 tiles, 128 threads. Thread (tx, ty) = (tid % 16, tid / 16)
-//     owns tile rows ty*8 .. ty*8+7 and columns tx + 16*j, so the 16
-//     threads that share a row are one half-warp and row maxima and sums
-//     are shuffles. Operands read along rows are stored transposed with
-//     a stride of 68 floats (two float4 loads give a thread its 8 rows);
-//     operands read along columns are stored row-major with a stride of
-//     hd+1 floats (the 16 columns of a half-warp fall in 16 banks).
-//   * Forward: one block per (q tile, q head, batch), the KV loop inside
-//     the block (blocks run in no order, so nothing carries between
-//     them). Dead KV tiles are skipped by the TPU kernel's test
-//     (flash_attention.py:50-54). Running max, denominator and the
-//     accumulator stay in f32 registers; p is masked explicitly, so a
-//     live tile in which a row has no valid key adds nothing to it.
-//     The denominator is clamped at 1e-30 and the output rounded once.
-//   * Backward, two launches and no atomics:
-//       dq:   one block per (q tile, q head, batch); first D = rowsum(
-//             dO * O) for its rows (also written to scratch for dkdv),
-//             then over the live k tiles P = exp(s - lse),
-//             dS = P * (dP - D) [* (1 - tanh^2) with softcap],
-//             dQ += scale * dS K.
-//       dk/dv: one block per (k tile, kv head, batch), looping over the
-//             group's nq/nkv query heads and the live q tiles:
-//             dV += P^T dO, dK += scale * dS^T Q.
+// Forward and backward in f32, on the CUDA cores: tensor cores take f32
+// only as TF32, too coarse for the f32 checks (1e-4). Bound: at the path
+// shape the products are 30.1 GFLOP (forward) and 75.2 (the backward's
+// five; 105.3 for the seven that its kernels compute), 0.449, 1.122 and
+// 1.571 ms at the H100 SXM's 67 f32 TFLOP/s, about 50 flops a byte: the
+// FMA pipes' issue rate bounds them, so every other instruction in the
+// main loops (shared-memory reads, the softmax, barriers) costs time.
+//   * Blocks of 4 warps. A thread owns TM rows (8 in the forward at hd <=
+//     64, else 4), 4 columns of each 32-wide streamed tile (cl + 8 j) and
+//     hd / 8 output columns, so a product step is float4 shared-memory
+//     reads of both operands (a float4 of 4 rows of the resident operand,
+//     a float4 of 4 dims of a streamed row) for 4 TM or 8 TM FMAs; each
+//     sum is one fmaf chain in a fixed order.
+//   * The resident operand (Q, and dO in dq; K and V in dk/dv) is
+//     transposed once into shared memory, through registers. The streamed
+//     tiles (K and V in the forward and dq, Q, dO, lse and D in dk/dv)
+//     arrive by 16-byte cp.async through a ring of two stages, rows past
+//     S or T zero-filled: the next live tile's copy is in flight during
+//     this tile's products. Dead tiles are not copied. Rows are padded to
+//     16n + 4 words, so a warp's reads of 8 rows fall in 8 bank groups.
+//   * P and dS go to the next product through a per-warp exchange tile
+//     (a thread's float4 of 4 rows a column), behind __syncwarp: a warp
+//     reads only what it wrote.
+//   * Each warp skips the tiles with no live pair for its rows and picks
+//     each tile's softmax as the bf16 kernels do: plain (one FFMA and one
+//     ex2 an element), masked or softcapped. Plain and masked give a
+//     valid element the same bits, a masked p is exactly 0 and a fully
+//     masked tile rescales by exactly 1: a row's o and lse do not depend
+//     on S or B. lse stays in base e, the denominator is clamped at
+//     1e-30 and o is rounded once.
+//   * Forward: one block per (q head, batch, q tile of 128 rows; 64 at hd
+//     128), the longest rows first.
+//   * Backward, three launches and no atomics (the same bits every call):
+//     dq, one block per (q head, batch, 64-row q tile), longest first,
+//     also writing D = rowsum(dO * O); dk/dv, one block per (q head,
+//     batch, 64-key k tile), the k tiles with the most live queries
+//     first, each writing its head's dK (unscaled) and dV to partials [B,
+//     T, nq, hd]; then flash_bwd_dkdv_sum_f32_kernel sums each group's
+//     partials in the order g = 0, 1, ... One block a kv head walking its
+//     group's heads (tried once and slower, PERF.md) keeps the causal
+//     mask's imbalance: the block at k0 = 0 walks 7 x 64 query tiles at
+//     the path shape, the last 7 x 2.
+//   * Measured on an H100 80GB HBM3 at 700 W (PERF.md): at the path
+//     shape the forward takes 0.8125 ms (was 2.7060; SDPA 4.6555) and the
+//     backward 2.9839 (was 8.7047; SDPA's 5.0319): dq 1.2878, dk/dv
+//     1.6747, the sum 0.0285, 52-55% of their products' bound. What is
+//     left is the FMA pipes' issue: 8 to 12 warps an SM (two forward
+//     blocks, three of dq or dk/dv) hide the loops' shared-memory and
+//     barrier latency only in part; 4 rows a thread in the forward (three
+//     blocks an SM) was slower, and so was the other dk/dv grid.
 //
-// Shared memory per block (dynamic), hd = 64 / 128: forward 68 / 118 KB
-// in f32 and 45 / 85 KB in bf16; dq 86 / 154 KB in f32 and 54 / 102 KB in
-// bf16; dk/dv 103 / 171 KB in f32 and 92 / 103 KB in bf16.
+// Shared memory per block (dynamic), hd = 64 / 128: forward 84 / 106 KB
+// in f32 and 45 / 85 KB in bf16; dq 74 / 138 KB in f32 and 54 / 102 KB in
+// bf16; dk/dv 74.5 / 138.5 KB in f32 and 92 / 103 KB in bf16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -146,6 +168,8 @@ struct FlashArgs {
   void* dq;             // [B,S,nq,hd], contiguous
   void* dk;             // [B,T,nkv,hd], contiguous
   void* dv;
+  float* dk_part;       // f32 backward: [B,T,nq,hd] scratch, each query
+  float* dv_part;       // head's dK (unscaled) and dV, summed by group
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -162,25 +186,15 @@ namespace {
 
 constexpr int kTile = 64;          // rows of a q tile and of a k tile
 constexpr int kThreads = 128;
-constexpr int kTX = 16;            // threads along a tile row
-constexpr int kRowsPer = 8;        // tile rows per thread (64 / 8 ty)
-constexpr int kColsPer = 4;        // tile columns per thread (64 / 16 tx)
-constexpr int kLdT = kTile + 4;    // stride of transposed tiles (16B rows)
 constexpr float kNegInf = -1e30f;  // the masked score, as in the TPU kernel
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-
-// A (q tile of bq rows, k tile) pair holds a live score unless the causal
-// or the window test rules the whole tile out (flash_attention.py:50-54).
+// A (q tile of bq rows, k tile of bk keys) pair holds a live score unless
+// the causal or the window test rules the whole tile out
+// (flash_attention.py:50-54).
 __device__ __forceinline__ bool tile_live(const FlashArgs& a, int q0, int k0,
-                                          int bq = kTile) {
+                                          int bq = kTile, int bk = kTile) {
   if (a.causal && k0 > q0 + bq - 1) return false;
-  if (a.window > 0 && k0 + kTile - 1 <= q0 - a.window) return false;
+  if (a.window > 0 && k0 + bk - 1 <= q0 - a.window) return false;
   return true;
 }
 
@@ -204,191 +218,6 @@ __device__ __forceinline__ float score(const FlashArgs& a, float dot,
   }
   *cap_t = 0.f;
   return u;
-}
-
-// The first 64 rows of a [len, HD] slab with row stride `rs` into
-// shared memory. Row-major: dst[r * (HD+1) + d]. Transposed:
-// dst[d * kLdT + r]. Rows past `len` are zeros.
-template <typename T, int HD>
-__device__ __forceinline__ void load_rows(float* dst, const T* src,
-                                          long long rs, int len) {
-  for (int i = threadIdx.x; i < kTile * HD; i += kThreads) {
-    const int r = i / HD, d = i % HD;
-    dst[r * (HD + 1) + d] =
-        r < len ? to_f32(src[static_cast<long long>(r) * rs + d]) : 0.f;
-  }
-}
-
-template <typename T, int HD>
-__device__ __forceinline__ void load_rows_t(float* dst, const T* src,
-                                            long long rs, int len) {
-  for (int i = threadIdx.x; i < kTile * HD; i += kThreads) {
-    const int r = i / HD, d = i % HD;
-    dst[d * kLdT + r] =
-        r < len ? to_f32(src[static_cast<long long>(r) * rs + d]) : 0.f;
-  }
-}
-
-// acc[i][j] += sum_d at[d][ty*8+i] * bs[(tx+16j)*LDB + d]   (A B^T)
-template <int N, int KD, int LDB>
-__device__ __forceinline__ void mma_nt(float (&acc)[kRowsPer][N],
-                                       const float* at, const float* bs,
-                                       int tx, int ty) {
-#pragma unroll 4
-  for (int d = 0; d < KD; ++d) {
-    const float4 a0 = *reinterpret_cast<const float4*>(at + d * kLdT + ty * 8);
-    const float4 a1 =
-        *reinterpret_cast<const float4*>(at + d * kLdT + ty * 8 + 4);
-    const float a[kRowsPer] = {a0.x, a0.y, a0.z, a0.w,
-                               a1.x, a1.y, a1.z, a1.w};
-    float b[N];
-#pragma unroll
-    for (int j = 0; j < N; ++j) b[j] = bs[(tx + kTX * j) * LDB + d];
-#pragma unroll
-    for (int i = 0; i < kRowsPer; ++i)
-#pragma unroll
-      for (int j = 0; j < N; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// acc[i][j] += sum_k at[k][ty*8+i] * bs[k*LDB + tx+16j]   (A B)
-template <int N, int KD, int LDB>
-__device__ __forceinline__ void mma_nn(float (&acc)[kRowsPer][N],
-                                       const float* at, const float* bs,
-                                       int tx, int ty) {
-#pragma unroll 4
-  for (int k = 0; k < KD; ++k) {
-    const float4 a0 = *reinterpret_cast<const float4*>(at + k * kLdT + ty * 8);
-    const float4 a1 =
-        *reinterpret_cast<const float4*>(at + k * kLdT + ty * 8 + 4);
-    const float a[kRowsPer] = {a0.x, a0.y, a0.z, a0.w,
-                               a1.x, a1.y, a1.z, a1.w};
-    float b[N];
-#pragma unroll
-    for (int j = 0; j < N; ++j) b[j] = bs[k * LDB + tx + kTX * j];
-#pragma unroll
-    for (int i = 0; i < kRowsPer; ++i)
-#pragma unroll
-      for (int j = 0; j < N; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// Store v[i][j] (tile row ty*8+i, column tx+16j) transposed:
-// dst[(tx+16j) * kLdT + ty*8 + i], two float4 per column.
-__device__ __forceinline__ void store_t(float* dst,
-                                        const float (&v)[kRowsPer][kColsPer],
-                                        int tx, int ty) {
-#pragma unroll
-  for (int j = 0; j < kColsPer; ++j) {
-    float* p = dst + (tx + kTX * j) * kLdT + ty * 8;
-    *reinterpret_cast<float4*>(p) = make_float4(v[0][j], v[1][j], v[2][j],
-                                                v[3][j]);
-    *reinterpret_cast<float4*>(p + 4) = make_float4(v[4][j], v[5][j], v[6][j],
-                                                    v[7][j]);
-  }
-}
-
-// Reductions over the 16 threads of a half-warp that share a tile row.
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// ------------------------------------------------------------- forward
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const FlashArgs a) {
-  constexpr int N = HD / kTX;              // output columns per thread
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem;                        // [HD][kLdT]
-  float* ks = qt + HD * kLdT;              // [64][HD+1]
-  float* vs = ks + kTile * (HD + 1);       // [64][HD+1]
-  float* pt = vs + kTile * (HD + 1);       // [64][kLdT]: P transposed
-
-  const int tx = threadIdx.x % kTX, ty = threadIdx.x / kTX;
-  const int n_qt = (a.S + kTile - 1) / kTile;
-  const int q0 = (n_qt - 1 - blockIdx.x) * kTile;   // longest rows first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (a.nq / a.nkv);
-  const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
-  const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
-
-  load_rows_t<T, HD>(qt, qp + static_cast<long long>(q0) * a.q_ss, a.q_ss,
-                     a.S - q0);
-  float m[kRowsPer], l[kRowsPer], acc[kRowsPer][N];
-#pragma unroll
-  for (int i = 0; i < kRowsPer; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < N; ++j) acc[i][j] = 0.f;
-  }
-
-  const int n_kt = (a.T + kTile - 1) / kTile;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    if (!tile_live(a, q0, k0)) continue;
-    __syncthreads();                       // done with the last tile
-    load_rows<T, HD>(ks, kp + static_cast<long long>(k0) * a.k_ss, a.k_ss,
-                     a.T - k0);
-    load_rows<T, HD>(vs, vp + static_cast<long long>(k0) * a.v_ss, a.v_ss,
-                     a.T - k0);
-    __syncthreads();
-
-    float s[kRowsPer][kColsPer] = {};
-    mma_nt<kColsPer, HD, HD + 1>(s, qt, ks, tx, ty);
-#pragma unroll
-    for (int i = 0; i < kRowsPer; ++i) {
-      const int qpos = q0 + ty * 8 + i;
-      bool ok[kColsPer];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kColsPer; ++j) {
-        float t;
-        ok[j] = score_valid(a, qpos, k0 + tx + kTX * j);
-        s[i][j] = ok[j] ? score(a, s[i][j], &t) : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kColsPer; ++j) {
-        s[i][j] = ok[j] ? expf(s[i][j] - m_new) : 0.f;   // p, masked
-        sum += s[i][j];
-      }
-      l[i] = l[i] * alpha + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < N; ++j) acc[i][j] *= alpha;
-    }
-    store_t(pt, s, tx, ty);
-    __syncthreads();
-    mma_nn<N, kTile, HD + 1>(acc, pt, vs, tx, ty);
-  }
-
-  T* op = static_cast<T*>(a.out);
-#pragma unroll
-  for (int i = 0; i < kRowsPer; ++i) {
-    const int qpos = q0 + ty * 8 + i;
-    if (qpos >= a.S) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    T* row = op + ((static_cast<long long>(b) * a.S + qpos) * a.nq + h) * HD;
-#pragma unroll
-    for (int j = 0; j < N; ++j) row[tx + kTX * j] = from_f32<T>(acc[i][j] * inv);
-    if (tx == 0)
-      a.lse[(static_cast<long long>(b) * a.nq + h) * a.S + qpos] =
-          m[i] + logf(l[i]);
-  }
 }
 
 // --------------------------------------- forward, bf16 on tensor cores
@@ -463,9 +292,9 @@ __device__ __forceinline__ float ex2(float x) {
 // Every (query, key) pair of a live (q tile, k tile) holds a valid score
 // for the tile's query rows that exist: no mask is needed.
 __device__ __forceinline__ bool tile_full(const FlashArgs& a, int q0, int k0,
-                                          int bq = kTile) {
-  if (k0 + kTile > a.T) return false;
-  if (a.causal && k0 + kTile - 1 > q0) return false;
+                                          int bq = kTile, int bk = kTile) {
+  if (k0 + bk > a.T) return false;
+  if (a.causal && k0 + bk - 1 > q0) return false;
   if (a.window > 0 && k0 <= q0 + bq - 1 - a.window) return false;
   return true;
 }
@@ -747,229 +576,6 @@ flash_fwd_mma_kernel(const FlashArgs a) {
     if (lane % 4 == 0)
       a.lse[(static_cast<long long>(b) * a.nq + h) * a.S + qrow[i]] =
           (m[i] + log2f(l_row)) * kLn2;
-  }
-}
-
-// ------------------------------------------------------------ backward
-// dq kernel; also writes D = rowsum(dO * O) for the dk/dv kernel.
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const FlashArgs a) {
-  constexpr int N = HD / kTX;
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem;                        // [HD][kLdT]
-  float* dot = qt + HD * kLdT;             // [HD][kLdT]: dO transposed
-  float* ks = dot + HD * kLdT;             // [64][HD+1]
-  float* vs = ks + kTile * (HD + 1);       // [64][HD+1]
-  float* dst = vs + kTile * (HD + 1);      // [64][kLdT]: dS transposed
-  float* d_s = dst + kTile * kLdT;         // [64]
-  float* lse_s = d_s + kTile;              // [64]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % kTX, ty = tid / kTX;
-  const int n_qt = (a.S + kTile - 1) / kTile;
-  const int q0 = (n_qt - 1 - blockIdx.x) * kTile;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (a.nq / a.nkv);
-  const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
-  const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
-  const T* op = static_cast<const T*>(a.o) + b * a.o_sb + h * a.o_sh;
-  const T* dop = static_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh;
-  const long long rowbase = (static_cast<long long>(b) * a.nq + h) * a.S;
-
-  load_rows_t<T, HD>(qt, qp + static_cast<long long>(q0) * a.q_ss, a.q_ss,
-                     a.S - q0);
-  load_rows_t<T, HD>(dot, dop + static_cast<long long>(q0) * a.do_ss,
-                     a.do_ss, a.S - q0);
-  {  // D for the tile's 64 rows: two threads per row, one half of hd each
-    const int r = tid / 2, half = tid % 2;
-    const int qpos = q0 + r;
-    float part = 0.f;
-    if (qpos < a.S) {
-      const T* orow = op + static_cast<long long>(qpos) * a.o_ss;
-      const T* drow = dop + static_cast<long long>(qpos) * a.do_ss;
-      for (int d = half * (HD / 2); d < (half + 1) * (HD / 2); ++d)
-        part += to_f32(orow[d]) * to_f32(drow[d]);
-    }
-    part += __shfl_xor_sync(0xffffffffu, part, 1);
-    if (half == 0) {
-      d_s[r] = part;
-      lse_s[r] = qpos < a.S ? a.lse[rowbase + qpos] : 0.f;
-      if (qpos < a.S) a.dsum[rowbase + qpos] = part;
-    }
-  }
-  __syncthreads();
-  float dsum[kRowsPer], lse[kRowsPer], acc[kRowsPer][N];
-#pragma unroll
-  for (int i = 0; i < kRowsPer; ++i) {
-    dsum[i] = d_s[ty * 8 + i];
-    lse[i] = lse_s[ty * 8 + i];
-#pragma unroll
-    for (int j = 0; j < N; ++j) acc[i][j] = 0.f;
-  }
-
-  const int n_kt = (a.T + kTile - 1) / kTile;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    if (!tile_live(a, q0, k0)) continue;
-    __syncthreads();
-    load_rows<T, HD>(ks, kp + static_cast<long long>(k0) * a.k_ss, a.k_ss,
-                     a.T - k0);
-    load_rows<T, HD>(vs, vp + static_cast<long long>(k0) * a.v_ss, a.v_ss,
-                     a.T - k0);
-    __syncthreads();
-
-    float s[kRowsPer][kColsPer] = {};
-    float dp[kRowsPer][kColsPer] = {};
-    mma_nt<kColsPer, HD, HD + 1>(s, qt, ks, tx, ty);
-    mma_nt<kColsPer, HD, HD + 1>(dp, dot, vs, tx, ty);
-#pragma unroll
-    for (int i = 0; i < kRowsPer; ++i) {
-      const int qpos = q0 + ty * 8 + i;
-#pragma unroll
-      for (int j = 0; j < kColsPer; ++j) {
-        float t;
-        const float x = score(a, s[i][j], &t);
-        const float p = score_valid(a, qpos, k0 + tx + kTX * j)
-                            ? expf(x - lse[i]) : 0.f;
-        float ds = p * (dp[i][j] - dsum[i]);
-        if (a.softcap > 0.f) ds *= 1.f - t * t;
-        s[i][j] = ds;
-      }
-    }
-    store_t(dst, s, tx, ty);
-    __syncthreads();
-    mma_nn<N, kTile, HD + 1>(acc, dst, ks, tx, ty);
-  }
-
-  T* dq = static_cast<T*>(a.dq);
-#pragma unroll
-  for (int i = 0; i < kRowsPer; ++i) {
-    const int qpos = q0 + ty * 8 + i;
-    if (qpos >= a.S) continue;
-    T* row = dq + ((static_cast<long long>(b) * a.S + qpos) * a.nq + h) * HD;
-#pragma unroll
-    for (int j = 0; j < N; ++j)
-      row[tx + kTX * j] = from_f32<T>(acc[i][j] * a.scale);
-  }
-}
-
-// dk/dv kernel: tile rows are keys, tile columns queries.
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkdv_kernel(const FlashArgs a) {
-  constexpr int N = HD / kTX;
-  extern __shared__ __align__(16) float smem[];
-  float* kt_s = smem;                      // [HD][kLdT]: K transposed
-  float* vt_s = kt_s + HD * kLdT;          // [HD][kLdT]: V transposed
-  float* qs = vt_s + HD * kLdT;            // [64][HD+1]
-  float* dos = qs + kTile * (HD + 1);      // [64][HD+1]
-  float* pb = dos + kTile * (HD + 1);      // [64 q][kLdT]: P, keys inner
-  float* dsb = pb + kTile * kLdT;          // [64 q][kLdT]: dS, keys inner
-  float* d_s = dsb + kTile * kLdT;         // [64]
-  float* lse_s = d_s + kTile;              // [64]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % kTX, ty = tid / kTX;
-  const int k0 = blockIdx.x * kTile;
-  const int hk = blockIdx.y, b = blockIdx.z;
-  const int group = a.nq / a.nkv;
-  const T* kp = static_cast<const T*>(a.k) + b * a.k_sb + hk * a.k_sh;
-  const T* vp = static_cast<const T*>(a.v) + b * a.v_sb + hk * a.v_sh;
-
-  load_rows_t<T, HD>(kt_s, kp + static_cast<long long>(k0) * a.k_ss, a.k_ss,
-                     a.T - k0);
-  load_rows_t<T, HD>(vt_s, vp + static_cast<long long>(k0) * a.v_ss, a.v_ss,
-                     a.T - k0);
-  float dk[kRowsPer][N], dv[kRowsPer][N];
-#pragma unroll
-  for (int i = 0; i < kRowsPer; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) dk[i][j] = dv[i][j] = 0.f;
-
-  const int n_qt = (a.S + kTile - 1) / kTile;
-  for (int g = 0; g < group; ++g) {
-    const int h = hk * group + g;
-    const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
-    const T* dop = static_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh;
-    const long long rowbase = (static_cast<long long>(b) * a.nq + h) * a.S;
-    for (int qt = 0; qt < n_qt; ++qt) {
-      const int q0 = qt * kTile;
-      if (!tile_live(a, q0, k0)) continue;
-      __syncthreads();
-      load_rows<T, HD>(qs, qp + static_cast<long long>(q0) * a.q_ss, a.q_ss,
-                       a.S - q0);
-      load_rows<T, HD>(dos, dop + static_cast<long long>(q0) * a.do_ss,
-                       a.do_ss, a.S - q0);
-      if (tid < kTile) {
-        const bool in = q0 + tid < a.S;
-        d_s[tid] = in ? a.dsum[rowbase + q0 + tid] : 0.f;
-        lse_s[tid] = in ? a.lse[rowbase + q0 + tid] : 0.f;
-      }
-      __syncthreads();
-
-      // s[i][j]: key k0+ty*8+i against query q0+tx+16j
-      float s[kRowsPer][kColsPer] = {};
-      mma_nt<kColsPer, HD, HD + 1>(s, kt_s, qs, tx, ty);
-      float lse[kColsPer], dsum[kColsPer];
-#pragma unroll
-      for (int j = 0; j < kColsPer; ++j) {
-        lse[j] = lse_s[tx + kTX * j];
-        dsum[j] = d_s[tx + kTX * j];
-      }
-      unsigned valid = 0u;             // bit i*4+j
-#pragma unroll
-      for (int i = 0; i < kRowsPer; ++i)
-#pragma unroll
-        for (int j = 0; j < kColsPer; ++j) {
-          float t;
-          const bool ok = score_valid(a, q0 + tx + kTX * j, k0 + ty * 8 + i);
-          valid |= static_cast<unsigned>(ok) << (i * kColsPer + j);
-          s[i][j] = score(a, s[i][j], &t);           // the capped score x
-        }
-      float p[kRowsPer][kColsPer];
-#pragma unroll
-      for (int i = 0; i < kRowsPer; ++i)
-#pragma unroll
-        for (int j = 0; j < kColsPer; ++j)
-          p[i][j] = (valid >> (i * kColsPer + j)) & 1u
-                        ? expf(s[i][j] - lse[j]) : 0.f;
-      store_t(pb, p, tx, ty);
-      float dp[kRowsPer][kColsPer] = {};
-      mma_nt<kColsPer, HD, HD + 1>(dp, vt_s, dos, tx, ty);
-#pragma unroll
-      for (int i = 0; i < kRowsPer; ++i)
-#pragma unroll
-        for (int j = 0; j < kColsPer; ++j) {
-          const bool ok = (valid >> (i * kColsPer + j)) & 1u;
-          float ds = ok ? expf(s[i][j] - lse[j]) * (dp[i][j] - dsum[j]) : 0.f;
-          if (a.softcap > 0.f) {
-            const float t = s[i][j] / a.softcap;     // tanh(u / softcap)
-            ds *= 1.f - t * t;
-          }
-          dp[i][j] = ds;
-        }
-      store_t(dsb, dp, tx, ty);
-      __syncthreads();
-      mma_nn<N, kTile, HD + 1>(dv, pb, dos, tx, ty);
-      mma_nn<N, kTile, HD + 1>(dk, dsb, qs, tx, ty);
-    }
-  }
-
-  T* dkp = static_cast<T*>(a.dk);
-  T* dvp = static_cast<T*>(a.dv);
-#pragma unroll
-  for (int i = 0; i < kRowsPer; ++i) {
-    const int kpos = k0 + ty * 8 + i;
-    if (kpos >= a.T) continue;
-    const long long base =
-        ((static_cast<long long>(b) * a.T + kpos) * a.nkv + hk) * HD;
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      dkp[base + tx + kTX * j] = from_f32<T>(dk[i][j] * a.scale);
-      dvp[base + tx + kTX * j] = from_f32<T>(dv[i][j]);
-    }
   }
 }
 
@@ -1429,18 +1035,696 @@ flash_bwd_dkdv_mma_kernel(const FlashArgs a) {
   }
 }
 
+// ---------------------------------------------- f32 on the CUDA cores
+// The f32 kernels (design and bound in the note at the head of the file).
+// Each block is 4 warps; a warp's lane is (rl, cl) = (lane / 8, lane % 8).
+// A thread owns TM rows of its warp's 4 TM, rows 4 rl + (i % 4) + 16 (i /
+// 4) (the keys in dk/dv); the streamed tile's columns cl + 8 j, j < 4 (keys,
+// or queries in dk/dv); and output columns 4 cl + 32 g + e (2 cl + e at
+// hd 16). Row reductions are shuffles over the 8 lanes of a row lane.
+constexpr int kF32Stream = 32;   // keys (queries in dk/dv) a streamed tile
+
+template <int HD, int TM>
+struct F32Tile {
+  static constexpr int kTM = TM;
+  static constexpr int kWR = 4 * TM;                 // rows a warp
+  static constexpr int kRows = 4 * kWR;              // rows a block
+  static constexpr int kTO = HD / 8;                 // output columns a thread
+  static constexpr int kLd = HD + 4;                 // streamed rows: 16n + 4
+  // each warp's exchange tile of P^T or dS^T, [kF32Stream][kLdx]: padded
+  // where a thread's float4 stores would otherwise share banks
+  static constexpr int kLdx = kWR == 16 ? 16 : kWR + 4;
+  static constexpr int kNat = kF32Stream * kLd;      // one streamed tile
+  static constexpr int kX = 4 * kF32Stream * kLdx;   // the 4 exchange tiles
+};
 template <int HD>
-constexpr int fwd_smem() {
-  return (HD * kLdT + 2 * kTile * (HD + 1) + kTile * kLdT) * 4;
+using FwdTile = F32Tile<HD, (HD <= 64 ? 8 : 4)>;   // 128 rows (64 at hd 128)
+template <int HD>
+using BwdTile = F32Tile<HD, 4>;                     // 64 rows or keys
+
+// Dynamic shared memory: the resident operands transposed, a ring of two
+// streamed stages, the exchange tiles.
+template <int HD>
+constexpr int fwd_f32_smem() {   // Q^T; K, V
+  using L = FwdTile<HD>;
+  return (HD * L::kRows + 2 * 2 * L::kNat + L::kX) * 4;
 }
 template <int HD>
-constexpr int dq_smem() {
-  return (2 * HD * kLdT + 2 * kTile * (HD + 1) + kTile * kLdT + 2 * kTile) * 4;
+constexpr int dq_f32_smem() {    // Q^T, dO^T; K, V
+  using L = BwdTile<HD>;
+  return (2 * HD * L::kRows + 2 * 2 * L::kNat + L::kX) * 4;
+}
+template <int HD>  // Q, dO, lse and D of kF32Stream queries
+__host__ __device__ constexpr int dkdv_f32_stage() {
+  return 2 * BwdTile<HD>::kNat + 2 * kF32Stream;
 }
 template <int HD>
-constexpr int dkdv_smem() {
-  return (2 * HD * kLdT + 2 * kTile * (HD + 1) + 2 * kTile * kLdT +
-          2 * kTile) * 4;
+constexpr int dkdv_f32_smem() {  // K^T, V^T; Q, dO, lse, D; P, then dS
+  using L = BwdTile<HD>;
+  return (2 * HD * L::kRows + 2 * dkdv_f32_stage<HD>() + L::kX) * 4;
+}
+static_assert(fwd_f32_smem<64>() == 86016 && dq_f32_smem<64>() == 75776 &&
+                  dkdv_f32_smem<64>() == 76288,
+              "two forward, three dq and three dk/dv blocks an SM at hd 64");
+
+__device__ __forceinline__ float elem(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// Rows 0 .. R-1 of a [len][HD] slab (row stride rs) into dst[d * R + r],
+// transposed through registers, a float4 a thread at a time (consecutive
+// threads take consecutive rows: their stores fall in consecutive banks);
+// zeros past len. Once a block, for the operands it keeps.
+template <int HD, int R>
+__device__ __forceinline__ void load_t(float* dst, const float* src,
+                                       long long rs, int len) {
+  static_assert(R * HD / 4 % kThreads == 0, "whole rounds");
+#pragma unroll 4
+  for (int n = 0; n < R * HD / 4 / kThreads; ++n) {
+    const int i = n * kThreads + threadIdx.x;
+    const int r = i % R, c = i / R;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < len)
+      v = __ldg(reinterpret_cast<const float4*>(src + r * rs + 4 * c));
+    dst[(4 * c) * R + r] = v.x;
+    dst[(4 * c + 1) * R + r] = v.y;
+    dst[(4 * c + 2) * R + r] = v.z;
+    dst[(4 * c + 3) * R + r] = v.w;
+  }
+}
+
+// Rows 0 .. kF32Stream-1 of a [len][HD] slab into dst[r * (HD + 4) + d] by
+// 16-byte cp.async; rows past len are zero-filled and read nothing.
+template <int HD>
+__device__ __forceinline__ void load_stream(float* dst, const float* src,
+                                            long long rs, int len) {
+  constexpr int kV = HD / 4;
+  static_assert(kF32Stream * kV % kThreads == 0, "whole rounds");
+#pragma unroll
+  for (int n = 0; n < kF32Stream * kV / kThreads; ++n) {
+    const int i = n * kThreads + threadIdx.x;
+    const int r = i / kV, c = i % kV;
+    const bool ok = r < len;
+    cp_async16(smem_u32(dst + r * (HD + 4) + 4 * c),
+               src + (ok ? r * rs + 4 * c : 0), ok);
+  }
+}
+
+// acc[i][j] += sum over d < HD of at[d * R + row i] * st[(cl + 8 j) * (HD +
+// 4) + d]: the resident operand transposed (at: this thread's rows), the
+// streamed one as it lies, read as float4 along d. Each sum is one fmaf
+// chain over ascending d.
+template <int HD, int TM, int R>
+__device__ __forceinline__ void dot_rows(float (&acc)[TM][4], const float* at,
+                                         const float* st, int cl) {
+#pragma unroll 4
+  for (int d = 0; d < HD; d += 4) {
+    float4 b[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      b[j] = *reinterpret_cast<const float4*>(st + (cl + 8 * j) * (HD + 4) +
+                                              d);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float av[TM];
+#pragma unroll
+      for (int g = 0; g < TM / 4; ++g) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(at + (d + e) * R + 16 * g);
+        av[4 * g] = v.x, av[4 * g + 1] = v.y;
+        av[4 * g + 2] = v.z, av[4 * g + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] = fmaf(av[i], elem(b[j], e), acc[i][j]);
+    }
+  }
+}
+
+// acc[i][c] += sum over k < kF32Stream of x[k * LDX + row i] * st[k * (HD +
+// 4) + column c]: an exchange tile (x: this thread's rows) times a streamed
+// tile (st: this thread's columns). One fmaf chain over ascending k a tile.
+template <int HD, int TM, int LDX>
+__device__ __forceinline__ void acc_cols(float (&acc)[TM][HD / 8],
+                                         const float* x, const float* st) {
+#pragma unroll 8
+  for (int k = 0; k < kF32Stream; ++k) {
+    float pv[TM], bv[HD / 8];
+#pragma unroll
+    for (int g = 0; g < TM / 4; ++g) {
+      const float4 v = *reinterpret_cast<const float4*>(x + k * LDX + 16 * g);
+      pv[4 * g] = v.x, pv[4 * g + 1] = v.y;
+      pv[4 * g + 2] = v.z, pv[4 * g + 3] = v.w;
+    }
+    if constexpr (HD >= 32) {
+#pragma unroll
+      for (int g = 0; g < HD / 32; ++g) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(st + k * (HD + 4) + 32 * g);
+        bv[4 * g] = v.x, bv[4 * g + 1] = v.y;
+        bv[4 * g + 2] = v.z, bv[4 * g + 3] = v.w;
+      }
+    } else {
+      const float2 v = *reinterpret_cast<const float2*>(st + k * (HD + 4));
+      bv[0] = v.x, bv[1] = v.y;
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int c = 0; c < HD / 8; ++c)
+        acc[i][c] = fmaf(pv[i], bv[c], acc[i][c]);
+  }
+}
+
+// x[(cl + 8 j) * LDX + row i] = v[i][j]: a thread's tile, transposed, into
+// its warp's exchange tile (x: this thread's rows).
+template <int TM, int LDX>
+__device__ __forceinline__ void put_t(float* x, const float (&v)[TM][4],
+                                      int cl) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int g = 0; g < TM / 4; ++g)
+      *reinterpret_cast<float4*>(x + (cl + 8 * j) * LDX + 16 * g) =
+          make_float4(v[4 * g][j], v[4 * g + 1][j], v[4 * g + 2][j],
+                      v[4 * g + 3][j]);
+}
+
+// The offset of a thread's first output column, and its columns' store.
+template <int HD>
+__device__ __forceinline__ int col0(int cl) {
+  return HD >= 32 ? 4 * cl : 2 * cl;
+}
+template <int HD>
+__device__ __forceinline__ void store_cols(float* dst, const float (&v)[HD / 8],
+                                           float f) {
+  if constexpr (HD >= 32) {
+#pragma unroll
+    for (int g = 0; g < HD / 32; ++g)
+      *reinterpret_cast<float4*>(dst + 32 * g) =
+          make_float4(v[4 * g] * f, v[4 * g + 1] * f, v[4 * g + 2] * f,
+                      v[4 * g + 3] * f);
+  } else {
+    *reinterpret_cast<float2*>(dst) = make_float2(v[0] * f, v[1] * f);
+  }
+}
+
+__device__ __forceinline__ int row_of(int i) { return (i & 3) + 16 * (i >> 2); }
+
+__device__ __forceinline__ float row8_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
+}
+__device__ __forceinline__ float row8_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  return x + __shfl_xor_sync(0xffffffffu, x, 4);
+}
+
+// One tile's online-softmax step, in base 2, for a thread's TM rows
+// (row0 + row_of(i)) and keys k0 + 8 j: as softmax_step of the bf16
+// forward. Rescales o and l by the change of the running max and leaves p
+// in s; masked p are 0. Plain and masked tiles give a valid element the
+// same bits, so a row's result does not depend on which of its tiles needed
+// the mask, and a fully masked element adds exactly 0 with a factor of 1.
+template <SoftmaxMode kMode, int TM, int TO>
+__device__ __forceinline__ void softmax_f32(const FlashArgs& a,
+                                            float (&s)[TM][4],
+                                            float (&o)[TM][TO], float (&m)[TM],
+                                            float (&l)[TM], int row0, int k0,
+                                            float scale_log2) {
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int qpos = row0 + row_of(i);
+    uint32_t ok = 0;
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float& x = s[i][j];
+      if (kMode != kPlain) {
+        const bool valid = score_valid(a, qpos, k0 + 8 * j);
+        ok |= static_cast<uint32_t>(valid) << j;
+        float t;
+        if (kMode == kSoftcap)
+          x = valid ? score(a, x, &t) * kLog2e : kNegInf;
+        else
+          x = valid ? x : kNegInf;
+      }
+      mx = fmaxf(mx, x);
+    }
+    mx = row8_max(mx);
+    if (kMode != kSoftcap) mx *= scale_log2;   // raw dots; -1e30 stays low
+    const float m_new = fmaxf(m[i], mx);
+    const float alpha = ex2(m[i] - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float& x = s[i][j];
+      const float p = kMode == kSoftcap ? ex2(x - m_new)
+                                        : ex2(fmaf(x, scale_log2, -m_new));
+      x = kMode == kPlain || (ok >> j) & 1u ? p : 0.f;
+      sum += x;
+    }
+    l[i] = l[i] * alpha + sum;             // this thread's part of the row
+    m[i] = m_new;
+#pragma unroll
+    for (int c = 0; c < TO; ++c) o[i][c] *= alpha;
+  }
+}
+
+// P and dS in place for a thread's tile, as p_ds_tile of the bf16 backward:
+// on entry s holds the raw dots and dp holds dP; element (i, j) has row
+// row0 + row_of(i) and column c0 + 8 j; kT: rows are keys and columns
+// queries (dk/dv). stats(i, j) gives the element's query's (lse * log2e, D).
+template <SoftmaxMode kMode, bool kT, int TM, class Stats>
+__device__ __forceinline__ void p_ds_f32(const FlashArgs& a, float (&s)[TM][4],
+                                         float (&dp)[TM][4], int row0, int c0,
+                                         float scale_log2, Stats stats) {
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = row0 + row_of(i), col = c0 + 8 * j;
+      const float2 st = stats(i, j);
+      float p, dcap = 1.f;
+      if constexpr (kMode == kSoftcap) {
+        float t;
+        const float x = score(a, s[i][j], &t);
+        dcap = 1.f - t * t;
+        p = ex2(fmaf(x, kLog2e, -st.x));
+      } else {
+        p = ex2(fmaf(s[i][j], scale_log2, -st.x));
+      }
+      if (kMode != kPlain &&
+          !(kT ? score_valid(a, col, row) : score_valid(a, row, col)))
+        p = 0.f;
+      s[i][j] = p;
+      dp[i][j] = p * (dp[i][j] - st.y) * dcap;
+    }
+}
+
+// Forward: one block per (q head, batch, q tile of 128 rows, 64 at hd 128),
+// the longest rows first. Q^T stays in shared memory; K and V tiles of 32
+// keys stream through two cp.async stages; each warp skips the tiles that
+// hold no live pair for its rows and picks each tile's softmax mode for its
+// rows. S = Q K^T and O += P V in f32 on the CUDA cores, P through the
+// warp's exchange tile.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_fwd_f32_kernel(const FlashArgs a) {
+  using L = FwdTile<HD>;
+  constexpr int TM = L::kTM, TO = L::kTO;
+  extern __shared__ __align__(16) float smem_f32[];
+  float* const qt = smem_f32;                      // [HD][kRows]: Q^T
+  float* const ring = qt + HD * L::kRows;          // [2][K, V][32][HD + 4]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int rl = lane / 8, cl = lane % 8;
+  float* const xp = ring + 4 * L::kNat + warp * kF32Stream * L::kLdx + 4 * rl;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int n_qt = (a.S + L::kRows - 1) / L::kRows;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.z)) * L::kRows;
+  const int w0 = q0 + warp * L::kWR;               // the warp's first row
+  const int hk = h / (a.nq / a.nkv);
+  const float* qp = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* kp = static_cast<const float*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const float* vp = static_cast<const float*>(a.v) + b * a.v_sb + hk * a.v_sh;
+  const int n_kt = (a.T + kF32Stream - 1) / kF32Stream;
+  auto next_live = [&](int kt) {
+    do ++kt;
+    while (kt < n_kt &&
+           !tile_live(a, q0, kt * kF32Stream, L::kRows, kF32Stream));
+    return kt;
+  };
+  auto load_kv = [&](int st, int kt) {
+    const int k0 = kt * kF32Stream;
+    float* dst = ring + 2 * st * L::kNat;
+    load_stream<HD>(dst, kp + static_cast<long long>(k0) * a.k_ss, a.k_ss,
+                    a.T - k0);
+    load_stream<HD>(dst + L::kNat, vp + static_cast<long long>(k0) * a.v_ss,
+                    a.v_ss, a.T - k0);
+  };
+
+  int kt = next_live(-1);
+  if (kt < n_kt) load_kv(0, kt);
+  cp_async_commit();
+  load_t<HD, L::kRows>(qt, qp + static_cast<long long>(q0) * a.q_ss, a.q_ss,
+                       a.S - q0);
+
+  float o[TM][TO], m[TM], l[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < TO; ++c) o[i][c] = 0.f;
+  }
+  const float scale_log2 = a.scale * kLog2e;
+  const float* const qw = qt + warp * L::kWR + 4 * rl;   // this thread's rows
+  for (int st = 0; kt < n_kt; st ^= 1) {
+    cp_async_wait<0>();                    // tile kt has landed, and every
+    __syncthreads();                       // warp is done with stage st ^ 1
+    const int kt_next = next_live(kt);
+    if (kt_next < n_kt) load_kv(st ^ 1, kt_next);
+    cp_async_commit();
+    const int k0 = kt * kF32Stream;
+    if (tile_live(a, w0, k0, L::kWR, kF32Stream)) {   // warp-uniform
+      const float* ks = ring + 2 * st * L::kNat;
+      float s[TM][4] = {};
+      dot_rows<HD, TM, L::kRows>(s, qw, ks, cl);
+      if (a.softcap > 0.f)
+        softmax_f32<kSoftcap>(a, s, o, m, l, w0 + 4 * rl, k0 + cl,
+                              scale_log2);
+      else if (tile_full(a, w0, k0, L::kWR, kF32Stream))
+        softmax_f32<kPlain>(a, s, o, m, l, w0 + 4 * rl, k0 + cl, scale_log2);
+      else
+        softmax_f32<kMasked>(a, s, o, m, l, w0 + 4 * rl, k0 + cl,
+                             scale_log2);
+      put_t<TM, L::kLdx>(xp, s, cl);
+      __syncwarp();
+      acc_cols<HD, TM, L::kLdx>(o, xp, ks + L::kNat + col0<HD>(cl));
+    }
+    kt = kt_next;
+  }
+  cp_async_wait<0>();
+
+  float* const op = static_cast<float*>(a.out);
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const float l_row = row8_sum(l[i]);
+    const int qpos = w0 + 4 * rl + row_of(i);
+    if (qpos < a.S) {
+      const float inv = 1.f / fmaxf(l_row, 1e-30f);
+      store_cols<HD>(op + ((static_cast<long long>(b) * a.S + qpos) * a.nq +
+                           h) * HD + col0<HD>(cl),
+                     o[i], inv);
+      if (cl == 0)
+        a.lse[(static_cast<long long>(b) * a.nq + h) * a.S + qpos] =
+            (m[i] + log2f(l_row)) * kLn2;
+    }
+  }
+}
+
+// dq: one block per (q head, batch, q tile of 64 rows), the longest rows
+// first; also writes D = rowsum(dO * O) for the dk/dv kernel. Q^T and dO^T
+// stay in shared memory; K and V tiles of 32 keys stream through two
+// cp.async stages. S = Q K^T, dP = dO V^T, then dQ += dS K with dS through
+// the warp's exchange tile.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, HD <= 64 ? 3 : 1)
+flash_bwd_dq_f32_kernel(const FlashArgs a) {
+  using L = BwdTile<HD>;
+  constexpr int TM = L::kTM, TO = L::kTO;
+  extern __shared__ __align__(16) float smem_f32[];
+  __shared__ float d_s[L::kRows];
+  float* const qt = smem_f32;                      // [HD][kRows]: Q^T
+  float* const dot = qt + HD * L::kRows;           // [HD][kRows]: dO^T
+  float* const ring = dot + HD * L::kRows;         // [2][K, V][32][HD + 4]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rl = lane / 8, cl = lane % 8;
+  float* const xp = ring + 4 * L::kNat + warp * kF32Stream * L::kLdx + 4 * rl;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int n_qt = (a.S + L::kRows - 1) / L::kRows;
+  const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.z)) * L::kRows;
+  const int w0 = q0 + warp * L::kWR;
+  const int hk = h / (a.nq / a.nkv);
+  const float* qp = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* kp = static_cast<const float*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const float* vp = static_cast<const float*>(a.v) + b * a.v_sb + hk * a.v_sh;
+  const float* op = static_cast<const float*>(a.o) + b * a.o_sb + h * a.o_sh;
+  const float* dop =
+      static_cast<const float*>(a.dout) + b * a.do_sb + h * a.do_sh;
+  const long long rowbase = (static_cast<long long>(b) * a.nq + h) * a.S;
+  const int n_kt = (a.T + kF32Stream - 1) / kF32Stream;
+  auto next_live = [&](int kt) {
+    do ++kt;
+    while (kt < n_kt &&
+           !tile_live(a, q0, kt * kF32Stream, L::kRows, kF32Stream));
+    return kt;
+  };
+  auto load_kv = [&](int st, int kt) {
+    const int k0 = kt * kF32Stream;
+    float* dst = ring + 2 * st * L::kNat;
+    load_stream<HD>(dst, kp + static_cast<long long>(k0) * a.k_ss, a.k_ss,
+                    a.T - k0);
+    load_stream<HD>(dst + L::kNat, vp + static_cast<long long>(k0) * a.v_ss,
+                    a.v_ss, a.T - k0);
+  };
+
+  int kt = next_live(-1);
+  if (kt < n_kt) load_kv(0, kt);
+  cp_async_commit();
+  load_t<HD, L::kRows>(qt, qp + static_cast<long long>(q0) * a.q_ss, a.q_ss,
+                       a.S - q0);
+  load_t<HD, L::kRows>(dot, dop + static_cast<long long>(q0) * a.do_ss,
+                       a.do_ss, a.S - q0);
+  {  // D of the tile's rows: two threads a row, one half of hd each
+    const int r = tid / 2, half = tid % 2;
+    const int qpos = q0 + r;
+    float part_d = 0.f;
+    if (qpos < a.S) {
+      const float* orow = op + static_cast<long long>(qpos) * a.o_ss;
+      const float* drow = dop + static_cast<long long>(qpos) * a.do_ss;
+#pragma unroll
+      for (int c = 0; c < HD / 8; ++c) {
+        const int d = half * (HD / 2) + 4 * c;
+        const float4 ov = __ldg(reinterpret_cast<const float4*>(orow + d));
+        const float4 dv = __ldg(reinterpret_cast<const float4*>(drow + d));
+        part_d = fmaf(ov.x, dv.x, part_d);
+        part_d = fmaf(ov.y, dv.y, part_d);
+        part_d = fmaf(ov.z, dv.z, part_d);
+        part_d = fmaf(ov.w, dv.w, part_d);
+      }
+    }
+    part_d += __shfl_xor_sync(0xffffffffu, part_d, 1);
+    if (half == 0) {
+      d_s[r] = part_d;
+      if (qpos < a.S) a.dsum[rowbase + qpos] = part_d;
+    }
+  }
+  __syncthreads();
+  // (lse * log2e, D) of this thread's rows; rows past S read Q = dO = 0
+  // and lse = D = 0, so their dS is 0
+  float2 stat[TM];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int qpos = w0 + 4 * rl + row_of(i);
+    stat[i] = qpos < a.S ? make_float2(a.lse[rowbase + qpos] * kLog2e,
+                                       d_s[qpos - q0])
+                         : make_float2(0.f, 0.f);
+  }
+  auto stats = [&](int i, int) { return stat[i]; };
+
+  float dq[TM][TO];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int c = 0; c < TO; ++c) dq[i][c] = 0.f;
+  const float scale_log2 = a.scale * kLog2e;
+  const float* const qw = qt + warp * L::kWR + 4 * rl;
+  const float* const dw = dot + warp * L::kWR + 4 * rl;
+  for (int st = 0; kt < n_kt; st ^= 1) {
+    cp_async_wait<0>();
+    __syncthreads();
+    const int kt_next = next_live(kt);
+    if (kt_next < n_kt) load_kv(st ^ 1, kt_next);
+    cp_async_commit();
+    const int k0 = kt * kF32Stream;
+    if (tile_live(a, w0, k0, L::kWR, kF32Stream)) {
+      const float* ks = ring + 2 * st * L::kNat;
+      float s[TM][4] = {}, dp[TM][4] = {};
+      dot_rows<HD, TM, L::kRows>(s, qw, ks, cl);
+      dot_rows<HD, TM, L::kRows>(dp, dw, ks + L::kNat, cl);
+      if (a.softcap > 0.f)
+        p_ds_f32<kSoftcap, false>(a, s, dp, w0 + 4 * rl, k0 + cl, scale_log2,
+                                  stats);
+      else if (tile_full(a, w0, k0, L::kWR, kF32Stream))
+        p_ds_f32<kPlain, false>(a, s, dp, w0 + 4 * rl, k0 + cl, scale_log2,
+                                stats);
+      else
+        p_ds_f32<kMasked, false>(a, s, dp, w0 + 4 * rl, k0 + cl, scale_log2,
+                                 stats);
+      put_t<TM, L::kLdx>(xp, dp, cl);
+      __syncwarp();
+      acc_cols<HD, TM, L::kLdx>(dq, xp, ks + col0<HD>(cl));
+    }
+    kt = kt_next;
+  }
+  cp_async_wait<0>();
+
+  float* const dqp = static_cast<float*>(a.dq);
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int qpos = w0 + 4 * rl + row_of(i);
+    if (qpos < a.S)
+      store_cols<HD>(dqp + ((static_cast<long long>(b) * a.S + qpos) * a.nq +
+                            h) * HD + col0<HD>(cl),
+                     dq[i], a.scale);
+  }
+}
+
+// dk/dv: one block per (q head, batch, k tile of 64 keys), the k tiles with
+// the most live queries first, so that no block walks more than one head's
+// query tiles. K^T and V^T stay in shared memory; Q, dO, lse and D of 32
+// queries stream through two cp.async stages. S^T = K Q^T, dP^T = V dO^T,
+// then dV += P^T dO and dK += dS^T Q with P, then dS, through the warp's
+// exchange tile (one tile for both leaves room for three blocks an SM at
+// hd 64). Each block writes its head's dK (unscaled) and dV to the
+// partials [B, T, nq, hd]; flash_bwd_dkdv_sum_f32_kernel sums them by group.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, HD <= 64 ? 3 : 1)
+flash_bwd_dkdv_f32_kernel(const FlashArgs a) {
+  using L = BwdTile<HD>;
+  constexpr int TM = L::kTM, TO = L::kTO;
+  constexpr int kStage = dkdv_f32_stage<HD>();
+  extern __shared__ __align__(16) float smem_f32[];
+  float* const kt_s = smem_f32;                    // [HD][kRows]: K^T
+  float* const vt_s = kt_s + HD * L::kRows;        // [HD][kRows]: V^T
+  float* const ring = vt_s + HD * L::kRows;        // [2][Q, dO, lse, D]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int rl = lane / 8, cl = lane % 8;
+  float* const px = ring + 2 * kStage + warp * kF32Stream * L::kLdx +
+                    4 * rl;                        // this warp's P, then dS
+
+  const int b = blockIdx.y, h = blockIdx.x, hk = h / (a.nq / a.nkv);
+  const int k0 = static_cast<int>(blockIdx.z) * L::kRows;
+  const int w0 = k0 + warp * L::kWR;               // the warp's first key
+  const float* kp = static_cast<const float*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const float* vp = static_cast<const float*>(a.v) + b * a.v_sb + hk * a.v_sh;
+
+  // The live q tiles of this k tile are one range (the causal test keeps
+  // tiles from some q0 on, the window's up to some q0).
+  const int n_qt = (a.S + kF32Stream - 1) / kF32Stream;
+  int qt_lo = 0;
+  while (qt_lo < n_qt &&
+         !tile_live(a, qt_lo * kF32Stream, k0, kF32Stream, L::kRows))
+    ++qt_lo;
+  int qt_hi = qt_lo;
+  while (qt_hi < n_qt &&
+         tile_live(a, qt_hi * kF32Stream, k0, kF32Stream, L::kRows))
+    ++qt_hi;
+  // step idx: q tile qt_lo + idx
+  const int n_steps = qt_hi - qt_lo;
+  auto load_q = [&](int st, int idx) {    // Q, dO, lse and D of step idx
+    const int q0 = (qt_lo + idx) * kF32Stream;
+    const long long rowbase = (static_cast<long long>(b) * a.nq + h) * a.S;
+    float* dst = ring + st * kStage;
+    load_stream<HD>(dst, static_cast<const float*>(a.q) + b * a.q_sb +
+                             h * a.q_sh +
+                             static_cast<long long>(q0) * a.q_ss,
+                    a.q_ss, a.S - q0);
+    load_stream<HD>(dst + L::kNat, static_cast<const float*>(a.dout) +
+                                       b * a.do_sb + h * a.do_sh +
+                                       static_cast<long long>(q0) * a.do_ss,
+                    a.do_ss, a.S - q0);
+    if (tid < 2 * kF32Stream) {            // zeros past S
+      const int qr = tid % kF32Stream;
+      const bool ok = q0 + qr < a.S;
+      cp_async4(smem_u32(dst + 2 * L::kNat + tid),
+                (tid < kF32Stream ? a.lse : a.dsum) + rowbase +
+                    (ok ? q0 + qr : 0),
+                ok);
+    }
+  };
+
+  int idx = 0;
+  if (idx < n_steps) load_q(0, idx);
+  cp_async_commit();
+  load_t<HD, L::kRows>(kt_s, kp + static_cast<long long>(k0) * a.k_ss, a.k_ss,
+                       a.T - k0);
+  load_t<HD, L::kRows>(vt_s, vp + static_cast<long long>(k0) * a.v_ss, a.v_ss,
+                       a.T - k0);
+
+  float dk[TM][TO], dv[TM][TO];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int c = 0; c < TO; ++c) dk[i][c] = dv[i][c] = 0.f;
+  const float scale_log2 = a.scale * kLog2e;
+  const float* const kw = kt_s + warp * L::kWR + 4 * rl;  // this thread's keys
+  const float* const vw = vt_s + warp * L::kWR + 4 * rl;
+  for (int st = 0; idx < n_steps; st ^= 1, ++idx) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if (idx + 1 < n_steps) load_q(st ^ 1, idx + 1);
+    cp_async_commit();
+    const int q0 = (qt_lo + idx) * kF32Stream;
+    if (tile_live(a, q0, w0, kF32Stream, L::kWR)) {
+      const float* qs = ring + st * kStage;
+      const float* dos = qs + L::kNat;
+      const float* lse_s = dos + L::kNat;
+      float s[TM][4] = {}, dp[TM][4] = {};
+      dot_rows<HD, TM, L::kRows>(s, kw, qs, cl);
+      dot_rows<HD, TM, L::kRows>(dp, vw, dos, cl);
+      float2 stat[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        stat[j] = make_float2(lse_s[cl + 8 * j] * kLog2e,
+                              lse_s[kF32Stream + cl + 8 * j]);
+      auto stats = [&](int, int j) { return stat[j]; };
+      if (a.softcap > 0.f)
+        p_ds_f32<kSoftcap, true>(a, s, dp, w0 + 4 * rl, q0 + cl, scale_log2,
+                                 stats);
+      else if (tile_full(a, q0, w0, kF32Stream, L::kWR))
+        p_ds_f32<kPlain, true>(a, s, dp, w0 + 4 * rl, q0 + cl, scale_log2,
+                               stats);
+      else
+        p_ds_f32<kMasked, true>(a, s, dp, w0 + 4 * rl, q0 + cl, scale_log2,
+                                stats);
+      put_t<TM, L::kLdx>(px, s, cl);
+      __syncwarp();
+      acc_cols<HD, TM, L::kLdx>(dv, px, dos + col0<HD>(cl));
+      __syncwarp();
+      put_t<TM, L::kLdx>(px, dp, cl);
+      __syncwarp();
+      acc_cols<HD, TM, L::kLdx>(dk, px, qs + col0<HD>(cl));
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int kpos = w0 + 4 * rl + row_of(i);
+    if (kpos >= a.T) continue;
+    const long long at =
+        ((static_cast<long long>(b) * a.T + kpos) * a.nq + h) * HD +
+        col0<HD>(cl);
+    store_cols<HD>(a.dk_part + at, dk[i], 1.f);
+    store_cols<HD>(a.dv_part + at, dv[i], 1.f);
+  }
+}
+
+// dK = scale * the sum of the partials of query heads hk * group + g over
+// g = 0, 1, ... in that order, dV likewise unscaled: a float4 of each a
+// thread; grid (B * T * hd / 4 / kSumThreads, nkv).
+constexpr int kSumThreads = 256;
+template <int HD>
+__global__ void __launch_bounds__(kSumThreads)
+flash_bwd_dkdv_sum_f32_kernel(const FlashArgs a) {
+  constexpr int kV = HD / 4;
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kSumThreads + threadIdx.x;
+  if (i >= static_cast<long long>(a.B) * a.T * kV) return;
+  const long long bt = i / kV;             // b * T + t
+  const int c = static_cast<int>(i % kV), hk = blockIdx.y;
+  const int group = a.nq / a.nkv;
+  const long long src = (bt * a.nq + hk * group) * kV + c;
+  const float4* pk = reinterpret_cast<const float4*>(a.dk_part) + src;
+  const float4* pv = reinterpret_cast<const float4*>(a.dv_part) + src;
+  float4 sk = pk[0], sv = pv[0];
+  for (int g = 1; g < group; ++g) {
+    const float4 k4 = pk[g * kV], v4 = pv[g * kV];
+    sk.x += k4.x, sk.y += k4.y, sk.z += k4.z, sk.w += k4.w;
+    sv.x += v4.x, sv.y += v4.y, sv.z += v4.z, sv.w += v4.w;
+  }
+  const long long dst = (bt * a.nkv + hk) * kV + c;
+  reinterpret_cast<float4*>(a.dk)[dst] = make_float4(
+      sk.x * a.scale, sk.y * a.scale, sk.z * a.scale, sk.w * a.scale);
+  reinterpret_cast<float4*>(a.dv)[dst] = sv;
 }
 
 template <typename Kernel>
@@ -1453,39 +1737,67 @@ int launch(Kernel kernel, dim3 grid, int smem, const FlashArgs& a,
   return static_cast<int>(cudaGetLastError());
 }
 
-// bf16 takes the tensor-core kernel, f32 the CUDA-core one.
+// bf16 takes the tensor-core kernel, f32 the CUDA-core one (grid (q head,
+// batch, q tile), the longest rows first).
 template <typename T, int HD>
 int fwd(const FlashArgs& a, void* stream) {
-  const dim3 grid((a.S + kTile - 1) / kTile, a.nq, a.B);
-  if constexpr (std::is_same_v<T, __nv_bfloat16>)
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    const dim3 grid((a.S + kTile - 1) / kTile, a.nq, a.B);
     return launch(flash_fwd_mma_kernel<HD>, grid, fwd_mma_smem<HD>(), a,
                   stream);
-  else
-    return launch(flash_fwd_kernel<float, HD>, grid, fwd_smem<HD>(), a,
-                  stream);
+  } else {
+    constexpr int kRows = FwdTile<HD>::kRows;
+    return launch(flash_fwd_f32_kernel<HD>,
+                  dim3(a.nq, a.B, (a.S + kRows - 1) / kRows),
+                  fwd_f32_smem<HD>(), a, stream);
+  }
 }
 
 // The backward likewise: bf16 on the tensor cores, f32 on the CUDA cores.
 template <typename T, int HD>
 int bwd_dq(const FlashArgs& a, void* stream) {
-  const dim3 grid((a.S + kTile - 1) / kTile, a.nq, a.B);
-  if constexpr (std::is_same_v<T, __nv_bfloat16>)
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    const dim3 grid((a.S + kTile - 1) / kTile, a.nq, a.B);
     return launch(flash_bwd_dq_mma_kernel<HD>, grid, dq_mma_smem<HD>(), a,
                   stream);
-  else
-    return launch(flash_bwd_dq_kernel<float, HD>, grid, dq_smem<HD>(), a,
-                  stream);
+  } else {
+    constexpr int kRows = BwdTile<HD>::kRows;
+    return launch(flash_bwd_dq_f32_kernel<HD>,
+                  dim3(a.nq, a.B, (a.S + kRows - 1) / kRows),
+                  dq_f32_smem<HD>(), a, stream);
+  }
 }
 
 template <typename T, int HD>
 int bwd_dkdv(const FlashArgs& a, void* stream) {
-  const int n_kt = (a.T + kTile - 1) / kTile;
-  if constexpr (std::is_same_v<T, __nv_bfloat16>)
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    const int n_kt = (a.T + kTile - 1) / kTile;
     return launch(flash_bwd_dkdv_mma_kernel<HD>, dim3(a.nkv, a.B, n_kt),
                   dkdv_mma_smem<HD>(), a, stream, kDkdvThreads);
-  else
-    return launch(flash_bwd_dkdv_kernel<float, HD>, dim3(n_kt, a.nkv, a.B),
-                  dkdv_smem<HD>(), a, stream);
+  } else {
+    constexpr int kRows = BwdTile<HD>::kRows;
+    return launch(flash_bwd_dkdv_f32_kernel<HD>,
+                  dim3(a.nq, a.B, (a.T + kRows - 1) / kRows),
+                  dkdv_f32_smem<HD>(), a, stream);
+  }
+}
+
+constexpr int kNoSumPass = -2;
+
+// The f32 backward's third launch; the bf16 dk/dv kernel sums its group
+// itself.
+template <typename T, int HD>
+int bwd_sum(const FlashArgs& a, void* stream) {
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    return kNoSumPass;
+  } else {
+    const long long n = static_cast<long long>(a.B) * a.T * (HD / 4);
+    return launch(flash_bwd_dkdv_sum_f32_kernel<HD>,
+                  dim3(static_cast<unsigned>((n + kSumThreads - 1) /
+                                             kSumThreads),
+                       a.nkv),
+                  0, a, stream, kSumThreads);
+  }
 }
 
 constexpr int kBadHeadDim = -1;
@@ -1523,12 +1835,17 @@ struct BwdDkdv {
     return bwd_dkdv<T, HD>(a, s);
   }
 };
+template <typename T, int HD>
+struct BwdSum {
+  static int run(const FlashArgs& a, void* s) { return bwd_sum<T, HD>(a, s); }
+};
 
 }  // namespace
 
 // Plain C entry points for ctypes. Each launches one kernel on `stream`
-// and returns cudaGetLastError() after the launch (0 = cudaSuccess), or
-// -1 for a head dim that has no instantiation.
+// and returns cudaGetLastError() after the launch (0 = cudaSuccess), -1
+// for a head dim that has no instantiation, or -2 for the sum pass in
+// bf16.
 extern "C" int flash_attention_fwd(const FlashArgs* a, int hd, int bf16,
                                    void* stream) {
   return dispatch<Fwd>(*a, hd, bf16, stream);
@@ -1541,18 +1858,26 @@ extern "C" int flash_attention_bwd_dq(const FlashArgs* a, int hd, int bf16,
   return dispatch<BwdDq>(*a, hd, bf16, stream);
 }
 
+// f32: writes each query head's dK and dV to dk_part and dv_part, which
+// flash_attention_bwd_sum then sums into dk and dv.
 extern "C" int flash_attention_bwd_dkdv(const FlashArgs* a, int hd, int bf16,
                                         void* stream) {
   return dispatch<BwdDkdv>(*a, hd, bf16, stream);
+}
+
+// f32 only, after flash_attention_bwd_dkdv on the same stream.
+extern "C" int flash_attention_bwd_sum(const FlashArgs* a, int hd, int bf16,
+                                       void* stream) {
+  return dispatch<BwdSum>(*a, hd, bf16, stream);
 }
 
 // Dynamic shared memory of a launch: which = 0 forward, 1 dq, 2 dk/dv;
 // bf16 = 1 for the bf16 (tensor-core) kernels, 0 for the f32 ones.
 template <int HD>
 int smem_bytes(int which, int bf16) {
-  if (which == 0) return bf16 ? fwd_mma_smem<HD>() : fwd_smem<HD>();
-  if (which == 1) return bf16 ? dq_mma_smem<HD>() : dq_smem<HD>();
-  return bf16 ? dkdv_mma_smem<HD>() : dkdv_smem<HD>();
+  if (which == 0) return bf16 ? fwd_mma_smem<HD>() : fwd_f32_smem<HD>();
+  if (which == 1) return bf16 ? dq_mma_smem<HD>() : dq_f32_smem<HD>();
+  return bf16 ? dkdv_mma_smem<HD>() : dkdv_f32_smem<HD>();
 }
 
 extern "C" int flash_attention_smem_bytes(int which, int hd, int bf16) {
@@ -1566,5 +1891,6 @@ extern "C" int flash_attention_smem_bytes(int which, int hd, int bf16) {
 
 extern "C" const char* flash_attention_error_string(int code) {
   if (code == kBadHeadDim) return "head dim has no kernel (16, 64, 128)";
+  if (code == kNoSumPass) return "the bf16 backward has no sum pass";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

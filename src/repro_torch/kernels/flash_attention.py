@@ -9,9 +9,10 @@ forward and the backward pick their kernels by dtype: bf16 runs on the
 tensor cores (`mma.sync`), f32 on the CUDA cores. For CPU tensors they
 compute the plain versions, `ref.flash_attention_ref` and
 `ref.flash_attention_bwd_ref`. Nothing sends a CUDA tensor to a plain
-version. The bf16 kernels copy their inputs with `cp.async`, 16 bytes at
-a time: `cp_async_ready` hands them a contiguous copy of any input whose
-base or strides are not 16-byte aligned.
+version. The kernels of both dtypes copy their inputs 16 bytes at a time
+(`cp.async`, and 16-byte loads for the f32 kernels' resident tiles):
+`cp_async_ready` hands them a contiguous copy of any input whose base or
+strides are not 16-byte aligned.
 
 - `flash_attention` is the differentiable entry point: on CUDA a
   `torch.autograd.Function` whose forward and backward are kernels; on the
@@ -20,9 +21,11 @@ base or strides are not 16-byte aligned.
   dv) are the kernels' wrappers.
 
 Launch counts: `flash_attention.launches` counts forward kernel launches,
-`flash_attention_bwd.launches` backward kernel launches (two per call: dq,
-then dk/dv). Each also counts its launches by call in `by_shape`, a
-Counter keyed by `shape_key` (q's shape, T, causal, window, softcap).
+`flash_attention_bwd.launches` backward kernel launches (`BWD_LAUNCHES`
+per call: dq, then dk/dv in bf16; dq, dk/dv into one partial per query
+head, then their sum over each group in f32). Each also counts its
+launches by call in `by_shape`, a Counter keyed by `shape_key` (q's shape,
+T, causal, window, softcap).
 
 As in the JAX kernel, the causal mask is start-aligned (query i sees keys
 <= i); it equals the end-aligned mask of `ref.attention_ref` only when
@@ -42,15 +45,23 @@ from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 HEAD_DIMS = (16, 64, 128)            # the kernels' instantiations
 _DTYPES = (torch.bfloat16, torch.float32)
+# backward launches a call: dq, dk/dv (and the f32 group sum)
+BWD_LAUNCHES = {torch.bfloat16: 2, torch.float32: 3}
+# Grids: bf16 (q tiles, q heads, batch) for the forward and dq and (kv
+# heads, batch, k tiles of _KV_TILE keys) for dk/dv; f32 (q heads, batch,
+# tiles) for all three, each tile at least _F32_TILE rows or keys, and
+# (B * T * hd / 1024, kv heads) for the f32 group sum. Grid y and z take
+# at most _MAX_GRID_YZ.
 _MAX_GRID_YZ = 65535
-_KV_TILE = 64                        # keys a dk/dv block (grid z on bf16)
+_KV_TILE = 64
+_F32_TILE = 64
 
 
 class _Args(ctypes.Structure):
     """Mirror of `FlashArgs` in csrc/flash_attention.cu."""
     _fields_ = ([(n, ctypes.c_void_p) for n in
                  ("q", "k", "v", "o", "dout", "out", "lse", "dsum", "dq",
-                  "dk", "dv")]
+                  "dk", "dv", "dk_part", "dv_part")]
                 + [(f"{t}_s{d}", ctypes.c_longlong)
                    for t in ("q", "k", "v", "o", "do") for d in "bsh"]
                 + [(n, ctypes.c_int) for n in
@@ -59,7 +70,7 @@ class _Args(ctypes.Structure):
 
 
 _ENTRIES = ("flash_attention_fwd", "flash_attention_bwd_dq",
-            "flash_attention_bwd_dkdv")
+            "flash_attention_bwd_dkdv", "flash_attention_bwd_sum")
 
 
 @functools.cache
@@ -108,9 +119,18 @@ def _check_cuda(*ts: torch.Tensor) -> None:
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernels take head dims "
                          f"{HEAD_DIMS}, got {hd}")
-    if nq > _MAX_GRID_YZ or b > _MAX_GRID_YZ:
+    if b > _MAX_GRID_YZ or (q.dtype == torch.bfloat16
+                            and nq > _MAX_GRID_YZ):
         raise ValueError(f"flash_attention takes at most {_MAX_GRID_YZ} "
-                         f"heads and batch rows, got {nq} and {b}")
+                         f"batch rows (and bf16 heads), got {b} and {nq}")
+    keys, nkv = ts[1].shape[1], ts[1].shape[2]
+    if q.dtype == torch.float32 and (
+            -(-max(s, keys) // _F32_TILE) > _MAX_GRID_YZ
+            or nkv > _MAX_GRID_YZ):
+        raise ValueError(f"flash_attention takes at most "
+                         f"{_MAX_GRID_YZ * _F32_TILE} f32 queries and keys "
+                         f"and {_MAX_GRID_YZ} kv heads, got S={s}, "
+                         f"T={keys}, {nkv} kv heads")
     for t in ts:
         if t.stride(-1) != 1:
             raise ValueError("flash_attention needs a contiguous head dim "
@@ -130,10 +150,9 @@ def cp_async_ready(t: torch.Tensor) -> torch.Tensor:
 
 
 def _kernel_inputs(*ts: torch.Tensor) -> tuple[torch.Tensor, ...]:
-    """The tensors as the kernels read them: bf16 ones through
-    `cp_async_ready`, f32 ones as they are."""
-    if ts[0].dtype != torch.bfloat16:
-        return ts
+    """The tensors as the kernels read them, each through
+    `cp_async_ready`: the kernels of both dtypes read 16 bytes at a
+    time."""
     return tuple(cp_async_ready(t) for t in ts)
 
 
@@ -213,7 +232,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         softcap: Optional[float] = None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients (dq, dk, dv) of `flash_attention` from its inputs, its
-    output o and lse, and dL/do; two kernel launches on CUDA."""
+    output o and lse, and dL/do; `BWD_LAUNCHES[dtype]` kernel launches on
+    CUDA."""
     _check(q, k, v, causal, window, softcap)
     b, s, nq, hd = q.shape
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
@@ -232,11 +252,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     args, _alive, grads = _bwd_args(q, k, v, o, lse, do, causal=causal,
                                     window=window, softcap=softcap)
     key = shape_key(q, k, causal, window, softcap)
-    _launch("flash_attention_bwd_dq", args, q)      # writes dsum first
-    _count(flash_attention_bwd, key)
-    _launch("flash_attention_bwd_dkdv", args, q)
-    _count(flash_attention_bwd, key)
+    for entry in _BWD_ENTRIES[:BWD_LAUNCHES[q.dtype]]:
+        _launch(entry, args, q)
+        _count(flash_attention_bwd, key)
     return grads
+
+
+# in this order on one stream: dq writes the D scratch that dk/dv reads;
+# in f32 dk/dv writes the partials that the sum reads
+_BWD_ENTRIES = ("flash_attention_bwd_dq", "flash_attention_bwd_dkdv",
+                "flash_attention_bwd_sum")
 
 
 def _bwd_args(q, k, v, o, lse, do, *, causal, window, softcap
@@ -244,13 +269,13 @@ def _bwd_args(q, k, v, o, lse, do, *, causal, window, softcap
     """The backward kernels' arguments for CUDA tensors that passed
     `flash_attention_bwd`'s checks -> (args, the tensors args points into
     that the caller must keep alive, (dq, dk, dv) to be written). Launch
-    "flash_attention_bwd_dq" first: it writes the D scratch that
-    "flash_attention_bwd_dkdv" reads."""
+    the first `BWD_LAUNCHES[dtype]` of `_BWD_ENTRIES` in order."""
     _check_cuda(q, k, v, o, do)
     if not lse.is_contiguous():
         raise ValueError("flash_attention_bwd needs a contiguous lse")
     b, s, nq, hd = q.shape
-    if -(-k.shape[1] // _KV_TILE) > _MAX_GRID_YZ:
+    if q.dtype == torch.bfloat16 and -(-k.shape[1] // _KV_TILE) \
+            > _MAX_GRID_YZ:
         raise ValueError(f"flash_attention_bwd takes at most "
                          f"{_MAX_GRID_YZ * _KV_TILE} keys, got {k.shape[1]}")
     q, k, v, o, do = _kernel_inputs(q, k, v, o, do)
@@ -264,7 +289,13 @@ def _bwd_args(q, k, v, o, lse, do, *, causal, window, softcap
     args.o, args.dout, args.lse, args.dsum = (o.data_ptr(), do.data_ptr(),
                                               lse.data_ptr(), dsum.data_ptr())
     args.dq, args.dk, args.dv = dq.data_ptr(), dk.data_ptr(), dv.data_ptr()
-    return args, (q, k, v, o, do, lse, dsum), (dq, dk, dv)
+    alive = (q, k, v, o, do, lse, dsum)
+    if q.dtype == torch.float32:      # each query head's dK and dV
+        parts = torch.empty((2, b, k.shape[1], nq, hd), dtype=torch.float32,
+                            device=q.device)
+        args.dk_part, args.dv_part = parts[0].data_ptr(), parts[1].data_ptr()
+        alive += (parts,)
+    return args, alive, (dq, dk, dv)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -13,9 +13,9 @@ package before any card runs them.
   they feed (dV, dK, dQ). A model of it, here too, holds against
   `jax.vjp` of JAX's `attention_ref` at the tolerance `chip_smoke.py`
   applies to the kernels' gradients against autograd on the card.
-- `cp_async_ready` hands the bf16 kernels a copy of inputs that are not
-  16-byte aligned, and the inputs themselves otherwise; the backward
-  passes o and do through it too.
+- `cp_async_ready` hands the kernels of both dtypes a copy of inputs that
+  are not 16-byte aligned, and the inputs themselves otherwise; the
+  forward passes q, k and v through it, the backward o and do too.
 """
 import math
 
@@ -271,11 +271,11 @@ def test_tensor_core_backward_model_fits_the_bound(case):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_backward_hands_the_kernels_aligned_inputs(dtype, monkeypatch):
-    """`flash_attention_bwd` on CUDA passes bf16 o and do (with q, k, v)
-    through `cp_async_ready`: an unaligned one reaches the kernels as an
-    aligned copy, an aligned one as itself; f32 inputs (CUDA-core
-    kernels, any strides) as they are. Here the launches are recorded,
-    not run, on CPU tensors taken down the CUDA path."""
+    """`flash_attention_bwd` on CUDA passes o and do (with q, k, v) through
+    `cp_async_ready` in both dtypes (the kernels of both read 16 bytes at
+    a time): an unaligned one reaches the kernels as an aligned copy, an
+    aligned one as itself. Here the launches are recorded, not run, on CPU
+    tensors taken down the CUDA path."""
     launched = []
     monkeypatch.setattr(fa, "_device_type", lambda q: "cuda")
     monkeypatch.setattr(fa, "_launch", lambda entry, args, q: launched.append(
@@ -286,20 +286,50 @@ def test_backward_hands_the_kernels_aligned_inputs(dtype, monkeypatch):
     k, v = (torch.randn(b, s, nkv, hd, dtype=dtype) for _ in range(2))
     lse = torch.zeros(b, nq, s)
     o = torch.randn(b * s * nq * hd + 1, dtype=dtype)[1:].view(b, s, nq, hd)
-    do = torch.randn(b, s, nq, 20, dtype=dtype)[..., :hd]  # 40-byte heads
+    # heads 20 elements apart: 40 bytes in bf16 (unaligned), 80 in f32
+    do = torch.randn(b, s, nq, 20, dtype=dtype)[..., :hd]
     assert q.data_ptr() % 16 == 0 and o.data_ptr() % 16
     fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
-    assert [x[0] for x in launched] == ["flash_attention_bwd_dq",
-                                        "flash_attention_bwd_dkdv"]
-    assert fa.flash_attention_bwd.launches == 2
+    entries = ["flash_attention_bwd_dq", "flash_attention_bwd_dkdv"]
+    if dtype == torch.float32:
+        entries.append("flash_attention_bwd_sum")
+    assert [x[0] for x in launched] == entries
+    assert fa.flash_attention_bwd.launches == len(entries)
     for _, q_ptr, o_ptr, do_ptr, o_sh, do_sh in launched:
         assert q_ptr == q.data_ptr()         # aligned: read in place
+        assert o_ptr % 16 == 0 and o_sh == hd            # a contiguous copy
         if dtype == torch.bfloat16:
-            assert o_ptr % 16 == 0 and do_ptr % 16 == 0
-            assert o_sh == do_sh == hd       # contiguous copies
+            assert do_ptr % 16 == 0 and do_sh == hd      # a contiguous copy
         else:
-            assert (o_ptr, do_ptr) == (o.data_ptr(), do.data_ptr())
-            assert do_sh == 20
+            assert (do_ptr, do_sh) == (do.data_ptr(), 20)  # in place
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_forward_hands_the_kernels_aligned_inputs(dtype, monkeypatch):
+    """`flash_attention_fwd` on CUDA passes q, k and v through
+    `cp_async_ready` in both dtypes: a base that is not 16-byte aligned, or
+    heads 40 bytes apart, reach the kernel as contiguous copies; an aligned
+    view, the k heads of a fused projection, as itself. One launch."""
+    launched = []
+    monkeypatch.setattr(fa, "_device_type", lambda q: "cuda")
+    monkeypatch.setattr(fa, "_launch", lambda entry, args, q: launched.append(
+        (entry, args.q, args.k, args.v, args.q_sh, args.k_sh, args.v_sh)))
+    monkeypatch.setattr(fa.flash_attention, "launches", 0)
+    b, s, nq, nkv, hd = 1, 8, 4, 2, 16
+    q = torch.randn(b * s * nq * hd + 1, dtype=dtype)[1:].view(b, s, nq, hd)
+    k = torch.randn(b, s, 3 * nkv, hd, dtype=dtype)[:, :, nkv:2 * nkv]
+    v = torch.randn(b, s, nkv, 20, dtype=dtype)[..., :hd]
+    assert q.data_ptr() % 16 and k.data_ptr() % 16 == 0
+    fa.flash_attention_fwd(q, k, v, causal=True)
+    assert [x[0] for x in launched] == ["flash_attention_fwd"]
+    assert fa.flash_attention.launches == 1
+    _, q_ptr, k_ptr, v_ptr, q_sh, k_sh, v_sh = launched[0]
+    assert q_ptr % 16 == 0 and q_sh == hd                # a contiguous copy
+    assert (k_ptr, k_sh) == (k.data_ptr(), hd)           # read in place
+    if dtype == torch.bfloat16:                          # 40-byte heads
+        assert v_ptr % 16 == 0 and v_sh == hd
+    else:                                                # 80-byte heads
+        assert (v_ptr, v_sh) == (v.data_ptr(), 20)
 
 
 def test_cp_async_ready_keeps_aligned_inputs():
