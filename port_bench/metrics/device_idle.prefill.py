@@ -1,0 +1,7 @@
+"""The share of the profiled prefill calls' wall in which no operation ran
+on the card, per cent."""
+from port_bench import readers
+
+
+def read(rec):
+    return readers.device_idle(rec)
