@@ -10,7 +10,8 @@ it without cycles). The incremental detector lives in ``core.trace``
 next to its batch siblings; the sampler takes it by injection.
 """
 from .instruments import (LogHistogram, MetricsHub, NullMetricsHub,
-                          NULL_METRICS, SlotCounter, SlotGauge)
+                          NULL_METRICS, SlotCounter, SlotGauge,
+                          ThreadClock)
 from .sampler import MetricsSampler
 from .export import (counter_track_events, load_metrics,
                      prometheus_text, save_metrics)
@@ -18,7 +19,7 @@ from .shm_plane import PLANE_FIELDS, ShmCounterPlane, WorkerCounterView
 
 __all__ = [
     "LogHistogram", "MetricsHub", "NullMetricsHub", "NULL_METRICS",
-    "SlotCounter", "SlotGauge",
+    "SlotCounter", "SlotGauge", "ThreadClock",
     "MetricsSampler",
     "counter_track_events", "load_metrics", "prometheus_text",
     "save_metrics",

@@ -24,10 +24,11 @@ q-quantile and <= ``exact * 1.25 + resolution``.
 """
 from __future__ import annotations
 
+import time
 from typing import Callable, Dict, List, Optional
 
-__all__ = ["LogHistogram", "SlotCounter", "SlotGauge", "MetricsHub",
-           "NullMetricsHub", "NULL_METRICS"]
+__all__ = ["LogHistogram", "SlotCounter", "SlotGauge", "ThreadClock",
+           "MetricsHub", "NullMetricsHub", "NULL_METRICS"]
 
 
 class LogHistogram:
@@ -179,6 +180,42 @@ class SlotGauge:
     @property
     def total(self) -> float:
         return sum(self.per_slot)
+
+
+class ThreadClock:
+    """Calls, wall seconds (``perf_counter``) and the calling thread's CPU
+    seconds (``time.thread_time``) of a region that one thread at a time
+    enters: ``with clock: ...``. Wall minus CPU is the time the thread
+    spent off the CPU inside the region: waiting for the GIL, blocked, or
+    preempted. Four clock reads a call; single-writer like the counters
+    above, and any thread may ``read()`` the totals. The port's own (the
+    JAX package has no stepping thread beside its runtime to time)."""
+
+    __slots__ = ("calls", "wall_s", "cpu_s", "_t0")
+
+    def __init__(self) -> None:
+        self.calls = 0
+        self.wall_s = 0.0
+        self.cpu_s = 0.0
+        self._t0 = (0.0, 0.0)
+
+    def __enter__(self) -> "ThreadClock":
+        # the CPU clock is read inside the wall clock's interval, so a
+        # call's wall is never shorter than its CPU time
+        self._t0 = (time.perf_counter(), time.thread_time())
+        return self
+
+    def __exit__(self, *exc) -> None:
+        cpu = time.thread_time()
+        wall = time.perf_counter()
+        w0, c0 = self._t0
+        self.wall_s += wall - w0
+        self.cpu_s += cpu - c0
+        self.calls += 1
+
+    def read(self) -> tuple:
+        """(calls, wall seconds, CPU seconds) so far."""
+        return self.calls, self.wall_s, self.cpu_s
 
 
 class MetricsHub:

@@ -66,7 +66,7 @@ from .ddast import DDASTParams
 from .dispatcher import FunctionalityDispatcher
 from .engine import make_placement, make_policy, mode_uses_shards
 from .errors import ScopeExpired, TaskFailed
-from .metrics import NULL_METRICS, MetricsHub, MetricsSampler
+from .metrics import NULL_METRICS, MetricsHub, MetricsSampler, SlotCounter
 from .queues import InstrumentedLock
 from .scopes import (FairAdmission, JobScope, ScopedPolicy, scope_rollup,
                      scoped_deps)
@@ -278,6 +278,12 @@ class TaskRuntime:
             self.dispatcher.register_quiescent(
                 "metrics-sampler", self.sampler.quiescent_callback,
                 priority=2)
+
+        # always on, beside the optional plane above: each time a worker
+        # finds no task and offers itself to the dispatcher, one store on
+        # its own slot (the port's own; not a `RuntimeStats` field, which
+        # stay the JAX package's)
+        self.idle_polls = SlotCounter(num_slots)
 
         self._root = WorkDescriptor(func=None, label="main")
         self._root.state = TaskState.RUNNING
@@ -866,12 +872,16 @@ class TaskRuntime:
     def _worker_loop(self, worker_id: int) -> None:
         _tls.current = self._root
         _tls.worker_id = worker_id
+        polls = self.idle_polls.per_slot
         while not self._stop.is_set():
             wd = self.placement.pop(worker_id)
             if wd is not None:
                 self._execute(wd, worker_id)
                 continue
-            if self.dispatcher.notify_idle(worker_id):
+            polls[worker_id] += 1
+            # the test here, not inside _sample_trace: an untraced poll
+            # makes no method call
+            if self.dispatcher.notify_idle(worker_id) and self.trace_enabled:
                 self._sample_trace()
             time.sleep(0)                   # yield (busy-wait analogue)
 

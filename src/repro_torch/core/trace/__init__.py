@@ -7,6 +7,8 @@ buffers, one schema for the threaded and simulated drivers); ``detect``
 holds the three pathology detectors (ready-queue starvation, priority
 inversion, affinity misses) that feed the ``DynamicTuner`` via its
 quiescence hook and the ``repro_torch.analysis.traceview`` exporter.
+``spans`` (the port's own, with no JAX counterpart) marks the layers of
+a step as profiler ranges while a PyTorch profiler records.
 """
 from .detect import (AFFINITY_MISS, INVERSION, STARVATION, Finding,
                      IncrementalDetector, detect_affinity_misses,
@@ -20,6 +22,7 @@ from .recorder import (EV_ADMIT_DEFER, EV_COMBINE, EV_CREATED,
                        FAULT_EVENTS, NULL_TRACER, TASK_LIFECYCLE,
                        NullTraceRecorder, TraceEvent, TraceRecorder,
                        load_trace, replay_iterations_of, save_trace)
+from .spans import span
 
 __all__ = [
     "TraceRecorder", "NullTraceRecorder", "NULL_TRACER", "TraceEvent",
@@ -32,4 +35,5 @@ __all__ = [
     "Finding", "IncrementalDetector", "detect_all", "detect_starvation",
     "detect_priority_inversion", "detect_affinity_misses",
     "replay_windows", "STARVATION", "INVERSION", "AFFINITY_MISS",
+    "span",
 ]

@@ -26,6 +26,9 @@ per call: dq, then dk/dv in bf16; dq, dk/dv into one partial per query
 head, then their sum over each group in f32). Each also counts its
 launches by call in `by_shape`, a Counter keyed by `shape_key` (q's shape,
 T, causal, window, softcap).
+Each CUDA call of `flash_attention_fwd` or `flash_attention_bwd`, its host
+side and its launches, is one profiler range while a PyTorch profiler
+records (`port.kernel.flash_fwd`, `port.kernel.flash_bwd`).
 
 As in the JAX kernel, the causal mask is start-aligned (query i sees keys
 <= i); it equals the end-aligned mask of `ref.attention_ref` only when
@@ -40,6 +43,7 @@ from typing import Optional
 
 import torch
 
+from ..core.trace import span
 from . import _build
 from .ref import flash_attention_bwd_ref, flash_attention_ref
 
@@ -214,16 +218,17 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _device_type(q) == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    softcap=softcap)
-    _check_cuda(q, k, v)
-    q, k, v = _kernel_inputs(q, k, v)
-    b, s, nq, hd = q.shape
-    o = torch.empty((b, s, nq, hd), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, nq, s), dtype=torch.float32, device=q.device)
-    args = _args(q, k, v, causal, window, softcap)
-    args.out, args.lse = o.data_ptr(), lse.data_ptr()
-    _launch("flash_attention_fwd", args, q)
-    _count(flash_attention, shape_key(q, k, causal, window, softcap))
-    return o, lse
+    with span("port.kernel.flash_fwd"):
+        _check_cuda(q, k, v)
+        q, k, v = _kernel_inputs(q, k, v)
+        b, s, nq, hd = q.shape
+        o = torch.empty((b, s, nq, hd), dtype=q.dtype, device=q.device)
+        lse = torch.empty((b, nq, s), dtype=torch.float32, device=q.device)
+        args = _args(q, k, v, causal, window, softcap)
+        args.out, args.lse = o.data_ptr(), lse.data_ptr()
+        _launch("flash_attention_fwd", args, q)
+        _count(flash_attention, shape_key(q, k, causal, window, softcap))
+        return o, lse
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -249,13 +254,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _device_type(q) == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                        window=window, softcap=softcap)
-    args, _alive, grads = _bwd_args(q, k, v, o, lse, do, causal=causal,
-                                    window=window, softcap=softcap)
-    key = shape_key(q, k, causal, window, softcap)
-    for entry in _BWD_ENTRIES[:BWD_LAUNCHES[q.dtype]]:
-        _launch(entry, args, q)
-        _count(flash_attention_bwd, key)
-    return grads
+    with span("port.kernel.flash_bwd"):
+        args, _alive, grads = _bwd_args(q, k, v, o, lse, do, causal=causal,
+                                        window=window, softcap=softcap)
+        key = shape_key(q, k, causal, window, softcap)
+        for entry in _BWD_ENTRIES[:BWD_LAUNCHES[q.dtype]]:
+            _launch(entry, args, q)
+            _count(flash_attention_bwd, key)
+        return grads
 
 
 # in this order on one stream: dq writes the D scratch that dk/dv reads;

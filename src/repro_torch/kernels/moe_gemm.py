@@ -19,7 +19,10 @@ version. `moe_gemm.launches`, `moe_gemm_bwd_dx.launches` and
 `moe_gemm_bwd_dw.launches` count kernel launches of both dtypes. TMA and
 cp.async need 16-byte rows, so d and f of the operands are zero-padded to
 multiples of 8 (bf16) or 4 (f32) elements (`pad_operands`) and the
-outputs are sliced back, as the JAX wrapper pads to its blocks.
+outputs are sliced back, as the JAX wrapper pads to its blocks. Each CUDA
+call's host side (padding, TMA tensor maps, argument packing) and launch
+is one profiler range while a PyTorch profiler records
+(`port.kernel.moe_gemm`, `.moe_gemm_dx`, `.moe_gemm_dw`).
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ..core.trace import span
 from . import _build
 from .ref import moe_gemm_dw_ref, moe_gemm_dx_ref, moe_gemm_ref
 
@@ -166,14 +170,15 @@ def _launch(entry: str, a: torch.Tensor, b: torch.Tensor,
 
 def _forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The forward kernel on CUDA operands that passed the checks."""
-    f = w.shape[2]
-    x, w = pad_operands(x, w, b_rows=True)
-    e, c, d = x.shape
-    fp = w.shape[2]
-    out = torch.empty((e, c, fp), dtype=x.dtype, device=x.device)
-    _launch(forward_entry(x.dtype, c), x, w, out, e, c, d, fp)
-    moe_gemm.launches += 1
-    return _sliced(out, f)
+    with span("port.kernel.moe_gemm"):
+        f = w.shape[2]
+        x, w = pad_operands(x, w, b_rows=True)
+        e, c, d = x.shape
+        fp = w.shape[2]
+        out = torch.empty((e, c, fp), dtype=x.dtype, device=x.device)
+        _launch(forward_entry(x.dtype, c), x, w, out, e, c, d, fp)
+        moe_gemm.launches += 1
+        return _sliced(out, f)
 
 
 def moe_gemm_bwd_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -183,12 +188,14 @@ def moe_gemm_bwd_dx(dy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check("moe_gemm_bwd_dx", dy, w, (e, c, d, f))
     if dy.device.type == "cpu":
         return moe_gemm_dx_ref(dy, w)
-    dy, w = pad_operands(dy, w, b_rows=True)
-    dp, fp = w.shape[1:]
-    dx = torch.empty((e, c, dp), dtype=dy.dtype, device=dy.device)
-    _launch(f"moe_gemm_bwd_dx_{_ROUTE[dy.dtype]}", dy, w, dx, e, c, dp, fp)
-    moe_gemm_bwd_dx.launches += 1
-    return _sliced(dx, d)
+    with span("port.kernel.moe_gemm_dx"):
+        dy, w = pad_operands(dy, w, b_rows=True)
+        dp, fp = w.shape[1:]
+        dx = torch.empty((e, c, dp), dtype=dy.dtype, device=dy.device)
+        _launch(f"moe_gemm_bwd_dx_{_ROUTE[dy.dtype]}", dy, w, dx, e, c, dp,
+                fp)
+        moe_gemm_bwd_dx.launches += 1
+        return _sliced(dx, d)
 
 
 def moe_gemm_bwd_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
@@ -198,12 +205,14 @@ def moe_gemm_bwd_dw(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     _check("moe_gemm_bwd_dw", x, dy, (e, c, d, f))
     if x.device.type == "cpu":
         return moe_gemm_dw_ref(x, dy)
-    x, dy = pad_operands(x, dy, b_rows=False)
-    dp, fp = x.shape[2], dy.shape[2]
-    dw = torch.empty((e, dp, fp), dtype=x.dtype, device=x.device)
-    _launch(f"moe_gemm_bwd_dw_{_ROUTE[x.dtype]}", x, dy, dw, e, c, dp, fp)
-    moe_gemm_bwd_dw.launches += 1
-    return _sliced(dw, d, f)
+    with span("port.kernel.moe_gemm_dw"):
+        x, dy = pad_operands(x, dy, b_rows=False)
+        dp, fp = x.shape[2], dy.shape[2]
+        dw = torch.empty((e, dp, fp), dtype=x.dtype, device=x.device)
+        _launch(f"moe_gemm_bwd_dw_{_ROUTE[x.dtype]}", x, dy, dw, e, c, dp,
+                fp)
+        moe_gemm_bwd_dw.launches += 1
+        return _sliced(dw, d, f)
 
 
 class _MoEGemm(torch.autograd.Function):

@@ -24,6 +24,9 @@ call each (the linear scan's look-back runs inside its one kernel; its
 flags are zeroed by a `cudaMemsetAsync` before it, not by a kernel of
 this module); `selective_scan_bwd.launches` and
 `selective_scan_bwd.reduce_launches`, one of each a backward call.
+Each CUDA call of the selective scan's forward or backward, its host side
+and its launches, is one profiler range while a PyTorch profiler records
+(`port.kernel.sel_scan`, `port.kernel.sel_scan_bwd`).
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from typing import Optional
 
 import torch
 
+from ..core.trace import span
 from . import _build
 from .ref import selective_scan_bwd_ref, selective_scan_ref, ssm_scan_ref
 
@@ -213,11 +217,12 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         return selective_scan_ref(x, dt, a_log, b, c, d, h0)
     if _needs_grad(ops):
         return _SelectiveScan.apply(x, dt, a_log, b, c, d, h0)
-    y, h_last = launch_sel(
-        getattr(_lib(), f"selective_scan_{_DTYPES[x.dtype]}"),
-        x, dt, a_log, b, c, d, h0)
-    selective_scan.launches += 1
-    return y, h_last
+    with span("port.kernel.sel_scan"):
+        y, h_last = launch_sel(
+            getattr(_lib(), f"selective_scan_{_DTYPES[x.dtype]}"),
+            x, dt, a_log, b, c, d, h0)
+        selective_scan.launches += 1
+        return y, h_last
 
 
 def _forward_states(x, dt, a_log, b, c, d, h0):
@@ -226,10 +231,12 @@ def _forward_states(x, dt, a_log, b, c, d, h0):
     launch); on the CPU the plain version, with h_seg None."""
     if not _on_cuda("selective_scan", [x, dt, a_log, b, c, d]):
         return (*selective_scan_ref(x, dt, a_log, b, c, d, h0), None)
-    out = launch_sel(getattr(_lib(), f"selective_scan_{_DTYPES[x.dtype]}"),
-                     x, dt, a_log, b, c, d, h0, states=True)
-    selective_scan.launches += 1
-    return out
+    with span("port.kernel.sel_scan"):
+        out = launch_sel(
+            getattr(_lib(), f"selective_scan_{_DTYPES[x.dtype]}"),
+            x, dt, a_log, b, c, d, h0, states=True)
+        selective_scan.launches += 1
+        return out
 
 
 class _SelectiveScan(torch.autograd.Function):
@@ -283,6 +290,15 @@ def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor,
         t for t in (h0, dh_last, h_seg) if t is not None]
     if not _on_cuda("selective_scan_bwd", ops):
         return selective_scan_bwd_ref(x, dt, a_log, b, c, d, h0, dy, dh_last)
+    with span("port.kernel.sel_scan_bwd"):
+        return _bwd_cuda(x, dt, a_log, b, c, d, dy, dh_last, h_seg)
+
+
+def _bwd_cuda(x, dt, a_log, b, c, d, dy, dh_last, h_seg):
+    """`selective_scan_bwd` on checked CUDA operands: the backward kernel
+    and its second pass."""
+    bsz, s, dd = x.shape
+    n = a_log.shape[1]
     nseg = -(-s // _seg_steps())
     if h_seg is None or tuple(h_seg.shape) != (bsz, nseg, dd, n) or \
             h_seg.dtype != torch.float32 or not h_seg.is_contiguous():

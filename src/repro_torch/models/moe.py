@@ -22,6 +22,12 @@ model for big "ep" buffers), the E-major [E, B, C, d] form and the
 grouped [E, B*C, d] operand and outputs of the three grouped matmuls
 (experts on model under "ep", tokens on the data axes), the combine's
 [B, E, C, d] and [B, E*C, d] forms, and the combined [B, S, d].
+
+`MoE.forward` marks its host phases as profiler ranges (`core.trace.span`,
+recorded only while a PyTorch profiler runs): `port.moe.route` (router
+logits to the top-k weights and the aux loss), `port.moe.dispatch` (the
+sort to the grouped operand) and `port.moe.combine` (the experts' output
+to y, before the shared experts).
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.trace import span
 from ..kernels import ops as kops
 from ..parallel.collectives import constrain, moe_mode
 from .config import ModelConfig
@@ -74,47 +81,53 @@ class MoE(nn.Module):
         nk = s * k
         dev = x.device
 
-        logits = x.float() @ self.router                     # [B,S,E]
-        if e_pad > e_real:
-            logits[..., e_real:] = -1e30
-        probs = torch.softmax(logits, dim=-1)
-        top_w, top_i = torch.topk(probs, k, dim=-1)          # [B,S,k]
-        top_w = top_w / top_w.sum(-1, keepdim=True)
+        with span("port.moe.route"):
+            logits = x.float() @ self.router                 # [B,S,E]
+            if e_pad > e_real:
+                logits[..., e_real:] = -1e30
+            probs = torch.softmax(logits, dim=-1)
+            top_w, top_i = torch.topk(probs, k, dim=-1)      # [B,S,k]
+            top_w = top_w / top_w.sum(-1, keepdim=True)
 
-        me = probs.mean(dim=(0, 1))
-        ce = F.one_hot(top_i[..., 0], e_pad).float().mean(dim=(0, 1))
-        aux = (me * ce).sum() * e_real
+            me = probs.mean(dim=(0, 1))
+            ce = F.one_hot(top_i[..., 0], e_pad).float().mean(dim=(0, 1))
+            aux = (me * ce).sum() * e_real
 
         # ---- per-row dispatch ------------------------------------------
-        flat_e = top_i.reshape(b, nk)                        # expert per slot
-        flat_t = torch.arange(s, device=dev).repeat_interleave(k)   # [nk]
-        flat_w = top_w.reshape(b, nk)
-        order = torch.argsort(flat_e, dim=1, stable=True)
-        se = torch.gather(flat_e, 1, order)                  # [B,nk]
-        st = flat_t[order]                                   # token idx
-        sw = torch.gather(flat_w, 1, order)
-        onehot = F.one_hot(se, e_pad)                        # [B,nk,E]
-        rank = torch.gather(onehot.cumsum(1), 2, se[..., None])[..., 0] - 1
-        keep = rank < cap
-        slot = torch.where(keep, se * cap + rank,
-                           torch.full_like(se, e_pad * cap))  # drop bin last
+        with span("port.moe.dispatch"):
+            flat_e = top_i.reshape(b, nk)                    # expert per slot
+            flat_t = torch.arange(s, device=dev).repeat_interleave(k)  # [nk]
+            flat_w = top_w.reshape(b, nk)
+            order = torch.argsort(flat_e, dim=1, stable=True)
+            se = torch.gather(flat_e, 1, order)              # [B,nk]
+            st = flat_t[order]                               # token idx
+            sw = torch.gather(flat_w, 1, order)
+            onehot = F.one_hot(se, e_pad)                    # [B,nk,E]
+            rank = torch.gather(onehot.cumsum(1), 2,
+                                se[..., None])[..., 0] - 1
+            keep = rank < cap
+            slot = torch.where(keep, se * cap + rank,
+                               torch.full_like(se, e_pad * cap))  # drop bin
 
-        rows = torch.arange(b, device=dev)[:, None]
-        buf = x.new_zeros((b, e_pad * cap + 1, d))
-        buf[rows, slot] = x[rows, st]
-        # the JAX version's layout choices: decode-sized buffers stay
-        # replicated; the slot dim goes on model only for big "ep" buffers
-        decode = s == 1 and b * e_pad * cap * d < (1 << 26)
-        slot_ax = "model" if (moe_mode() == "ep" and not decode
-                              and e_pad * cap >= 4096) else None
-        batch_ax = None if decode else "dp"
-        e_ax = "model" if moe_mode() == "ep" else None
-        tok_ax = None if decode else "dp"
-        packed = constrain(buf[:, :-1], batch_ax, slot_ax, None)
-        grouped4 = constrain(packed.reshape(b, e_pad, cap, d).transpose(0, 1),
-                             e_ax, tok_ax, None, None)
-        grouped = constrain(grouped4.reshape(e_pad, b * cap, d).contiguous(),
-                            e_ax, tok_ax, None)
+            rows = torch.arange(b, device=dev)[:, None]
+            buf = x.new_zeros((b, e_pad * cap + 1, d))
+            buf[rows, slot] = x[rows, st]
+            # the JAX version's layout choices: decode-sized buffers stay
+            # replicated; the slot dim goes on model only for big "ep"
+            # buffers
+            decode = s == 1 and b * e_pad * cap * d < (1 << 26)
+            slot_ax = "model" if (moe_mode() == "ep" and not decode
+                                  and e_pad * cap >= 4096) else None
+            batch_ax = None if decode else "dp"
+            e_ax = "model" if moe_mode() == "ep" else None
+            tok_ax = None if decode else "dp"
+            packed = constrain(buf[:, :-1], batch_ax, slot_ax, None)
+            grouped4 = constrain(
+                packed.reshape(b, e_pad, cap, d).transpose(0, 1),
+                e_ax, tok_ax, None, None)
+            grouped = constrain(
+                grouped4.reshape(e_pad, b * cap, d).contiguous(),
+                e_ax, tok_ax, None)
 
         h = constrain(kops.moe_gemm(grouped, self.w_gate), e_ax, tok_ax, None)
         hu = constrain(kops.moe_gemm(grouped, self.w_up), e_ax, tok_ax, None)
@@ -122,18 +135,21 @@ class MoE(nn.Module):
                                       self.w_down), e_ax, tok_ax, None)
 
         # ---- combine ---------------------------------------------------
-        slot_back = None if decode else e_ax
-        out4 = constrain(out.reshape(e_pad, b, cap, d), e_ax, tok_ax, None,
-                         None)
-        outb = constrain(out4.transpose(0, 1), batch_ax, slot_back, None,
-                         None).reshape(b, e_pad * cap, d)
-        outb = constrain(outb, "dp", slot_back, None)
-        vals = outb[rows, torch.where(keep, slot, torch.zeros_like(slot))]
-        vals = torch.where(keep[..., None], vals, torch.zeros_like(vals))
-        vals = vals * sw[..., None].to(out.dtype)
-        y = x.new_zeros((b * s, d))
-        y.index_add_(0, (rows * s + st).reshape(-1), vals.reshape(b * nk, d))
-        y = constrain(y.reshape(b, s, d), "dp", None, None)
+        with span("port.moe.combine"):
+            slot_back = None if decode else e_ax
+            out4 = constrain(out.reshape(e_pad, b, cap, d), e_ax, tok_ax,
+                             None, None)
+            outb = constrain(out4.transpose(0, 1), batch_ax, slot_back,
+                             None, None).reshape(b, e_pad * cap, d)
+            outb = constrain(outb, "dp", slot_back, None)
+            vals = outb[rows, torch.where(keep, slot,
+                                          torch.zeros_like(slot))]
+            vals = torch.where(keep[..., None], vals, torch.zeros_like(vals))
+            vals = vals * sw[..., None].to(out.dtype)
+            y = x.new_zeros((b * s, d))
+            y.index_add_(0, (rows * s + st).reshape(-1),
+                         vals.reshape(b * nk, d))
+            y = constrain(y.reshape(b, s, d), "dp", None, None)
 
         if cfg.num_shared_experts:
             y = y + self.shared(x.reshape(b * s, d)).reshape(b, s, d)

@@ -7,6 +7,12 @@ does; in eager PyTorch there is no collective to overlap on one card, so
 the order only fixes the summation order. The accumulator is f32, or bf16
 when `grad_compress` is set (train_step.py:70-96). Gradients come from
 `torch.autograd.grad` over the module's parameters, by name.
+
+The step marks its phases as profiler ranges (`core.trace.span`:
+`port.train.forward`, `.backward`, `.clip`, `.adamw`), recorded only
+while a PyTorch profiler runs, and times every call on `step.clock` (a
+`core.metrics.ThreadClock`: wall and the stepping thread's CPU seconds).
+The JAX package's step is one jitted function and has neither.
 """
 from __future__ import annotations
 
@@ -16,7 +22,9 @@ from typing import Any, Callable, Dict, Union
 import torch
 import torch.nn.functional as F
 
+from ..core.metrics import ThreadClock
 from ..core.sched import DagNode, ddast_schedule
+from ..core.trace import span
 from ..models.registry import ModelAPI
 from .optimizer import OptConfig, adamw_update, clip_by_global_norm
 
@@ -65,19 +73,26 @@ def make_loss_fn(model: ModelAPI, tcfg: TrainConfig) -> Callable:
 def make_train_step(model: ModelAPI, tcfg: TrainConfig) -> Callable:
     """(params, opt, batch) -> (params, opt, metrics), params and opt
     updated in place; metrics hold device tensors (loss, aux, grad_norm,
-    lr)."""
+    lr). The returned step's `clock` times its calls."""
     loss_fn = make_loss_fn(model, tcfg)
     nmb = tcfg.num_microbatches
+    clock = ThreadClock()
 
     def grad_fn(params, batch):
         names, plist = zip(*params.named_parameters())
-        total, metrics = loss_fn(params, batch)
+        with span("port.train.forward"):
+            total, metrics = loss_fn(params, batch)
         # a parameter the loss does not reach (the embedding table when the
         # batch carries `embeds`) gets a zero gradient, as under jax.grad
-        grads = torch.autograd.grad(total, plist, materialize_grads=True)
+        with span("port.train.backward"):
+            grads = torch.autograd.grad(total, plist, materialize_grads=True)
         return dict(zip(names, grads)), metrics
 
     def train_step(params: Any, opt: Dict[str, Any], batch: Batch):
+        with clock:
+            return step(params, opt, batch)
+
+    def step(params, opt, batch):
         if nmb <= 1:
             grads, metrics = grad_fn(params, batch)
             metrics = {k: v.detach() for k, v in metrics.items()}
@@ -97,10 +112,13 @@ def make_train_step(model: ModelAPI, tcfg: TrainConfig) -> Callable:
             grads = {n: (a / nmb).float() for n, a in g_acc.items()}
             metrics = {"loss": lsum / nmb,
                        "aux": torch.zeros((), device=lsum.device)}
-        grads, gnorm = clip_by_global_norm(grads, tcfg.opt.clip_norm)
-        params, opt, lr = adamw_update(tcfg.opt, grads, opt, params)
+        with span("port.train.clip"):
+            grads, gnorm = clip_by_global_norm(grads, tcfg.opt.clip_norm)
+        with span("port.train.adamw"):
+            params, opt, lr = adamw_update(tcfg.opt, grads, opt, params)
         return params, opt, dict(metrics, grad_norm=gnorm, lr=lr)
 
+    train_step.clock = clock
     return train_step
 
 
