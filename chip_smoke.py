@@ -12,6 +12,9 @@
                                       # backend; no build, no result line)
   python3 chip_smoke.py --examples    # phases 1 and 36 alone (the port's
                                       # examples; no result line)
+  python3 chip_smoke.py --optimizer   # phases 1 and 37 alone (the fused
+                                      # clip and AdamW at every training
+                                      # path's leaves; no result line)
 
 Run from the repository root on a machine with a Hopper card and `nvcc`.
 With `--ab PARENT` (a checkout of another commit, e.g. unpacked from `git
@@ -376,13 +379,26 @@ its own failure):
      a merged trace); then the flash kernels against their plain versions
      at the shapes the training tour gave them (`check_flash_case`); each
      example's time and the phase's (within 60 s);
- 37. the seconds of each phase (from its start to the next one's), then
+ 37. the fused clip and AdamW (`train/optimizer.py` `ClipAndAdamW`,
+     `kernels/adamw.py`) at the leaves of every training phase (9, 10,
+     15-18, 21, 22, 25, 30, 31) and of the benchmark's training cell
+     (`port_bench`'s qwen2-moe-a2.7b, views of one buffer a dtype, f32
+     routers): seeded gradients in each parameter's dtype and drawn m and
+     v, one clipped step on the fused pass (one launch of each kernel,
+     every leaf counted fused, none plain), its norm within 1e-5 of
+     `global_norm`, and each leaf's p, m and v bit-equal to `adamw_update`
+     given the fused norm's scale, on copies kept on the host; then each
+     kernel alone by CUDA events against its bytes bound (the training
+     phases themselves count one launch of each kernel a step, and their
+     fused and plain leaves);
+ 38. the seconds of each phase (from its start to the next one's), then
      a JSON line with the kernels' numbers (the bf16 and f32 routes of
      `moe_gemm`, of its backward and of the flash forward and backward as
      entries of their own, the flash entries with the whisper encoder's
      and gemma2's shapes and the training tour's launches; the selective
-     scan's backward; the two xLSTM scans and their backwards), then,
-     last, the result line {"ok": true, "device": {...}}.
+     scan's backward; the two xLSTM scans and their backwards; the fused
+     clip and AdamW), then, last, the result line {"ok": true, "device":
+     {...}}.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
 """
@@ -426,6 +442,7 @@ from repro_torch.core.taskgraph_apps import (  # noqa: E402
     matmul_oracle_torch, nbody_oracle_torch, run_matmul, run_matmul_epochs,
     run_nbody, run_sparselu, sim_sparselu_specs, sparselu_oracle_torch)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import adamw as fused_adamw  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_bwd, flash_attention_fwd)
@@ -454,7 +471,8 @@ from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.serve.serve_step import greedy_decode  # noqa: E402
 from repro_torch.train.data import DataConfig, SyntheticLM  # noqa: E402
-from repro_torch.train.optimizer import OptConfig, init_opt_state  # noqa: E402
+from repro_torch.train.optimizer import (  # noqa: E402
+    ClipAndAdamW, OptConfig, adamw_update, global_norm, init_opt_state)
 from repro_torch.train.train_step import (  # noqa: E402
     TrainConfig, make_prefill_step, make_train_step)
 
@@ -4286,10 +4304,11 @@ def xlstm_train_path() -> dict:
     sLSTM), XLSTM_TRAIN_BATCH x XLSTM_TRAIN_SEQ, through `train_cell`: a
     step runs each mLSTM layer's scan and its three backward kernels, each
     sLSTM layer's trail-keeping scan and its backward, and no other kernel
-    of the port."""
+    of the port but the optimizer's two (OPTIMIZER_STEP)."""
     cfg = get_config(XLSTM)
     return train_cell("xlstm-train", cfg, XLSTM_TRAIN_BATCH, XLSTM_TRAIN_SEQ,
-                      train_only(mlstm_scan=9, mlstm_scan_bwd_prep=9,
+                      train_only(**OPTIMIZER_STEP, mlstm_scan=9,
+                                 mlstm_scan_bwd_prep=9,
                                  mlstm_scan_bwd_state=9, mlstm_scan_bwd=9,
                                  mlstm_scan_bwd_gate=9,
                                  slstm_scan=3, slstm_scan_trails=3,
@@ -4345,7 +4364,13 @@ TRAIN_COUNTERS = (("moe_gemm", moe_gemm, "launches"),
                    "gate_launches"),
                   ("slstm_scan", xls.slstm_scan, "launches"),
                   ("slstm_scan_trails", xls.slstm_scan, "trail_launches"),
-                  ("slstm_scan_bwd", xls.slstm_scan_bwd, "launches"))
+                  ("slstm_scan_bwd", xls.slstm_scan_bwd, "launches"),
+                  ("adamw_norm", fused_adamw.norm, "launches"),
+                  ("adamw_update", fused_adamw.update, "launches"))
+
+# the fused clip and AdamW's launches a train step: one of each (up to
+# fused_adamw.MAX_LEAVES leaves)
+OPTIMIZER_STEP = {"adamw_norm": 1, "adamw_update": 1}
 
 
 def train_only(**nonzero) -> dict:
@@ -4377,7 +4402,8 @@ def train_step_counts(cfg) -> dict:
     three in f32) a self-attention layer (`forward_counts`); the
     selective scan, its backward and the backward's second pass a Mamba
     layer; the mLSTM scan and its four backward kernels an mLSTM layer;
-    the trail-keeping sLSTM scan and its backward an sLSTM layer."""
+    the trail-keeping sLSTM scan and its backward an sLSTM layer; the
+    fused clip and AdamW's two kernels (OPTIMIZER_STEP)."""
     fwd = forward_counts(cfg)
     moe, attn = fwd["moe_gemm"], fwd["flash_attention"]
     mamba, mlstm, slstm = (fwd["selective_scan"], fwd["mlstm_scan"],
@@ -4390,7 +4416,8 @@ def train_step_counts(cfg) -> dict:
             "mlstm_scan_bwd_prep": mlstm, "mlstm_scan_bwd_state": mlstm,
             "mlstm_scan_bwd": mlstm, "mlstm_scan_bwd_gate": mlstm,
             "slstm_scan": slstm,
-            "slstm_scan_trails": slstm, "slstm_scan_bwd": slstm}
+            "slstm_scan_trails": slstm, "slstm_scan_bwd": slstm,
+            **OPTIMIZER_STEP}
 
 
 def train_cell(name: str, cfg, batch: int, seq: int, per_step: dict,
@@ -4398,7 +4425,9 @@ def train_cell(name: str, cfg, batch: int, seq: int, per_step: dict,
     """`make_train_step` on `cfg`, random bf16 weights from a seeded
     generator, f32 AdamW, `SyntheticLM` batches of batch x seq,
     TRAIN_STEPS steps with the launch counts set to 0 just before and read
-    just after (`per_step` a step); then a torch.profiler window over two
+    just after (`per_step` a step) and the optimizer's leaf counters
+    (every leaf fused each step, none plain); then a torch.profiler
+    window over two
     more steps, with the device time of each of `kernels` (name
     substrings) a step."""
     assert train_step_counts(cfg) == per_step, train_step_counts(cfg)
@@ -4423,6 +4452,9 @@ def train_cell(name: str, cfg, batch: int, seq: int, per_step: dict,
     counts = read_train_counts()
     shapes = read_flash_shapes()
     peak = torch.cuda.max_memory_allocated()
+    leaves = leaf_counts(step_fn.optimizer.fused_leaves.total,
+                         step_fn.optimizer.plain_leaves.total,
+                         len(list(params.parameters())), TRAIN_STEPS)
     tokens = batch * seq
     wall = statistics.median(walls[1:])
     print(f"[{name}] {cfg.name} full width, {cfg.num_layers} layers "
@@ -4436,7 +4468,7 @@ def train_cell(name: str, cfg, batch: int, seq: int, per_step: dict,
           f"{[round(1e3 * t, 1) for t in walls]} ms; steps 2.. median "
           f"{1e3 * wall:.1f} ms, {tokens / wall:.0f} tok/s; peak memory "
           f"{peak / 2**30:.2f} GiB; launches over {TRAIN_STEPS} steps "
-          f"{counts} ({per_step} a step)")
+          f"{counts} ({per_step} a step); optimizer leaves {leaves}")
     assert all(math.isfinite(x_) for x_ in losses + gnorms), (losses, gnorms)
     assert counts == {k: v * TRAIN_STEPS for k, v in per_step.items()}, \
         counts
@@ -4470,7 +4502,7 @@ def train_cell(name: str, cfg, batch: int, seq: int, per_step: dict,
     torch.cuda.empty_cache()
     return {"counts": counts, "shapes": shapes, "wall_ms": 1e3 * wall,
             "busy_ms": busy, "peak_gib": peak / 2**30,
-            "kernel_ms": kernel_ms}
+            "kernel_ms": kernel_ms, "leaves": leaves}
 
 
 MOE_KERNELS = ("moe_gemm_wgmma_kernel", "moe_gemm_dx_wgmma_kernel",
@@ -4483,7 +4515,7 @@ def moe_train_path() -> dict:
     `train_cell`."""
     cfg = get_config(ARCH).scaled(repeats=MOE_TRAIN_REPEATS)
     return train_cell("moe-train", cfg, TRAIN_BATCH, TRAIN_SEQ, train_only(
-        moe_gemm=12, moe_gemm_bwd_dx=12, moe_gemm_bwd_dw=12,
+        **OPTIMIZER_STEP, moe_gemm=12, moe_gemm_bwd_dx=12, moe_gemm_bwd_dw=12,
         flash_attention=4, flash_attention_bwd=8), MOE_KERNELS)
 
 
@@ -4497,7 +4529,8 @@ def jamba_train_path() -> dict:
     cfg = full.scaled(pattern=full.pattern[:JAMBA_TRAIN_LAYERS], repeats=1)
     assert cfg.param_count() == JAMBA_TRAIN_PARAMS, cfg.param_count()
     return train_cell("jamba-train", cfg, JAMBA_TRAIN_BATCH, JAMBA_TRAIN_SEQ,
-                      train_only(moe_gemm=3, moe_gemm_bwd_dx=3,
+                      train_only(**OPTIMIZER_STEP, moe_gemm=3,
+                                 moe_gemm_bwd_dx=3,
                                  moe_gemm_bwd_dw=3, selective_scan=2,
                                  selective_scan_bwd=2,
                                  selective_scan_bwd_reduce=2),
@@ -4520,13 +4553,14 @@ def gemma2_train_path() -> dict:
     """Slice 11's train path: full-width gemma2-27b cut to one period (a
     local layer with the 4096-key window and a global one, both
     softcapped), B=1 x GEMMA2_TRAIN_SEQ, through `train_cell`: a step
-    runs two flash forwards and their four backward kernels, nothing else
-    of the port's."""
+    runs two flash forwards and their four backward kernels and the
+    optimizer's two (OPTIMIZER_STEP), nothing else of the port's."""
     cfg = get_config(GEMMA2).scaled(repeats=1)
     assert cfg.param_count() == GEMMA2_TRAIN_PARAMS, cfg.param_count()
     assert GEMMA2_TRAIN_SEQ > cfg.sliding_window
     out = train_cell("gemma2-train", cfg, 1, GEMMA2_TRAIN_SEQ,
-                     train_only(flash_attention=2, flash_attention_bwd=4),
+                     train_only(**OPTIMIZER_STEP, flash_attention=2,
+                                flash_attention_bwd=4),
                      FLASH_KERNELS[torch.bfloat16])
     local, glob = mixer_layers(cfg)
     out["shapes"] = {which: shape_launches(out["shapes"][which], {
@@ -4545,7 +4579,7 @@ def launcher_train_path(arch: str, batch: int, seq: int) -> dict:
     steps of `batch` x `seq` (an encoder-decoder's over encoder_seq zero
     frames), with the launch
     counts set to 0 just before and read just after (`train_step_counts`
-    a step); step wall, tokens/s, peak memory, the final checkpoint; then
+    a step) and the optimizer's leaf counters; step wall, tokens/s, peak memory, the final checkpoint; then
     `profile_train` over two steps."""
     cfg = get_config(arch)
     per_step = train_step_counts(cfg)
@@ -4560,6 +4594,8 @@ def launcher_train_path(arch: str, batch: int, seq: int) -> dict:
         peak = torch.cuda.max_memory_allocated()
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+    leaves = leaf_counts(out["fused_leaves"], out["plain_leaves"],
+                         n_leaves(cfg), TRAIN_STEPS)
     wall = statistics.median(out["step_s"][1:])
     ck = out["last_ckpt"]
     layers = (f"{cfg.encoder_layers} encoder + {cfg.num_layers} decoder "
@@ -4576,7 +4612,8 @@ def launcher_train_path(arch: str, batch: int, seq: int) -> dict:
           f"median {1e3 * wall:.1f} ms, {batch * seq / wall:.0f} tok/s; "
           f"peak memory {peak / 2**30:.2f} GiB; final checkpoint "
           f"{ck['bytes'] / 1e9:.3f} GB written in {ck['seconds']:.2f} s; "
-          f"launches over {TRAIN_STEPS} steps {counts} ({per_step} a step)")
+          f"launches over {TRAIN_STEPS} steps {counts} ({per_step} a step); "
+          f"optimizer leaves {leaves}")
     assert all(math.isfinite(x_) for x_ in out["losses"] + out["grad_norms"])
     assert len(out["losses"]) == TRAIN_STEPS
     assert counts == {k: v * TRAIN_STEPS for k, v in per_step.items()}, \
@@ -4586,7 +4623,7 @@ def launcher_train_path(arch: str, batch: int, seq: int) -> dict:
     torch.cuda.empty_cache()
     prof = profile_train(cfg, batch, seq)
     return {"counts": counts, "shapes": shapes, "wall_ms": 1e3 * wall,
-            "peak_gib": peak / 2**30,
+            "peak_gib": peak / 2**30, "leaves": leaves,
             **{f"profile_{k}": v for k, v in prof.items()}}
 
 
@@ -4705,8 +4742,13 @@ def tiny_f32_train(arch: str) -> dict:
         counts = read_train_counts()
     finally:
         shutil.rmtree(tiny_dir, ignore_errors=True)
-    per_step = train_step_counts(tiny_config(arch).scaled(dtype="float32"))
+    cfg = tiny_config(arch).scaled(dtype="float32")
+    per_step = train_step_counts(cfg)
     assert counts == {k: 60 * v for k, v in per_step.items()}, counts
+    leaves = leaf_counts(
+        sum(r["fused_leaves"] for r in (first, resumed, straight)),
+        sum(r["plain_leaves"] for r in (first, resumed, straight)),
+        n_leaves(cfg), 60)
     assert first["final_loss"] < first["losses"][0], first["losses"]
     assert len(resumed["losses"]) == 6
     assert math.isclose(resumed["losses"][-1], straight["losses"][-1],
@@ -4716,8 +4758,190 @@ def tiny_f32_train(arch: str) -> dict:
           f"steps; step-30 loss resumed from step 24 "
           f"{resumed['losses'][-1]:.6f}, straight "
           f"{straight['losses'][-1]:.6f}; launches over the 60 steps "
-          f"{counts}")
+          f"{counts}; optimizer leaves {leaves}")
     return counts
+
+
+def n_leaves(cfg) -> int:
+    """The parameters (leaves) of `cfg`'s model, counted on the meta
+    device."""
+    with torch.device("meta"):
+        return len(list(get_model(cfg, "meta").init_params(None)
+                        .parameters()))
+
+
+def leaf_counts(fused_n: int, plain_n: int, leaves: int,
+                steps: int) -> dict:
+    """A training run's optimizer leaf counters (`ClipAndAdamW`), which
+    must read every leaf of every step fused and none plain."""
+    out = {"fused": fused_n, "plain": plain_n, "leaves": leaves,
+           "steps": steps}
+    assert (fused_n, plain_n) == (leaves * steps, 0), out
+    return out
+
+
+OPT_SLICE = 1 << 26     # elements of a leaf the plain loop takes at once
+
+
+class _OneLeaf:
+    """`adamw_update`'s view of one named parameter."""
+
+    def __init__(self, name: str, p: torch.Tensor):
+        self._item = (name, p)
+
+    def named_parameters(self):
+        return [self._item]
+
+
+def bench_cell_params():
+    """The benchmark's training cell's parameters on the card
+    (`port_bench`: qwen2-moe-a2.7b cut to 4 layers, views of one buffer a
+    dtype, f32 routers)."""
+    from port_bench import harness
+    from port_bench.arch import Arch
+    from port_bench.weights import make_weights
+    a = Arch.load("qwen2-moe-a2.7b")
+    dev = torch.device("cuda")
+    _, params = harness.load_program(a, make_weights(a, 2**31 + 11, dev),
+                                     dev, train=True)
+    return params
+
+
+def model_params(cfg):
+    with torch.no_grad():
+        return get_model(cfg, "cuda").init_params(
+            torch.Generator("cuda").manual_seed(0))
+
+
+def optimizer_check(label: str, params, mem_bps: float) -> dict:
+    """The fused clip and AdamW (`ClipAndAdamW` on the card) at one set of
+    training leaves against the plain loop: seeded gradients in each
+    parameter's dtype, drawn m and v (v >= 0), one clipped step; its
+    launches and leaf counters, its norm within 1e-5 of `global_norm`,
+    then each leaf's p, m and v bit-equal to `adamw_update` on copies
+    kept on the host, given the fused norm's scale (OPT_SLICE elements
+    at a time); then each kernel
+    alone (CUDA events, in turns) against its bytes bound at `mem_bps`."""
+    cfg = OptConfig(peak_lr=1e-3, warmup_steps=2, total_steps=10)
+    named = list(params.named_parameters())
+    gen = torch.Generator("cuda").manual_seed(7)
+
+    def draw(p, dtype):
+        return (torch.randn(p.shape, generator=gen, device="cuda")
+                * 1e-3).to(dtype)
+    with torch.no_grad():
+        grads = {n: draw(p, p.dtype) for n, p in named}
+        opt = {"m": {n: draw(p, torch.float32) for n, p in named},
+               "v": {n: draw(p, torch.float32).square_() for n, p in named},
+               "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    host = {n: (p.detach().cpu(), opt["m"][n].cpu(), opt["v"][n].cpu())
+            for n, p in named}
+    step = ClipAndAdamW(cfg)
+    zero_train_counts()
+    _, _, lr, gnorm = step(grads, opt, params)
+    launches = read_train_counts()
+    ref = float(global_norm(grads))
+    norm_err = abs(float(gnorm) - ref) / ref
+    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+    unequal = []
+    with torch.no_grad():
+        for n, p in named:
+            # the plain loop is elementwise: run it on OPT_SLICE elements
+            # of the leaf at a time, so that its f32 temporaries fit
+            flat = [t.reshape(-1) for t in host.pop(n)]
+            got = (p.detach().reshape(-1), grads[n].reshape(-1),
+                   opt["m"][n].reshape(-1), opt["v"][n].reshape(-1))
+            same = True
+            for i in range(0, p.numel(), OPT_SLICE):
+                pc, mc, vc = (t[i:i + OPT_SLICE].cuda() for t in flat)
+                pf, g, mf, vf = (t[i:i + OPT_SLICE] for t in got)
+                _, _, lr_b = adamw_update(
+                    cfg, {n: g * scale.to(g.dtype)},
+                    {"m": {n: mc}, "v": {n: vc},
+                     "step": torch.zeros((), dtype=torch.int32,
+                                         device="cuda")},
+                    _OneLeaf(n, pc))
+                assert torch.equal(lr, lr_b), (n, lr, lr_b)
+                same = same and (torch.equal(pc, pf) and torch.equal(mc, mf)
+                                 and torch.equal(vc, vf))
+            if not same:
+                unequal.append(n)
+            del flat, got
+    leaves = [(p.detach(), grads[n], opt["m"][n], opt["v"][n])
+              for n, p in named]
+    plan = fused_adamw.make_plan(leaves, fused_adamw.grid_blocks(0))
+    gs = [g for _, g, _, _ in leaves]
+    out = fused_adamw.norm(plan, gs, cfg.clip_norm)
+    lr_t, bc1, bc2 = (torch.tensor(x, device="cuda")
+                      for x in (1e-6, 0.1, 0.05))
+    ms = time_turns({
+        "norm": lambda: fused_adamw.norm(plan, gs, cfg.clip_norm),
+        "update": lambda: fused_adamw.update(
+            plan, gs, out, lr_t, bc1, bc2, cfg.b1, cfg.b2, cfg.eps,
+            cfg.weight_decay)}, reps=10)
+    elements = sum(p.numel() for _, p in named)
+    nbytes = {"norm": sum(g.numel() * g.element_size() for g in gs),
+              "update": sum(p.numel() * (2 * p.element_size()
+                                         + g.element_size() + 16)
+                            for p, g, _, _ in leaves)}
+    bound = {k: 1e3 * b / mem_bps for k, b in nbytes.items()}
+    pairs = {}
+    for p, g, _, _ in leaves:
+        key = f"{str(p.dtype)[6:]}/{str(g.dtype)[6:]}"
+        pairs[key] = pairs.get(key, 0) + 1
+    res = {"leaves": len(named), "elements": elements, "dtypes": pairs,
+           "launches": {k: launches[k] for k in OPTIMIZER_STEP},
+           "fused_leaves": step.fused_leaves.total,
+           "plain_leaves": step.plain_leaves.total,
+           "norm_rel_err": norm_err, "unequal_leaves": len(unequal),
+           "norm_ms": ms["norm"], "update_ms": ms["update"],
+           "norm_bound_ms": bound["norm"],
+           "update_bound_ms": bound["update"]}
+    print(f"[optimizer] {label}: {len(named)} leaves, {elements:,} elements "
+          f"(p/g {pairs}); one clipped step: launches {res['launches']}, "
+          f"leaves fused {res['fused_leaves']}, plain "
+          f"{res['plain_leaves']}; norm {float(gnorm):.6g} against "
+          f"global_norm's {ref:.6g}, relative {norm_err:.2e} (tolerance "
+          f"1e-5); p, m, v bit-equal to the plain loop given that scale on "
+          f"{len(named) - len(unequal)} of {len(named)} leaves "
+          f"{unequal[:4]}; alone: norm {ms['norm']:.4f} ms (bytes bound "
+          f"{bound['norm']:.4f}, {100 * bound['norm'] / ms['norm']:.1f}%), "
+          f"update {ms['update']:.4f} ms (bound {bound['update']:.4f}, "
+          f"{100 * bound['update'] / ms['update']:.1f}%)")
+    assert res["launches"] == OPTIMIZER_STEP, res
+    assert (res["fused_leaves"], res["plain_leaves"]) == (len(named), 0), res
+    assert norm_err <= 1e-5 and not unequal, res
+    del params, grads, opt, leaves, gs, plan, out, named
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def optimizer_path(mem_bps: float) -> dict:
+    """Phase 37: `optimizer_check` at the benchmark's training cell's
+    leaves and at those of every training phase, full width and tiny
+    f32."""
+    jamba = get_config(JAMBA)
+    sets = {
+        "bench qwen2moe-train-b4s2048": bench_cell_params,
+        f"phase 9 {TRAIN_ARCH}": lambda: model_params(get_config(TRAIN_ARCH)),
+        f"phase 15 {ARCH} x{MOE_TRAIN_REPEATS}": lambda: model_params(
+            get_config(ARCH).scaled(repeats=MOE_TRAIN_REPEATS)),
+        f"phase 17 {JAMBA} layers 0-{JAMBA_TRAIN_LAYERS - 1}":
+            lambda: model_params(jamba.scaled(
+                pattern=jamba.pattern[:JAMBA_TRAIN_LAYERS], repeats=1)),
+        f"phase 21 {GEMMA2} one period": lambda: model_params(
+            get_config(GEMMA2).scaled(repeats=1)),
+        f"phase 22 {WHISPER}": lambda: model_params(get_config(WHISPER)),
+        f"phase 30 {XLSTM}": lambda: model_params(get_config(XLSTM)),
+    }
+    for ph, arch in (("10", TRAIN_ARCH), ("16", ARCH), ("18", JAMBA),
+                     ("25", WHISPER), ("31", XLSTM)):
+        sets[f"phase {ph} tiny {arch} f32"] = (
+            lambda a=arch: model_params(
+                tiny_config(a).scaled(dtype="float32")))
+    return {label: optimizer_check(label, make(), mem_bps)
+            for label, make in sets.items()}
 
 
 def card_peaks(smi: str, peak_key: str, pk) -> dict:
@@ -4826,8 +5050,9 @@ def main() -> int:
     apps_only = sys.argv[1:2] == ["--apps"]
     procs_only = sys.argv[1:2] == ["--procs"]
     examples_only = sys.argv[1:2] == ["--examples"]
+    optimizer_only = sys.argv[1:2] == ["--optimizer"]
 
-    # each phase's start, to print where the run's time goes (phase 37)
+    # each phase's start, to print where the run's time goes (phase 38)
     starts = [("1", time.perf_counter())]
 
     def lap(label: str) -> None:
@@ -4857,6 +5082,9 @@ def main() -> int:
           f"{sfu_rate / 1e12:.3f} T exp2/s ({SFU_PER_CLOCK} a clock an SM)")
     if apps_only:
         apps_path()
+        return 0
+    if optimizer_only:
+        optimizer_path(mem_bps)
         return 0
     # phase 35's workers fork from this process's fork server: start it
     # now, so that its preload (torch and the port) runs beside phases
@@ -5316,11 +5544,17 @@ def main() -> int:
     ex_errs = list(examples["flash_errs"].values())
 
     lap("37")
+    # ---- 37. the fused clip and AdamW at every training path's leaves --
+    gc.collect()
+    torch.cuda.empty_cache()
+    optimizer = optimizer_path(mem_bps)
+
+    lap("38")
     print("[phases] seconds from each phase's start to the next's: "
           + ", ".join(f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1)
                       in zip(starts, starts[1:]))
-          + f"; phases 1-36 {starts[-1][1] - starts[0][1]:.1f}")
-    # ---- 37. results -----------------------------------------------------
+          + f"; phases 1-37 {starts[-1][1] - starts[0][1]:.1f}")
+    # ---- 38. results -----------------------------------------------------
     # Both dtypes of moe_gemm, of its backward and of the flash forward and
     # backward count in one `launches`; each route's own count is that of
     # a run in its dtype: bf16 the main paths (phases 5, 9 and 15), f32 the
@@ -5713,6 +5947,25 @@ def main() -> int:
                     + f"; launches over the {TRAIN_STEPS} xlstm train steps; "
                     f"no PyTorch call computes it (library none)",
         })
+    cell = optimizer["bench qwen2moe-train-b4s2048"]
+    kernels.append({
+        "name": "adamw", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/adamw.cu",
+        "kernel": "adamw_norm_kernel, adamw_update_kernel", "replaces": None,
+        "note": "the JAX package's clip and AdamW "
+                "(repro/train/optimizer.py) are jnp code that XLA fuses",
+        "launches": {k_: moe_train["counts"][k_] for k_ in OPTIMIZER_STEP},
+        "max_norm_rel_err": max(r["norm_rel_err"]
+                                for r in optimizer.values()),
+        "device_ms": cell["norm_ms"] + cell["update_ms"],
+        "bytes_bound_ms": cell["norm_bound_ms"] + cell["update_bound_ms"],
+        "by_leaf_set": optimizer,
+        "unit": "one clipped step over the benchmark's training cell's "
+                "leaves (each kernel alone, CUDA events); launches over "
+                f"phase 15's {TRAIN_STEPS} train steps; p, m and v "
+                "bit-equal to the plain loop on every leaf set "
+                "(unequal_leaves)",
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -61,7 +61,8 @@ def train(arch: str, tiny: bool, steps: int, batch: int, seq: int,
     `resume`), saving every 20 steps and at the end. `dtype` overrides
     the config's parameter dtype. Returns per-step losses, grad norms and
     host wall seconds (each step ends in a device sync, as reading its
-    loss needs one), the run's wall, and the last checkpoint write."""
+    loss needs one), the run's wall, the last checkpoint write, and the
+    leaves the optimizer's fused pass and its plain loop updated."""
     dev = resolve_device(device)
     cfg = tiny_config(arch) if tiny else get_config(arch)
     if dtype is not None:
@@ -135,7 +136,9 @@ def train(arch: str, tiny: bool, steps: int, batch: int, seq: int,
             "wall_s": wall, "prefetch_async": prefetch.fills_async,
             "ckpt_writes": ckpt.async_writes, "last_ckpt": ckpt.last_write,
             "final_loss": losses[-1] if losses else None,
-            "device": str(dev)}
+            "device": str(dev),
+            "fused_leaves": step_fn.optimizer.fused_leaves.total,
+            "plain_leaves": step_fn.optimizer.plain_leaves.total}
 
 
 def main() -> None:

@@ -8,10 +8,13 @@ the order only fixes the summation order. The accumulator is f32, or bf16
 when `grad_compress` is set (train_step.py:70-96). Gradients come from
 `torch.autograd.grad` over the module's parameters, by name.
 
+The clip and AdamW are `optimizer.ClipAndAdamW`: two hand-written
+kernels over every leaf on the card, the plain per-leaf code otherwise.
 The step marks its phases as profiler ranges (`core.trace.span`:
-`port.train.forward`, `.backward`, `.clip`, `.adamw`), recorded only
-while a PyTorch profiler runs, and times every call on `step.clock` (a
-`core.metrics.ThreadClock`: wall and the stepping thread's CPU seconds).
+`port.train.forward`, `.backward`, and the optimizer's `.clip` and
+`.adamw`), recorded only while a PyTorch profiler runs, and times every
+call on `step.clock` (a `core.metrics.ThreadClock`: wall and the stepping
+thread's CPU seconds).
 The JAX package's step is one jitted function and has neither.
 """
 from __future__ import annotations
@@ -26,7 +29,7 @@ from ..core.metrics import ThreadClock
 from ..core.sched import DagNode, ddast_schedule
 from ..core.trace import span
 from ..models.registry import ModelAPI
-from .optimizer import OptConfig, adamw_update, clip_by_global_norm
+from .optimizer import ClipAndAdamW, OptConfig
 
 Batch = Dict[str, torch.Tensor]
 
@@ -73,10 +76,13 @@ def make_loss_fn(model: ModelAPI, tcfg: TrainConfig) -> Callable:
 def make_train_step(model: ModelAPI, tcfg: TrainConfig) -> Callable:
     """(params, opt, batch) -> (params, opt, metrics), params and opt
     updated in place; metrics hold device tensors (loss, aux, grad_norm,
-    lr). The returned step's `clock` times its calls."""
+    lr). The returned step's `clock` times its calls; its `optimizer` is
+    the `ClipAndAdamW` it runs, whose counters say which path updated the
+    leaves."""
     loss_fn = make_loss_fn(model, tcfg)
     nmb = tcfg.num_microbatches
     clock = ThreadClock()
+    optimizer = ClipAndAdamW(tcfg.opt)
 
     def grad_fn(params, batch):
         names, plist = zip(*params.named_parameters())
@@ -112,13 +118,11 @@ def make_train_step(model: ModelAPI, tcfg: TrainConfig) -> Callable:
             grads = {n: (a / nmb).float() for n, a in g_acc.items()}
             metrics = {"loss": lsum / nmb,
                        "aux": torch.zeros((), device=lsum.device)}
-        with span("port.train.clip"):
-            grads, gnorm = clip_by_global_norm(grads, tcfg.opt.clip_norm)
-        with span("port.train.adamw"):
-            params, opt, lr = adamw_update(tcfg.opt, grads, opt, params)
+        params, opt, lr, gnorm = optimizer(grads, opt, params)
         return params, opt, dict(metrics, grad_norm=gnorm, lr=lr)
 
     train_step.clock = clock
+    train_step.optimizer = optimizer
     return train_step
 
 

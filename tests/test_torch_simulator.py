@@ -9,6 +9,7 @@ every dependence organization, with and without record-and-replay, over
 2 iterations; multi-tenant `run_scopes`; and with tracing and the
 metrics plane on."""
 import dataclasses
+import itertools
 
 import pytest
 
@@ -16,8 +17,10 @@ pytest.importorskip("torch")
 
 import repro.core as jcore  # noqa: E402
 import repro.core.taskgraph_apps as japps  # noqa: E402
+import repro.core.wd as jwd  # noqa: E402
 import repro_torch.core as tcore  # noqa: E402
 import repro_torch.core.taskgraph_apps as tapps  # noqa: E402
+import repro_torch.core.wd as twd  # noqa: E402
 
 MODES = ("sync", "dast", "ddast", "sharded")
 APPS = ("matmul", "nbody", "sparselu")
@@ -32,8 +35,14 @@ def _fields(res):
 
 
 def _both(run):
-    """`run(core, apps)` in both packages; their SimResult fields."""
+    """`run(core, apps)` in both packages, each numbering its tasks from
+    the same id (each package counts task ids process-wide, and other
+    tests in the process advance the two counters unequally); their
+    SimResult fields."""
+    start = max(next(jwd._wd_ids), next(twd._wd_ids))
+    jwd._wd_ids = itertools.count(start)
     want = run(jcore, japps)
+    twd._wd_ids = itertools.count(start)
     got = run(tcore, tapps)
     assert type(got).__module__ == "repro_torch.core.simulator"
     return _fields(got), _fields(want)
